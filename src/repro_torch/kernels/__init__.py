@@ -1,0 +1,19 @@
+"""Attention kernels: hand-written CUDA for Hopper, their plain versions,
+and the launch counts that show a run went through the kernels."""
+from repro_torch.kernels import decode_attention, flash_attention
+
+_COUNTERS = (flash_attention.launches, decode_attention.launches)
+
+
+def launch_counts() -> dict:
+    """Launches per kernel name since the last ``reset_launch_counts``."""
+    out = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for name in c:
+            c[name] = 0

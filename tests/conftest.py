@@ -43,3 +43,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "quant: quantized KV-cache cells (int8/fp8 divergence + "
                    "error-bound sweeps)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels against their "
+                   "plain versions)")
