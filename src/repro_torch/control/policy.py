@@ -16,14 +16,16 @@ fused multiply-adds — and it decides the near-ties that integer backlogs
 produce: evaluated op by op in float32, V * S(f) would round first, and
 those decisions (and with them the whole serve trace) would differ.
 
-A policy is a frozen dataclass with three methods:
+A policy is a frozen dataclass with four methods:
 
     init()            -> carry            policy state (() if none)
     act(carry, Q)     -> (f*, carry')     one slot's decision
     arrivals(f*)      -> lambda(f*)       arrivals the decision induces
+    to(device)        -> policy           the same policy, tables on device
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
@@ -90,6 +92,8 @@ class Policy(Protocol):
 
     def arrivals(self, f_star: torch.Tensor) -> torch.Tensor: ...
 
+    def to(self, device) -> "Policy": ...
+
 
 @dataclasses.dataclass(frozen=True)
 class Static:
@@ -102,10 +106,14 @@ class Static:
 
     def act(self, carry: Any, backlog) -> tuple[torch.Tensor, Any]:
         backlog = torch.as_tensor(backlog, dtype=torch.float32)
-        return torch.full_like(backlog, self.rate), carry
+        # float64 so that reading it back gives ``rate`` exactly
+        return torch.full_like(backlog, self.rate, dtype=torch.float64), carry
 
     def arrivals(self, f_star: torch.Tensor) -> torch.Tensor:
         return f_star
+
+    def to(self, device) -> "Static":
+        return self
 
 
 class _TablePolicy:
@@ -114,11 +122,8 @@ class _TablePolicy:
     Subclasses are frozen dataclasses with ``rates``/``utility``/
     ``arrival_gain`` fields; the (F, S(F), lambda(F)) tables are built once
     on the host at construction (a non-field attr: hash/eq stay
-    field-based). ``vq_cost_per_rate`` is the virtual-queue price per unit
-    rate the scheduler adds to the penalty (0.0 = unconstrained).
+    field-based); ``to(device)`` returns a copy whose tables live there.
     """
-
-    vq_cost_per_rate: float = 0.0
 
     def __post_init__(self):
         if self.utility is None:
@@ -128,6 +133,11 @@ class _TablePolicy:
 
     def tables(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self._tables
+
+    def to(self, device):
+        moved = copy.copy(self)
+        object.__setattr__(moved, "_tables", tuple(t.to(device) for t in self._tables))
+        return moved
 
     def arrivals(self, f_star: torch.Tensor) -> torch.Tensor:
         return self.arrival_gain * f_star
@@ -170,10 +180,6 @@ class LatencyAware(_TablePolicy):
     arrival_gain: float = 1.0
     cost_gain: float = 1.0
     cost_budget: float = 4.0
-
-    @property
-    def vq_cost_per_rate(self) -> float:
-        return self.cost_gain
 
     def init(self) -> VirtualQueue:
         return VirtualQueue.make(self.cost_budget)

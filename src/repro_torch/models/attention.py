@@ -6,8 +6,7 @@ Shapes follow the reference package: x (B, S, D); q (B, S, H, hd); k, v
 the absolute position it holds, so slot validity comes from slot_pos, not
 layout. Prefill attention goes to ``kernels.ops.flash_attention`` and
 decode attention to ``kernels.ops.decode_attention`` (the hand-written
-kernels on the card); ``plain=True`` sends both to their plain versions
-instead, on whatever device the tensors are — the comparison path.
+kernels on the card, their plain versions on the CPU).
 
 Unlike the reference, which returns new caches, the port writes K/V into
 the cache tensors it is handed, in place.
@@ -20,7 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, cdtype, param, rmsnorm
 
 
@@ -90,8 +89,7 @@ def kv_cache_init(batch: int, cache_len: int, cfg: ModelConfig, device,
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                  *, window: Optional[int] = None,
-                 seq_lens: Optional[torch.Tensor] = None,
-                 plain: bool = False) -> torch.Tensor:
+                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal self-attention over the prompt; fills the empty ``cache``.
 
     Stores the last ``cache_len`` roped K/V into the ring so that slot index
@@ -105,10 +103,7 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     pos = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    if plain:
-        o = ref.attention_ref(q, k, v, causal=True, window=window, seq_lens=seq_lens)
-    else:
-        o = ops.flash_attention(q, k, v, seq_lens, causal=True, window=window)
+    o = ops.flash_attention(q, k, v, seq_lens, causal=True, window=window)
     y = p.out(o)
 
     L = cache.cache_len
@@ -131,8 +126,7 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
 
 
 def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor,
-                cfg: ModelConfig, *, window: Optional[int] = None,
-                plain: bool = False) -> torch.Tensor:
+                cfg: ModelConfig, *, window: Optional[int] = None) -> torch.Tensor:
     """One decode step: rope at pos, write K/V into the ring in place, then
     attend over the valid slots. x (B, D); pos (B,) int32."""
     B = x.shape[0]
@@ -144,10 +138,5 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     cache.k[b_idx, slot] = k.to(cache.k.dtype)
     cache.v[b_idx, slot] = v.to(cache.v.dtype)
     cache.slot_pos[b_idx, slot] = pos
-    if plain:
-        o = ref.decode_attention_ref(q, cache.k, cache.v, cache.slot_pos, pos,
-                                     window=window)
-    else:
-        o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos,
-                                 window=window)
+    o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos, window=window)
     return p.out(o)

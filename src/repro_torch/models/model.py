@@ -5,9 +5,7 @@
   decode_step(model, state, tokens, ...)          -> (logits, DecodeState)
 
 ``Model`` keeps the reference package's parameter layouts (see
-``models/convert.py`` for the mapping). ``plain=True`` runs attention
-through the kernels' plain versions instead of the kernels, on the same
-device — the path ``chip_smoke.py`` holds the kernel path against.
+``models/convert.py`` for the mapping).
 """
 from __future__ import annotations
 
@@ -86,8 +84,7 @@ def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
             shape_window: Optional[int] = None,
-            prompt_lens: Optional[torch.Tensor] = None,
-            plain: bool = False) -> tuple[torch.Tensor, DecodeState]:
+            prompt_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, DecodeState]:
     """Process the prompt (B, S) int; build decode caches; return
     last-position logits (B, V).
 
@@ -102,7 +99,7 @@ def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
         prompt_lens = prompt_lens.to(device=tokens.device, dtype=torch.int32)
         h, caches = T.prefill_hidden(model.stack, h, cfg, cache_len=cache_len,
                                      shape_window=shape_window,
-                                     seq_lens=prompt_lens, plain=plain)
+                                     seq_lens=prompt_lens)
         last = torch.clamp(prompt_lens - 1, 0, S - 1).long()
         rows = torch.arange(B, device=tokens.device)
         hl = rmsnorm(model.ln_f, h[rows, last], cfg.norm_eps)
@@ -110,7 +107,7 @@ def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
                             last_tok=tokens[rows, last].to(torch.int32))
         return unembed(model.tok, hl), state
     h, caches = T.prefill_hidden(model.stack, h, cfg, cache_len=cache_len,
-                                 shape_window=shape_window, plain=plain)
+                                 shape_window=shape_window)
     hl = rmsnorm(model.ln_f, h[:, -1], cfg.norm_eps)
     state = DecodeState(
         caches=caches,
@@ -121,14 +118,13 @@ def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
 
 @torch.no_grad()
 def decode_step(model: Model, state: DecodeState, tokens: torch.Tensor, *,
-                shape_window: Optional[int] = None,
-                plain: bool = False) -> tuple[torch.Tensor, DecodeState]:
+                shape_window: Optional[int] = None) -> tuple[torch.Tensor, DecodeState]:
     """One decode step for the whole batch. tokens: (B,) int32. The caches
     are written in place: the returned state shares them with ``state``."""
     cfg = model.cfg
     h = _embed(model, tokens)
     h = T.decode_hidden(model.stack, h, state.caches, state.pos, cfg,
-                        shape_window=shape_window, plain=plain)
+                        shape_window=shape_window)
     logits = unembed(model.tok, rmsnorm(model.ln_f, h, cfg.norm_eps))
     return logits, DecodeState(caches=state.caches, pos=state.pos + 1,
                                last_tok=tokens.to(torch.int32))

@@ -107,8 +107,7 @@ def _ffn(p: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
                    cache_len: int, shape_window: Optional[int] = None,
-                   seq_lens: Optional[torch.Tensor] = None,
-                   plain: bool = False) -> tuple[torch.Tensor, list]:
+                   seq_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
     """Full-prompt pass building the decode caches. Returns (h, caches),
     one layer-stacked KVCache per segment."""
     B = h.shape[0]
@@ -118,7 +117,7 @@ def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
         for i, p in enumerate(seg):
             a = A.attn_prefill(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
                                cache.layer(i), window=shape_window,
-                               seq_lens=seq_lens, plain=plain)
+                               seq_lens=seq_lens)
             h = _ffn(p, h + a, cfg)
         caches.append(cache)
     return h, caches
@@ -126,13 +125,11 @@ def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
 
 def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
                   pos: torch.Tensor, cfg: ModelConfig, *,
-                  shape_window: Optional[int] = None,
-                  plain: bool = False) -> torch.Tensor:
+                  shape_window: Optional[int] = None) -> torch.Tensor:
     """One-token pass. h: (B, D). Writes each layer's cache in place."""
     for seg, cache in zip(stack, caches, strict=True):
         for i, p in enumerate(seg):
             a = A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
-                              cache.layer(i), pos, cfg, window=shape_window,
-                              plain=plain)
+                              cache.layer(i), pos, cfg, window=shape_window)
             h = _ffn(p, h + a, cfg)
     return h

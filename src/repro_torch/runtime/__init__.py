@@ -1,9 +1,9 @@
 from repro_torch.runtime.engine import Engine, EngineConfig
-from repro_torch.runtime.request import Request, RequestSource, TenantSpec
+from repro_torch.runtime.request import Request, RequestSource
 from repro_torch.runtime.scheduler import (AdaptiveScheduler, PolicyScheduler,
                                            StaticScheduler)
 from repro_torch.runtime.server import latency_stats, serve
 
 __all__ = ["AdaptiveScheduler", "Engine", "EngineConfig", "PolicyScheduler",
-           "Request", "RequestSource", "StaticScheduler", "TenantSpec",
+           "Request", "RequestSource", "StaticScheduler",
            "latency_stats", "serve"]

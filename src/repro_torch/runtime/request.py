@@ -22,10 +22,6 @@ class Request:
     arrival_slot: int
     tokens: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int = 16
-    # multi-tenant SLO tagging (defaults = the single-tenant workload):
-    tenant: str = "default"
-    priority: int = 0             # higher = shed later under overload
-    deadline_slots: Optional[int] = None  # TTFT deadline (slots after arrival)
     # per-request sampling knobs: the port serves greedy only, so this stays
     # None (the engine refuses anything else)
     sampling: Optional[object] = None
@@ -38,16 +34,6 @@ class Request:
     truncated: bool = False       # prompt exceeded the engine's bucket
 
 
-@dataclasses.dataclass(frozen=True)
-class TenantSpec:
-    """One tenant's share of a multi-tenant workload mix."""
-
-    name: str
-    frac: float = 1.0             # fraction of arrivals carrying this tag
-    priority: int = 0
-    deadline_slots: Optional[int] = None
-
-
 @dataclasses.dataclass
 class RequestSource:
     """Produces ``raw_rate`` requests per slot (the camera's native fps).
@@ -55,8 +41,8 @@ class RequestSource:
     ``min_prompt_len`` < prompt_len yields ragged prompts (lengths uniform
     in [min_prompt_len, prompt_len]) — the workload the engine's
     length-aware bucketed prefill exists for. ``long_frac`` of arrivals
-    carry a ``long_prompt_len`` prompt instead. ``tenants`` (a tuple of
-    TenantSpec) tags each arrival by drawing a tenant from the mix.
+    carry a ``long_prompt_len`` prompt instead. The reference's multi-tenant
+    mix (``tenants``) is not ported yet (ROADMAP.md queue 1 item 10).
     """
 
     vocab_size: int
@@ -67,23 +53,11 @@ class RequestSource:
     min_prompt_len: Optional[int] = None   # None => fixed prompt_len
     long_frac: float = 0.0
     long_prompt_len: Optional[int] = None
-    tenants: Optional[tuple] = None        # tuple[TenantSpec, ...] mix
 
     def __post_init__(self):
         self._rng = np.random.default_rng(self.seed)
         self._next_id = 0
         self.produced = 0
-        if self.tenants:
-            total = sum(t.frac for t in self.tenants)
-            if total <= 0:
-                raise ValueError("tenant fracs must sum to a positive value")
-            self._tenant_cdf = np.cumsum(
-                [t.frac / total for t in self.tenants])
-
-    def _draw_tenant(self) -> TenantSpec:
-        u = self._rng.random()
-        idx = int(np.searchsorted(self._tenant_cdf, u, side="right"))
-        return self.tenants[min(idx, len(self.tenants) - 1)]
 
     def poll(self, slot: int, sample_rate: float) -> list:
         """One slot's arrivals, subsampled at sample_rate/raw_rate."""
@@ -100,17 +74,11 @@ class RequestSource:
             if self.long_frac and self._rng.random() < self.long_frac:
                 plen = self.long_prompt_len or self.prompt_len
             toks = self._rng.integers(0, self.vocab_size, plen, dtype=np.int32)
-            req = Request(
+            out.append(Request(
                 rid=self._next_id,
                 arrival_slot=slot,
                 tokens=toks,
                 max_new_tokens=self.max_new_tokens,
-            )
-            if self.tenants:
-                spec = self._draw_tenant()
-                req.tenant = spec.name
-                req.priority = spec.priority
-                req.deadline_slots = spec.deadline_slots
-            out.append(req)
+            ))
             self._next_id += 1
         return out

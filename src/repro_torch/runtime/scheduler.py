@@ -7,9 +7,9 @@ f* = argmax_f { V*S(f) - Q(t)*lambda(f) }), and tells the request source to
 sample at f*. The queue is bounded (capacity) so sustained mis-control shows
 up as drops — exactly the paper's reliability failure.
 
-Algorithm 1 runs with torch ops on the scheduler's ``device``: its tables
-(F, S(F), lambda(F)) are uploaded there once, and reading the decision back
-is one small device-to-host copy per slot. ``serve`` sets the device to the
+The policy runs with torch ops on the scheduler's ``device``: its tables
+(F, S(F), lambda(F)) and carry are moved there once, and reading the
+decision back is one small device-to-host copy per slot. ``serve`` sets the device to the
 engine's when the caller left it unset; otherwise it resolves like every
 entry point (``cuda`` unless the CPU is asked for).
 
@@ -23,8 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.control import DriftPlusPenalty, LatencyAware, Policy, Static
-from repro_torch.control.policy import drift_plus_penalty_action
+from repro_torch.control import DriftPlusPenalty, Policy, Static
 from repro_torch.core.utility import Utility, paper_utility
 from repro_torch.device import resolve_device
 
@@ -42,56 +41,27 @@ class PolicyScheduler:
             self.policy = DriftPlusPenalty(
                 rates=tuple(float(f) for f in range(1, 11)), V=50.0
             )
-        self._static_rate = self.policy.rate if isinstance(self.policy, Static) else None
-        # any policy exposing tables goes through the shared table dispatch;
-        # the virtual-queue price comes from the policy's vq_cost_per_rate
-        self._table_path = (self._static_rate is None
-                            and hasattr(self.policy, "tables"))
-        self._dev = None          # tables and carry live here once resolved
+        self._dev = None          # policy tables and carry live here once resolved
         self._carry = self.policy.init()
         self.dropped = 0
         self.rate_history: list = []
 
     def _on_device(self) -> torch.device:
-        """Upload the tables and the carry on first use."""
+        """Move the policy's tables and the carry on first use."""
         if self._dev is None:
             self._dev = resolve_device(self.device)
-            if self._table_path:
-                f, s, lam = self.policy.tables()
-                cost = float(getattr(self.policy, "vq_cost_per_rate", 0.0))
-                self._tabs = tuple(t.to(self._dev) for t in (f, s, lam))
-                self._V = torch.tensor(self.policy.V, dtype=torch.float32,
-                                       device=self._dev)
-                self._cost_tab = (torch.tensor(cost, dtype=torch.float32) * f
-                                  if cost else torch.zeros_like(f)).to(self._dev)
+            self.policy = self.policy.to(self._dev)
             if hasattr(self._carry, "to"):
                 self._carry = self._carry.to(self._dev)
         return self._dev
 
     def control(self, backlog: int) -> float:
         """One control-slot decision: the rate to sample at."""
-        if self._static_rate is not None:  # no device round-trip for baselines
-            f = float(self._static_rate)
-        else:
-            f = float(self._dispatch_decision(backlog))
+        q = torch.tensor(backlog, dtype=torch.float32, device=self._on_device())
+        f_star, self._carry = self.policy.act(self._carry, q)
+        f = float(f_star)
         self.rate_history.append(f)
         return f
-
-    def _dispatch_decision(self, backlog: int) -> torch.Tensor:
-        """Evaluate the policy on the device; return the (unread) decision."""
-        dev = self._on_device()
-        q = torch.tensor(backlog, dtype=torch.float32, device=dev)
-        if self._table_path:
-            f_tab, s_tab, lam_tab = self._tabs
-            vq = getattr(self._carry, "value", torch.zeros((), device=dev))
-            # the price's product stays exact too (see drift_plus_penalty_action)
-            f_star, _ = drift_plus_penalty_action(q, f_tab, s_tab, lam_tab, self._V,
-                                                  vq.double() * self._cost_tab.double())
-            if isinstance(self.policy, LatencyAware):
-                self._carry = self._carry.step(self.policy.cost_gain * f_star)
-            return f_star
-        f_star, self._carry = self.policy.act(self._carry, q)
-        return f_star
 
     def admit(self, engine, reqs: list, now: int) -> list:
         room = max(self.capacity - engine.queue_len(), 0)

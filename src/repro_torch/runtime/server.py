@@ -9,7 +9,8 @@ steps in one call); ``fused=False`` keeps the legacy per-step loop (k
 batch-1 prefills + steps_per_slot decode dispatches). Returns a trace: the
 serving-system analogue of the paper's Fig. 2, with a real model in the
 loop. The per-slot ``syncs`` column counts dispatch-gating synchronous
-readbacks.
+readbacks. The sync-free and chunked loops, and the occupancy column, come
+with the slices that port them (ROADMAP.md queue 1 items 5 and 6).
 """
 from __future__ import annotations
 
@@ -20,16 +21,11 @@ from repro_torch.runtime.request import RequestSource
 
 
 def serve(engine: Engine, scheduler, source: RequestSource, *,
-          horizon: int, steps_per_slot: int = 2, fused: bool = True,
-          sync_free: bool = False, chunked: bool = False) -> dict:
-    if sync_free or chunked:
-        raise NotImplementedError(
-            "the sync-free and chunked serve loops are not ported yet; see "
-            "ROADMAP.md queue 1 item 6")
+          horizon: int, steps_per_slot: int = 2, fused: bool = True) -> dict:
     if getattr(scheduler, "device", "") is None:
         scheduler.device = engine.device   # Algorithm 1 runs beside the engine
     trace = {"backlog": [], "rate": [], "served": [], "active": [],
-             "dropped": [], "dispatches": [], "occupancy": [], "syncs": []}
+             "dropped": [], "dispatches": [], "syncs": []}
     for t in range(horizon):
         d0 = engine.prefill_dispatches + engine.decode_dispatches
         s0 = engine.blocking_syncs
@@ -52,7 +48,6 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         trace["dispatches"].append(
             engine.prefill_dispatches + engine.decode_dispatches - d0
         )
-        trace["occupancy"].append(0.0)
         trace["syncs"].append(engine.blocking_syncs - s0)
     return {k: np.asarray(v) for k, v in trace.items()}
 
@@ -89,23 +84,4 @@ def latency_stats(engine: Engine) -> dict:
     if ttfts:
         out["ttft_p50"] = float(np.percentile(ttfts, 50))
         out["ttft_p99"] = float(np.percentile(ttfts, 99))
-    tenants = {r.tenant for r in engine.finished}
-    if tenants - {"default"}:
-        out["tenants"] = {}
-        for name in sorted(tenants):
-            rs = [r for r in engine.finished if r.tenant == name]
-            tt = [r.first_token_slot - r.arrival_slot for r in rs
-                  if r.first_token_slot is not None]
-            entry = {"n": len(rs)}
-            if tt:
-                entry["ttft_p50"] = float(np.percentile(tt, 50))
-                entry["ttft_p99"] = float(np.percentile(tt, 99))
-            with_deadline = [r for r in rs if r.deadline_slots is not None
-                             and r.first_token_slot is not None]
-            if with_deadline:
-                ontime = sum(
-                    r.first_token_slot - r.arrival_slot <= r.deadline_slots
-                    for r in with_deadline)
-                entry["attainment"] = ontime / len(with_deadline)
-            out["tenants"][name] = entry
     return out

@@ -110,6 +110,14 @@ def test_scheduler_rate_sequence_matches_reference(name):
     assert port.rate_history == ref.rate_history
 
 
+def test_static_rate_reads_back_exactly():
+    # 0.3 has no float32 representation; the reference returns it as given
+    ref, port = ref_sched.StaticScheduler(rate=0.3), port_sched.StaticScheduler(rate=0.3,
+                                                                                device="cpu")
+    assert [port.control(q) for q in (0, 7, 40)] == [ref.control(q) for q in (0, 7, 40)] \
+        == [0.3] * 3
+
+
 def test_scheduler_without_device_refuses_to_fall_back():
     sched = port_sched.AdaptiveScheduler()
     if torch.cuda.is_available():

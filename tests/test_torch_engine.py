@@ -121,11 +121,9 @@ def test_launcher_refuses_unported_paths():
     from repro_torch.launch import serve as launcher
     for argv in (["--paged"], ["--sync-free"], ["--chunked"], ["--replicas", "2"],
                  ["--kv-precision", "int8"], ["--temperature", "0.7"],
-                 ["--policy", "memory-aware"]):
+                 ["--tenants", "gold:1:1:6"], ["--policy", "memory-aware"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *argv])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve(None, None, None, horizon=1, sync_free=True)
 
 
 def test_engine_defaults_to_the_card():
@@ -140,24 +138,13 @@ def test_engine_defaults_to_the_card():
     dict(),
     dict(min_prompt_len=3),
     dict(min_prompt_len=3, long_frac=0.3, long_prompt_len=40),
-    dict(tenants="mix"),
+    dict(long_frac=0.5, max_new_tokens=7),
 ])
 def test_request_source_draws_match_reference(kw):
-    from repro.runtime.request import TenantSpec as RefTenant
-    from repro_torch.runtime import TenantSpec
-    if kw.get("tenants"):
-        mix = [("gold", 0.3, 1, 6), ("bulk", 0.7, 0, None)]
-        ours = RequestSource(vocab_size=512, prompt_len=16, seed=7,
-                             tenants=tuple(TenantSpec(*t) for t in mix))
-        ref = RefSource(vocab_size=512, prompt_len=16, seed=7,
-                        tenants=tuple(RefTenant(*t) for t in mix))
-    else:
-        ours = RequestSource(vocab_size=512, prompt_len=16, seed=7, **kw)
-        ref = RefSource(vocab_size=512, prompt_len=16, seed=7, **kw)
+    ours = RequestSource(vocab_size=512, prompt_len=16, seed=7, **kw)
+    ref = RefSource(vocab_size=512, prompt_len=16, seed=7, **kw)
     for t, rate in enumerate(np.random.default_rng(0).uniform(0, 12, 20)):
         a, b = ours.poll(t, float(rate)), ref.poll(t, float(rate))
-        assert [(r.rid, r.arrival_slot, r.tokens.tolist(), r.tenant, r.priority,
-                 r.deadline_slots) for r in a] == \
-            [(r.rid, r.arrival_slot, r.tokens.tolist(), r.tenant, r.priority,
-              r.deadline_slots) for r in b]
+        assert [(r.rid, r.arrival_slot, r.tokens.tolist(), r.max_new_tokens) for r in a] == \
+            [(r.rid, r.arrival_slot, r.tokens.tolist(), r.max_new_tokens) for r in b]
     assert ours.produced == ref.produced
