@@ -7,15 +7,23 @@ Phases, each printing one JSON line: device, build (nvcc, all sources at
 once), kernels (each CUDA kernel against its plain PyTorch version, element
 by element, at the full-width granite-3-2b serving shapes in bf16 and in
 f32 and at the smoke shapes in f32, with CUDA-event times, the roofline
-bound and the time of one scaled_dot_product_attention call for the
-record), model (full-width granite-3-2b prefill + greedy decode through the
-kernels against the plain versions on the same weights, with a path whose
-decode attention skips one KV tile read beside it to show the tolerance
-catches such a fault, and the smoke model on the card against the CPU path
-the CPU tests hold against the JAX package), serve (the launcher's
-main path at full width, with the kernels' launch counts), profile (device
-time by kernel over an identical second serve run). Then the ``kernels`` summary
-line, the card's name and power limit from nvidia-smi, and the result line.
+bound and the time of the library's counterpart for the record: one
+scaled_dot_product_attention call, or for the paged kernel a page gather
+plus that call), model (full-width granite-3-2b prefill + greedy decode
+through the kernels against the plain versions on the same weights, with a
+path whose decode attention skips one KV tile read beside it to show the
+tolerance catches such a fault, and the smoke model on the card against
+the CPU path the CPU tests hold against the JAX package), paged_model (the
+same prompts through the paged decode against the dense one, with a path
+whose block table swaps two pages of one row beside it), preemption (a
+full-width paged engine whose pool is too small for both of its rows to
+grow, against the dense engine's tokens), serve (the launcher's main path
+at full width, with the kernels' launch counts), profile (device time by
+kernel over an identical second serve run), then serve and profile again
+for the paged path (``--paged --policy memory-aware``). Each serve phase
+zeroes the launch counts just before it and reads them just after. Then
+the ``kernels`` summary line, the card's name and power limit from
+nvidia-smi, and the result line.
 """
 from __future__ import annotations
 
@@ -50,6 +58,10 @@ MODEL_TOL = 0.25
 SERVE_ARGS = ["--arch", "granite-3-2b", "--slots", "8", "--prompt-len", "512",
               "--min-prompt-len", "128", "--cache-len", "1024", "--raw-rate", "5",
               "--horizon", "12"]
+# the paged path: 16 rows over a pool of 192 pages of 16 rows (3,072 tokens,
+# ~252 MB of K/V over 40 layers), which prompts of 128-512 tokens fill
+PAGED_ARGS = SERVE_ARGS + ["--paged", "--policy", "memory-aware", "--max-active", "16",
+                           "--page-size", "16", "--num-pages", "192"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -118,6 +130,39 @@ def _decode_work(B, L, H, KVH, hd, esize, sp, pos, window):
     return nbytes, 4.0 * hd * H * nv
 
 
+def _paged_work(H, KVH, hd, esize, ps, block_tables, pos):
+    """Bytes and FLOPs this paged decode needs: K/V rows of valid slots
+    (allocated page, j <= pos), q, the output, the block tables and pos;
+    4*hd FLOPs per (head, valid slot)."""
+    B, MP = block_tables.shape
+    valid = np.repeat(block_tables >= 0, ps, axis=1) & (
+        np.arange(MP * ps)[None, :] <= pos[:, None])
+    nv = int(valid.sum())
+    nbytes = esize * (2 * nv * KVH * hd + 2 * B * H * hd) + 4 * (block_tables.size + B)
+    return nbytes, 4.0 * hd * H * nv
+
+
+def _paged_inputs(rng, B, MP, ps, KVH, hd, pos):
+    """A pool of B * MP pages and block tables over a random permutation of
+    it: row b holds the pages covering positions 0..pos[b], then -1 (pos
+    -1: an inactive row, all -1). Pool rows that no table reaches at or
+    below its pos hold +-1e30, as recycled pages would. Numpy arrays."""
+    N = B * MP
+    perm = rng.permutation(N).astype(np.int32)
+    bt = np.full((B, MP), -1, np.int32)
+    live = np.zeros((N, ps), bool)
+    for b in range(B):
+        n = pos[b] // ps + 1 if pos[b] >= 0 else 0
+        bt[b, :n] = perm[b * MP: b * MP + n]
+        for j in range(pos[b] + 1):
+            live[bt[b, j // ps], j % ps] = True
+    k = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    return (np.where(live[..., None, None], k, junk), np.where(live[..., None, None], v, -junk),
+            bt, np.maximum(pos, 0).astype(np.int32))
+
+
 def _ring_slot_pos(B, L, pos):
     """slot i holds the latest position p <= pos with p % L == i (-1: none)."""
     i = np.arange(L)[None, :]
@@ -129,6 +174,7 @@ def _ring_slot_pos(B, L, pos):
 def check_kernels(timer) -> dict:
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import paged_attention as kp
     from repro_torch.kernels import ref
 
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -137,7 +183,8 @@ def check_kernels(timer) -> dict:
     def randn(shape, dtype):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    def record(case, name, dtype, got, want, env, fn, plain, lib, work, main):
+    def record(case, name, dtype, got, want, env, fn, plain, lib, work, main,
+               library="scaled_dot_product_attention"):
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         tol = KERNEL_RTOL[dtype] * (env.float() + want.float().abs())
@@ -148,7 +195,7 @@ def check_kernels(timer) -> dict:
                "tol_at_max_err": tol.flatten()[diff.argmax()].item(),
                "ms": timer(fn), "plain_ms": timer(plain, n=5),
                "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
-               "library_ms": timer(lib) if lib is not None else None,
+               "library_ms": timer(lib) if lib is not None else None, "library": library,
                "bytes": work[0], "flops": work[1]}
         emit("kernels", **row)
         if not worst <= 1.0:
@@ -222,6 +269,46 @@ def check_kernels(timer) -> dict:
             record(case, "decode_attention", dtype, fn(), plain(), env, fn, plain, lib,
                    _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, win),
                    main and win is None)
+
+    # K3: the paged serve's shape (16 rows, 64-page tables of 16 rows), pos
+    # spread over 128-1023, tables over a random permutation of the pool
+    # with trailing -1, garbage in every row no table reaches; the small
+    # case adds an inactive row (no valid slot: the kernel writes zeros,
+    # the plain version averages garbage page 0, so it is checked apart)
+    rng = np.random.default_rng(3)
+    for B, MP, ps, H, KVH, hd, dtype, main in ((16, 64, 16, 32, 8, 64, torch.bfloat16, True),
+                                               (16, 64, 16, 32, 8, 64, torch.float32, False),
+                                               (4, 6, 8, 8, 2, 32, torch.float32, False)):
+        pos_np = rng.integers(128 if MP * ps > 128 else ps, MP * ps, B).astype(np.int32)
+        if not main:
+            pos_np[0] = -1
+        k_np, v_np, bt_np, pos_np = _paged_inputs(rng, B, MP, ps, KVH, hd, pos_np)
+        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(dtype)
+        k, v = (torch.from_numpy(a).cuda().to(dtype) for a in (k_np, v_np))
+        bt, pos = torch.from_numpy(bt_np).cuda(), torch.from_numpy(pos_np).cuda()
+        has = torch.from_numpy((bt_np >= 0).any(axis=1)).cuda()
+        case = f"paged_decode_attention B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        fn = lambda: kp.paged_decode_attention(q, k, v, bt, pos)
+        plain = lambda: ref.paged_decode_attention_ref(q, k, v, bt, pos)
+        env = ref.paged_decode_attention_ref(q, k, v.abs(), bt, pos)
+        got = fn()
+        torch.cuda.synchronize()
+        if got[~has].any():
+            raise AssertionError(f"{case}: a row with no valid slot is not zeros")
+        N = k.shape[0]
+        flat = bt.clamp(0, N - 1).flatten()
+        valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
+                 & (torch.arange(MP * ps, device="cuda")[None, :] <= pos[:, None]))
+        mask = valid[:, None, None, :]
+
+        def lib(flat=flat, mask=mask, q=q, k=k, v=v, B=B, MP=MP, ps=ps, KVH=KVH, hd=hd):
+            kk = k.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+            vv = v.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+            return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+        record(case, "paged_decode_attention", dtype, got[has], plain()[has], env[has], fn,
+               plain, lib, _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), main,
+               library="index_select of the K and V pages + scaled_dot_product_attention")
     return rows
 
 
@@ -329,10 +416,169 @@ def check_model() -> dict:
     return res
 
 
+def _paged_state(model, toks, lens, ps, MP, n_steps):
+    """Prefill ``toks`` (cache_len = the bucket) and copy each row's dense
+    cache into pages of a fresh pool: row b gets the pages for
+    lens[b] + n_steps positions, in a shuffled order. Returns the prefill
+    logits and a PagedDecodeState."""
+    from repro_torch.cache import pages_for
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    B, S = toks.shape
+    N = B * MP
+    perm = np.random.default_rng(7).permutation(N).astype(np.int32)
+    bt = np.full((B, MP), -1, np.int32)
+    page_idx = np.full((B, S // ps), N, np.int32)
+    lens_np = lens.cpu().numpy()
+    used = 0
+    for b in range(B):
+        n = pages_for(int(lens_np[b]) + n_steps, ps)
+        bt[b, :n] = perm[used:used + n]
+        used += n
+        k = min(n, S // ps)
+        page_idx[b, :k] = bt[b, :k]
+    logits, dense = M.prefill(model, toks, S, prompt_lens=lens)
+    pools = M.paged_splice_prompt(T.paged_pools_init(model.cfg, N, ps, "cuda"),
+                                  dense.caches, page_idx)
+    state = M.PagedDecodeState(pools, torch.from_numpy(bt).cuda(), lens.clone(),
+                               dense.last_tok)
+    return logits, state
+
+
+def check_paged_model() -> dict:
+    """Full-width granite-3-2b: the same prompts and fed tokens through the
+    dense decode (K2 over the ring cache) and the paged decode (K3 over
+    pages in shuffled order), 16 steps; logits within MODEL_TOL. Beside it
+    a paged path whose block table swaps the first two pages of the row
+    with the 1-token prompt must land beyond MODEL_TOL."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step, decode_step_paged, init_params, prefill
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, ps, MP = 8, 512, 1024, 16, 64
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([512, 300, 129, 1, 512, 64, 200, 511], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    logits, dstate = prefill(model, toks, L, prompt_lens=lens)
+    dense = [logits.float()]
+    for _ in range(16):
+        logits, dstate = decode_step(model, dstate, dense[-1].argmax(-1).to(torch.int32))
+        dense.append(logits.float())
+    del dstate
+    dense = torch.stack(dense)
+    feed = dense[:-1].argmax(-1).to(torch.int32)
+
+    def swapped(q, k, v, bt, pos):
+        bt = bt.clone()
+        bt[3, [0, 1]] = bt[3, [1, 0]]
+        return ops.paged_decode_attention(q, k, v, bt, pos)
+
+    out = {}
+    for name, impl in (("paged", ops),
+                       ("swapped", SimpleNamespace(flash_attention=ops.flash_attention,
+                                                   paged_decode_attention=swapped))):
+        kernels_ops, A.ops = A.ops, impl
+        logits, state = _paged_state(model, toks, lens, ps, MP, 16)
+        steps = [logits.float()]
+        for step in range(16):
+            logits, state = decode_step_paged(model, state, feed[step])
+            steps.append(logits.float())
+        A.ops = kernels_ops
+        del state
+        out[name] = torch.stack(steps)
+    torch.cuda.synchronize()
+    lp, ls = out["paged"], out["swapped"]
+    if not (torch.isfinite(lp).all() and lp.shape == dense.shape):
+        raise AssertionError("bad paged-path logits")
+    errs = (lp - dense).abs().amax(dim=(1, 2)).tolist()
+    fault = (ls - dense).abs().amax(dim=(1, 2)).tolist()
+    top2 = dense.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    res = {"tol": MODEL_TOL, "logit_scale": dense.abs().max().item(),
+           "max_abs_err_per_step": errs, "bitwise_equal_steps": int(sum(e == 0 for e in errs)),
+           "token_mismatches_beyond_margin": int((lp.argmax(-1) != dense.argmax(-1))[sure].sum()),
+           "swapped_pages_max_abs_err_per_step": fault}
+    emit("paged_model", **res)
+    del model, dense, lp, ls
+    torch.cuda.empty_cache()
+    if max(errs) > MODEL_TOL or res["token_mismatches_beyond_margin"]:
+        raise AssertionError("paged path and dense path disagree")
+    if not max(fault) > MODEL_TOL:
+        raise AssertionError("the model tolerance does not catch two swapped pages")
+    return res
+
+
+def check_preemption() -> dict:
+    """Full-width paged engine, 2 rows, a pool too small for both to grow:
+    admission fits both 160-token prompts (11 pages each with the slot's
+    writes), but 24 pages cannot hold both rows at their full 199 tokens
+    (13 pages each), so a row is preempted and recomputed. The streams must
+    equal the dense engine's wherever the dense path's top-2 margin exceeds
+    MODEL_TOL."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.runtime import (Engine, EngineConfig, PagedEngine, PagedEngineConfig,
+                                     RequestSource)
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    src = RequestSource(vocab_size=cfg.vocab_size, prompt_len=160, raw_rate=2,
+                        max_new_tokens=40, seed=5)
+    reqs = src.poll(0, 2.0)
+    paged = PagedEngine(model, PagedEngineConfig(prompt_len=160, cache_len=256, page_size=16,
+                                                 num_pages=24, max_active=2,
+                                                 max_pages_per_req=13))
+    dense = Engine(model, EngineConfig(batch_slots=2, prompt_len=160, cache_len=256))
+    for eng in (paged, dense):
+        eng.submit([copy.deepcopy(r) for r in reqs])
+        for t in range(80):
+            eng.step_slot(t, n_steps=2)
+            if len(eng.finished) == len(reqs):
+                break
+    got = {r.rid: r.generated for r in paged.finished}
+    want = {r.rid: r.generated for r in dense.finished}
+    prompts = {r.rid: r.tokens for r in reqs}
+    parted = {}
+    for rid, w in want.items():
+        g = got.get(rid, [])
+        d = next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+        if d is None and len(g) == len(w):
+            continue
+        seq = np.concatenate([prompts[rid], np.asarray(w[:d], np.int32)])[None]
+        lg, _ = prefill(model, torch.from_numpy(seq).cuda(), seq.shape[1])
+        top = lg[0].float().topk(2).values
+        parted[rid] = {"at": d, "margin": (top[0] - top[1]).item()}
+    res = {"preemptions": paged.preemptions, "finished": len(paged.finished),
+           "tokens": sum(map(len, got.values())), "streams_parted": parted,
+           "counters": paged.counters()}
+    emit("preemption", **res)
+    del model, paged, dense
+    torch.cuda.empty_cache()
+    if res["preemptions"] <= 0:
+        raise AssertionError("no row was preempted")
+    if res["finished"] != len(reqs) or any(v["margin"] > MODEL_TOL for v in parted.values()):
+        raise AssertionError("the preempted paged engine's tokens left the dense engine's")
+    return res
+
+
 # --------------------------------------------------------------- serve
-def drive_main_path(args) -> dict:
-    """The launcher's main path: build (its boot prefill runs K1) and serve.
-    The launch counts are zeroed just before and read just after."""
+# kernels each path must launch
+DENSE_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention")
+PAGED_KERNELS = ("flash_attention_ragged", "paged_decode_attention")
+
+
+def drive_main_path(args, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
+    """One of the launcher's paths: build (the dense engine's boot prefill
+    runs K1) and serve. The launch counts are zeroed just before and read
+    just after; every kernel of the path must have launched."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
 
@@ -351,16 +597,26 @@ def drive_main_path(args) -> dict:
            "dispatches_per_slot": float(tr["dispatches"].mean()),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "counters": engine.counters()}
-    emit("serve", **res)
+    if args.paged:
+        res.update(paged=launcher.paged_summary(tr, engine),
+                   peak_occupancy=float(tr["occupancy"].max()),
+                   rate=tr["rate"].tolist(), occupancy=tr["occupancy"].tolist())
+    emit(phase, **res)
     if res["served"] <= 0 or res["dispatches_per_slot"] > 2:
-        raise AssertionError("main path served nothing or over-dispatched")
-    missing = [k for k, n in counts.items() if n <= 0]
+        raise AssertionError(f"{phase}: the path served nothing or over-dispatched")
+    missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+        raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
+    if args.paged:
+        n_layers = engine.cfg.n_layers
+        want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
+                "paged_decode_attention": n_layers * engine.decode_dispatches * 2}
+        if any(counts[k] != n for k, n in want.items()):
+            raise AssertionError(f"{phase}: launches {counts} are not {want}")
     return res
 
 
-def profile_main_path(args, serve_s: float) -> None:
+def profile_main_path(args, serve_s: float, phase: str = "profile") -> None:
     """Device time by kernel over a second, identical serve run (same seeds,
     same work). The profiler slows the host, so the device's idle share is
     taken against the unprofiled run's serve time."""
@@ -384,11 +640,11 @@ def profile_main_path(args, serve_s: float) -> None:
             rows.append({"name": e.key[:90], "device_ms": dev / 1e3, "count": e.count})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    emit("profile", slots=args.horizon, device_busy_ms=busy,
+    emit(phase, slots=args.horizon, device_busy_ms=busy,
          device_busy_ms_per_slot=busy / args.horizon,
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
-         top=rows[:14])
+         top=rows[:14], attention=[r for r in rows if "attention_kernel" in r["name"]])
 
 
 def main() -> int:
@@ -407,26 +663,37 @@ def main() -> int:
     info = build.build()
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import paged_attention as kp
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
          dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
-                             "decode_attention_hd64_G4": kd.smem_bytes(64, 4)})
+                             "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
+                             "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4)})
 
     timer = Timer()
     rows = check_kernels(timer)
     del timer
     check_model()
+    check_paged_model()
+    check_preemption()
     from repro_torch.launch.serve import build_parser
     args = build_parser().parse_args(SERVE_ARGS)
     main_path = drive_main_path(args)
     profile_main_path(args, main_path["serve_s"])
+    paged_args = build_parser().parse_args(PAGED_ARGS)
+    paged_path = drive_main_path(paged_args, "paged_serve", PAGED_KERNELS)
+    profile_main_path(paged_args, paged_path["serve_s"], "paged_profile")
 
-    counts = main_path["launches"]
+    # launches: each kernel's count from the run of the path it serves
+    counts = {**main_path["launches"],
+              "paged_decode_attention": paged_path["launches"]["paged_decode_attention"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                       "src/repro/kernels/flash_attention.py:118"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
-                                "src/repro/kernels/decode_attention.py:32")}
+                                "src/repro/kernels/decode_attention.py:32"),
+           "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                                      "src/repro/kernels/paged_attention.py:38")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

@@ -10,10 +10,13 @@ first maximal index, as ``jnp.argmax`` does in the reference, and F is
 listed in increasing order.
 
 The functional is evaluated from the float32 tables with every product
-exact and one rounding to float32 at the end (in float64). That is how the
-reference's jitted dispatch evaluates it — XLA contracts the products into
-fused multiply-adds — and it decides the near-ties that integer backlogs
-produce: evaluated op by op in float32, V * S(f) would round first, and
+exact (in float64) and one rounding to float32 per subtraction: first
+V * S(f) - Q * lambda(f), then, with a virtual queue, that value minus
+its price Z * cost(f). That is how the reference's jitted dispatch
+evaluates it — XLA contracts the products into fused multiply-adds — and
+it decides the near-ties that integer backlogs produce: evaluated op by op
+in float32, V * S(f) would round first; evaluated with a single rounding,
+the ties V * S(f) = (Q + Z * cost / f) * f would not be ties. Either way
 those decisions (and with them the whole serve trace) would differ.
 
 A policy is a frozen dataclass with four methods:
@@ -22,6 +25,10 @@ A policy is a frozen dataclass with four methods:
     act(carry, Q)     -> (f*, carry')     one slot's decision
     arrivals(f*)      -> lambda(f*)       arrivals the decision induces
     to(device)        -> policy           the same policy, tables on device
+
+A policy that prices an engine signal (``MemoryAware``: page-pool
+occupancy) also has ``observe(carry, signal) -> carry'`` and names the
+signal in ``observation``; the scheduler observes before it acts.
 """
 from __future__ import annotations
 
@@ -53,10 +60,9 @@ def drift_plus_penalty_action(
     dev = rates.device
     q = torch.as_tensor(backlog, dtype=torch.float32, device=dev).double()
     V = torch.as_tensor(V, dtype=torch.float32, device=dev).double()
-    T = V * utilities.double() - q[..., None] * arrivals.double()
+    T = (V * utilities.double() - q[..., None] * arrivals.double()).float()
     if extra_penalty is not None:
-        T = T - extra_penalty.double()
-    T = T.float()
+        T = (T.double() - extra_penalty.double()).float()
     idx = torch.argmax(T, dim=-1)  # first maximizer = lowest rate on ties
     f_star = rates[idx]
     T_star = torch.gather(T, -1, idx[..., None])[..., 0]
@@ -189,3 +195,54 @@ class LatencyAware(_TablePolicy):
         extra = carry.value.double()[..., None] * (self.cost_gain * f).double()
         f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
         return f_star, carry.step(self.cost_gain * f_star)
+
+
+@dataclasses.dataclass(frozen=True)
+class MemoryAware(_TablePolicy):
+    """Algorithm 1 plus a virtual queue over KV page-pool occupancy.
+
+    The paged engine's finite resource is its page pool; this policy
+    extends the paper's queue-overflow argument to that pool the way
+    ``LatencyAware`` extends it to a cost budget — a second (virtual) queue
+    in the drift, no change to the argmax. The constrained quantity (pool
+    occupancy in [0, 1]) is observed from the engine each slot rather than
+    implied by the chosen action, so the virtual queue advances in
+    ``observe`` (the scheduler feeds it the engine's occupancy); ``act``
+    prices candidate rates by the pages they commit:
+    Z(t) * mem_gain * pages_per_request * f.
+
+        Z(t+1) = max(Z(t) + occ(t) - occupancy_budget, 0)
+
+    keeps time-average occupancy <= occupancy_budget (Neely), which holds
+    the pool below hard capacity where ``Static`` overflows into
+    allocation failures.
+    """
+
+    rates: tuple[float, ...]
+    V: float
+    utility: Utility = None  # type: ignore[assignment]
+    arrival_gain: float = 1.0
+    pages_per_request: float = 2.0   # expected pages one admission commits
+    occupancy_budget: float = 0.6    # target time-average pool fill
+    mem_gain: float = 1.0            # price scale on the occupancy queue
+
+    observation = "occupancy"        # the engine signal ``observe`` consumes
+
+    @property
+    def vq_cost_per_rate(self) -> float:
+        return self.mem_gain * self.pages_per_request
+
+    def init(self) -> VirtualQueue:
+        return VirtualQueue.make(self.occupancy_budget)
+
+    def observe(self, carry: VirtualQueue, occupancy) -> VirtualQueue:
+        return carry.step(torch.as_tensor(occupancy, dtype=torch.float32,
+                                          device=carry.value.device))
+
+    def act(self, carry: VirtualQueue, backlog) -> tuple[torch.Tensor, VirtualQueue]:
+        f, s, lam = self.tables()
+        # the price table in float32 (the reference's cost table); each
+        # product with Z stays exact until the functional rounds
+        extra = carry.value.double()[..., None] * (self.vq_cost_per_rate * f).double()
+        f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
+        return f_star, carry

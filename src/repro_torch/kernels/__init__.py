@@ -1,8 +1,9 @@
 """Attention kernels: hand-written CUDA for Hopper, their plain versions,
 and the launch counts that show a run went through the kernels."""
-from repro_torch.kernels import decode_attention, flash_attention
+from repro_torch.kernels import decode_attention, flash_attention, paged_attention
 
-_COUNTERS = (flash_attention.launches, decode_attention.launches)
+_COUNTERS = (flash_attention.launches, decode_attention.launches,
+             paged_attention.launches)
 
 
 def launch_counts() -> dict:

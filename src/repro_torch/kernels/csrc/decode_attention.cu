@@ -31,20 +31,10 @@ using repro::from_f;
 using repro::load_rows;
 using repro::NEG_INF;
 using repro::to_f;
+using repro::warp_max;
+using repro::warp_sum;
 
 constexpr int BL = 64;  // cache slots per tile: two per lane
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 template <int HD>
 size_t smem_bytes(int G) {

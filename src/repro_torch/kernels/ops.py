@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import attention_ref, decode_attention_ref
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
+                                     paged_decode_attention_ref)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,3 +36,12 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
     return _da.decode_attention(q, k, v, slot_pos, pos, window=window)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention over the paged pool, through the block tables."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos)
+    return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables, pos)

@@ -67,3 +67,29 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(valid[:, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v.dtype)
     return torch.einsum("bhl,blhd->bhd", p.float(), vv.float()).to(q.dtype)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, block_tables: torch.Tensor,
+                               pos: torch.Tensor) -> torch.Tensor:
+    """Paged decode: gather the pages, then the dense ``decode_attention_ref``.
+
+    q (B,H,hd); pools (N,ps,KVH,hd); block_tables (B,MP) int32 physical page
+    per logical page (-1 = unallocated); pos (B,) the position just written.
+    Logical slot j (page j // ps, row j % ps) holds absolute position j —
+    paged caches never wrap — so a slot is valid when its page is allocated
+    and j <= pos. With MP * ps == L and an allocated prefix this is bit for
+    bit the dense version on the gathered cache (same shapes, masks and
+    reduction order). A row with no valid slot averages page 0's V (a
+    uniform softmax over masked scores), as the TPU kernel does.
+    """
+    B, H, hd = q.shape
+    N, ps, KVH, _ = k_pages.shape
+    MP = block_tables.shape[1]
+    phys = block_tables.clamp(0, N - 1).long()
+    kk = k_pages[phys].reshape(B, MP * ps, KVH, hd)
+    vv = v_pages[phys].reshape(B, MP * ps, KVH, hd)
+    j = torch.arange(MP * ps, dtype=torch.int32, device=q.device)[None, :]
+    allocated = (block_tables >= 0).repeat_interleave(ps, dim=1)
+    slot_pos = torch.where(allocated, j, -1)
+    return decode_attention_ref(q, kk, vv, slot_pos, pos)

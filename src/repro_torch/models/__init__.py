@@ -1,4 +1,6 @@
-from repro_torch.models.model import (DecodeState, Model, decode_step,
-                                      init_params, prefill)
+from repro_torch.models.model import (DecodeState, Model, PagedDecodeState,
+                                      decode_step, decode_step_paged, init_params,
+                                      paged_splice_prompt, prefill)
 
-__all__ = ["DecodeState", "Model", "decode_step", "init_params", "prefill"]
+__all__ = ["DecodeState", "Model", "PagedDecodeState", "decode_step",
+           "decode_step_paged", "init_params", "paged_splice_prompt", "prefill"]

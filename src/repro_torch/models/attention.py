@@ -8,13 +8,19 @@ layout. Prefill attention goes to ``kernels.ops.flash_attention`` and
 decode attention to ``kernels.ops.decode_attention`` (the hand-written
 kernels on the card, their plain versions on the CPU).
 
+The paged path keeps K/V in a shared pool of pages (``PagedKVPool``) that
+block tables index; its decode attention goes to
+``kernels.ops.paged_decode_attention``, which reads the pages through the
+tables and so replaces the reference's ``_pool_read`` gather.
+
 Unlike the reference, which returns new caches, the port writes K/V into
-the cache tensors it is handed, in place.
+the cache tensors and pools it is handed, in place.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -140,3 +146,118 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     cache.slot_pos[b_idx, slot] = pos
     o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos, window=window)
     return p.out(o)
+
+
+class PagedKVPool(NamedTuple):
+    """Shared-pool paged KV storage at native precision. In a decode state
+    each leaf carries a leading layer axis; the attention functions take one
+    layer's view of it.
+
+    k/v: (num_pages, page_size, KVH, hd). Rows are owned through
+    ``repro_torch.cache.PageAllocator`` block tables; logical slot j of a
+    request lives at (table[j // page_size], j % page_size) and holds
+    absolute position j — paged caches never wrap, they grow by appending
+    pages. Recycled pages are not zeroed: the validity mask (j <= pos on
+    allocated pages) hides stale rows.
+    """
+
+    k: torch.Tensor   # (num_pages, page_size, KVH, hd) — RoPE already applied
+    v: torch.Tensor
+
+    @property
+    def num_pages(self) -> int:
+        return self.k.shape[-4]
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-3]
+
+    def layer(self, i: int) -> "PagedKVPool":
+        return PagedKVPool(self.k[i], self.v[i])
+
+
+def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
+                    layers: Optional[int] = None) -> PagedKVPool:
+    """Zeroed pool; ``layers`` adds a leading layer axis."""
+    lead = (layers,) if layers is not None else ()
+    shape = (*lead, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
+    return PagedKVPool(k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
+                       v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
+
+
+class PagedWrites(NamedTuple):
+    """Where one decode step writes each row's new K/V: only the rows whose
+    position falls in an allocated page of their block table."""
+
+    rows: torch.Tensor    # (k,) int64 batch rows that write
+    pages: torch.Tensor   # (k,) int64 physical page of each
+    offs: torch.Tensor    # (k,) int64 row inside the page
+
+
+def paged_write_targets(block_table: torch.Tensor, pos: torch.Tensor,
+                        num_pages: int, page_size: int) -> PagedWrites:
+    """The rows of ``block_table`` (B, MP) that write position ``pos`` (B,).
+
+    The reference scatters every row and drops the out-of-range ones (an
+    inactive row's -1 page becomes id num_pages, ``mode="drop"``). PyTorch
+    has no dropping scatter, and clamping would overwrite a page another
+    request owns, so the rows are selected by a mask and only those write:
+    an inactive row (all -1), a position past the table or an unallocated
+    page writes nowhere. Selecting them reads the row count back to the
+    host once per decode step (all layers share the result).
+    """
+    MP = block_table.shape[1]
+    lp = torch.div(pos, page_size, rounding_mode="floor")
+    page = block_table.gather(1, lp.clamp(0, MP - 1).long()[:, None])[:, 0]
+    ok = (lp < MP) & (page >= 0) & (page < num_pages)
+    rows = ok.nonzero()[:, 0]
+    return PagedWrites(rows, page[rows].long(), (pos[rows] % page_size).long())
+
+
+def attn_decode_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
+                      block_table: torch.Tensor, pos: torch.Tensor, cfg: ModelConfig,
+                      writes: Optional[PagedWrites] = None) -> torch.Tensor:
+    """One decode step against the paged pool: rope at pos, write the new
+    row into its block-table page in place, then attend over the row's
+    pages. x (B, D); block_table (B, MP) int32 (-1 = unallocated); pos (B,)
+    int32, the position of the new token. ``writes`` (from
+    ``paged_write_targets``) lets the layers of one step share the
+    selection.
+
+    Mirrors ``attn_decode`` op for op, so with MP * page_size == cache_len
+    the two paths are bit-identical on the CPU: the plain paged attention
+    gathers exactly the dense cache and its mask equals the dense one. On
+    the card the kernel reads the pages in place; nothing is gathered.
+    """
+    q, k, v = p.qkv(x, cfg)
+    q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
+    if writes is None:
+        writes = paged_write_targets(block_table, pos, pool.num_pages, pool.page_size)
+    pool.k[writes.pages, writes.offs] = k[writes.rows].to(pool.k.dtype)
+    pool.v[writes.pages, writes.offs] = v[writes.rows].to(pool.v.dtype)
+    o = ops.paged_decode_attention(q, pool.k, pool.v, block_table, pos)
+    return p.out(o)
+
+
+def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray) -> None:
+    """Copy a prefill-built dense cache into the page pool, in place.
+
+    cache k/v: (..., B, P, KVH, hd) with the prompt in slots 0..P-1
+    (prefill with cache_len == P never wraps); pool leaves (..., N, ps, KVH,
+    hd) with the same leading (layer) axes. page_idx (B, P // ps), on the
+    host: the physical page of each prompt block; pad rows and blocks past
+    a prompt's pages carry an id outside [0, N). Those entries are left out
+    (the reference's scatter drops them), so only the listed pages change.
+    """
+    B, P = cache.k.shape[-4], cache.k.shape[-3]
+    npp = page_idx.shape[1]
+    ps = P // npp
+    rows, cols = np.nonzero((page_idx >= 0) & (page_idx < pool.num_pages))
+    dev = pool.k.device
+    dst = torch.as_tensor(page_idx[rows, cols].astype(np.int64), device=dev)
+    src_r = torch.as_tensor(rows, device=dev)
+    src_c = torch.as_tensor(cols, device=dev)
+    for leaf, rows_kv in ((pool.k, cache.k), (pool.v, cache.v)):
+        blocks = rows_kv.unflatten(-3, (npp, ps))          # (..., B, npp, ps, KVH, hd)
+        leaf[..., dst, :, :, :] = blocks[..., src_r, src_c, :, :, :].to(leaf.dtype)

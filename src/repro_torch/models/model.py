@@ -3,6 +3,8 @@
   init_params(cfg, seed, device)                  -> Model (seeded weights)
   prefill(model, tokens, cache_len, ...)          -> (last_logits, DecodeState)
   decode_step(model, state, tokens, ...)          -> (logits, DecodeState)
+  decode_step_paged(model, state, tokens)         -> (logits, PagedDecodeState)
+  paged_splice_prompt(pools, caches, page_idx)    -> pools (prefill -> pages)
 
 ``Model`` keeps the reference package's parameter layouts (see
 ``models/convert.py`` for the mapping).
@@ -16,6 +18,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cdtype, embed, param, rmsnorm, unembed
 
@@ -24,6 +27,19 @@ class DecodeState(NamedTuple):
     caches: list             # per-segment KVCache, leaves (n_layers, B, ...)
     pos: torch.Tensor        # (B,) int32 next absolute position to write
     last_tok: torch.Tensor   # (B,) int32 last emitted/fed token
+
+
+class PagedDecodeState(NamedTuple):
+    """Decode state over the shared page pool. ``block_tables`` maps each
+    row's logical pages to physical ones (shared by all layers; -1 =
+    unallocated, inactive rows are all -1). Page ownership lives on the
+    host in ``repro_torch.cache.PageAllocator``; this carries what a decode
+    step needs."""
+
+    pools: list                 # per-segment PagedKVPool, leaves (n_layers, N, ...)
+    block_tables: torch.Tensor  # (B, MP) int32
+    pos: torch.Tensor           # (B,) int32 next absolute position to write
+    last_tok: torch.Tensor      # (B,) int32
 
 
 class Model(nn.Module):
@@ -128,3 +144,28 @@ def decode_step(model: Model, state: DecodeState, tokens: torch.Tensor, *,
     logits = unembed(model.tok, rmsnorm(model.ln_f, h, cfg.norm_eps))
     return logits, DecodeState(caches=state.caches, pos=state.pos + 1,
                                last_tok=tokens.to(torch.int32))
+
+
+@torch.no_grad()
+def decode_step_paged(model: Model, state: PagedDecodeState,
+                      tokens: torch.Tensor) -> tuple[torch.Tensor, PagedDecodeState]:
+    """One decode step for the whole batch against the paged pools; mirrors
+    ``decode_step`` (same embed, norm and unembed). tokens: (B,) int32. The
+    pools are written in place: the returned state shares them."""
+    cfg = model.cfg
+    h = _embed(model, tokens)
+    h = T.decode_hidden_paged(model.stack, h, state.pools, state.block_tables,
+                              state.pos, cfg)
+    logits = unembed(model.tok, rmsnorm(model.ln_f, h, cfg.norm_eps))
+    return logits, PagedDecodeState(pools=state.pools, block_tables=state.block_tables,
+                                    pos=state.pos + 1, last_tok=tokens.to(torch.int32))
+
+
+@torch.no_grad()
+def paged_splice_prompt(pools: list, caches: list, page_idx) -> list:
+    """Copy prefill-built dense caches (cache_len == prompt bucket) into the
+    page pools, in place. page_idx (B, P // ps) on the host: each row's
+    physical pages; ids outside the pool (pad rows) are left out."""
+    for pool, cache in zip(pools, caches, strict=True):
+        A.paged_splice_prompt(pool, cache, page_idx)
+    return pools

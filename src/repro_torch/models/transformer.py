@@ -3,9 +3,9 @@
 The segment plan is the reference package's (``plan_segments``). The port
 runs the ``attn`` segment (self-attention + dense MLP) and keeps one
 ``Block`` module per layer, where the reference stacks each segment's
-layers on a leading axis for ``lax.scan``. Decode caches keep that leading
-layer axis, so a DecodeState compares leaf by leaf with the reference's.
-Any other segment kind raises NotImplementedError.
+layers on a leading axis for ``lax.scan``. Decode caches and page pools
+keep that leading layer axis, so a decode state compares leaf by leaf with
+the reference's. Any other segment kind raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -131,5 +131,44 @@ def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
         for i, p in enumerate(seg):
             a = A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
                               cache.layer(i), pos, cfg, window=shape_window)
+            h = _ffn(p, h + a, cfg)
+    return h
+
+
+def paged_segments_supported(cfg: ModelConfig) -> bool:
+    """Paged decode covers pure-attention stacks (dense and MoE FFN blocks):
+    recurrent segments carry state, not a KV cache, and enc-dec carries
+    cross-attention state; those archs stay on the dense engine."""
+    if cfg.is_encdec or cfg.arch_type in ("vlm", "audio"):
+        return False
+    return all(s.kind in ("attn", "attn_moe") for s in plan_segments(cfg, "decoder"))
+
+
+def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device) -> list:
+    """Per-segment page pools with leaves stacked on the layer axis: k/v
+    (n, num_pages, page_size, KVH, hd). All layers share page indexing (one
+    block table per request serves the whole stack)."""
+    if not paged_segments_supported(cfg):
+        raise ValueError(
+            f"paged decode requires an all-attention stack; {cfg.name} has "
+            f"segments {[s.kind for s in plan_segments(cfg, 'decoder')]}")
+    return [A.paged_pool_init(num_pages, page_size, cfg, device, layers=seg.n)
+            for seg in plan_segments(cfg, "decoder")]
+
+
+def decode_hidden_paged(stack: nn.ModuleList, h: torch.Tensor, pools: list,
+                        block_table: torch.Tensor, pos: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """One-token pass over the paged pools. h: (B, D). Mirrors
+    ``decode_hidden`` with ``attn_decode_paged`` in place of
+    ``attn_decode``; the block table is shared by every layer, so the rows
+    that write are selected once for the step."""
+    writes = A.paged_write_targets(block_table, pos, pools[0].num_pages,
+                                   pools[0].page_size)
+    for seg, pool in zip(stack, pools, strict=True):
+        for i, p in enumerate(seg):
+            a = A.attn_decode_paged(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
+                                    pool.layer(i), block_table, pos, cfg, writes)
             h = _ffn(p, h + a, cfg)
     return h

@@ -28,6 +28,10 @@ always ragged; only the boot prefill is padded.
 
 The engine updates its decode state in place: the splices and the decode
 steps write into the cache tensors of ``self.state``.
+
+``PagedEngine`` serves the same loop from one shared pool of KV pages:
+admission allocates pages, page growth and preempt-and-recompute keep the
+decode covered, and retirement frees the pages (see its docstring).
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.cache import PageAllocator, resolve_kv_precision
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.runtime.request import Request
 
 # Sentinel for short-prompt padding (identical across requests).
@@ -53,6 +59,28 @@ class EngineConfig:
     shape_window: Optional[int] = None
     eos_id: Optional[int] = None  # stop token (None = length-only stopping)
     kv_precision: str = ""        # "" / "native" only
+
+
+@dataclasses.dataclass
+class PagedEngineConfig(EngineConfig):
+    """Engine config plus the paged-pool geometry.
+
+    KV memory = num_pages * page_size rows (vs batch_slots * cache_len for
+    the dense engine); ``max_active`` is the decode batch (rows), bounded by
+    compute, not memory. ``max_pages_per_req`` bounds one request's block
+    table; 0 derives it from cache_len, and raising it past
+    cache_len/page_size is how requests grow beyond the dense cache_len.
+    ``quant_pages`` (a quantized page region) and ``prefix_sharing`` are
+    the reference's options that the port refuses until ROADMAP.md queue 1
+    items 9 and 8 bring them.
+    """
+
+    page_size: int = 16
+    num_pages: int = 64
+    max_active: int = 8
+    max_pages_per_req: int = 0    # 0 => cache_len // page_size
+    quant_pages: int = -1         # -1 or 0: no quantized region
+    prefix_sharing: bool = False
 
 
 def _bucket_prompt(tokens, prompt_len: int) -> tuple[np.ndarray, bool]:
@@ -91,6 +119,16 @@ def _decode_n(model, state, toks, n, shape_window):
     outs = []
     for _ in range(n):
         toks, state = _decode_one(model, state, toks, shape_window)
+        outs.append(toks)
+    return torch.stack(outs), state
+
+
+def _decode_n_paged(model, state, toks, n):
+    """n fused greedy decode steps over the paged pools; per-step tokens (n, B)."""
+    outs = []
+    for _ in range(n):
+        logits, state = M.decode_step_paged(model, state, toks)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)
         outs.append(toks)
     return torch.stack(outs), state
 
@@ -249,10 +287,12 @@ class Engine:
                 return b
         return self.ecfg.prompt_len
 
-    def _run_prefill(self, toks: np.ndarray, lens: np.ndarray):
+    def _run_prefill(self, toks: np.ndarray, lens: np.ndarray,
+                     cache_len: Optional[int] = None):
         """One bucketed, length-aware prefill dispatch."""
         return M.prefill(self.model, torch.as_tensor(toks, device=self.device),
-                         self.ecfg.cache_len, shape_window=self.ecfg.shape_window,
+                         cache_len or self.ecfg.cache_len,
+                         shape_window=self.ecfg.shape_window,
                          prompt_lens=torch.as_tensor(lens, device=self.device))
 
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
@@ -382,6 +422,269 @@ class Engine:
                 if hit or self.slot_age[i] >= r.max_new_tokens:
                     per_step[max(take - 1, 0)] += 1
                     self._retire(i, r, now)
+        served = sum(per_step)
+        self.served_history.append(served)
+        self.steps += n_steps
+        return self._slot_stats(n_active, served, served_per_step=per_step,
+                                admitted=admitted)
+
+
+_ITEM8 = "ROADMAP.md queue 1 item 8 (prefix sharing)"
+_ITEM9 = "ROADMAP.md queue 1 item 9 (quantized KV pages)"
+_ITEM6 = "ROADMAP.md queue 1 item 6 (the sync-free loop and chunked batching)"
+
+
+class PagedEngine(Engine):
+    """Continuous batching over a paged KV cache.
+
+    Where ``Engine`` reserves a dense ``batch_slots x cache_len`` cache row
+    per request, this engine admits a request by allocating pages from one
+    shared pool (``repro_torch.cache.PageAllocator``): a short request holds
+    only the pages it writes, so at equal KV memory more requests are in
+    flight. Requests grow by appending pages — past ``cache_len`` if
+    ``max_pages_per_req`` allows — and retirement returns pages to the free
+    list. Ragged admission pays only for each prompt's real length.
+
+    The dense engine's dispatch budget holds: one control slot costs <= 1
+    bucketed batch prefill (every admission of the slot, its dense cache
+    copied into pages) + 1 fused n-step decode over all ``max_active``
+    rows. Page tables are host-side bookkeeping; block tables and positions
+    go to the device with the decode. Before each decode every active row
+    is extended to cover the slot's ``n_steps`` writes; a row the pool
+    cannot cover is preempted (pages freed, request re-queued for a fresh
+    prefill — the same tokens under greedy decoding).
+
+    Greedy generation is per request the dense engine's: every per-row op
+    matches the dense path. ``occupancy()`` is the pool's fill fraction,
+    the signal ``MemoryAware`` prices. The port serves native precision,
+    greedy, fused, without prefix sharing; the other paths raise
+    NotImplementedError naming the ROADMAP.md item that brings them.
+    """
+
+    def __init__(self, model: M.Model, ecfg: PagedEngineConfig):
+        cfg = model.cfg
+        if not T.paged_segments_supported(cfg):
+            raise ValueError(f"{cfg.name}: paged decode needs an all-attention stack")
+        if ecfg.shape_window is not None:
+            raise ValueError("paged decode does not support sliding windows")
+        ps, P, R = ecfg.page_size, ecfg.prompt_len, ecfg.max_active
+        if P % ps:
+            raise ValueError(f"prompt_len {P} must be a multiple of page_size {ps}")
+        if ecfg.kv_precision:
+            cfg = cfg.replace(kv_precision=ecfg.kv_precision)
+        kvp = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
+        if not kvp.is_native or ecfg.quant_pages > 0:
+            raise NotImplementedError(
+                f"paged KV precision {kvp.tag!r} (quant_pages "
+                f"{ecfg.quant_pages}) is not ported yet; see {_ITEM9}")
+        if ecfg.prefix_sharing:
+            raise NotImplementedError(f"prefix sharing is not ported yet; see {_ITEM8}")
+        if not ecfg.greedy:
+            raise NotImplementedError(
+                "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
+                "(per-request sampling)")
+        self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self.device = model.device
+        self.MP = ecfg.max_pages_per_req or max(ecfg.cache_len // ps, P // ps + 1)
+        self._buckets = _prompt_buckets(P, quantum=ps)
+        self.pools = T.paged_pools_init(cfg, ecfg.num_pages, ps, self.device)
+        self.allocator = PageAllocator(ecfg.num_pages, ps)
+        self.block_tables = np.full((R, self.MP), -1, np.int32)
+        self.pos = np.zeros(R, np.int32)
+        self.active: list = [None] * R
+        self.pending: list = []
+        self.finished: list = []
+        self.slot_age = np.zeros(R, np.int32)
+        self.steps = 0
+        self.served_history: list = []
+        self.prefill_dispatches = 0
+        self.decode_dispatches = 0
+        self.blocking_syncs = 0
+        self.alloc_failures = 0       # admissions deferred: pool exhausted
+        self.preemptions = 0          # active requests bounced for pages
+        self.peak_active = 0
+        # high-water occupancy of the last control slot (post-admission,
+        # pre-retirement): the commitment peak the controller must price;
+        # end-of-slot occupancy dips as finished requests free pages
+        self.occupancy_hwm = 0.0
+
+    # ----------------------------------------------------- observability
+    def counters(self) -> dict:
+        c = super().counters()
+        st = self.allocator.stats()
+        c.update(
+            preemptions=self.preemptions,
+            alloc_failures=self.alloc_failures,
+            occupancy=self.allocator.occupancy(),
+            occupancy_hwm=float(self.occupancy_hwm),
+            committed_occupancy=self.allocator.committed_occupancy(),
+            pages_used=st.used_pages,
+            pages_free=st.free_pages,
+            pages_shared=st.shared_pages,
+            pages_pinned=st.pinned_pages,
+            frag_tokens=st.frag_tokens,
+            peak_pages=st.peak_used_pages,
+        )
+        return c
+
+    def _slot_stats(self, n_active: int, served: int, **extra) -> dict:
+        d = super()._slot_stats(n_active, served, **extra)
+        d["occupancy"] = self.occupancy()
+        d["preemptions"] = self.preemptions
+        return d
+
+    def occupancy(self) -> float:
+        return self.allocator.occupancy()
+
+    # ------------------------------------------------------------------
+    def step(self, now: int) -> dict:
+        raise NotImplementedError("the paged engine has no legacy per-step loop")
+
+    def _admit_one(self, req: Request, slot: int, now: int) -> None:
+        raise NotImplementedError("the paged engine admits via admit_pending")
+
+    def step_slot_sync(self, now: int, n_steps: int = 1) -> dict:
+        raise NotImplementedError(f"the sync-free paged loop is not ported yet; see {_ITEM6}")
+
+    def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
+        raise NotImplementedError(f"chunked paged batching is not ported yet; see {_ITEM6}")
+
+    def _retire(self, row: int, r: Request, now: int) -> None:
+        super()._retire(row, r, now)
+        self._release_row(row)
+
+    def _release_row(self, row: int) -> None:
+        self.allocator.free(row)
+        self.block_tables[row] = -1
+        self.pos[row] = 0
+        self.slot_age[row] = 0
+
+    def _preempt(self, row: int) -> None:
+        """Bounce an active request back to pending (pages exhausted). Its
+        pages return to the pool and its generation restarts from a fresh
+        prefill on re-admission — the same tokens under greedy decoding."""
+        req = self.active[row]
+        self._release_row(row)
+        self.active[row] = None
+        req.generated = None
+        req.admit_slot = None
+        req.start_slot = None
+        req.first_token_slot = None
+        self.pending.insert(0, req)
+        self.preemptions += 1
+
+    def admit_pending(self, now: int, lookahead: int = 1) -> int:
+        """Fill free rows from the pending queue with ONE bucketed prefill.
+
+        Admission = page allocation: a request enters only if the pool can
+        cover its real prompt length plus this slot's ``lookahead`` decode
+        writes (so admission never immediately preempts; growth beyond the
+        slot comes page by page). All k admissions share one batch-R
+        prefill whose dense cache (cache_len = the bucket) is copied into
+        the pages; pad rows carry out-of-pool page ids and copy nothing.
+        """
+        R, P, ps = self.ecfg.max_active, self.ecfg.prompt_len, self.ecfg.page_size
+        N = self.ecfg.num_pages
+        take: list = []
+        for row in self.free_slots():
+            if not self.pending:
+                break
+            req = self.pending[0]
+            if req.max_new_tokens > self.MP * ps - P + 1:
+                raise ValueError(
+                    f"request {req.rid}: max_new_tokens {req.max_new_tokens} "
+                    f"exceeds the block table ({self.MP} pages x {ps})")
+            L = max(1, min(len(req.tokens), P))
+            # pages are keyed by engine row: a row uniquely owns its request
+            # while active, whereas rids are unique only per RequestSource
+            pages = self.allocator.alloc(row, min(L + lookahead, self.MP * ps))
+            if pages is None:
+                self.alloc_failures += 1
+                break
+            self.pending.pop(0)
+            take.append((row, req, pages, L))
+        if not take:
+            return 0
+        bucket = self._pick_bucket(max(L for *_, L in take))
+        npp = bucket // ps
+        toks = np.zeros((R, bucket), np.int32)
+        lens = np.full(R, bucket, np.int32)
+        page_idx = np.full((R, npp), N, np.int32)   # N: outside the pool, not copied
+        for j, (_row, req, pages, L) in enumerate(take):
+            toks[j] = self._bucket(req.tokens, req, bucket)
+            lens[j] = L
+            pg = pages[:npp]
+            page_idx[j, : len(pg)] = pg
+        # cache_len == bucket: the dense prefill cache is exactly the prompt
+        # rows, ready to copy into pages (no ring wraparound)
+        logits, state = self._run_prefill(toks, lens, bucket)
+        self.prefill_dispatches += 1
+        self.pools = M.paged_splice_prompt(self.pools, state.caches, page_idx)
+        del state
+        self.blocking_syncs += 1
+        first = torch.argmax(logits[: len(take)], dim=-1).cpu().numpy()
+        for j, (row, req, pages, L) in enumerate(take):
+            req.start_slot = now
+            req.first_token_slot = now
+            req.generated = [int(first[j])]
+            req.admit_slot = now
+            self.active[row] = req
+            self.block_tables[row, : len(pages)] = pages
+            self.pos[row] = L
+            self.slot_age[row] = 1   # first token came from prefill
+        self.peak_active = max(self.peak_active, sum(r is not None for r in self.active))
+        return len(take)
+
+    def _ensure_pages(self, n_steps: int) -> None:
+        """Pre-extend every active row to cover this slot's decode writes.
+
+        The fused decode writes rows pos..pos+n_steps-1 for every active row
+        (rows finishing mid-dispatch keep writing, masked), so the pages
+        must exist up front; growing here keeps the decode free of host
+        round-trips. Rows the pool cannot cover are preempted."""
+        ps = self.ecfg.page_size
+        for row, req in enumerate(self.active):
+            if req is None:
+                continue
+            need = min(int(self.pos[row]) + n_steps, self.MP * ps)
+            pages = self.allocator.extend(row, need)
+            if pages is None:
+                self._preempt(row)
+                continue
+            self.block_tables[row, : len(pages)] = pages
+
+    def step_slot(self, now: int, n_steps: int = 1) -> dict:
+        """One control slot: batched admit -> page extension -> fused decode
+        -> retire (pages freed). <= 1 prefill + 1 decode dispatch."""
+        admitted = self.admit_pending(now, lookahead=n_steps)
+        self._ensure_pages(n_steps)
+        self.occupancy_hwm = self.occupancy()
+        n_active = sum(r is not None for r in self.active)
+        per_step = [0] * n_steps
+        if n_active:
+            toks = torch.tensor([r.generated[-1] if r else 0 for r in self.active],
+                                dtype=torch.int32, device=self.device)
+            state = M.PagedDecodeState(
+                pools=self.pools,
+                block_tables=torch.tensor(self.block_tables, device=self.device),
+                pos=torch.tensor(self.pos, device=self.device),
+                last_tok=toks)
+            all_toks, state = _decode_n_paged(self.model, state, toks, n_steps)
+            self.pools = state.pools
+            self.decode_dispatches += 1
+            self.blocking_syncs += 1
+            all_toks = all_toks.cpu().numpy()  # (n_steps, R)
+            for row, req in enumerate(self.active):
+                if req is None:
+                    continue
+                self.pos[row] += n_steps     # the decode wrote n_steps rows
+                take, hit = _host_take(all_toks[:, row], req, int(self.slot_age[row]),
+                                       n_steps, self.ecfg.eos_id)
+                req.generated.extend(int(x) for x in all_toks[:take, row])
+                self.slot_age[row] += take
+                if hit or self.slot_age[row] >= req.max_new_tokens:
+                    per_step[max(take - 1, 0)] += 1
+                    self._retire(row, req, now)
         served = sum(per_step)
         self.served_history.append(served)
         self.steps += n_steps

@@ -13,8 +13,11 @@ decision back is one small device-to-host copy per slot. ``serve`` sets the devi
 engine's when the caller left it unset; otherwise it resolves like every
 entry point (``cuda`` unless the CPU is asked for).
 
-``AdaptiveScheduler`` / ``StaticScheduler`` are the historical names, kept
-as thin constructors over ``PolicyScheduler``.
+A policy with an ``observe`` method (``MemoryAware``) advances its virtual
+queue on the engine signal it names (``observation``) before it acts.
+
+``AdaptiveScheduler`` / ``StaticScheduler`` / ``MemoryAwareScheduler`` are
+thin constructors over ``PolicyScheduler``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.control import DriftPlusPenalty, Policy, Static
+from repro_torch.control import DriftPlusPenalty, MemoryAware, Policy, Static
 from repro_torch.core.utility import Utility, paper_utility
 from repro_torch.device import resolve_device
 
@@ -55,9 +58,21 @@ class PolicyScheduler:
                 self._carry = self._carry.to(self._dev)
         return self._dev
 
-    def control(self, backlog: int) -> float:
-        """One control-slot decision: the rate to sample at."""
-        q = torch.tensor(backlog, dtype=torch.float32, device=self._on_device())
+    def _observe(self, occupancy: Optional[float]) -> None:
+        """Feed an observation-driven virtual queue: a policy exposing
+        ``observe`` names the engine signal it consumes in ``observation``
+        ("occupancy" is the one the port's engines report) and advances on
+        it before acting; other policies ignore it."""
+        if occupancy is not None and getattr(self.policy, "observation", None) == "occupancy":
+            self._carry = self.policy.observe(self._carry, occupancy)
+
+    def control(self, backlog: int, occupancy: Optional[float] = None) -> float:
+        """One control-slot decision: the rate to sample at. ``occupancy``
+        (the paged engine's page-pool fill) feeds ``MemoryAware``'s virtual
+        queue, observed before the policy acts."""
+        self._on_device()
+        self._observe(occupancy)
+        q = torch.tensor(backlog, dtype=torch.float32, device=self._dev)
         f_star, self._carry = self.policy.act(self._carry, q)
         f = float(f_star)
         self.rate_history.append(f)
@@ -93,3 +108,21 @@ def StaticScheduler(rate: float = 10.0, capacity: int = 256,
     """Paper baseline: fixed sampling rate, no queue awareness."""
     return PolicyScheduler(policy=Static(rate=float(rate)), capacity=capacity,
                            device=device)
+
+
+def MemoryAwareScheduler(
+    rates: tuple = tuple(float(f) for f in range(1, 11)),
+    V: float = 50.0,
+    pages_per_request: float = 2.0,
+    occupancy_budget: float = 0.6,
+    mem_gain: float = 1.0,
+    capacity: int = 256,
+    device: Optional[str] = None,
+) -> PolicyScheduler:
+    """Algorithm-1 scheduler that also prices page-pool occupancy."""
+    policy = MemoryAware(
+        rates=tuple(float(f) for f in rates), V=V,
+        pages_per_request=pages_per_request,
+        occupancy_budget=occupancy_budget, mem_gain=mem_gain,
+    )
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device)

@@ -9,8 +9,10 @@ steps in one call); ``fused=False`` keeps the legacy per-step loop (k
 batch-1 prefills + steps_per_slot decode dispatches). Returns a trace: the
 serving-system analogue of the paper's Fig. 2, with a real model in the
 loop. The per-slot ``syncs`` column counts dispatch-gating synchronous
-readbacks. The sync-free and chunked loops, and the occupancy column, come
-with the slices that port them (ROADMAP.md queue 1 items 5 and 6).
+readbacks. With a ``PagedEngine`` the scheduler also observes the page
+pool's occupancy each slot, and the ``occupancy`` column records its
+high-water mark (0.0 for the dense engine). The sync-free and chunked
+loops come with the slice that ports them (ROADMAP.md queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -25,11 +27,16 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
     if getattr(scheduler, "device", "") is None:
         scheduler.device = engine.device   # Algorithm 1 runs beside the engine
     trace = {"backlog": [], "rate": [], "served": [], "active": [],
-             "dropped": [], "dispatches": [], "syncs": []}
+             "dropped": [], "dispatches": [], "occupancy": [], "syncs": []}
+    paged = hasattr(engine, "occupancy")
     for t in range(horizon):
         d0 = engine.prefill_dispatches + engine.decode_dispatches
         s0 = engine.blocking_syncs
-        rate = scheduler.control(engine.queue_len())
+        # the observation is the previous slot's commitment peak: end-of-slot
+        # occupancy dips as retirements free pages, hiding the pressure the
+        # controller must price
+        occ = max(engine.occupancy(), engine.occupancy_hwm) if paged else None
+        rate = scheduler.control(engine.queue_len(), occupancy=occ)
         reqs = source.poll(t, rate)
         scheduler.admit(engine, reqs, t)
         if fused:
@@ -48,6 +55,7 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         trace["dispatches"].append(
             engine.prefill_dispatches + engine.decode_dispatches - d0
         )
+        trace["occupancy"].append(engine.occupancy_hwm if paged else 0.0)
         trace["syncs"].append(engine.blocking_syncs - s0)
     return {k: np.asarray(v) for k, v in trace.items()}
 

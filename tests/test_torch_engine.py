@@ -119,9 +119,9 @@ def test_launcher_summary_line_matches_reference():
 
 def test_launcher_refuses_unported_paths():
     from repro_torch.launch import serve as launcher
-    for argv in (["--paged"], ["--sync-free"], ["--chunked"], ["--replicas", "2"],
-                 ["--kv-precision", "int8"], ["--temperature", "0.7"],
-                 ["--tenants", "gold:1:1:6"], ["--policy", "memory-aware"]):
+    for argv in (["--paged", "--prefix-sharing"], ["--sync-free"], ["--chunked"],
+                 ["--replicas", "2"], ["--kv-precision", "int8"], ["--temperature", "0.7"],
+                 ["--tenants", "gold:1:1:6"], ["--paged", "--kv-precision", "int8"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *argv])
 

@@ -12,6 +12,7 @@ from repro.kernels import ref as ref_oracles
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as k_paged
 
 # float32 on both sides: the two softmaxes differ only in summation order
 ATOL = 2e-5
@@ -106,3 +107,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     sp = torch.zeros(1, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         k_decode.decode_attention(q[:, 0], k, v, sp, pos)
+    with pytest.raises(ValueError, match="CUDA"):   # k, v as a pool of 1 x 8-row pages
+        k_paged.paged_decode_attention(q[:, 0], k, v, torch.zeros(1, 1, dtype=torch.int32),
+                                       pos)

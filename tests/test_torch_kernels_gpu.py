@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
+from repro_torch.kernels import paged_attention as k_paged
 from repro_torch.kernels import ref
 
 
@@ -47,6 +48,8 @@ def _err_ok(got, want, dtype):
     want = want.float()
     err = (got.float() - want).abs().max().item()
     return err <= GPU_TOL[dtype] * max(1.0, want.abs().max().item())
+
+
 GPU_PREFILL = [(2, 16, 8, 2, 32), (8, 512, 32, 8, 64), (2, 100, 4, 4, 128)]
 
 
@@ -82,3 +85,56 @@ def test_decode_kernel_matches_plain_on_card(cuda, dtype, B, L, H, KVH, hd):
         want = ref.decode_attention_ref(q, k, v, sp, pos, window=window)
         torch.cuda.synchronize()
         assert _err_ok(got, want, dtype)
+
+
+def paged_case(rng, B, MP, ps, KVH, hd, pos, holes=False):
+    """A pool of B * MP pages and block tables over a random permutation of
+    it: row b holds the pages that cover positions 0..pos[b], then -1; a
+    row with pos -1 is inactive (all -1). ``holes`` unallocates one page in
+    the middle of row 1. Every pool row that no table reaches at or below
+    its pos (free pages, rows past pos, the hole) holds garbage of +-1e30,
+    as recycled pages would. Returns numpy (k, v, block_tables, pos)."""
+    N = B * MP
+    perm = rng.permutation(N).astype(np.int32)
+    bt = np.full((B, MP), -1, np.int32)
+    live = np.zeros((N, ps), bool)
+    for b in range(B):
+        n = pos[b] // ps + 1 if pos[b] >= 0 else 0
+        bt[b, :n] = perm[b * MP: b * MP + n]
+        if holes and b == 1 and n > 2:
+            bt[b, n // 2] = -1
+        for j in range(pos[b] + 1):
+            if bt[b, j // ps] >= 0:
+                live[bt[b, j // ps], j % ps] = True
+    k = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    k = np.where(live[..., None, None], k, junk)
+    v = np.where(live[..., None, None], v, -junk)
+    return k, v, bt, np.maximum(pos, 0).astype(np.int32)
+
+
+# (B, MP, ps, H, KVH, hd): the serving shape at three page sizes, a page
+# larger than the kernel's 64-slot tile, a page size that is no power of
+# two, and a group of one
+GPU_PAGED = [(16, 64, 16, 32, 8, 64), (16, 128, 8, 32, 8, 64), (16, 32, 32, 32, 8, 64),
+             (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128), (3, 8, 16, 4, 4, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,MP,ps,H,KVH,hd", GPU_PAGED)
+def test_paged_kernel_matches_plain_on_card(cuda, dtype, B, MP, ps, H, KVH, hd):
+    rng = np.random.default_rng(MP * ps + B)
+    pos = rng.integers(min(128, MP * ps // 2), MP * ps, B).astype(np.int32)
+    pos[0] = -1                       # an inactive row: all -1, no valid slot
+    k, v, bt, pos = paged_case(rng, B, MP, ps, KVH, hd, pos, holes=True)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (k, v))
+    bt, pos_t = torch.from_numpy(bt).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = k_paged.paged_decode_attention(q, k, v, bt, pos_t)
+    want = ref.paged_decode_attention_ref(q, k, v, bt, pos_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[0].any()           # no valid slot: the kernel writes zeros
+    assert _err_ok(got[1:], want[1:], dtype)
