@@ -17,10 +17,17 @@ the CPU path the CPU tests hold against the JAX package), paged_model (the
 same prompts through the paged decode against the dense one, with a path
 whose block table swaps two pages of one row beside it), preemption (a
 full-width paged engine whose pool is too small for both of its rows to
-grow, against the dense engine's tokens), serve (the launcher's main path
+grow, against the dense engine's tokens), chunk_model (full-width prompts
+through chunk_step in chunks of 128, K4, against the one-shot ragged
+prefill, K1r, then 16 decode steps, with a path whose chunk attention
+sees only the chunk itself beside it), serve (the launcher's main path
 at full width, with the kernels' launch counts), profile (device time by
 kernel over an identical second serve run), then serve and profile again
-for the paged path (``--paged --policy memory-aware``). Each serve phase
+for the paged path (``--paged --policy memory-aware``), the sync-free
+path (``--sync-free``) and the chunked path (``--chunked --policy
+token-aware``); every slot of the last two after the first runs under
+``torch.cuda.set_sync_debug_mode("error")``, and the chunked trace is held
+to the same launcher's on the CPU with the smoke model. Each serve phase
 zeroes the launch counts just before it and reads them just after. Then
 the ``kernels`` summary line, the card's name and power limit from
 nvidia-smi, and the result line.
@@ -62,6 +69,11 @@ SERVE_ARGS = ["--arch", "granite-3-2b", "--slots", "8", "--prompt-len", "512",
 # ~252 MB of K/V over 40 layers), which prompts of 128-512 tokens fill
 PAGED_ARGS = SERVE_ARGS + ["--paged", "--policy", "memory-aware", "--max-active", "16",
                            "--page-size", "16", "--num-pages", "192"]
+SYNC_ARGS = SERVE_ARGS + ["--sync-free"]
+# continuous batching under TokenBacklogAware: chunks of 512 // 4 = 128 and
+# a token budget of one slot's chunk budget (8 x 128), at which the CPU
+# rehearsal's rate both falls and rises within the 12 slots
+CHUNKED_ARGS = SERVE_ARGS + ["--chunked", "--policy", "token-aware", "--token-budget", "1024"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -161,6 +173,50 @@ def _paged_inputs(rng, B, MP, ps, KVH, hd, pos):
     junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
     return (np.where(live[..., None, None], k, junk), np.where(live[..., None, None], v, -junk),
             bt, np.maximum(pos, 0).astype(np.int32))
+
+
+def _chunk_work(H, KVH, hd, esize, C, sp, pos0, valid):
+    """Bytes and FLOPs this chunk attention needs: q rows below each row's
+    valid count, K/V and slot_pos of the slots up to its last query
+    position (the kernel's live range), pos0/valid, the whole output; 4*hd
+    FLOPs per (head, query, visible key)."""
+    B, L = sp.shape
+    live = pairs = 0
+    for b in range(B):
+        n = int(valid[b])
+        if not n:
+            continue
+        end = min(int(pos0[b]) + n, L)
+        live += end
+        qpos = int(pos0[b]) + np.arange(n)
+        pairs += int(((sp[b][None, :] >= 0) & (sp[b][None, :] <= qpos[:, None])).sum())
+    rows = int(valid.sum())
+    nbytes = esize * (rows * H * hd + 2 * live * KVH * hd + B * C * H * hd) + 4 * (live + 2 * B)
+    return nbytes, 4.0 * hd * H * pairs
+
+
+def _chunk_inputs(rng, B, C, L, KVH, hd):
+    """A chunk mix: per row a first chunk (pos0 0), mid-prompt chunks (one
+    with a hole in its prefix), partial final chunks (valid < C) and an
+    inactive row (valid 0). Each row's cache holds positions 0..pos0+valid-1
+    in order; every empty slot (beyond the written prefix, the hole) has
+    slot_pos -1 and +-1e30 in K/V. Numpy arrays."""
+    if C == 128:
+        pos0 = np.asarray([0, 128, 256, 384, 128, 0, 128, 256], np.int32)[:B]
+        valid = np.asarray([128, 128, 128, 77, 0, 128, 128, 50], np.int32)[:B]
+    else:
+        pos0 = np.asarray([0, C, 2 * C, C], np.int32)[:B]
+        valid = np.asarray([C, C, C - 3, 0], np.int32)[:B]
+    sp = np.full((B, L), -1, np.int32)
+    for b in range(B):
+        end = int(pos0[b] + valid[b])
+        sp[b, :end] = np.arange(end)
+    sp[1, 5] = -1
+    k = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((B, L, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    empty = (sp < 0)[..., None, None]
+    return np.where(empty, junk, k), np.where(empty, -junk, v), sp, pos0, valid
 
 
 def _ring_slot_pos(B, L, pos):
@@ -309,6 +365,31 @@ def check_kernels(timer) -> dict:
         record(case, "paged_decode_attention", dtype, got[has], plain()[has], env[has], fn,
                plain, lib, _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), main,
                library="index_select of the K and V pages + scaled_dot_product_attention")
+    # K4: the chunked serve's shape (8 rows, chunks of 128, ring 1024) with
+    # the chunk mix above; the small case has an inactive row too
+    from repro_torch.kernels import chunk_attention as kc
+    for B, C, L, H, KVH, hd, dtype, main in ((8, 128, 1024, 32, 8, 64, torch.bfloat16, True),
+                                             (8, 128, 1024, 32, 8, 64, torch.float32, False),
+                                             (4, 16, 64, 8, 2, 32, torch.float32, False)):
+        k_np, v_np, sp_np, p0_np, nv_np = _chunk_inputs(rng, B, C, L, KVH, hd)
+        q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).cuda().to(dtype)
+        k, v = (torch.from_numpy(a).cuda().to(dtype) for a in (k_np, v_np))
+        sp, pos0, valid = (torch.from_numpy(a).cuda() for a in (sp_np, p0_np, nv_np))
+        case = f"chunk_attention B{B} C{C} L{L} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        fn = lambda: kc.chunk_attention(q, k, v, sp, pos0, valid)
+        plain = lambda: ref.chunk_attention_ref(q, k, v, sp, pos0, valid)
+        env = ref.chunk_attention_ref(q, k, v.abs(), sp, pos0, valid)
+        got = fn()
+        torch.cuda.synchronize()
+        if got[torch.from_numpy(nv_np == 0).cuda()].any():
+            raise AssertionError(f"{case}: an inactive row is not zeros")
+        qpos = pos0[:, None] + torch.arange(C, device="cuda")[None, :]
+        mask = ((sp[:, None, :] >= 0) & (sp[:, None, :] <= qpos[:, :, None]))[:, None]
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        lib = lambda mask=mask, qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
+               _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
     return rows
 
 
@@ -569,26 +650,161 @@ def check_preemption() -> dict:
     return res
 
 
+def _chunked_logits(model, toks, lens, C, L, feed, impl):
+    """The prompts through ``chunk_step`` in chunks of C (a row's first
+    chunk resets the boot prefill's cache, as a recycled engine row's
+    does), then 16 decode steps fed ``feed``; returns the (17, B, V) float32
+    logits: each row's activation logits (its final chunk's), then the
+    decode steps."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import chunk_step, decode_step, prefill
+
+    kernels_ops, A.ops = A.ops, impl
+    B, P = toks.shape
+    lens_np = lens.cpu().numpy()
+    _, state = prefill(model, torch.zeros_like(toks), L)
+    first = torch.zeros((B, model.cfg.vocab_size), dtype=torch.float32, device="cuda")
+    for pos0 in range(0, P, C):
+        valid_np = np.clip(lens_np - pos0, 0, C).astype(np.int32)
+        if not valid_np.any():
+            break
+        p0_np = np.full(B, pos0, np.int32)
+        tok = toks[:, pos0:pos0 + C].contiguous()
+        logits, state = chunk_step(model, state, tok, torch.from_numpy(p0_np).cuda(),
+                                   torch.from_numpy(valid_np).cuda(),
+                                   torch.from_numpy(p0_np == 0).cuda(),
+                                   A.chunk_write_targets(p0_np, valid_np, L, "cuda"))
+        fin = torch.from_numpy(pos0 + valid_np == lens_np).cuda() & torch.from_numpy(
+            valid_np > 0).cuda()
+        first = torch.where(fin[:, None], logits.float(), first)
+    out = [first]
+    for step in range(16):
+        logits, state = decode_step(model, state, feed[step])
+        out.append(logits.float())
+    A.ops = kernels_ops
+    del state
+    return torch.stack(out)
+
+
+def check_chunk_model() -> dict:
+    """Full-width granite-3-2b on seeded weights: prompts of 128-512 tokens
+    through ``chunk_step`` in chunks of 128 (K4) and through the one-shot
+    ragged prefill (K1r), then 16 greedy decode steps (K2) on the same fed
+    tokens; the activation logits and every decode step agree within
+    MODEL_TOL. On the card K4 and K1r sum in other orders (on the CPU the
+    two paths agree to ~1e-6, tests/test_torch_chunked.py), so the
+    tolerance is the model check's. Beside it a path whose chunk attention
+    sees only the chunk itself (earlier chunks masked) must land beyond."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, C = 8, 512, 1024, 128
+    rng = np.random.default_rng(1)
+    lens = torch.tensor([512, 300, 129, 128, 512, 200, 384, 450], dtype=torch.int32,
+                        device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    lp = _greedy_logits(model, toks, L, lens, ops)
+    feed = lp[:-1].argmax(-1).to(torch.int32)
+
+    def own_chunk_only(q, k, v, slot_pos, pos0, valid):
+        sp = torch.where(slot_pos < pos0[:, None], -1, slot_pos)
+        return ops.chunk_attention(q, k, v, sp, pos0, valid)
+
+    lc = _chunked_logits(model, toks, lens, C, L, feed, ops)
+    lf = _chunked_logits(model, toks, lens, C, L, feed,
+                         SimpleNamespace(flash_attention=ops.flash_attention,
+                                         decode_attention=ops.decode_attention,
+                                         chunk_attention=own_chunk_only))
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lc).all() and lc.shape == lp.shape):
+        raise AssertionError("bad chunked-path logits")
+    errs = (lc - lp).abs().amax(dim=(1, 2)).tolist()
+    fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    res = {"tol": MODEL_TOL, "logit_scale": lp.abs().max().item(), "chunk": C,
+           "prompt_lens": lens.tolist(), "max_abs_err_per_step": errs,
+           "token_mismatches_beyond_margin": int((lc.argmax(-1) != lp.argmax(-1))[sure].sum()),
+           "own_chunk_only_max_abs_err_per_step": fault}
+    emit("chunk_model", **res)
+    del model, lp, lc, lf
+    torch.cuda.empty_cache()
+    if max(errs) > MODEL_TOL or res["token_mismatches_beyond_margin"]:
+        raise AssertionError("chunked path and one-shot prefill disagree")
+    if not max(fault) > MODEL_TOL:
+        raise AssertionError("the model tolerance does not catch a chunk that "
+                             "ignores the earlier chunks")
+    return res
+
+
 # --------------------------------------------------------------- serve
 # kernels each path must launch
 DENSE_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention")
 PAGED_KERNELS = ("flash_attention_ragged", "paged_decode_attention")
+SYNC_KERNELS = ("flash_attention_ragged", "decode_attention")
+CHUNKED_KERNELS = ("chunk_attention", "decode_attention")
 
 
-def drive_main_path(args, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
+def _sync_checked(sched) -> None:
+    """Run every control slot after the first under
+    ``set_sync_debug_mode("error")``: any call that synchronizes the
+    stream raises. The first slot is exempt (``control_async`` seeds its
+    pipeline there); the mode is switched on as the second slot's control
+    starts and stays on through the serve's ``drain``."""
+    control, calls = sched.control_async, [0]
+
+    def checked(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        return control(*a, **kw)
+    sched.control_async = checked
+
+
+def _count_mixed(engine) -> list:
+    """Count the engine's mixed (chunk + decode) dispatches."""
+    mixed, run = [0], engine._chunk_decode_sync
+
+    def counted(plan, n_steps):
+        mixed[0] += 1
+        return run(plan, n_steps)
+    engine._chunk_decode_sync = counted
+    return mixed
+
+
+def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
     """One of the launcher's paths: build (the dense engine's boot prefill
-    runs K1) and serve. The launch counts are zeroed just before and read
-    just after; every kernel of the path must have launched."""
+    runs K1) and serve. The launch counts are zeroed just before the build
+    and read just after the serve; every kernel of the path must have
+    launched. The
+    sync-free and chunked paths run under the sync debug mode after their
+    first slot (``_sync_checked``)."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
 
+    args = launcher.build_parser().parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     engine, sched, src = launcher.build(args)
     torch.cuda.synchronize()
+    asynchronous = args.sync_free or args.chunked
+    if asynchronous:
+        _sync_checked(sched)
+    mixed = _count_mixed(engine) if args.chunked else [0]
     t1 = time.perf_counter()
-    tr = launcher.run(args, engine, sched, src)   # every slot ends in a readback
+    try:
+        tr = launcher.run(args, engine, sched, src)
+        if asynchronous:
+            torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()   # the last slot's work, before the clock stops
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
     res = {"summary": launcher.summary(args, tr, sched), "build_s": t1 - t0,
@@ -596,27 +812,73 @@ def drive_main_path(args, phase: str = "serve", path_kernels=DENSE_KERNELS) -> d
            "launches": counts, "served": int(tr["served"].sum()),
            "dispatches_per_slot": float(tr["dispatches"].mean()),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "counters": engine.counters()}
+           "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
+           "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
     if args.paged:
         res.update(paged=launcher.paged_summary(tr, engine),
                    peak_occupancy=float(tr["occupancy"].max()),
-                   rate=tr["rate"].tolist(), occupancy=tr["occupancy"].tolist())
+                   occupancy=tr["occupancy"].tolist())
+    if args.chunked:
+        res["mixed_dispatches"] = mixed[0]
     emit(phase, **res)
     if res["served"] <= 0 or res["dispatches_per_slot"] > 2:
         raise AssertionError(f"{phase}: the path served nothing or over-dispatched")
     missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
+    n_layers = engine.cfg.n_layers
+    want = {}
     if args.paged:
-        n_layers = engine.cfg.n_layers
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
                 "paged_decode_attention": n_layers * engine.decode_dispatches * 2}
-        if any(counts[k] != n for k, n in want.items()):
-            raise AssertionError(f"{phase}: launches {counts} are not {want}")
+    elif asynchronous:
+        want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
+                "decode_attention": n_layers * engine.decode_dispatches * 2,
+                "chunk_attention": n_layers * mixed[0]}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"{phase}: launches {counts} are not {want}")
+    if asynchronous and (engine.blocking_syncs or max(res["syncs"])):
+        raise AssertionError(f"{phase}: blocking syncs {res['syncs']} on a sync-free path")
+    if args.chunked:
+        if engine.prefill_dispatches or max(res["trace"]["dispatches"]) > 1 or not mixed[0]:
+            raise AssertionError(f"{phase}: a chunked slot ran a prefill or over-dispatched")
+        cpu = cpu_trace(argv)
+        if cpu != res["trace"]:
+            raise AssertionError(f"{phase}: the trace {res['trace']} is not the CPU run's {cpu}")
     return res
 
 
-def profile_main_path(args, serve_s: float, phase: str = "profile") -> None:
+def cpu_trace(argv: list) -> dict:
+    """The same launcher arguments with ``--smoke --device cpu``: the
+    rate, served, backlog and dispatches columns. With no EOS the schedule
+    does not depend on the model or the device."""
+    from repro_torch.launch import serve as launcher
+
+    cpu_args = launcher.build_parser().parse_args([*argv, "--smoke", "--device", "cpu"])
+    engine, sched, src = launcher.build(cpu_args)
+    tr = launcher.run(cpu_args, engine, sched, src)
+    return {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}
+
+
+# kernel name fragments of each kind of device work, tried in order
+# ("decode_attention_kernel" is also inside the paged kernel's name)
+KERNEL_KINDS = (("K3", ("paged_decode_attention_kernel",)),
+                ("K2", ("decode_attention_kernel",)),
+                ("K1/K1r", ("flash_attention_kernel",)),
+                ("K4", ("chunk_attention_kernel",)),
+                ("matmuls", ("nvjet", "gemm", "cutlass", "xmma")))
+
+
+def kernel_kind(name: str) -> str:
+    """The kind of a profiled kernel: an attention kernel of the port, a
+    matmul, or other (elementwise, copy, index, reduction)."""
+    for kind, keys in KERNEL_KINDS:
+        if any(k in name for k in keys):
+            return kind
+    return "other"
+
+
+def profile_main_path(argv: list, serve_s: float, phase: str = "profile") -> None:
     """Device time by kernel over a second, identical serve run (same seeds,
     same work). The profiler slows the host, so the device's idle share is
     taken against the unprofiled run's serve time."""
@@ -624,6 +886,7 @@ def profile_main_path(args, serve_s: float, phase: str = "profile") -> None:
 
     from repro_torch.launch import serve as launcher
 
+    args = launcher.build_parser().parse_args(argv)
     engine, sched, src = launcher.build(args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -637,11 +900,16 @@ def profile_main_path(args, serve_s: float, phase: str = "profile") -> None:
         if dev is None:
             dev = e.self_cuda_time_total
         if dev > 0:
-            rows.append({"name": e.key[:90], "device_ms": dev / 1e3, "count": e.count})
+            rows.append({"name": e.key[:90], "device_ms": dev / 1e3, "count": e.count,
+                         "kind": kernel_kind(e.key)})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
+    by_kind = {}
+    for r in rows:
+        by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["device_ms"] / args.horizon
     emit(phase, slots=args.horizon, device_busy_ms=busy,
-         device_busy_ms_per_slot=busy / args.horizon,
+         device_busy_ms_per_slot=busy / args.horizon, device_ms_per_slot_by_kind=by_kind,
+         kernel_launches_per_slot=sum(r["count"] for r in rows) / args.horizon,
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
          top=rows[:14], attention=[r for r in rows if "attention_kernel" in r["name"]])
@@ -661,13 +929,15 @@ def main() -> int:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     info = build.build()
+    from repro_torch.kernels import chunk_attention as kc
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import paged_attention as kp
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
          dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
                              "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
-                             "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4)})
+                             "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
+                             "chunk_attention_hd64": kc.smem_bytes(64)})
 
     timer = Timer()
     rows = check_kernels(timer)
@@ -675,17 +945,20 @@ def main() -> int:
     check_model()
     check_paged_model()
     check_preemption()
-    from repro_torch.launch.serve import build_parser
-    args = build_parser().parse_args(SERVE_ARGS)
-    main_path = drive_main_path(args)
-    profile_main_path(args, main_path["serve_s"])
-    paged_args = build_parser().parse_args(PAGED_ARGS)
-    paged_path = drive_main_path(paged_args, "paged_serve", PAGED_KERNELS)
-    profile_main_path(paged_args, paged_path["serve_s"], "paged_profile")
+    check_chunk_model()
+    main_path = drive_main_path(SERVE_ARGS)
+    profile_main_path(SERVE_ARGS, main_path["serve_s"])
+    paged_path = drive_main_path(PAGED_ARGS, "paged_serve", PAGED_KERNELS)
+    profile_main_path(PAGED_ARGS, paged_path["serve_s"], "paged_profile")
+    sync_path = drive_main_path(SYNC_ARGS, "sync_serve", SYNC_KERNELS)
+    profile_main_path(SYNC_ARGS, sync_path["serve_s"], "sync_profile")
+    chunked_path = drive_main_path(CHUNKED_ARGS, "chunked_serve", CHUNKED_KERNELS)
+    profile_main_path(CHUNKED_ARGS, chunked_path["serve_s"], "chunked_profile")
 
     # launches: each kernel's count from the run of the path it serves
     counts = {**main_path["launches"],
-              "paged_decode_attention": paged_path["launches"]["paged_decode_attention"]}
+              "paged_decode_attention": paged_path["launches"]["paged_decode_attention"],
+              "chunk_attention": chunked_path["launches"]["chunk_attention"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -693,7 +966,9 @@ def main() -> int:
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:32"),
            "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
-                                      "src/repro/kernels/paged_attention.py:38")}
+                                      "src/repro/kernels/paged_attention.py:38"),
+           "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
+                               "src/repro/kernels/chunk_attention.py:48")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

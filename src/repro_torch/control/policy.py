@@ -27,18 +27,30 @@ A policy is a frozen dataclass with four methods:
     to(device)        -> policy           the same policy, tables on device
 
 A policy that prices an engine signal (``MemoryAware``: page-pool
-occupancy) also has ``observe(carry, signal) -> carry'`` and names the
-signal in ``observation``; the scheduler observes before it acts.
+occupancy; ``TokenBacklogAware``: pending prompt tokens) also has
+``observe(carry, signal) -> carry'`` and names the signal in
+``observation``; the scheduler observes before it acts.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import numbers
 from typing import Any, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
 from repro_torch.core.utility import Utility, paper_utility
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device``. A Python number becomes a
+    ``full`` there, which copies nothing from the host: a tensor made from
+    host memory would block the card's stream (the sync-free loop feeds the
+    policy its observations this way every slot)."""
+    if isinstance(x, numbers.Real):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
 def drift_plus_penalty_action(
@@ -58,14 +70,15 @@ def drift_plus_penalty_action(
     queues). Returns (f_star, T_star), each of backlog's shape.
     """
     dev = rates.device
-    q = torch.as_tensor(backlog, dtype=torch.float32, device=dev).double()
-    V = torch.as_tensor(V, dtype=torch.float32, device=dev).double()
+    q = as_f32(backlog, dev).double()
+    V = as_f32(V, dev).double()
     T = (V * utilities.double() - q[..., None] * arrivals.double()).float()
     if extra_penalty is not None:
         T = (T.double() - extra_penalty.double()).float()
-    idx = torch.argmax(T, dim=-1)  # first maximizer = lowest rate on ties
-    f_star = rates[idx]
-    T_star = torch.gather(T, -1, idx[..., None])[..., 0]
+    idx = torch.argmax(T, dim=-1, keepdim=True)  # first maximizer = lowest rate on ties
+    # gather, not rates[idx]: indexing with a 0-d device tensor reads it back
+    f_star = torch.gather(rates.expand(*idx.shape[:-1], -1), -1, idx)[..., 0]
+    T_star = torch.gather(T, -1, idx)[..., 0]
     return f_star, T_star
 
 
@@ -236,13 +249,60 @@ class MemoryAware(_TablePolicy):
         return VirtualQueue.make(self.occupancy_budget)
 
     def observe(self, carry: VirtualQueue, occupancy) -> VirtualQueue:
-        return carry.step(torch.as_tensor(occupancy, dtype=torch.float32,
-                                          device=carry.value.device))
+        return carry.step(as_f32(occupancy, carry.value.device))
 
     def act(self, carry: VirtualQueue, backlog) -> tuple[torch.Tensor, VirtualQueue]:
         f, s, lam = self.tables()
         # the price table in float32 (the reference's cost table); each
         # product with Z stays exact until the functional rounds
+        extra = carry.value.double()[..., None] * (self.vq_cost_per_rate * f).double()
+        f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
+        return f_star, carry
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenBacklogAware(_TablePolicy):
+    """Algorithm 1 plus a virtual queue over pending prompt *tokens*.
+
+    The request-count backlog Q(t) under-prices ragged workloads: one long
+    prompt enqueues the prefill work of many short ones, so a controller
+    that only counts requests keeps admitting while the chunked prefill
+    pipeline falls behind. This policy extends the queue-overflow argument
+    to the token dimension the way ``MemoryAware`` extends it to page
+    occupancy, a second (virtual) queue in the drift:
+
+        Z(t+1) = max(Z(t) + tok(t) - token_budget, 0)
+
+    where tok(t) is the observed token backlog (the engine's
+    ``token_backlog()``: queued prompt tokens plus the unwritten tails of
+    chunked prefills), fed through ``observe`` each slot. ``act`` prices
+    candidate rates by the prompt tokens they commit:
+    Z(t) * tok_gain * tokens_per_request * f, with ``MemoryAware``'s two
+    roundings (ROADMAP R4).
+    """
+
+    rates: tuple[float, ...]
+    V: float
+    utility: Utility = None  # type: ignore[assignment]
+    arrival_gain: float = 1.0
+    tokens_per_request: float = 16.0  # expected prompt tokens one admission commits
+    token_budget: float = 64.0        # target time-average pending prompt tokens
+    tok_gain: float = 1.0             # price scale on the token queue
+
+    observation = "token_backlog"
+
+    @property
+    def vq_cost_per_rate(self) -> float:
+        return self.tok_gain * self.tokens_per_request
+
+    def init(self) -> VirtualQueue:
+        return VirtualQueue.make(self.token_budget)
+
+    def observe(self, carry: VirtualQueue, token_backlog) -> VirtualQueue:
+        return carry.step(as_f32(token_backlog, carry.value.device))
+
+    def act(self, carry: VirtualQueue, backlog) -> tuple[torch.Tensor, VirtualQueue]:
+        f, s, lam = self.tables()
         extra = carry.value.double()[..., None] * (self.vq_cost_per_rate * f).double()
         f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
         return f_star, carry

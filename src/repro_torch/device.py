@@ -16,3 +16,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A copy of the host array ``a`` (numpy or CPU tensor) on ``device``.
+
+    To a card it goes through pinned memory with ``non_blocking=True``: a
+    copy from pageable memory would synchronize the stream, and PyTorch's
+    caching host allocator keeps the pinned block until the copy has run.
+    On the CPU it is an ordinary copy."""
+    t = torch.as_tensor(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.clone()

@@ -11,11 +11,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
-from repro_torch.kernels.ref import (attention_ref, decode_attention_ref,
-                                     paged_decode_attention_ref)
+from repro_torch.kernels.ref import (attention_ref, chunk_attention_ref,
+                                     decode_attention_ref, paged_decode_attention_ref)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -45,3 +46,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos)
     return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables, pos)
+
+
+def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    slot_pos: torch.Tensor, pos0: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """Chunked-prefill attention: each row's chunk queries (at positions
+    pos0 ..) over the row's cache, which already holds the chunk."""
+    if q.device.type == "cpu":
+        return chunk_attention_ref(q, k, v, slot_pos, pos0, valid)
+    return _ca.chunk_attention(q, k, v, slot_pos, pos0, valid)

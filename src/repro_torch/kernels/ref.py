@@ -93,3 +93,34 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     allocated = (block_tables >= 0).repeat_interleave(ps, dim=1)
     slot_pos = torch.where(allocated, j, -1)
     return decode_attention_ref(q, kk, vv, slot_pos, pos)
+
+
+def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        slot_pos: torch.Tensor, pos0: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Chunked-prefill attention: C chunk queries per row against the row's
+    cache, full masked softmax.
+
+    q (B,C,H,hd); cache k/v (B,L,KVH,hd), already holding the chunk;
+    slot_pos (B,L) absolute position per slot (-1 empty); pos0 (B,) the
+    chunk's first position; valid (B,) its real tokens. Query i of row b
+    sits at pos0[b] + i and sees the slots with 0 <= slot_pos <= that
+    position; query rows at or beyond ``valid`` are zeros (padding, never
+    consumed), so a row with valid 0 is all zeros.
+    """
+    B, C, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    kk = k.repeat_interleave(G, dim=2).float()
+    vv = v.repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,blhd->bhql", q.float(), kk) * hd ** -0.5
+    cols = torch.arange(C, device=q.device)
+    qpos = pos0[:, None] + cols[None, :]                         # (B, C)
+    sp = slot_pos[:, None, :]
+    ok = (sp >= 0) & (sp <= qpos[:, :, None])                     # (B, C, L)
+    s = torch.where(ok[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    out = torch.einsum("bhql,blhd->bqhd", p.float(), vv.float()).to(q.dtype)
+    rows = cols[None, :] < valid[:, None]
+    return torch.where(rows[..., None, None], out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))

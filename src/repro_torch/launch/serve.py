@@ -17,8 +17,18 @@ per-slot cache rows:
       --smoke --paged --policy memory-aware --horizon 12 [--device cpu]
 
 ``--legacy-loop`` switches the dense engine off the fused (1 prefill + 1
-decode dispatch per slot) path. Flags of paths the port does not have yet
-raise NotImplementedError naming the ROADMAP.md queue item that brings them.
+decode dispatch per slot) path. ``--sync-free`` serves the dense engine
+with no blocking readback per slot (device-resident stop masks and token
+ring, counters copied back a slot late, one-slot-lagged control);
+``--chunked`` adds continuous batching, prompts entering the cache a chunk
+per slot inside one mixed dispatch, and pairs with ``--policy token-aware``,
+which prices pending prompt tokens against ``--token-budget``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --chunked --policy token-aware --horizon 12 [--device cpu]
+
+Flags of paths the port does not have yet raise NotImplementedError naming
+the ROADMAP.md queue item that brings them.
 """
 from __future__ import annotations
 
@@ -32,15 +42,13 @@ from repro_torch.models import init_params
 from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
                                  MemoryAwareScheduler, PagedEngine,
                                  PagedEngineConfig, PolicyScheduler,
-                                 RequestSource, StaticScheduler, latency_stats,
-                                 serve)
+                                 RequestSource, StaticScheduler,
+                                 TokenAwareScheduler, latency_stats, serve)
 
 # flag -> the ROADMAP.md queue-1 item that will bring its path
 _UNPORTED = {
     "prefix_sharing": "item 8 (prefix sharing)",
     "quant_pages": "item 9 (quantized KV pages)",
-    "sync_free": "item 6 (sync-free loop)",
-    "chunked": "item 6 (chunked continuous batching)",
     "replicas": "item 8 (the fleet)",
     "kv_precision": "item 9 (quantized KV pages)",
     "temperature": "item 7 (per-request sampling)",
@@ -53,8 +61,9 @@ _UNPORTED = {
     "trace_out": "item 10 (observability and reliability)",
     "decisions_out": "item 10 (observability and reliability)",
 }
+# the paged engine's sync-free and chunked loops
+_UNPORTED_PAGED = "item 6 (the paged sync-free loop and paged chunked batching)"
 _UNPORTED_POLICIES = {
-    "token-aware": "item 2 (TokenBacklogAware) with item 6 (chunked batching)",
     "precision-aware": "item 2 (PrecisionAware) with item 9 (quantized KV pages)",
     "conformal-slo": "item 10 (observability and reliability)",
 }
@@ -68,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; no card and no --device cpu fails")
     ap.add_argument("--policy", default="adaptive",
                     choices=["adaptive", "static", "latency-aware", "memory-aware",
-                             *_UNPORTED_POLICIES])
+                             "token-aware", *_UNPORTED_POLICIES])
     ap.add_argument("--cost-budget", type=float, default=4.0,
                     help="latency-aware: time-average rate budget")
     ap.add_argument("--paged", action="store_true",
@@ -81,6 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="memory-aware: target time-average pool occupancy")
     ap.add_argument("--legacy-loop", action="store_true",
                     help="per-step loop (k prefills + n decode dispatches)")
+    ap.add_argument("--sync-free", action="store_true",
+                    help="zero-blocking-sync loop (device-resident stop masks, "
+                         "async counter readback)")
+    ap.add_argument("--chunked", action="store_true",
+                    help="continuous batching: chunked prefill interleaved with "
+                         "decode in one dispatch per slot (implies the "
+                         "sync-free protocol)")
+    ap.add_argument("--chunk-size", type=int, default=0,
+                    help="chunked: prompt tokens per row per slot "
+                         "(0 = prompt_len // 4)")
+    ap.add_argument("--chunk-budget", type=int, default=0,
+                    help="chunked: max prefill tokens per slot across rows "
+                         "(0 = unlimited)")
+    ap.add_argument("--token-budget", type=float, default=64.0,
+                    help="token-aware: target time-average pending prompt tokens")
     ap.add_argument("--min-prompt-len", type=int, default=None,
                     help="ragged workload: prompt lengths uniform in "
                          "[min, prompt-len] (exercises bucketed prefill)")
@@ -94,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--capacity", type=int, default=32)
-    for flag in ("prefix_sharing", "sync_free", "chunked", "metrics"):
+    for flag in ("prefix_sharing", "metrics"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
     for flag in ("quant_pages", "replicas", "kv_precision", "temperature", "top_k",
@@ -112,6 +136,10 @@ def build(args):
     if args.paged and args.legacy_loop:
         raise ValueError("--legacy-loop is a dense-engine comparison path; "
                          "the paged engine has no per-step loop")
+    if args.sync_free and args.legacy_loop:
+        raise ValueError("--sync-free and --legacy-loop are mutually exclusive")
+    if args.chunked and args.legacy_loop:
+        raise ValueError("--chunked and --legacy-loop are mutually exclusive")
     if args.prefix_sharing and not args.paged:
         raise ValueError("--prefix-sharing shares pages of the paged KV pool; "
                          "it requires --paged")
@@ -126,10 +154,19 @@ def build(args):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
                 f"queue 1 {item}")
+    if args.paged and (args.sync_free or args.chunked):
+        flag = "--chunked" if args.chunked else "--sync-free"
+        raise NotImplementedError(
+            f"--paged with {flag} is not ported yet; see ROADMAP.md queue 1 "
+            f"{_UNPORTED_PAGED}")
     if args.policy in _UNPORTED_POLICIES:
         raise NotImplementedError(
             f"--policy {args.policy} is not ported yet; see ROADMAP.md queue 1 "
             f"{_UNPORTED_POLICIES[args.policy]}")
+    for name in ("chunk_size", "chunk_budget"):
+        if getattr(args, name) < 0:
+            raise ValueError(f"--{name.replace('_', '-')} must be >= 0, "
+                             f"got {getattr(args, name)}")
     for name in ("slots", "prompt_len", "cache_len", "page_size", "num_pages",
                  "max_active", "capacity", "horizon", "raw_rate"):
         if getattr(args, name) < 1:
@@ -146,7 +183,8 @@ def build(args):
     else:
         engine = Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
-            cache_len=args.cache_len, eos_id=args.eos_id))
+            cache_len=args.cache_len, eos_id=args.eos_id,
+            chunk_size=args.chunk_size, chunk_budget=args.chunk_budget))
     rates = tuple(float(f) for f in range(1, args.raw_rate + 1))
     if args.policy == "adaptive":
         sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity)
@@ -159,6 +197,10 @@ def build(args):
         sched = MemoryAwareScheduler(rates=rates, V=args.V,
                                      occupancy_budget=args.occupancy_budget,
                                      capacity=args.capacity)
+    elif args.policy == "token-aware":
+        sched = TokenAwareScheduler(rates=rates, V=args.V, token_budget=args.token_budget,
+                                    tokens_per_request=float(args.prompt_len),
+                                    capacity=args.capacity)
     else:
         sched = StaticScheduler(rate=args.rate, capacity=args.capacity)
     src = RequestSource(vocab_size=cfg.vocab_size, prompt_len=args.prompt_len,
@@ -170,7 +212,8 @@ def build(args):
 def run(args, engine, sched, src) -> dict:
     """Serve ``args.horizon`` control slots, two decode steps each."""
     return serve(engine, sched, src, horizon=args.horizon, steps_per_slot=2,
-                 fused=not args.legacy_loop)
+                 fused=not args.legacy_loop, sync_free=args.sync_free,
+                 chunked=args.chunked)
 
 
 def summary(args, tr: dict, sched) -> str:

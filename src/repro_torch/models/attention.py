@@ -5,8 +5,9 @@ Shapes follow the reference package: x (B, S, D); q (B, S, H, hd); k, v
 (B, cache_len) int32 (-1 = empty). The cache is a ring: each slot stores
 the absolute position it holds, so slot validity comes from slot_pos, not
 layout. Prefill attention goes to ``kernels.ops.flash_attention`` and
-decode attention to ``kernels.ops.decode_attention`` (the hand-written
-kernels on the card, their plain versions on the CPU).
+decode attention to ``kernels.ops.decode_attention`` and chunked-prefill
+attention to ``kernels.ops.chunk_attention`` (the hand-written kernels on
+the card, their plain versions on the CPU).
 
 The paged path keeps K/V in a shared pool of pages (``PagedKVPool``) that
 block tables index; its decode attention goes to
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import host_to_device
 from repro_torch.kernels import ops
 from repro_torch.models.layers import apply_rope, cdtype, param, rmsnorm
 
@@ -145,6 +147,59 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     cache.v[b_idx, slot] = v.to(cache.v.dtype)
     cache.slot_pos[b_idx, slot] = pos
     o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos, window=window)
+    return p.out(o)
+
+
+class ChunkWrites(NamedTuple):
+    """Where one chunk dispatch writes K/V: the valid (row, chunk column)
+    pairs, the ring slot and the absolute position of each. Built on the
+    host, which knows every row's pos0 and valid, and shared by all layers."""
+
+    rows: torch.Tensor    # (n,) int64 batch rows
+    cols: torch.Tensor    # (n,) int64 chunk columns
+    slots: torch.Tensor   # (n,) int64 ring slots, pos % cache_len
+    pos: torch.Tensor     # (n,) int32 absolute positions
+
+
+def chunk_write_targets(pos0: np.ndarray, valid: np.ndarray, cache_len: int,
+                        device) -> ChunkWrites:
+    """The (row, column) pairs a chunk writes: column c of row b for c <
+    valid[b], at position pos0[b] + c. The reference scatters every pair
+    and drops the rest (``mode="drop"``); PyTorch has no dropping scatter,
+    so the host lists the valid pairs, and one pinned copy takes them to
+    the device (a mask selection there would read a count back)."""
+    valid = np.asarray(valid, np.int64)
+    rows = np.repeat(np.arange(len(valid)), valid)
+    cols = np.arange(len(rows)) - np.repeat(np.cumsum(valid) - valid, valid)
+    pos = np.asarray(pos0, np.int64)[rows] + cols
+    idx = host_to_device(np.stack([rows, cols, pos % cache_len, pos]), torch.device(device))
+    return ChunkWrites(idx[0], idx[1], idx[2], idx[3].to(torch.int32))
+
+
+def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor,
+               valid: torch.Tensor, cfg: ModelConfig, writes: ChunkWrites, *,
+               reset: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Chunked-prefill attention: rope the chunk at pos0 + arange(C), write
+    its valid K/V and slot_pos into the ring in place (``writes``), then
+    attend the chunk's queries over the row's whole cache, earlier chunks
+    and the chunk itself. x (B, C, D); pos0 and valid (B,) int32.
+
+    ``reset`` (B,) bool marks rows whose cache still holds a previous
+    tenant: their slot_pos is invalidated before the write (stale K/V need
+    no zeroing, an invalid slot's weight is exactly 0). Query rows at or
+    beyond ``valid`` come out as zeros; the caller never reads them.
+    """
+    B, C, _ = x.shape
+    q, k, v = p.qkv(x, cfg)
+    pos = pos0[:, None] + torch.arange(C, device=x.device)[None, :]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if reset is not None:
+        cache.slot_pos.masked_fill_(reset[:, None], -1)
+    cache.k[writes.rows, writes.slots] = k[writes.rows, writes.cols].to(cache.k.dtype)
+    cache.v[writes.rows, writes.slots] = v[writes.rows, writes.cols].to(cache.v.dtype)
+    cache.slot_pos[writes.rows, writes.slots] = writes.pos
+    o = ops.chunk_attention(q, cache.k, cache.v, cache.slot_pos, pos0, valid)
     return p.out(o)
 
 

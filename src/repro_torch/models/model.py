@@ -4,6 +4,8 @@
   prefill(model, tokens, cache_len, ...)          -> (last_logits, DecodeState)
   decode_step(model, state, tokens, ...)          -> (logits, DecodeState)
   decode_step_paged(model, state, tokens)         -> (logits, PagedDecodeState)
+  chunk_step(model, state, tokens, pos0, valid, reset, writes)
+                                                  -> (logits, DecodeState)
   paged_splice_prompt(pools, caches, page_idx)    -> pools (prefill -> pages)
 
 ``Model`` keeps the reference package's parameter layouts (see
@@ -94,7 +96,8 @@ def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     h = embed(model.tok, tokens)
     # dense-family scaling; the factor is rounded to h's dtype first, as the
     # reference's h * asarray(sqrt(d_model), h.dtype)
-    return h * torch.tensor(model.cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
+    # (``full`` copies nothing from the host, so it does not block the stream)
+    return h * torch.full((), model.cfg.d_model ** 0.5, dtype=h.dtype, device=h.device)
 
 
 @torch.no_grad()
@@ -144,6 +147,36 @@ def decode_step(model: Model, state: DecodeState, tokens: torch.Tensor, *,
     logits = unembed(model.tok, rmsnorm(model.ln_f, h, cfg.norm_eps))
     return logits, DecodeState(caches=state.caches, pos=state.pos + 1,
                                last_tok=tokens.to(torch.int32))
+
+
+@torch.no_grad()
+def chunk_step(model: Model, state: DecodeState, tokens: torch.Tensor,
+               pos0: torch.Tensor, valid: torch.Tensor, reset: torch.Tensor,
+               writes: A.ChunkWrites) -> tuple[torch.Tensor, DecodeState]:
+    """Process one prompt chunk per row against the decode caches, in place.
+
+    tokens (B, C) int32: up to C prompt tokens per row, written at
+    positions [pos0, pos0 + valid); a row with valid 0 does no chunk work
+    (its logits are garbage the caller masks). ``reset`` (B,) bool marks
+    rows whose cache still holds a previous tenant; ``writes`` (from
+    ``attention.chunk_write_targets``) lists the valid (row, column)
+    pairs. Returns the logits at each row's *last valid* chunk position —
+    for a row finishing its prompt, the length-aware prefill's last-token
+    logits — and a state whose ``pos`` is pos0 + valid and ``last_tok``
+    the chunk's last token for chunk rows, unchanged elsewhere.
+    """
+    cfg = model.cfg
+    B, C = tokens.shape
+    h = _embed(model, tokens)
+    h = T.chunk_hidden(model.stack, h, state.caches, pos0, valid, reset, cfg, writes)
+    last = torch.clamp(valid - 1, 0, C - 1).long()
+    rows = torch.arange(B, device=tokens.device)
+    logits = unembed(model.tok, rmsnorm(model.ln_f, h[rows, last], cfg.norm_eps))
+    chunked = valid > 0
+    return logits, DecodeState(
+        caches=state.caches,
+        pos=torch.where(chunked, pos0 + valid, state.pos),
+        last_tok=torch.where(chunked, tokens[rows, last].to(torch.int32), state.last_tok))
 
 
 @torch.no_grad()

@@ -64,6 +64,13 @@ def ragged_prefill_supported(cfg: ModelConfig) -> bool:
     return all(s.kind == "attn" for s in plan_segments(cfg, "decoder"))
 
 
+def chunked_prefill_supported(cfg: ModelConfig) -> bool:
+    """Chunked (continuous-batching) prefill covers the ragged-prefill
+    archs: per-position outside attention, so chunk boundaries cannot
+    change a row's arithmetic."""
+    return ragged_prefill_supported(cfg)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """The port runs dense decoder-only stacks at native KV precision."""
     if cfg.arch_type != "dense" or not ragged_prefill_supported(cfg):
@@ -131,6 +138,20 @@ def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
         for i, p in enumerate(seg):
             a = A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
                               cache.layer(i), pos, cfg, window=shape_window)
+            h = _ffn(p, h + a, cfg)
+    return h
+
+
+def chunk_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
+                 pos0: torch.Tensor, valid: torch.Tensor, reset: torch.Tensor,
+                 cfg: ModelConfig, writes: A.ChunkWrites) -> torch.Tensor:
+    """One prompt-chunk pass over h (B, C, D) with ``prefill_hidden``'s
+    per-layer order (attention -> residual -> MLP); ``attn_chunk`` writes
+    each layer's cache in place at the per-row offsets."""
+    for seg, cache in zip(stack, caches, strict=True):
+        for i, p in enumerate(seg):
+            a = A.attn_chunk(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cache.layer(i),
+                             pos0, valid, cfg, writes, reset=reset)
             h = _ffn(p, h + a, cfg)
     return h
 

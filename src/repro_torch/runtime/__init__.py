@@ -1,10 +1,12 @@
 from repro_torch.runtime.engine import (Engine, EngineConfig, PagedEngine,
-                                       PagedEngineConfig)
+                                       PagedEngineConfig, ReadbackTimeout)
 from repro_torch.runtime.request import Request, RequestSource
 from repro_torch.runtime.scheduler import (AdaptiveScheduler, MemoryAwareScheduler,
-                                           PolicyScheduler, StaticScheduler)
+                                           PolicyScheduler, StaticScheduler,
+                                           TokenAwareScheduler)
 from repro_torch.runtime.server import latency_stats, serve
 
 __all__ = ["AdaptiveScheduler", "Engine", "EngineConfig", "MemoryAwareScheduler",
-           "PagedEngine", "PagedEngineConfig", "PolicyScheduler", "Request",
-           "RequestSource", "StaticScheduler", "latency_stats", "serve"]
+           "PagedEngine", "PagedEngineConfig", "PolicyScheduler", "ReadbackTimeout",
+           "Request", "RequestSource", "StaticScheduler", "TokenAwareScheduler",
+           "latency_stats", "serve"]

@@ -11,8 +11,17 @@ serving-system analogue of the paper's Fig. 2, with a real model in the
 loop. The per-slot ``syncs`` column counts dispatch-gating synchronous
 readbacks. With a ``PagedEngine`` the scheduler also observes the page
 pool's occupancy each slot, and the ``occupancy`` column records its
-high-water mark (0.0 for the dense engine). The sync-free and chunked
-loops come with the slice that ports them (ROADMAP.md queue 1 item 6).
+high-water mark (0.0 for the dense engine).
+
+``sync_free=True`` selects the zero-blocking-sync protocol: the
+scheduler's decision pipelines through ``control_async`` (one-slot-lagged
+control) and the engine's ``step_slot_sync`` dispatches every slot from
+device-resident state, consuming the previous slot's counter copy after
+it. ``chunked=True`` runs continuous batching (``step_slot_chunked``)
+under the same protocol. The trace's ``served`` counts then lag the device
+by one slot; ``serve`` flushes the tail with ``engine.drain()`` and folds
+it into the last slot. Every slot the scheduler also observes the engine's
+token backlog (pending prompt tokens), which ``TokenBacklogAware`` prices.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ from repro_torch.runtime.request import RequestSource
 
 
 def serve(engine: Engine, scheduler, source: RequestSource, *,
-          horizon: int, steps_per_slot: int = 2, fused: bool = True) -> dict:
+          horizon: int, steps_per_slot: int = 2, fused: bool = True,
+          sync_free: bool = False, chunked: bool = False) -> dict:
     if getattr(scheduler, "device", "") is None:
         scheduler.device = engine.device   # Algorithm 1 runs beside the engine
     trace = {"backlog": [], "rate": [], "served": [], "active": [],
@@ -36,10 +46,22 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         # occupancy dips as retirements free pages, hiding the pressure the
         # controller must price
         occ = max(engine.occupancy(), engine.occupancy_hwm) if paged else None
-        rate = scheduler.control(engine.queue_len(), occupancy=occ)
+        tok = engine.token_backlog()
+        if sync_free or chunked:
+            rate = scheduler.control_async(engine.queue_len(), occupancy=occ,
+                                           token_backlog=tok)
+        else:
+            rate = scheduler.control(engine.queue_len(), occupancy=occ,
+                                     token_backlog=tok)
         reqs = source.poll(t, rate)
         scheduler.admit(engine, reqs, t)
-        if fused:
+        if chunked:
+            m = engine.step_slot_chunked(t, n_steps=steps_per_slot)
+            served = m["served"]
+        elif sync_free:
+            m = engine.step_slot_sync(t, n_steps=steps_per_slot)
+            served = m["served"]
+        elif fused:
             m = engine.step_slot(t, n_steps=steps_per_slot)
             served = m["served"]
         else:
@@ -57,6 +79,10 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         )
         trace["occupancy"].append(engine.occupancy_hwm if paged else 0.0)
         trace["syncs"].append(engine.blocking_syncs - s0)
+    if (sync_free or chunked) and trace["served"]:
+        # flush the in-flight slot's readback so the totals match the
+        # synchronous paths; its completions belong to the last slot
+        trace["served"][-1] += engine.drain()["served"]
     return {k: np.asarray(v) for k, v in trace.items()}
 
 

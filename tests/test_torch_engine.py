@@ -33,6 +33,19 @@ MARGIN = 1e-4
 _W = {}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread for the port's smoke-size CPU tests, put
+    back after the module. The suite runs several test workers on the
+    machine's cores; a thread pool per worker sized to all of them turns the
+    eager loops' many tiny ops into contention that made these tests
+    several times slower. Modules that import this fixture get it too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights():
     if not _W:
         cfg = ref_get_config("granite-3-2b", smoke=True)
@@ -100,7 +113,7 @@ def test_serve_trace_and_streams_match_reference(fused, min_prompt_len):
 
 
 def _launch(module, *extra):
-    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
+    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", module, "--arch", "granite-3-2b", "--smoke",
                           "--horizon", "12", *extra], env=env, capture_output=True,
                          text=True, timeout=300)
@@ -119,7 +132,8 @@ def test_launcher_summary_line_matches_reference():
 
 def test_launcher_refuses_unported_paths():
     from repro_torch.launch import serve as launcher
-    for argv in (["--paged", "--prefix-sharing"], ["--sync-free"], ["--chunked"],
+    for argv in (["--paged", "--prefix-sharing"], ["--paged", "--sync-free"],
+                 ["--paged", "--chunked"], ["--policy", "token-aware", "--paged", "--chunked"],
                  ["--replicas", "2"], ["--kv-precision", "int8"], ["--temperature", "0.7"],
                  ["--tenants", "gold:1:1:6"], ["--paged", "--kv-precision", "int8"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -13,6 +13,7 @@ from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as k_paged
+from test_torch_engine import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # float32 on both sides: the two softmaxes differ only in summation order
 ATOL = 2e-5

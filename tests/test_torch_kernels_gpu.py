@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import chunk_attention as k_chunk
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import paged_attention as k_paged
@@ -138,3 +139,53 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, B, MP, ps, H, KVH, hd):
     assert torch.isfinite(got).all()
     assert not got[0].any()           # no valid slot: the kernel writes zeros
     assert _err_ok(got[1:], want[1:], dtype)
+
+
+def chunk_case(rng, B, C, L, H, KVH, hd):
+    """Rows cycle through: a first chunk (pos0 0), a mid-prompt chunk with
+    a hole in its prefix, a partial final chunk (valid < C) and an inactive
+    row (valid 0). Each row's cache holds positions 0..pos0+valid-1 in
+    order (capped at L); slots beyond the written prefix, and the hole, are
+    empty (slot_pos -1) and hold +-1e30 garbage. Numpy arrays."""
+    pos0 = np.zeros(B, np.int32)
+    valid = np.zeros(B, np.int32)
+    sp = np.full((B, L), -1, np.int32)
+    for b in range(B):
+        kind = b % 4
+        n = int(rng.integers(1, C + 1))
+        p0 = 0 if kind == 0 else int(rng.integers(0, max(L - C, 0) + 1))
+        valid[b] = {0: C, 1: C, 2: min(n, C - 1) if C > 1 else 1, 3: 0}[kind]
+        pos0[b] = min(p0, L - max(valid[b], 1))
+        end = pos0[b] + valid[b] if valid[b] else pos0[b]
+        sp[b, :end] = np.arange(end)
+        if kind == 1 and end > 2:
+            sp[b, end // 2] = -1
+    q = rng.standard_normal((B, C, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((B, L, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    empty = (sp < 0)[..., None, None]
+    return q, np.where(empty, junk, k), np.where(empty, -junk, v), sp, pos0, valid
+
+
+# (B, C, L, H, KVH, hd): the serving shape, C of 16/64/128 against L of 64
+# and 1024, a ragged C, and a group of one
+GPU_CHUNK = [(8, 128, 1024, 32, 8, 64), (8, 64, 1024, 32, 8, 64), (8, 16, 1024, 32, 8, 64),
+             (4, 16, 64, 8, 2, 32), (4, 64, 64, 8, 2, 128), (5, 40, 100, 4, 4, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,L,H,KVH,hd", GPU_CHUNK)
+def test_chunk_kernel_matches_plain_on_card(cuda, dtype, B, C, L, H, KVH, hd):
+    rng = np.random.default_rng(C * L + B)
+    arrs = chunk_case(rng, B, C, L, H, KVH, hd)
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
+    sp, pos0, valid = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
+    got = k_chunk.chunk_attention(q, k, v, sp, pos0, valid)
+    want = ref.chunk_attention_ref(q, k, v, sp, pos0, valid)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(arrs[5]):
+        assert not got[b, n:].any()    # padding rows, and all of an inactive row
+    assert _err_ok(got, want, dtype)

@@ -13,6 +13,7 @@ from repro.models import model as RM
 from repro_torch.configs import get_config
 from repro_torch.models import decode_step, prefill
 from repro_torch.models.convert import params_from_numpy
+from test_torch_engine import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # Both sides run in float32. They differ in summation order (matmuls,
 # softmax) and in the transcendental functions (rope's cos/sin, exp), which

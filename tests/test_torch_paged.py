@@ -34,7 +34,8 @@ from repro_torch.models import transformer as T
 from repro_torch.runtime import (Engine, EngineConfig, MemoryAwareScheduler,
                                  PagedEngine, PagedEngineConfig, RequestSource,
                                  serve)
-from test_torch_engine import MARGIN, MarginComparator, _launch, _streams, _weights
+from test_torch_engine import (  # noqa: F401  (one_torch_thread: an autouse fixture)
+    MARGIN, MarginComparator, _launch, _streams, _weights, one_torch_thread)
 
 # float32 on both sides; the softmaxes differ only in summation order
 ATOL = 2e-5
