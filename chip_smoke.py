@@ -67,13 +67,20 @@ SERVE_ARGS = ["--arch", "granite-3-2b", "--slots", "8", "--prompt-len", "512",
               "--horizon", "12"]
 # the paged path: 16 rows over a pool of 192 pages of 16 rows (3,072 tokens,
 # ~252 MB of K/V over 40 layers), which prompts of 128-512 tokens fill
-PAGED_ARGS = SERVE_ARGS + ["--paged", "--policy", "memory-aware", "--max-active", "16",
-                           "--page-size", "16", "--num-pages", "192"]
+PAGED_POOL = ["--paged", "--max-active", "16", "--page-size", "16", "--num-pages", "192"]
+PAGED_ARGS = SERVE_ARGS + PAGED_POOL + ["--policy", "memory-aware"]
 SYNC_ARGS = SERVE_ARGS + ["--sync-free"]
 # continuous batching under TokenBacklogAware: chunks of 512 // 4 = 128 and
 # a token budget of one slot's chunk budget (8 x 128), at which the CPU
 # rehearsal's rate both falls and rises within the 12 slots
 CHUNKED_ARGS = SERVE_ARGS + ["--chunked", "--policy", "token-aware", "--token-budget", "1024"]
+# the paged path over a mixed pool under PrecisionAware: 128 native bf16
+# pages (~168 MB over 40 layers) and 64 int8 pages (~42 MB, plus scales);
+# admissions move onto int8 pages once occupancy reaches 0.5 and back at 0.3,
+# at which the CPU rehearsal's latch flips both ways within the 12 slots
+QUANT_ARGS = SERVE_ARGS + PAGED_POOL + [
+    "--policy", "precision-aware", "--kv-precision", "int8", "--quant-pages", "64",
+    "--downgrade-at", "0.5", "--upgrade-at", "0.3"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -390,7 +397,100 @@ def check_kernels(timer) -> dict:
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
                _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
+    check_quant_kernel(rng, record)
     return rows
+
+
+def _abs_codes(c):
+    """|dequantized value| as codes: int8 magnitudes, or fp8 with the sign
+    bit cleared (the scales are positive)."""
+    if c.dtype == torch.int8:
+        return c.abs()
+    return (c.view(torch.uint8) & 0x7F).view(torch.float8_e4m3fn)
+
+
+def _quant_work(H, KVH, hd, esize, ps, Nn, block_tables, pos):
+    """Bytes and FLOPs this quantized or mixed paged decode needs: per valid
+    slot its K and V rows, in q's dtype on a native page or as one-byte
+    codes plus a 4-byte scale per KV head on a quantized page; q, the
+    output, the block tables and pos; 4*hd FLOPs per (head, valid slot)."""
+    B, MP = block_tables.shape
+    slot_ok = np.repeat(block_tables >= 0, ps, axis=1) & (
+        np.arange(MP * ps)[None, :] <= pos[:, None])
+    quant = np.repeat(block_tables >= Nn, ps, axis=1) & slot_ok
+    nv, nq = int(slot_ok.sum()), int(quant.sum())
+    nbytes = (2 * KVH * ((nv - nq) * hd * esize + nq * (hd + 4)) + esize * 2 * B * H * hd
+              + 4 * (block_tables.size + B))
+    return nbytes, 4.0 * hd * H * nv
+
+
+def check_quant_kernel(rng, record) -> None:
+    """K3q at K3's main-path shape (16 rows, 64-page tables of 16 rows, H
+    32/8, hd 64) in bf16 and f32, over an all-int8 pool, an all-fp8 pool
+    and a mixed pool (the lower half native, the upper half int8): rows 1-3
+    at page-boundary positions, an inactive row 0 (all -1: the kernel
+    writes zeros, checked apart), unallocated table tails, +-1e30 garbage
+    (quantized to +-qmax codes) in every row no table reaches. The mixed
+    bf16 case is the quantized serve's and goes into the ``kernels`` line."""
+    from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels import paged_attention_quant as kq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+
+    B, MP, ps, H, KVH, hd = 16, 64, 16, 32, 8, 64
+    for pool in ("mixed", "int8", "fp8"):
+        pos_np = rng.integers(128, MP * ps, B).astype(np.int32)
+        pos_np[1:4] = (ps - 1, ps, 2 * ps - 1)
+        pos_np[0] = -1
+        k_np, v_np, bt_np, pos_np = _paged_inputs(rng, B, MP, ps, KVH, hd, pos_np)
+        prec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
+        Nn = k_np.shape[0] // 2 if pool == "mixed" else 0
+        qk, ks = quantize_kv(torch.from_numpy(k_np[Nn:]).cuda(), prec)
+        qv, vs = quantize_kv(torch.from_numpy(v_np[Nn:]).cuda(), prec)
+        bt, pos = torch.from_numpy(bt_np).cuda(), torch.from_numpy(pos_np).cuda()
+        has = torch.from_numpy((bt_np >= 0).any(axis=1)).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda()
+            q = q.to(dtype)
+            k = v = None
+            if Nn:
+                k, v = (torch.from_numpy(a[:Nn]).cuda().to(dtype) for a in (k_np, v_np))
+            case = f"paged_decode_attention_quant {pool} B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} " \
+                   f"{str(dtype)[6:]}"
+            fn = lambda q=q, k=k, v=v: kq.paged_decode_attention_quant(q, k, v, qk, qv, ks, vs,
+                                                                        bt, pos)
+            if Nn:
+                plain = lambda q=q, k=k, v=v: ref.paged_decode_attention_mixed_ref(
+                    q, k, v, qk, qv, ks, vs, bt, pos)
+                env = ref.paged_decode_attention_mixed_ref(q, k, v.abs(), qk, _abs_codes(qv), ks,
+                                                           vs, bt, pos)
+            else:
+                plain = lambda q=q: ref.paged_decode_attention_quant_ref(q, qk, qv, ks, vs, bt,
+                                                                         pos)
+                env = ref.paged_decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, bt, pos)
+            got = fn()
+            torch.cuda.synchronize()
+            if got[~has].any():
+                raise AssertionError(f"{case}: a row with no valid slot is not zeros")
+            flat = bt.clamp(0, k_np.shape[0] - 1).flatten()
+            valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
+                     & (torch.arange(MP * ps, device="cuda")[None, :] <= pos[:, None]))
+            mask = valid[:, None, None, :]
+
+            def lib(q=q, k=k, v=v, flat=flat, mask=mask):
+                kk, vv = dequantize_kv(qk, ks, q.dtype), dequantize_kv(qv, vs, q.dtype)
+                if k is not None:
+                    kk, vv = torch.cat((k, kk)), torch.cat((v, vv))
+                kk = kk.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+                vv = vv.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+                return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                                      enable_gqa=True)
+            record(case, "paged_decode_attention_quant", dtype, got[has], plain()[has], env[has],
+                   fn, plain, lib,
+                   _quant_work(H, KVH, hd, q.element_size(), ps, Nn, bt_np, pos_np),
+                   pool == "mixed" and dtype == torch.bfloat16,
+                   library="dequantize + index_select of the K and V pages + "
+                           "scaled_dot_product_attention")
 
 
 # --------------------------------------------------------------- model
@@ -497,11 +597,13 @@ def check_model() -> dict:
     return res
 
 
-def _paged_state(model, toks, lens, ps, MP, n_steps):
+def _paged_state(model, toks, lens, ps, MP, n_steps, prec="", native_pages=None):
     """Prefill ``toks`` (cache_len = the bucket) and copy each row's dense
     cache into pages of a fresh pool: row b gets the pages for
-    lens[b] + n_steps positions, in a shuffled order. Returns the prefill
-    logits and a PagedDecodeState."""
+    lens[b] + n_steps positions, in a shuffled order. ``prec`` (int8, fp8)
+    makes the pool's ids from ``native_pages`` on (None: all) a quantized
+    region, which the copy quantizes into. Returns the prefill logits and a
+    PagedDecodeState."""
     from repro_torch.cache import pages_for
     from repro_torch.models import model as M
     from repro_torch.models import transformer as T
@@ -520,7 +622,8 @@ def _paged_state(model, toks, lens, ps, MP, n_steps):
         k = min(n, S // ps)
         page_idx[b, :k] = bt[b, :k]
     logits, dense = M.prefill(model, toks, S, prompt_lens=lens)
-    pools = M.paged_splice_prompt(T.paged_pools_init(model.cfg, N, ps, "cuda"),
+    cfg = model.cfg.replace(kv_precision=prec) if prec else model.cfg
+    pools = M.paged_splice_prompt(T.paged_pools_init(cfg, N, ps, "cuda", native_pages),
                                   dense.caches, page_idx)
     state = M.PagedDecodeState(pools, torch.from_numpy(bt).cuda(), lens.clone(),
                                dense.last_tok)
@@ -592,6 +695,138 @@ def check_paged_model() -> dict:
         raise AssertionError("paged path and dense path disagree")
     if not max(fault) > MODEL_TOL:
         raise AssertionError("the model tolerance does not catch two swapped pages")
+    return res
+
+
+def _quant_impls():
+    """Stand-ins for ``repro_torch.kernels.ops`` in the quantized model
+    check: the plain versions, and two deliberately faulty decodes: one
+    that reads a mixed pool's quantized page ids as native pages (the
+    offset by native_pages forgotten), one that dequantizes each page with
+    the scales of the neighbouring page."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops, ref
+
+    def flash(q, k, v, seq_lens=None, *, causal, window):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
+
+    def quant(q, k, v, qk, qv, ks, vs, bt, pos):
+        if k is None:
+            return ref.paged_decode_attention_quant_ref(q, qk, qv, ks, vs, bt, pos)
+        return ref.paged_decode_attention_mixed_ref(q, k, v, qk, qv, ks, vs, bt, pos)
+
+    def quant_ids_as_native(q, k, v, qk, qv, ks, vs, bt, pos):
+        Nn = k.shape[0]
+        return ops.paged_decode_attention(q, k, v, torch.where(bt >= Nn, bt - Nn, bt), pos)
+
+    def neighbour_scales(q, k, v, qk, qv, ks, vs, bt, pos):
+        return ops.paged_decode_attention_quant(q, k, v, qk, qv, ks.roll(1, 0), vs.roll(1, 0),
+                                                bt, pos)
+
+    return (SimpleNamespace(flash_attention=flash, paged_decode_attention_quant=quant),
+            {"mixed": ("quant_ids_read_as_native", SimpleNamespace(
+                flash_attention=ops.flash_attention,
+                paged_decode_attention_quant=quant_ids_as_native)),
+             "fp8": ("neighbour_page_scales", SimpleNamespace(
+                 flash_attention=ops.flash_attention,
+                 paged_decode_attention_quant=neighbour_scales))})
+
+
+def _kernel_launches(fn):
+    """The CUDA kernels ``fn()`` launches, counted by torch.profiler, and
+    its result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n, out
+
+
+def check_quant_model() -> dict:
+    """Full-width granite-3-2b on seeded weights, prompts of 1-512 tokens,
+    prefill and 16 decode steps on fed tokens over a quantized pool of
+    shuffled pages: a mixed one (the lower half of the ids native bf16,
+    the upper half int8) and an all-fp8 one. Per pool the kernel path (K1r,
+    K3q) must stay within MODEL_TOL of the plain path (plain attention and
+    the plain quantized decode), and a faulty path must land beyond it.
+    The distance of each pool's kernel path from the native pool's (K3) is
+    printed on its own line, for the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step_paged, init_params
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, ps, MP = 8, 512, 16, 64
+    N = B * MP
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([512, 300, 129, 1, 512, 64, 200, 511], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    plain, faults = _quant_impls()
+
+    launches = {}
+
+    def run(impl, prec="", native_pages=None, feed=None, count=None):
+        """The logits of prefill and 16 steps; ``count`` names the pool
+        whose first decode step's kernel launches are counted."""
+        kernels_ops, A.ops = A.ops, impl
+        logits, state = _paged_state(model, toks, lens, ps, MP, 16, prec, native_pages)
+        steps = [logits.float()]
+        for step in range(16):
+            nxt = steps[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+            if count and step == 0:
+                launches[count], (logits, state) = _kernel_launches(
+                    lambda: decode_step_paged(model, state, nxt))
+            else:
+                logits, state = decode_step_paged(model, state, nxt)
+            steps.append(logits.float())
+        A.ops = kernels_ops
+        del state
+        return torch.stack(steps)
+
+    native = run(ops, count="native")
+    feed = native[:-1].argmax(-1).to(torch.int32)   # every path decodes the same tokens
+    res, failed = {"tol": MODEL_TOL, "logit_scale": native.abs().max().item()}, []
+    for pool, prec, nn in (("mixed", "int8", N // 2), ("fp8", "fp8", 0)):
+        lk = run(ops, prec, nn, feed, count=pool)
+        lp = run(plain, prec, nn, feed)
+        fault_name, fault_impl = faults[pool]
+        lf = run(fault_impl, prec, nn, feed)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(lk).all() and lk.shape == native.shape):
+            raise AssertionError(f"bad {pool} kernel-path logits")
+        errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+        fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+        top2 = lp.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+        res[pool] = {"max_abs_err_per_step": errs, "tokens_checked": int(sure.sum()),
+                     "token_mismatches_beyond_margin":
+                         int((lk.argmax(-1) != lp.argmax(-1))[sure].sum()),
+                     "fault": fault_name, "fault_max_abs_err_per_step": fault}
+        emit("quant_vs_native", pool=pool,
+             max_abs_logit_diff_per_step=(lk - native).abs().amax(dim=(1, 2)).tolist(),
+             argmax_agreement=float((lk.argmax(-1) == native.argmax(-1)).float().mean()))
+        if max(errs) > MODEL_TOL or res[pool]["token_mismatches_beyond_margin"]:
+            failed.append(f"{pool}: kernel path and plain path disagree")
+        if not max(fault) > MODEL_TOL:
+            failed.append(f"{pool}: the model tolerance does not catch {fault_name}")
+        del lk, lp, lf
+    # the decode step's kernel launches over each pool: on the mixed pool
+    # every row's write lands in one region or the other, on the fp8 pool
+    # all in the quantized one, so the difference from the native pool is
+    # what the quantize-on-write costs in launches (40 layers per step)
+    res["decode_step_kernel_launches"] = launches
+    emit("quant_model", **res)
+    del model, native
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
     return res
 
 
@@ -748,6 +983,7 @@ DENSE_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention"
 PAGED_KERNELS = ("flash_attention_ragged", "paged_decode_attention")
 SYNC_KERNELS = ("flash_attention_ragged", "decode_attention")
 CHUNKED_KERNELS = ("chunk_attention", "decode_attention")
+QUANT_KERNELS = ("flash_attention_ragged", "paged_decode_attention_quant")
 
 
 def _sync_checked(sched) -> None:
@@ -764,6 +1000,26 @@ def _sync_checked(sched) -> None:
             torch.cuda.set_sync_debug_mode("error")
         return control(*a, **kw)
     sched.control_async = checked
+
+
+def _watch_precision(sched, engine) -> list:
+    """Record, each slot, the admission precision the scheduler picks and,
+    once the slot's admissions are in, the quantized region's used pages
+    and the regions of the rows the decode runs."""
+    log, ask, ensure = [], sched.admit_precision, engine._ensure_pages
+
+    def watched(occupancy):
+        log.append({"chosen": ask(occupancy)})
+        return log[-1]["chosen"]
+
+    def ensure_watched(n_steps):
+        ensure(n_steps)
+        alloc = engine.allocator
+        log[-1].update(quant_used_pages=alloc.stats().quant_used_pages,
+                       regions=sorted({alloc.precision_of(r) for r in alloc.holders()}))
+    sched.admit_precision = watched
+    engine._ensure_pages = ensure_watched
+    return log
 
 
 def _count_mixed(engine) -> list:
@@ -797,6 +1053,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     if asynchronous:
         _sync_checked(sched)
     mixed = _count_mixed(engine) if args.chunked else [0]
+    watch = args.policy == "precision-aware"
+    precision = _watch_precision(sched, engine) if watch else []
     t1 = time.perf_counter()
     try:
         tr = launcher.run(args, engine, sched, src)
@@ -820,6 +1078,12 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
                    occupancy=tr["occupancy"].tolist())
     if args.chunked:
         res["mixed_dispatches"] = mixed[0]
+    if watch:
+        chosen = [p["chosen"] for p in precision]
+        res.update(quant=launcher.quant_summary(args, engine), admit_precision=chosen,
+                   flips=[[a, b] for a, b in zip(chosen, chosen[1:]) if a != b],
+                   quant_used_pages=[p["quant_used_pages"] for p in precision],
+                   slots_with_both_regions=sum(len(p["regions"]) == 2 for p in precision))
     emit(phase, **res)
     if res["served"] <= 0 or res["dispatches_per_slot"] > 2:
         raise AssertionError(f"{phase}: the path served nothing or over-dispatched")
@@ -829,8 +1093,10 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     n_layers = engine.cfg.n_layers
     want = {}
     if args.paged:
+        decode = ("paged_decode_attention_quant" if args.kv_precision in ("int8", "fp8")
+                  else "paged_decode_attention")
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                "paged_decode_attention": n_layers * engine.decode_dispatches * 2}
+                decode: n_layers * engine.decode_dispatches * 2}
     elif asynchronous:
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
                 "decode_attention": n_layers * engine.decode_dispatches * 2,
@@ -842,6 +1108,14 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     if args.chunked:
         if engine.prefill_dispatches or max(res["trace"]["dispatches"]) > 1 or not mixed[0]:
             raise AssertionError(f"{phase}: a chunked slot ran a prefill or over-dispatched")
+    if watch:
+        if ["native", "int8"] not in res["flips"] or ["int8", "native"] not in res["flips"]:
+            raise AssertionError(f"{phase}: the latch did not flip both ways: {res['flips']}")
+        if not max(res["quant_used_pages"]) or not res["slots_with_both_regions"]:
+            raise AssertionError(f"{phase}: the quantized region was not used beside the "
+                                 "native one")
+    if args.chunked or watch:
+        res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
             raise AssertionError(f"{phase}: the trace {res['trace']} is not the CPU run's {cpu}")
@@ -850,19 +1124,20 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
 
 def cpu_trace(argv: list) -> dict:
     """The same launcher arguments with ``--smoke --device cpu``: the
-    rate, served, backlog and dispatches columns. With no EOS the schedule
-    does not depend on the model or the device."""
+    rate, served, backlog, dispatches and occupancy columns. With no EOS
+    the schedule does not depend on the model or the device."""
     from repro_torch.launch import serve as launcher
 
     cpu_args = launcher.build_parser().parse_args([*argv, "--smoke", "--device", "cpu"])
     engine, sched, src = launcher.build(cpu_args)
     tr = launcher.run(cpu_args, engine, sched, src)
-    return {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}
+    return {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches", "occupancy")}
 
 
 # kernel name fragments of each kind of device work, tried in order
 # ("decode_attention_kernel" is also inside the paged kernel's name)
-KERNEL_KINDS = (("K3", ("paged_decode_attention_kernel",)),
+KERNEL_KINDS = (("K3q", ("paged_decode_attention_quant_kernel",)),
+                ("K3", ("paged_decode_attention_kernel",)),
                 ("K2", ("decode_attention_kernel",)),
                 ("K1/K1r", ("flash_attention_kernel",)),
                 ("K4", ("chunk_attention_kernel",)),
@@ -933,10 +1208,12 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import paged_attention_quant as kpq
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
          dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
                              "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
+                             "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64": kc.smem_bytes(64)})
 
     timer = Timer()
@@ -946,6 +1223,7 @@ def main() -> int:
     check_paged_model()
     check_preemption()
     check_chunk_model()
+    check_quant_model()
     main_path = drive_main_path(SERVE_ARGS)
     profile_main_path(SERVE_ARGS, main_path["serve_s"])
     paged_path = drive_main_path(PAGED_ARGS, "paged_serve", PAGED_KERNELS)
@@ -954,10 +1232,14 @@ def main() -> int:
     profile_main_path(SYNC_ARGS, sync_path["serve_s"], "sync_profile")
     chunked_path = drive_main_path(CHUNKED_ARGS, "chunked_serve", CHUNKED_KERNELS)
     profile_main_path(CHUNKED_ARGS, chunked_path["serve_s"], "chunked_profile")
+    quant_path = drive_main_path(QUANT_ARGS, "quant_serve", QUANT_KERNELS)
+    profile_main_path(QUANT_ARGS, quant_path["serve_s"], "quant_profile")
 
     # launches: each kernel's count from the run of the path it serves
     counts = {**main_path["launches"],
               "paged_decode_attention": paged_path["launches"]["paged_decode_attention"],
+              "paged_decode_attention_quant":
+                  quant_path["launches"]["paged_decode_attention_quant"],
               "chunk_attention": chunked_path["launches"]["chunk_attention"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
@@ -967,6 +1249,9 @@ def main() -> int:
                                 "src/repro/kernels/decode_attention.py:32"),
            "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                       "src/repro/kernels/paged_attention.py:38"),
+           "paged_decode_attention_quant": (
+               "src/repro_torch/kernels/csrc/paged_attention_quant.cu",
+               "src/repro/kernels/paged_attention.py:56"),
            "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
                                "src/repro/kernels/chunk_attention.py:48")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],

@@ -27,9 +27,10 @@ recycled pages are never zeroed because the attention mask (logical index
 <= pos) hides stale rows.
 
 This is the reference package's allocator, kept as the port's own copy
-(pure Python). The port's paged engine runs it single-region and without
-prefix sharing so far; the pinning, fork and quantized-region paths are
-here for the slices that port them (ROADMAP.md queue 1 items 8 and 9).
+(pure Python). The port's paged engine runs it with one or two regions
+(native, quantized) and without prefix sharing so far; the pinning and
+fork paths are here for the slice that ports them (ROADMAP.md queue 1
+item 8).
 
 Occupancy (used_pages / num_pages) is the signal the ``MemoryAware`` policy
 (repro_torch.control.policy) prices with a virtual queue, extending Algorithm 1's

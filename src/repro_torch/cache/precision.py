@@ -13,9 +13,8 @@ layer) and the page-table `precision` tag
 
 Dtypes are strings here: the module is pure Python, the reference
 package's own copy for the port. The port resolves a spec with
-``resolve_kv_precision`` and so far serves only native precision; the
-quantized specs parse, and the engine refuses them (ROADMAP.md queue 1
-item 9).
+``resolve_kv_precision``; ``repro_torch.kernels.quant`` maps a quantized
+spec to its torch dtype.
 
 The legacy ``cache_dtype`` field keeps working through
 :func:`resolve_kv_precision` (mapped to a ``granularity="none"`` cast)

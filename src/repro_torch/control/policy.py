@@ -27,9 +27,12 @@ A policy is a frozen dataclass with four methods:
     to(device)        -> policy           the same policy, tables on device
 
 A policy that prices an engine signal (``MemoryAware``: page-pool
-occupancy; ``TokenBacklogAware``: pending prompt tokens) also has
+occupancy; ``TokenBacklogAware``: pending prompt tokens;
+``PrecisionAware``: the quantized page region's occupancy) also has
 ``observe(carry, signal) -> carry'`` and names the signal in
-``observation``; the scheduler observes before it acts.
+``observation``; the scheduler observes before it acts. ``PrecisionAware``
+also has ``admit_precision(carry, occupancy) -> (region, carry')``, the
+page region for the next admissions.
 """
 from __future__ import annotations
 
@@ -306,3 +309,93 @@ class TokenBacklogAware(_TablePolicy):
         extra = carry.value.double()[..., None] * (self.vq_cost_per_rate * f).double()
         f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
         return f_star, carry
+
+
+class PrecisionCarry(NamedTuple):
+    """``PrecisionAware`` state: the quantized-occupancy virtual queue
+    (``value``/``budget``, on the policy's device) and the admission
+    precision latch ``lossy`` (True while new admissions land on quantized
+    pages). The latch is a Python bool: the serve loop reads it every slot,
+    and a device flag would cost a blocking readback there."""
+
+    value: torch.Tensor
+    budget: torch.Tensor
+    lossy: bool = False
+
+    def step(self, y: torch.Tensor) -> "PrecisionCarry":
+        return self._replace(value=torch.clamp(self.value + y - self.budget, min=0.0))
+
+    def to(self, device) -> "PrecisionCarry":
+        return self._replace(value=self.value.to(device), budget=self.budget.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionAware(_TablePolicy):
+    """Algorithm 1 plus a virtual queue over *quantized* page occupancy,
+    and a precision choice for new admissions.
+
+    A mixed page pool (native and int8/fp8 regions, ``PagedEngineConfig.
+    quant_pages``) gives the controller a second lever besides the rate:
+    when the native pages fill, new requests can be admitted onto quantized
+    pages instead of being throttled. Two mechanisms:
+
+    * ``admit_precision(carry, occupancy)``: a hysteresis latch on the
+      host, over the engine's occupancy. Admissions go to
+      ``quant_precision`` when occupancy reaches ``downgrade_at`` and
+      return to native only once it falls to ``upgrade_at`` or below; the
+      dead band keeps the latch from flipping on every slot's noise.
+    * the virtual queue: once the quantized region fills too, the rate has
+      to yield. Z advances on the quantized region's occupancy
+      (``engine.quant_occupancy()``, fed through ``observe``),
+
+          Z(t+1) = max(Z(t) + qocc(t) - quant_budget, 0)
+
+      and ``act`` prices candidate rates by the pages they commit,
+      Z(t) * quant_gain * pages_per_request * f: ``MemoryAware``'s
+      construction (and its two roundings, ROADMAP R4), pointed at the
+      quantized region.
+    """
+
+    rates: tuple[float, ...]
+    V: float
+    utility: Utility = None  # type: ignore[assignment]
+    arrival_gain: float = 1.0
+    pages_per_request: float = 2.0   # expected pages one admission commits
+    quant_budget: float = 0.6        # target time-average quantized fill
+    quant_gain: float = 1.0          # price scale on the quantized queue
+    downgrade_at: float = 0.75       # occupancy that flips admissions lossy
+    upgrade_at: float = 0.5          # occupancy that flips them back native
+    quant_precision: str = "int8"    # region tag admissions downgrade onto
+
+    observation = "quant_occupancy"  # the engine signal ``observe`` consumes
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not 0.0 <= self.upgrade_at <= self.downgrade_at:
+            raise ValueError("hysteresis needs 0 <= upgrade_at <= downgrade_at, got "
+                             f"{self.upgrade_at} / {self.downgrade_at}")
+
+    @property
+    def vq_cost_per_rate(self) -> float:
+        return self.quant_gain * self.pages_per_request
+
+    def init(self) -> PrecisionCarry:
+        return PrecisionCarry(torch.zeros((), dtype=torch.float32),
+                              torch.tensor(self.quant_budget, dtype=torch.float32))
+
+    def observe(self, carry: PrecisionCarry, quant_occupancy) -> PrecisionCarry:
+        return carry.step(as_f32(quant_occupancy, carry.value.device))
+
+    def act(self, carry: PrecisionCarry, backlog) -> tuple[torch.Tensor, PrecisionCarry]:
+        f, s, lam = self.tables()
+        extra = carry.value.double()[..., None] * (self.vq_cost_per_rate * f).double()
+        f_star, _ = drift_plus_penalty_action(backlog, f, s, lam, self.V, extra)
+        return f_star, carry
+
+    def admit_precision(self, carry: PrecisionCarry,
+                        occupancy: float) -> tuple[str, PrecisionCarry]:
+        """The latch's choice of page region for the next admissions, on the
+        host: (tag, carry)."""
+        occ = float(occupancy)
+        lossy = (occ > self.upgrade_at) if carry.lossy else (occ >= self.downgrade_at)
+        return (self.quant_precision if lossy else "native"), carry._replace(lossy=lossy)

@@ -1,10 +1,11 @@
 """Attention kernels: hand-written CUDA for Hopper, their plain versions,
 and the launch counts that show a run went through the kernels."""
 from repro_torch.kernels import (chunk_attention, decode_attention, flash_attention,
-                                 paged_attention)
+                                 paged_attention, paged_attention_quant)
 
 _COUNTERS = (flash_attention.launches, decode_attention.launches,
-             paged_attention.launches, chunk_attention.launches)
+             paged_attention.launches, paged_attention_quant.launches,
+             chunk_attention.launches)
 
 
 def launch_counts() -> dict:

@@ -87,9 +87,10 @@ __device__ __forceinline__ void load_rows(float* dst, int dst_stride,
 
 // Copy the tile rows named by ``rows`` (shared memory, ``nrows`` entries:
 // the index of a row of ``src``, rows ``src_stride`` elements apart and
-// 16-byte aligned, or -1 for a row of zeros) into float shared memory (rows
+// 16-byte aligned, -1 for a row of zeros, or below -1 for a row left as it
+// is, which another copy fills) into float shared memory (rows
 // ``dst_stride`` floats apart), with the same 16-byte loads, U in flight per
-// thread, as load_rows. A -1 row is never read.
+// thread, as load_rows. A negative row is never read.
 template <typename T, int HD>
 __device__ __forceinline__ void load_rows_gather(float* dst, int dst_stride,
                                                  const T* __restrict__ src,
@@ -115,7 +116,7 @@ __device__ __forceinline__ void load_rows_gather(float* dst, int dst_stride,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = base + u * nthreads;
-      if (i < nv) {
+      if (i < nv && rows[i / VPR] >= -1) {
         const int r = i / VPR;
         unpack<T>(dst + r * dst_stride + (i - r * VPR) * VEC, buf[u]);
       }

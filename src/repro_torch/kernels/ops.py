@@ -15,8 +15,11 @@ from repro_torch.kernels import chunk_attention as _ca
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_attention_quant as _paq
 from repro_torch.kernels.ref import (attention_ref, chunk_attention_ref,
-                                     decode_attention_ref, paged_decode_attention_ref)
+                                     decode_attention_ref, paged_decode_attention_mixed_ref,
+                                     paged_decode_attention_quant_ref,
+                                     paged_decode_attention_ref)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,6 +49,26 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos)
     return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables, pos)
+
+
+def paged_decode_attention_quant(q: torch.Tensor, k_pages: Optional[torch.Tensor],
+                                 v_pages: Optional[torch.Tensor], qk_pages: torch.Tensor,
+                                 qv_pages: torch.Tensor, k_scale: torch.Tensor,
+                                 v_scale: torch.Tensor, block_tables: torch.Tensor,
+                                 pos: torch.Tensor) -> torch.Tensor:
+    """One-token attention over a pool with a quantized region: codes
+    ``qk_pages``/``qv_pages`` with per-token-per-head ``k_scale``/
+    ``v_scale``, beside native pages ``k_pages``/``v_pages`` (None when every
+    page is quantized). Table ids below the native page count read the
+    native region, the rest the quantized one at ``id - N_n``."""
+    if q.device.type == "cpu":
+        if k_pages is None:
+            return paged_decode_attention_quant_ref(q, qk_pages, qv_pages, k_scale, v_scale,
+                                                    block_tables, pos)
+        return paged_decode_attention_mixed_ref(q, k_pages, v_pages, qk_pages, qv_pages,
+                                                k_scale, v_scale, block_tables, pos)
+    return _paq.paged_decode_attention_quant(q, k_pages, v_pages, qk_pages, qv_pages,
+                                             k_scale, v_scale, block_tables, pos)
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

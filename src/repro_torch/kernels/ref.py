@@ -95,6 +95,55 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return decode_attention_ref(q, kk, vv, slot_pos, pos)
 
 
+def dequant_ref(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-token-per-head dequantization: codes (..., hd) int8/fp8, scale
+    (...) float32 over the head dim, ``codes * scale`` in float32, then the
+    cast to ``dtype``."""
+    return (codes.float() * scale[..., None]).to(dtype)
+
+
+def paged_decode_attention_quant_ref(q: torch.Tensor, qk_pages: torch.Tensor,
+                                     qv_pages: torch.Tensor, k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor, block_tables: torch.Tensor,
+                                     pos: torch.Tensor) -> torch.Tensor:
+    """Paged decode over an all-quantized pool: dequantize the whole pool
+    (codes (N, ps, KVH, hd), scales (N, ps, KVH)) to q's dtype, then
+    ``paged_decode_attention_ref``."""
+    return paged_decode_attention_ref(q, dequant_ref(qk_pages, k_scale, q.dtype),
+                                      dequant_ref(qv_pages, v_scale, q.dtype),
+                                      block_tables, pos)
+
+
+def paged_decode_attention_mixed_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor, qk_pages: torch.Tensor,
+                                     qv_pages: torch.Tensor, k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor, block_tables: torch.Tensor,
+                                     pos: torch.Tensor) -> torch.Tensor:
+    """Paged decode over a two-region pool, gathered page by page as the
+    reference's ``_pool_read`` does: an id below N_n (the native pages
+    k_pages/v_pages (N_n, ps, KVH, hd), in q's dtype) reads the native
+    region, an id at or above it the quantized one at ``id - N_n``,
+    dequantized to q's dtype. Unallocated (-1) entries read quantized page
+    0 and are masked. Then the dense ``decode_attention_ref``, with the mask
+    of ``paged_decode_attention_ref``."""
+    B, H, hd = q.shape
+    Nn, ps, KVH, _ = k_pages.shape
+    Nq = qk_pages.shape[0]
+    MP = block_tables.shape[1]
+    nidx = block_tables.clamp(0, Nn - 1).long()
+    qidx = (block_tables - Nn).clamp(0, Nq - 1).long()
+    native = ((block_tables >= 0) & (block_tables < Nn))[:, :, None, None, None]
+    kk = torch.where(native, k_pages[nidx].to(q.dtype),
+                     dequant_ref(qk_pages[qidx], k_scale[qidx], q.dtype))
+    vv = torch.where(native, v_pages[nidx].to(q.dtype),
+                     dequant_ref(qv_pages[qidx], v_scale[qidx], q.dtype))
+    j = torch.arange(MP * ps, dtype=torch.int32, device=q.device)[None, :]
+    allocated = (block_tables >= 0).repeat_interleave(ps, dim=1)
+    slot_pos = torch.where(allocated, j, -1)
+    return decode_attention_ref(q, kk.reshape(B, MP * ps, KVH, hd),
+                                vv.reshape(B, MP * ps, KVH, hd), slot_pos, pos)
+
+
 def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         slot_pos: torch.Tensor, pos0: torch.Tensor,
                         valid: torch.Tensor) -> torch.Tensor:

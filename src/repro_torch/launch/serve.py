@@ -27,6 +27,19 @@ which prices pending prompt tokens against ``--token-budget``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --smoke --chunked --policy token-aware --horizon 12 [--device cpu]
 
+``--kv-precision int8|fp8`` (with ``--paged``) stores pages as int8 or fp8
+codes with per-token-per-head scales; ``--quant-pages n`` in (0,
+``--num-pages``) makes only the top n ids quantized, a mixed pool, and
+``--policy precision-aware`` then moves new admissions onto the quantized
+pages while occupancy is high (``--downgrade-at``/``--upgrade-at``) and
+prices the quantized region's fill against ``--quant-budget``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --paged --num-pages 192 --max-active 16 --prompt-len 512 \
+      --min-prompt-len 128 --cache-len 1024 --kv-precision int8 \
+      --quant-pages 64 --policy precision-aware --downgrade-at 0.5 \
+      --upgrade-at 0.3 --horizon 12 [--device cpu]
+
 Flags of paths the port does not have yet raise NotImplementedError naming
 the ROADMAP.md queue item that brings them.
 """
@@ -36,21 +49,21 @@ import argparse
 
 import numpy as np
 
+from repro_torch.cache import parse_kv_precision
 from repro_torch.configs import get_config
 from repro_torch.control import LatencyAware
 from repro_torch.models import init_params
 from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
                                  MemoryAwareScheduler, PagedEngine,
                                  PagedEngineConfig, PolicyScheduler,
-                                 RequestSource, StaticScheduler,
-                                 TokenAwareScheduler, latency_stats, serve)
+                                 PrecisionAwareScheduler, RequestSource,
+                                 StaticScheduler, TokenAwareScheduler,
+                                 latency_stats, serve)
 
 # flag -> the ROADMAP.md queue-1 item that will bring its path
 _UNPORTED = {
     "prefix_sharing": "item 8 (prefix sharing)",
-    "quant_pages": "item 9 (quantized KV pages)",
     "replicas": "item 8 (the fleet)",
-    "kv_precision": "item 9 (quantized KV pages)",
     "temperature": "item 7 (per-request sampling)",
     "top_k": "item 7 (per-request sampling)",
     "top_p": "item 7 (per-request sampling)",
@@ -63,8 +76,8 @@ _UNPORTED = {
 }
 # the paged engine's sync-free and chunked loops
 _UNPORTED_PAGED = "item 6 (the paged sync-free loop and paged chunked batching)"
+_UNPORTED_DENSE_QUANT = "item 9 (the dense quantized ring cache)"
 _UNPORTED_POLICIES = {
-    "precision-aware": "item 2 (PrecisionAware) with item 9 (quantized KV pages)",
     "conformal-slo": "item 10 (observability and reliability)",
 }
 
@@ -77,7 +90,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; no card and no --device cpu fails")
     ap.add_argument("--policy", default="adaptive",
                     choices=["adaptive", "static", "latency-aware", "memory-aware",
-                             "token-aware", *_UNPORTED_POLICIES])
+                             "token-aware", "precision-aware", *_UNPORTED_POLICIES])
+    ap.add_argument("--kv-precision", choices=["native", "int8", "fp8"], default="",
+                    help="KV storage: int8/fp8 store pages as codes with per-token-"
+                         "per-head scales (needs --paged)")
+    ap.add_argument("--quant-pages", type=int, default=-1,
+                    help="paged + quantized: size of the quantized page region (-1 = "
+                         "every page; 0 < n < num-pages builds a mixed pool for "
+                         "--policy precision-aware)")
+    ap.add_argument("--quant-budget", type=float, default=0.6,
+                    help="precision-aware: target time-average quantized-region "
+                         "occupancy")
+    ap.add_argument("--downgrade-at", type=float, default=0.75,
+                    help="precision-aware: pool occupancy at which new admissions "
+                         "flip onto quantized pages")
+    ap.add_argument("--upgrade-at", type=float, default=0.5,
+                    help="precision-aware: occupancy at or below which admissions "
+                         "return to native pages")
     ap.add_argument("--cost-budget", type=float, default=4.0,
                     help="latency-aware: time-average rate budget")
     ap.add_argument("--paged", action="store_true",
@@ -121,9 +150,8 @@ def build_parser() -> argparse.ArgumentParser:
     for flag in ("prefix_sharing", "metrics"):
         ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
                         help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
-    for flag in ("quant_pages", "replicas", "kv_precision", "temperature", "top_k",
-                 "top_p", "rep_penalty", "sampling_seed", "tenants", "trace_out",
-                 "decisions_out"):
+    for flag in ("replicas", "temperature", "top_k", "top_p", "rep_penalty",
+                 "sampling_seed", "tenants", "trace_out", "decisions_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
     return ap
@@ -146,14 +174,36 @@ def build(args):
     if args.policy == "memory-aware" and not args.paged:
         raise ValueError("--policy memory-aware prices page-pool occupancy; "
                          "it requires --paged (the dense engine reports none)")
-    if args.quant_pages is not None and not args.paged:
+    quantized = args.kv_precision in ("int8", "fp8")
+    if args.policy == "precision-aware":
+        if not args.paged:
+            raise ValueError("--policy precision-aware picks the page region per "
+                             "admission; it requires --paged")
+        if not quantized:
+            raise ValueError("--policy precision-aware needs a quantized page region: "
+                             "pass --kv-precision int8 (or fp8)")
+        if not 0 < args.quant_pages < args.num_pages:
+            raise ValueError("--policy precision-aware admits between regions of a mixed "
+                             "pool: pass --quant-pages in (0, num-pages), got "
+                             f"{args.quant_pages}/{args.num_pages}")
+    if args.quant_pages != -1 and not quantized:
+        raise ValueError("--quant-pages sizes the quantized page region; it needs "
+                         "--kv-precision int8 (or fp8)")
+    if args.quant_pages != -1 and not args.paged:
         raise ValueError("--quant-pages is paged-pool geometry; it requires --paged")
+    if not 0.0 <= args.upgrade_at <= args.downgrade_at:
+        raise ValueError("hysteresis needs 0 <= --upgrade-at <= --downgrade-at, got "
+                         f"{args.upgrade_at} / {args.downgrade_at}")
     for flag, item in _UNPORTED.items():
         val = getattr(args, flag)
         if val not in (None, False) and not (flag == "replicas" and val == "1"):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
                 f"queue 1 {item}")
+    if quantized and not args.paged:
+        raise NotImplementedError(
+            f"--kv-precision {args.kv_precision} without --paged is not ported yet; see "
+            f"ROADMAP.md queue 1 {_UNPORTED_DENSE_QUANT}")
     if args.paged and (args.sync_free or args.chunked):
         flag = "--chunked" if args.chunked else "--sync-free"
         raise NotImplementedError(
@@ -179,12 +229,14 @@ def build(args):
         engine = PagedEngine(model, PagedEngineConfig(
             prompt_len=args.prompt_len, cache_len=args.cache_len,
             page_size=args.page_size, num_pages=args.num_pages,
-            max_active=args.max_active, eos_id=args.eos_id))
+            max_active=args.max_active, eos_id=args.eos_id,
+            kv_precision=args.kv_precision, quant_pages=args.quant_pages))
     else:
         engine = Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
             cache_len=args.cache_len, eos_id=args.eos_id,
-            chunk_size=args.chunk_size, chunk_budget=args.chunk_budget))
+            chunk_size=args.chunk_size, chunk_budget=args.chunk_budget,
+            kv_precision=args.kv_precision))
     rates = tuple(float(f) for f in range(1, args.raw_rate + 1))
     if args.policy == "adaptive":
         sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity)
@@ -201,6 +253,14 @@ def build(args):
         sched = TokenAwareScheduler(rates=rates, V=args.V, token_budget=args.token_budget,
                                     tokens_per_request=float(args.prompt_len),
                                     capacity=args.capacity)
+    elif args.policy == "precision-aware":
+        # the allocator's region tag ("float8_e4m3fn" for fp8): the reference
+        # passes the flag's spelling, which names no region for fp8 (ROADMAP R6)
+        sched = PrecisionAwareScheduler(
+            rates=rates, V=args.V, quant_budget=args.quant_budget,
+            downgrade_at=args.downgrade_at, upgrade_at=args.upgrade_at,
+            quant_precision=parse_kv_precision(args.kv_precision).tag,
+            capacity=args.capacity)
     else:
         sched = StaticScheduler(rate=args.rate, capacity=args.capacity)
     src = RequestSource(vocab_size=cfg.vocab_size, prompt_len=args.prompt_len,
@@ -234,6 +294,19 @@ def paged_summary(tr: dict, engine: PagedEngine) -> str:
             f"preemptions={engine.preemptions}")
 
 
+def quant_summary(args, engine: PagedEngine) -> str:
+    """The quantized pool's line. ``precision_flips`` counts the flips the
+    reference's decision log records; the port has no decision log yet
+    (ROADMAP.md queue 1 item 10), so it prints 0, as the reference does
+    with telemetry off."""
+    c = engine.counters()
+    line = (f"quant: precision={args.kv_precision} pages_quant={c['pages_quant']}"
+            f"/{engine.allocator.num_pages} quant_occupancy={c['quant_occupancy']:.2f}")
+    if args.policy == "precision-aware":
+        line += f" admit={engine.admit_precision} precision_flips=0"
+    return line
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     engine, sched, src = build(args)
@@ -241,6 +314,8 @@ def main(argv=None):
     print(summary(args, tr, sched))
     if args.paged:
         print(paged_summary(tr, engine))
+        if args.kv_precision in ("int8", "fp8"):
+            print(quant_summary(args, engine))
     print("latency:", latency_stats(engine))
 
 

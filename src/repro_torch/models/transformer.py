@@ -72,15 +72,19 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs dense decoder-only stacks at native KV precision."""
+    """The port's models run dense decoder-only stacks whose own caches hold
+    K/V at the compute dtype; quantized storage lives in the paged engine's
+    page pools."""
     if cfg.arch_type != "dense" or not ragged_prefill_supported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
     if cfg.kv_precision not in ("", "native") or cfg.cache_dtype:
         raise NotImplementedError(
-            f"{cfg.name}: kv_precision {cfg.kv_precision or cfg.cache_dtype!r} is "
-            "not ported yet; see ROADMAP.md queue 1 item 9 (quantized KV pages)")
+            f"{cfg.name}: kv_precision {cfg.kv_precision or cfg.cache_dtype!r} in the "
+            "model's dense caches is not ported yet (the paged engine stores "
+            "quantized pages: PagedEngineConfig.kv_precision); see ROADMAP.md queue 1 "
+            "item 9 (the dense quantized ring cache)")
     if not cfg.tie_embeddings or cfg.attn_logit_softcap or cfg.act != "silu":
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings, logit softcap and non-SiLU MLPs are "
@@ -165,16 +169,20 @@ def paged_segments_supported(cfg: ModelConfig) -> bool:
     return all(s.kind in ("attn", "attn_moe") for s in plan_segments(cfg, "decoder"))
 
 
-def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device) -> list:
+def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int, device,
+                     native_pages: Optional[int] = None) -> list:
     """Per-segment page pools with leaves stacked on the layer axis: k/v
-    (n, num_pages, page_size, KVH, hd). All layers share page indexing (one
-    block table per request serves the whole stack)."""
+    (n, native_pages, page_size, KVH, hd) and, under a quantized
+    ``cfg.kv_precision``, codes and scales for the other
+    ``num_pages - native_pages`` ids (``native_pages`` None: all of them).
+    All layers share page indexing (one block table per request serves the
+    whole stack)."""
     if not paged_segments_supported(cfg):
         raise ValueError(
             f"paged decode requires an all-attention stack; {cfg.name} has "
             f"segments {[s.kind for s in plan_segments(cfg, 'decoder')]}")
-    return [A.paged_pool_init(num_pages, page_size, cfg, device, layers=seg.n)
+    return [A.paged_pool_init(num_pages, page_size, cfg, device, layers=seg.n,
+                              native_pages=native_pages)
             for seg in plan_segments(cfg, "decoder")]
 
 
@@ -184,9 +192,10 @@ def decode_hidden_paged(stack: nn.ModuleList, h: torch.Tensor, pools: list,
     """One-token pass over the paged pools. h: (B, D). Mirrors
     ``decode_hidden`` with ``attn_decode_paged`` in place of
     ``attn_decode``; the block table is shared by every layer, so the rows
-    that write are selected once for the step."""
-    writes = A.paged_write_targets(block_table, pos, pools[0].num_pages,
-                                   pools[0].page_size)
+    that write (and the region each writes) are selected once for the
+    step."""
+    writes = A.paged_write_targets(block_table, pos, pools[0].native_pages,
+                                   pools[0].num_pages, pools[0].page_size)
     for seg, pool in zip(stack, pools, strict=True):
         for i, p in enumerate(seg):
             a = A.attn_decode_paged(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),

@@ -109,7 +109,9 @@ class EngineConfig:
     # the bounded wait on a pending readback packet before the consumer
     # raises ReadbackTimeout; <= 0 waits without a bound
     readback_timeout_s: float = 30.0
-    kv_precision: str = ""        # "" / "native" only
+    # KV storage: "" / "native" on the dense engine; the paged engine also
+    # takes "int8" / "fp8" (a quantized page region)
+    kv_precision: str = ""
 
 
 @dataclasses.dataclass
@@ -121,16 +123,19 @@ class PagedEngineConfig(EngineConfig):
     compute, not memory. ``max_pages_per_req`` bounds one request's block
     table; 0 derives it from cache_len, and raising it past
     cache_len/page_size is how requests grow beyond the dense cache_len.
-    ``quant_pages`` (a quantized page region) and ``prefix_sharing`` are
-    the reference's options that the port refuses until ROADMAP.md queue 1
-    items 9 and 8 bring them.
+    Under a quantized ``kv_precision`` (int8, fp8) ``quant_pages`` sizes the
+    quantized region at the top of the pool: -1 quantizes every page, a
+    value in (0, num_pages) builds a mixed pool whose region new
+    admissions draw from is ``PagedEngine.admit_precision``.
+    ``prefix_sharing`` is the reference's option that the port refuses
+    until ROADMAP.md queue 1 item 8 brings it.
     """
 
     page_size: int = 16
     num_pages: int = 64
     max_active: int = 8
     max_pages_per_req: int = 0    # 0 => cache_len // page_size
-    quant_pages: int = -1         # -1 or 0: no quantized region
+    quant_pages: int = -1         # -1: every page if kv_precision is quantized, else none
     prefix_sharing: bool = False
 
 
@@ -362,8 +367,9 @@ class Engine:
     def __init__(self, model: M.Model, ecfg: EngineConfig):
         if ecfg.kv_precision not in ("", "native"):
             raise NotImplementedError(
-                f"kv_precision {ecfg.kv_precision!r} is not ported yet; see "
-                "ROADMAP.md queue 1 item 9 (quantized KV pages)")
+                f"kv_precision {ecfg.kv_precision!r} on the dense engine is not ported "
+                "yet (the paged engine takes it); see ROADMAP.md queue 1 item 9 (the "
+                "dense quantized ring cache)")
         if not ecfg.greedy:
             raise NotImplementedError(
                 "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
@@ -959,9 +965,23 @@ class PagedEngine(Engine):
 
     Greedy generation is per request the dense engine's: every per-row op
     matches the dense path. ``occupancy()`` is the pool's fill fraction,
-    the signal ``MemoryAware`` prices. The port serves native precision,
-    greedy, fused, without prefix sharing; the other paths raise
-    NotImplementedError naming the ROADMAP.md item that brings them.
+    the signal ``MemoryAware`` prices.
+
+    Under a quantized ``kv_precision`` the pool has a quantized region
+    (``quant_pages``): its pages hold int8 or fp8 codes with per-token-
+    per-head scales, written by quantizing the K/V rows bound there.
+    Prefill still runs at native storage (the model's own dense caches),
+    and the page copy quantizes the blocks that land in the quantized
+    region. New admissions draw pages from the region named by
+    ``admit_precision`` ("native" or the quantized tag), which the
+    ``PrecisionAware`` scheduler sets between slots; a row grows inside its
+    own region, and a preempted request is re-admitted wherever
+    ``admit_precision`` points then. ``quant_occupancy()`` is the
+    quantized region's fill, the signal ``PrecisionAware`` prices.
+
+    The port serves greedy and fused, without prefix sharing; the other
+    paths raise NotImplementedError naming the ROADMAP.md item that brings
+    them.
     """
 
     def __init__(self, model: M.Model, ecfg: PagedEngineConfig):
@@ -976,10 +996,17 @@ class PagedEngine(Engine):
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
         kvp = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
-        if not kvp.is_native or ecfg.quant_pages > 0:
+        if kvp.is_cast:
             raise NotImplementedError(
-                f"paged KV precision {kvp.tag!r} (quant_pages "
-                f"{ecfg.quant_pages}) is not ported yet; see {_ITEM9}")
+                f"unscaled KV storage casts ({kvp.tag!r}) are not ported yet; see {_ITEM9}")
+        # the quantized region: the top quant_pages ids of the pool; -1 means
+        # every page under a quantized precision and none otherwise
+        qp = ecfg.quant_pages
+        if qp < 0:
+            qp = ecfg.num_pages if kvp.is_quantized else 0
+        if qp and not kvp.is_quantized:
+            raise ValueError(f"quant_pages={qp} needs a quantized kv_precision, "
+                             f"got {kvp.tag!r}")
         if ecfg.prefix_sharing:
             raise NotImplementedError(f"prefix sharing is not ported yet; see {_ITEM8}")
         if not ecfg.greedy:
@@ -990,8 +1017,13 @@ class PagedEngine(Engine):
         self.device = model.device
         self.MP = ecfg.max_pages_per_req or max(ecfg.cache_len // ps, P // ps + 1)
         self._buckets = _prompt_buckets(P, quantum=ps)
-        self.pools = T.paged_pools_init(cfg, ecfg.num_pages, ps, self.device)
-        self.allocator = PageAllocator(ecfg.num_pages, ps)
+        self.pools = T.paged_pools_init(cfg, ecfg.num_pages, ps, self.device,
+                                        native_pages=ecfg.num_pages - qp)
+        self.allocator = PageAllocator(ecfg.num_pages, ps, quant_pages=qp,
+                                       quant_precision=kvp.tag if qp else "int8")
+        # the region new admissions draw pages from: the PrecisionAware
+        # scheduler's lever, which the serve loop sets between slots
+        self.admit_precision = "native" if qp < ecfg.num_pages else kvp.tag
         self.block_tables = np.full((R, self.MP), -1, np.int32)
         self.pos = np.zeros(R, np.int32)
         self.active: list = [None] * R
@@ -1029,6 +1061,9 @@ class PagedEngine(Engine):
             pages_pinned=st.pinned_pages,
             frag_tokens=st.frag_tokens,
             peak_pages=st.peak_used_pages,
+            pages_quant=st.quant_pages,
+            pages_quant_used=st.quant_used_pages,
+            quant_occupancy=st.quant_occupancy,
         )
         return c
 
@@ -1040,6 +1075,11 @@ class PagedEngine(Engine):
 
     def occupancy(self) -> float:
         return self.allocator.occupancy()
+
+    def quant_occupancy(self) -> float:
+        """In-use fraction of the quantized page region (0.0 without one):
+        the signal ``PrecisionAware`` prices."""
+        return self.allocator.quant_occupancy()
 
     # ------------------------------------------------------------------
     def step(self, now: int) -> dict:
@@ -1102,7 +1142,8 @@ class PagedEngine(Engine):
             L = max(1, min(len(req.tokens), P))
             # pages are keyed by engine row: a row uniquely owns its request
             # while active, whereas rids are unique only per RequestSource
-            pages = self.allocator.alloc(row, min(L + lookahead, self.MP * ps))
+            pages = self.allocator.alloc(row, min(L + lookahead, self.MP * ps),
+                                         precision=self.admit_precision)
             if pages is None:
                 self.alloc_failures += 1
                 break

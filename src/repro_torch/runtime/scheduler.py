@@ -13,9 +13,11 @@ decision back is one small device-to-host copy per slot. ``serve`` sets the devi
 engine's when the caller left it unset; otherwise it resolves like every
 entry point (``cuda`` unless the CPU is asked for).
 
-A policy with an ``observe`` method (``MemoryAware``, ``TokenBacklogAware``)
-advances its virtual queue on the engine signal it names (``observation``)
-before it acts.
+A policy with an ``observe`` method (``MemoryAware``, ``TokenBacklogAware``,
+``PrecisionAware``) advances its virtual queue on the engine signal it
+names (``observation``) before it acts. ``admit_precision`` asks a policy
+with that lever (``PrecisionAware``) for the page region of the next
+admissions; its latch lives on the host, so asking costs no readback.
 
 ``control_async`` is the sync-free loop's control: it dispatches this
 slot's decision on the device, copies it into pinned host memory behind a
@@ -23,7 +25,8 @@ CUDA event, and returns the previous slot's decision (one-slot-lagged
 control), so reading the controller never drains the card's stream.
 
 ``AdaptiveScheduler`` / ``StaticScheduler`` / ``MemoryAwareScheduler`` /
-``TokenAwareScheduler`` are thin constructors over ``PolicyScheduler``.
+``TokenAwareScheduler`` / ``PrecisionAwareScheduler`` are thin
+constructors over ``PolicyScheduler``.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.control import (DriftPlusPenalty, MemoryAware, Policy, Static,
-                                 TokenBacklogAware)
+from repro_torch.control import (DriftPlusPenalty, MemoryAware, Policy, PrecisionAware,
+                                 Static, TokenBacklogAware)
 from repro_torch.control.policy import as_f32
 from repro_torch.core.utility import Utility, paper_utility
 from repro_torch.device import resolve_device
@@ -67,19 +70,29 @@ class PolicyScheduler:
                 self._carry = self._carry.to(self._dev)
         return self._dev
 
-    def _observe(self, occupancy: Optional[float],
-                 token_backlog: Optional[float]) -> None:
+    def _observe(self, occupancy: Optional[float], token_backlog: Optional[float],
+                 quant_occupancy: Optional[float] = None) -> None:
         """Feed an observation-driven virtual queue: a policy exposing
         ``observe`` names the engine signal it consumes in ``observation``
         ("occupancy" for MemoryAware, "token_backlog" for
-        TokenBacklogAware) and advances on it before acting; other policies
-        ignore both."""
+        TokenBacklogAware, "quant_occupancy" for PrecisionAware) and
+        advances on it before acting; other policies ignore all three."""
         if not hasattr(self.policy, "observe"):
             return
-        sig = {"occupancy": occupancy, "token_backlog": token_backlog}.get(
+        sig = {"occupancy": occupancy, "token_backlog": token_backlog,
+               "quant_occupancy": quant_occupancy}.get(
             getattr(self.policy, "observation", "occupancy"))
         if sig is not None:
             self._carry = self.policy.observe(self._carry, sig)
+
+    def admit_precision(self, occupancy: Optional[float]) -> Optional[str]:
+        """The policy's page region for the next admissions ("native" or
+        a quantized tag), or None if the policy has no such lever. The serve
+        loop assigns it to ``engine.admit_precision``."""
+        if occupancy is None or not hasattr(self.policy, "admit_precision"):
+            return None
+        chosen, self._carry = self.policy.admit_precision(self._carry, occupancy)
+        return chosen
 
     def _act(self, backlog: int) -> torch.Tensor:
         """Evaluate the policy on the device; the (unread) decision."""
@@ -87,19 +100,22 @@ class PolicyScheduler:
         return f_star
 
     def control(self, backlog: int, occupancy: Optional[float] = None,
-                token_backlog: Optional[float] = None) -> float:
+                token_backlog: Optional[float] = None,
+                quant_occupancy: Optional[float] = None) -> float:
         """One control-slot decision: the rate to sample at. ``occupancy``
-        (the paged engine's page-pool fill) and ``token_backlog`` (pending
-        prompt tokens) feed the virtual queue of a policy that observes
-        them, before the policy acts."""
+        (the paged engine's page-pool fill), ``token_backlog`` (pending
+        prompt tokens) and ``quant_occupancy`` (the quantized region's
+        fill) feed the virtual queue of a policy that observes them, before
+        the policy acts."""
         self._on_device()
-        self._observe(occupancy, token_backlog)
+        self._observe(occupancy, token_backlog, quant_occupancy)
         f = float(self._act(backlog))
         self.rate_history.append(f)
         return f
 
     def control_async(self, backlog: int, occupancy: Optional[float] = None,
-                      token_backlog: Optional[float] = None) -> float:
+                      token_backlog: Optional[float] = None,
+                      quant_occupancy: Optional[float] = None) -> float:
         """Sync-free control: dispatch this slot's decision and return the
         PREVIOUS one. The decision is copied into pinned host memory with
         ``non_blocking=True`` behind a recorded CUDA event and read one slot
@@ -109,7 +125,7 @@ class PolicyScheduler:
         The first call waits for its own decision to seed the pipeline;
         ``Static`` returns its rate with no device work."""
         self._on_device()
-        self._observe(occupancy, token_backlog)
+        self._observe(occupancy, token_backlog, quant_occupancy)
         if isinstance(self.policy, Static):
             f = float(self.policy.rate)
             self.rate_history.append(f)
@@ -195,5 +211,33 @@ def TokenAwareScheduler(
         rates=tuple(float(f) for f in rates), V=V,
         tokens_per_request=tokens_per_request,
         token_budget=token_budget, tok_gain=tok_gain,
+    )
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device)
+
+
+def PrecisionAwareScheduler(
+    rates: tuple = tuple(float(f) for f in range(1, 11)),
+    V: float = 50.0,
+    pages_per_request: float = 2.0,
+    quant_budget: float = 0.6,
+    quant_gain: float = 1.0,
+    downgrade_at: float = 0.75,
+    upgrade_at: float = 0.5,
+    quant_precision: str = "int8",
+    capacity: int = 256,
+    device: Optional[str] = None,
+) -> PolicyScheduler:
+    """Algorithm-1 scheduler with the quantized-page admission lever: the
+    serve loop asks ``admit_precision(engine occupancy)`` each slot for the
+    page region, and the quantized region's fill
+    (``engine.quant_occupancy()``) is priced as a virtual queue.
+    ``quant_precision`` is the region's tag in the engine's allocator
+    (``"int8"`` or ``"float8_e4m3fn"``)."""
+    policy = PrecisionAware(
+        rates=tuple(float(f) for f in rates), V=V,
+        pages_per_request=pages_per_request,
+        quant_budget=quant_budget, quant_gain=quant_gain,
+        downgrade_at=downgrade_at, upgrade_at=upgrade_at,
+        quant_precision=quant_precision,
     )
     return PolicyScheduler(policy=policy, capacity=capacity, device=device)

@@ -21,7 +21,10 @@ it. ``chunked=True`` runs continuous batching (``step_slot_chunked``)
 under the same protocol. The trace's ``served`` counts then lag the device
 by one slot; ``serve`` flushes the tail with ``engine.drain()`` and folds
 it into the last slot. Every slot the scheduler also observes the engine's
-token backlog (pending prompt tokens), which ``TokenBacklogAware`` prices.
+token backlog (pending prompt tokens), which ``TokenBacklogAware`` prices,
+and a paged engine's quantized-region occupancy, which ``PrecisionAware``
+prices; after the rate, the scheduler's ``admit_precision`` picks the page
+region of the slot's admissions and the loop sets it on the engine.
 """
 from __future__ import annotations
 
@@ -47,12 +50,19 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         # controller must price
         occ = max(engine.occupancy(), engine.occupancy_hwm) if paged else None
         tok = engine.token_backlog()
+        qocc = engine.quant_occupancy() if paged else None
         if sync_free or chunked:
             rate = scheduler.control_async(engine.queue_len(), occupancy=occ,
-                                           token_backlog=tok)
+                                           token_backlog=tok, quant_occupancy=qocc)
         else:
             rate = scheduler.control(engine.queue_len(), occupancy=occ,
-                                     token_backlog=tok)
+                                     token_backlog=tok, quant_occupancy=qocc)
+        # the precision lever: a policy with admit_precision picks the page
+        # region of this slot's admissions
+        if occ is not None and hasattr(scheduler, "admit_precision"):
+            chosen = scheduler.admit_precision(occ)
+            if chosen is not None:
+                engine.admit_precision = chosen
         reqs = source.poll(t, rate)
         scheduler.admit(engine, reqs, t)
         if chunked:

@@ -135,7 +135,8 @@ def test_launcher_refuses_unported_paths():
     for argv in (["--paged", "--prefix-sharing"], ["--paged", "--sync-free"],
                  ["--paged", "--chunked"], ["--policy", "token-aware", "--paged", "--chunked"],
                  ["--replicas", "2"], ["--kv-precision", "int8"], ["--temperature", "0.7"],
-                 ["--tenants", "gold:1:1:6"], ["--paged", "--kv-precision", "int8"]):
+                 ["--tenants", "gold:1:1:6"],
+                 ["--paged", "--kv-precision", "int8", "--sync-free"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *argv])
 

@@ -15,8 +15,11 @@ import torch
 from repro_torch.kernels import chunk_attention as k_chunk
 from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
+from repro_torch.cache import parse_kv_precision
 from repro_torch.kernels import paged_attention as k_paged
+from repro_torch.kernels import paged_attention_quant as k_paged_quant
 from repro_torch.kernels import ref
+from repro_torch.kernels.quant import quantize_kv
 
 
 def _ring(B, L, pos):
@@ -189,3 +192,53 @@ def test_chunk_kernel_matches_plain_on_card(cuda, dtype, B, C, L, H, KVH, hd):
     for b, n in enumerate(arrs[5]):
         assert not got[b, n:].any()    # padding rows, and all of an inactive row
     assert _err_ok(got, want, dtype)
+
+
+def quant_case(rng, B, MP, ps, KVH, hd, pool):
+    """``paged_case`` with page-boundary positions (rows 1-3 at ps - 1, ps
+    and 2 ps - 1 where the table allows), an inactive row 0, and the pool
+    split into regions: ``pool`` "int8" or "fp8" quantizes every page,
+    "mixed" keeps the lower half native and quantizes the rest to int8.
+    Garbage rows quantize to codes of +-qmax with scales near 1e30 / qmax,
+    so a read of one would show. Returns numpy (native k, v or None; codes
+    k, v; scales k, v; block tables; pos) and the code precision."""
+    pos = rng.integers(min(128, MP * ps // 2), MP * ps, B).astype(np.int32)
+    for b, p in zip(range(1, min(B, 4)), (ps - 1, ps, 2 * ps - 1)):
+        if p < MP * ps:
+            pos[b] = p
+    pos[0] = -1
+    k, v, bt, pos = paged_case(rng, B, MP, ps, KVH, hd, pos, holes=True)
+    prec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
+    Nn = k.shape[0] // 2 if pool == "mixed" else 0
+    qk, ks = quantize_kv(torch.from_numpy(k[Nn:]), prec)
+    qv, vs = quantize_kv(torch.from_numpy(v[Nn:]), prec)
+    native = (k[:Nn], v[:Nn]) if Nn else (None, None)
+    return (*native, qk, qv, ks, vs, bt, pos)
+
+
+# (B, MP, ps, H, KVH, hd): the paged serve's shape, a page larger than the
+# kernel's 64-slot tile, a page size that is no power of two with hd 128
+GPU_QUANT = [(16, 64, 16, 32, 8, 64), (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,MP,ps,H,KVH,hd", GPU_QUANT)
+def test_paged_quant_kernel_matches_plain_on_card(cuda, pool, dtype, B, MP, ps, H, KVH, hd):
+    rng = np.random.default_rng(MP * ps + B + len(pool))
+    k, v, qk, qv, ks, vs, bt, pos = quant_case(rng, B, MP, ps, KVH, hd, pool)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    if k is not None:
+        k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (k, v))
+    qk, qv, ks, vs = (t.to(cuda) for t in (qk, qv, ks, vs))
+    bt, pos_t = torch.from_numpy(bt).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = k_paged_quant.paged_decode_attention_quant(q, k, v, qk, qv, ks, vs, bt, pos_t)
+    if k is None:
+        want = ref.paged_decode_attention_quant_ref(q, qk, qv, ks, vs, bt, pos_t)
+    else:
+        want = ref.paged_decode_attention_mixed_ref(q, k, v, qk, qv, ks, vs, bt, pos_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[0].any()           # no valid slot: the kernel writes zeros
+    assert _err_ok(got[1:], want[1:], dtype)

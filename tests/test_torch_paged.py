@@ -229,7 +229,7 @@ def test_paged_write_selects_only_allocated_rows():
     before_k, before_v = pool.k.clone(), pool.v.clone()
     bt = torch.tensor([[-1, -1], [3, 0], [5, 2], [1, -1]], dtype=torch.int32)
     pos = torch.tensor([0, 5, 8, 6], dtype=torch.int32)   # row 2 past the table, row 3 in a -1 page
-    w = A.paged_write_targets(bt, pos, N, ps)
+    w = A.paged_write_targets(bt, pos, N, N, ps)
     assert w.rows.tolist() == [1] and w.pages.tolist() == [0] and w.offs.tolist() == [1]
     x = torch.randn(4, cfg.d_model)
     A.attn_decode_paged(port.stack[0][0].attn, x, pool, bt, pos, cfg)
@@ -434,7 +434,7 @@ def test_paged_preemption_recovers(w):
 
 @pytest.mark.parametrize("kw,call,match", [
     (dict(prefix_sharing=True), None, "item 8"),
-    (dict(kv_precision="int8"), None, "item 9"),
+    (dict(kv_precision="float16"), None, "item 9"),
     (dict(), "step_slot_sync", "item 6"),
     (dict(), "step_slot_chunked", "item 6"),
     (dict(), "step", "no legacy per-step loop"),
@@ -502,8 +502,8 @@ def test_memory_aware_scheduler_matches_reference():
     (["--policy", "memory-aware"], ValueError, "requires --paged"),
     (["--paged", "--legacy-loop"], ValueError, "no per-step loop"),
     (["--prefix-sharing"], ValueError, "requires --paged"),
-    (["--quant-pages", "4"], ValueError, "requires --paged"),
-    (["--paged", "--quant-pages", "4"], NotImplementedError, "item 9"),
+    (["--quant-pages", "4", "--kv-precision", "int8"], ValueError, "requires --paged"),
+    (["--paged", "--quant-pages", "4"], ValueError, "needs --kv-precision"),
     (["--paged", "--num-pages", "0"], ValueError, "--num-pages must be >= 1"),
 ])
 def test_launcher_checks_paged_arguments(argv, err, match):
