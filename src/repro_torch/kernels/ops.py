@@ -1,4 +1,4 @@
-"""Attention entry points that choose by device.
+"""Kernel entry points (attention, the SSD scan) that choose by device.
 
 A CPU tensor goes to the plain version (``repro_torch.kernels.ref``); a
 CUDA tensor goes to the hand-written kernel, whose wrapper raises on
@@ -16,10 +16,11 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_quant as _paq
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import (attention_ref, chunk_attention_ref,
                                      decode_attention_ref, paged_decode_attention_mixed_ref,
                                      paged_decode_attention_quant_ref,
-                                     paged_decode_attention_ref)
+                                     paged_decode_attention_ref, ssd_chunked)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,3 +80,13 @@ def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return chunk_attention_ref(q, k, v, slot_pos, pos0, valid)
     return _ca.chunk_attention(q, k, v, slot_pos, pos0, valid)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor, *, chunk: int,
+        init_state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD chunked scan: y (B,S,H,P) in x's dtype and the final
+    state (B,H,P,N) float32, from ``init_state`` (None: zeros)."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
+    return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)

@@ -1,17 +1,20 @@
-"""Plain PyTorch versions of the attention kernels: full score matrices.
+"""Plain PyTorch versions of the kernels: the attention kernels with full
+score matrices, and the SSD scan (``ssd_chunked``, with ``ssd_ref`` its
+sequential oracle).
 
 These compute what the CUDA kernels compute, in the simplest correct way,
 so that the CPU tests and ``chip_smoke.py`` hold the kernels against
-something independently simple. They repeat the kernels' arithmetic: scores
-and softmax in float32 from inputs upcast to float32, masked scores at
--1e30, the probabilities rounded to the value dtype before the PV product,
-which accumulates in float32.
+something independently simple. The attention versions repeat the
+kernels' arithmetic: scores and softmax in float32 from inputs upcast to
+float32, masked scores at -1e30, the probabilities rounded to the value
+dtype before the PV product, which accumulates in float32.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -173,3 +176,81 @@ def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = cols[None, :] < valid[:, None]
     return torch.where(rows[..., None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD recurrence one step at a time (the literal SSM), from a zero
+    state: h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T, y_t = C_t . h_t.
+
+    x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N). Returns y (B,S,H,P) in
+    x's dtype and the final state (B,H,P,N) float32.
+    """
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    A = A.float()
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        dtt = dt[:, t].float()                                       # (B,H)
+        decay = torch.exp(dtt * A)
+        contrib = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, t].float(), Bm[:, t].float())
+        state = decay[..., None, None] * state + contrib
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int,
+                init_state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan, the plain version of the SSD kernel.
+
+    x (B,S,H,P), dt (B,S,H) post-softplus, A (H,) negative, Bm/Cm (B,S,N),
+    ``init_state`` (B,H,P,N) float32 or None (zeros). Returns y (B,S,H,P)
+    in x's dtype and the final state (B,H,P,N) float32.
+
+    A sequence that is not a multiple of ``chunk`` is padded with dt = 0:
+    the decay there is exp(0) = 1 and the contribution 0, so the final
+    state is the state after the real steps. Within a chunk, LA is the
+    cumulative sum of dt*A and the intra-chunk weights exp(LA_q - LA_s)
+    are taken with the exponent masked at -1e9 above the diagonal. The
+    rounding is the reference's: the weights are cast to x's dtype before
+    they multiply x, and the carried state's contribution is cast to x's
+    dtype before the two parts are added.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    nc = (S + pad) // chunk
+    xc = x.reshape(Bsz, nc, chunk, H, P)
+    dtc = dt.reshape(Bsz, nc, chunk, H)
+    Bc = Bm.reshape(Bsz, nc, chunk, N)
+    Cc = Cm.reshape(Bsz, nc, chunk, N)
+    dA = dtc * A                                            # (B,nc,Q,H)
+    LA = torch.cumsum(dA, dim=2)
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state)
+    ys = []
+    for c in range(nc):
+        xq, dtq, Bq, Cq, dAq, LAq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], dA[:, c], LA[:, c]
+        diff = LAq[:, :, None, :] - LAq[:, None, :, :]         # (B,Q,Q,H)
+        M = torch.exp(torch.where(tril[None, :, :, None], diff, -1e9))
+        G = torch.einsum("bqn,bsn->bqs", Cq, Bq)
+        W = G[..., None] * M * dtq[:, None, :, :]
+        y_intra = torch.einsum("bqsh,bshp->bqhp", W.to(xq.dtype), xq)
+        decay_q = torch.exp(LAq)                               # (B,Q,H)
+        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", Cq.float(), state,
+                               decay_q).to(xq.dtype)
+        tail = torch.exp(LAq[:, -1:, :] - LAq)
+        contrib = torch.einsum("bqh,bqhp,bqn->bhpn", (tail * dtq).float(), xq.float(),
+                               Bq.float())
+        state = torch.exp(dAq.sum(1))[:, :, None, None] * state + contrib
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bsz, nc * chunk, H, P)
+    return y[:, :S], state

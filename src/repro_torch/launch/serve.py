@@ -40,6 +40,10 @@ prices the quantized region's fill against ``--quant-budget``:
       --quant-pages 64 --policy precision-aware --downgrade-at 0.5 \
       --upgrade-at 0.3 --horizon 12 [--device cpu]
 
+``--arch mamba2-130m`` serves the Mamba-2 stack on the dense engine (the
+fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
+``--paged`` refuse it with ValueError, as the reference does.
+
 Flags of paths the port does not have yet raise NotImplementedError naming
 the ROADMAP.md queue item that brings them.
 """

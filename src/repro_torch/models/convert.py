@@ -26,7 +26,9 @@ def _put(p: torch.Tensor, arr, name: str) -> None:
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     """``tree`` = {"embed": {"tok"}, "stack": [per-segment dict], "ln_f":
-    {"scale"}} with segment leaves stacked on a leading layer axis."""
+    {"scale"}} with segment leaves stacked on a leading layer axis: ``ln1``,
+    ``attn``, ``ln2`` and ``mlp`` for an ``attn`` segment, ``ln1`` and
+    ``ssm`` for an ``ssm`` segment."""
     model = Model(cfg, device)
     _put(model.tok, tree["embed"]["tok"], "embed.tok")
     _put(model.ln_f, tree["ln_f"]["scale"], "ln_f.scale")
@@ -37,6 +39,13 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
         for i, blk in enumerate(seg):
             at = f"stack[{s}][{i}]"
             _put(blk.ln1, leaves["ln1"]["scale"][i], f"{at}.ln1")
+            if blk.kind == "ssm":
+                names = [n for n, _ in blk.ssm.named_parameters()]
+                if sorted(names) != sorted(leaves["ssm"]):
+                    raise ValueError(f"{at}.ssm: leaves {sorted(leaves['ssm'])} != {sorted(names)}")
+                for name in names:
+                    _put(getattr(blk.ssm, name), leaves["ssm"][name][i], f"{at}.ssm.{name}")
+                continue
             _put(blk.ln2, leaves["ln2"]["scale"][i], f"{at}.ln2")
             for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
                 _put(getattr(blk.attn, name), leaves["attn"][name][i], f"{at}.attn.{name}")

@@ -23,10 +23,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cdtype, embed, param, rmsnorm, unembed
+from repro_torch.models.ssm import SSM, SSM_CONSTANTS, ssm_constants
 
 
 class DecodeState(NamedTuple):
-    caches: list             # per-segment KVCache, leaves (n_layers, B, ...)
+    caches: list             # per-segment KVCache or SSMState, leaves (n_layers, B, ...)
     pos: torch.Tensor        # (B,) int32 next absolute position to write
     last_tok: torch.Tensor   # (B,) int32 last emitted/fed token
 
@@ -45,9 +46,10 @@ class PagedDecodeState(NamedTuple):
 
 
 class Model(nn.Module):
-    """Dense decoder: tied embedding ``tok`` (V, D), per-layer blocks, final
-    norm ``ln_f`` (D,) float32. Parameters are allocated uninitialised; use
-    ``init_params`` or ``convert.params_from_numpy`` to fill them."""
+    """Decoder: tied embedding ``tok`` (V, D), per-layer blocks (attention
+    or Mamba-2), final norm ``ln_f`` (D,) float32. Parameters are allocated
+    uninitialised; use ``init_params`` or ``convert.params_from_numpy`` to
+    fill them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -71,13 +73,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """A model with weights drawn from ``torch.Generator(seed)`` on its
     device, scaled as the reference initialises them: N(0, 1/d_in) for the
     projections (drawn in float32, cast to the config dtype), N(0, 0.02^2)
-    for the embedding, ones for the norms. The draws differ from the
-    reference's jax.random ones; the tests carry weights across with
+    for the embedding, N(0, 0.1^2) for a Mamba-2 conv weight, ones for the
+    norms, and the reference's constants for the other Mamba-2 leaves
+    (``ssm.ssm_constants``). The draws differ from the reference's
+    jax.random ones; the tests carry weights across with
     ``convert.params_from_numpy`` instead."""
     model = Model(cfg, device)
     g = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
+        if leaf in SSM_CONSTANTS:
+            continue
         if leaf in _NORMS:
             p.fill_(1.0)
             continue
@@ -85,15 +91,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
             scale = 0.02
         elif leaf == "wo":
             scale = (p.shape[0] * p.shape[1]) ** -0.5
+        elif leaf == "conv_w":
+            scale = 0.1
         else:
             scale = p.shape[0] ** -0.5
         w = torch.randn(p.shape, generator=g, device=p.device, dtype=torch.float32)
         p.copy_((w * scale).to(p.dtype))
+    for mod in model.modules():
+        if isinstance(mod, SSM):
+            ssm_constants(mod, cfg)
     return model
 
 
 def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
     h = embed(model.tok, tokens)
+    if model.cfg.arch_type not in ("dense", "vlm", "audio"):
+        return h
     # dense-family scaling; the factor is rounded to h's dtype first, as the
     # reference's h * asarray(sqrt(d_model), h.dtype)
     # (``full`` copies nothing from the host, so it does not block the stream)

@@ -1,11 +1,12 @@
 """Stack builder: the model as a list of segments of blocks.
 
 The segment plan is the reference package's (``plan_segments``). The port
-runs the ``attn`` segment (self-attention + dense MLP) and keeps one
-``Block`` module per layer, where the reference stacks each segment's
-layers on a leading axis for ``lax.scan``. Decode caches and page pools
-keep that leading layer axis, so a decode state compares leaf by leaf with
-the reference's. Any other segment kind raises NotImplementedError.
+runs the ``attn`` segment (self-attention + dense MLP) and the ``ssm``
+segment (a Mamba-2 block, no FFN), and keeps one block module per layer,
+where the reference stacks each segment's layers on a leading axis for
+``lax.scan``. Decode caches, recurrent states and page pools keep that
+leading layer axis, so a decode state compares leaf by leaf with the
+reference's. Any other segment kind raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import cdtype, mlp, param, rmsnorm
 
 _ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense)"
@@ -72,10 +74,12 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's models run dense decoder-only stacks whose own caches hold
-    K/V at the compute dtype; quantized storage lives in the paged engine's
-    page pools."""
-    if cfg.arch_type != "dense" or not ragged_prefill_supported(cfg):
+    """The port's models run dense decoder-only attention stacks, whose own
+    caches hold K/V at the compute dtype (quantized storage lives in the
+    paged engine's page pools), and pure Mamba-2 stacks."""
+    dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
+    ssm = cfg.arch_type == "ssm" and plan_segments(cfg) == (Segment("ssm", cfg.n_layers),)
+    if not (dense or ssm):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
@@ -93,6 +97,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """One ``attn`` layer: ln1 -> attention -> residual -> ln2 -> MLP -> residual."""
+    kind = "attn"
 
     def __init__(self, cfg: ModelConfig, device):
         super().__init__()
@@ -105,10 +110,23 @@ class Block(nn.Module):
         self.w_down = param((Fd, D), dt, device)
 
 
+class SSMBlock(nn.Module):
+    """One ``ssm`` layer: ln1 -> Mamba-2 block -> residual (no FFN)."""
+    kind = "ssm"
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.ln1 = param((cfg.d_model,), torch.float32, device)
+        self.ssm = SSM.SSM(cfg, device)
+
+
+_BLOCKS = {"attn": Block, "ssm": SSMBlock}
+
+
 def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
     """Per-segment lists of per-layer blocks (parameters uninitialised)."""
     return nn.ModuleList(
-        nn.ModuleList(Block(cfg, device) for _ in range(seg.n))
+        nn.ModuleList(_BLOCKS[seg.kind](cfg, device) for _ in range(seg.n))
         for seg in plan_segments(cfg, "decoder"))
 
 
@@ -120,10 +138,23 @@ def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
                    cache_len: int, shape_window: Optional[int] = None,
                    seq_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
     """Full-prompt pass building the decode caches. Returns (h, caches),
-    one layer-stacked KVCache per segment."""
+    one layer-stacked KVCache (``attn``) or SSMState (``ssm``) per segment.
+    A recurrent state integrates every position, pads included, so
+    ``seq_lens`` on an ``ssm`` segment raises ValueError."""
     B = h.shape[0]
     caches = []
     for seg in stack:
+        if seg[0].kind == "ssm":
+            if seq_lens is not None:
+                raise ValueError("ragged prefill is not supported for 'ssm' blocks")
+            states = []
+            for p in seg:
+                y, st = SSM.ssm_forward_with_state(p.ssm, rmsnorm(p.ln1, h, cfg.norm_eps), cfg)
+                h = h + y
+                states.append(st)
+            caches.append(SSM.SSMState(conv=torch.stack([s.conv for s in states]),
+                                       ssd=torch.stack([s.ssd for s in states])))
+            continue
         cache = A.kv_cache_init(B, cache_len, cfg, h.device, layers=len(seg))
         for i, p in enumerate(seg):
             a = A.attn_prefill(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
@@ -137,9 +168,14 @@ def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
 def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
                   pos: torch.Tensor, cfg: ModelConfig, *,
                   shape_window: Optional[int] = None) -> torch.Tensor:
-    """One-token pass. h: (B, D). Writes each layer's cache in place."""
+    """One-token pass. h: (B, D). Writes each layer's cache or recurrent
+    state in place."""
     for seg, cache in zip(stack, caches, strict=True):
         for i, p in enumerate(seg):
+            if p.kind == "ssm":
+                h = h + SSM.ssm_decode(p.ssm, rmsnorm(p.ln1, h, cfg.norm_eps),
+                                       cache.layer(i), cfg)
+                continue
             a = A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
                               cache.layer(i), pos, cfg, window=shape_window)
             h = _ffn(p, h + a, cfg)

@@ -19,15 +19,19 @@ counts the synchronous device-to-host readbacks that gate the next
 dispatch, exactly where the reference counts them. The fused decode is one
 dispatch in the count; a CUDA-graph capture of it is later work.
 
-Admission buckets prompts into power-of-two sub-buckets (P/4, P/2, P) of
-``prompt_len`` and passes per-row real lengths to the length-aware prefill:
-logits come from each row's real last token, decode resumes at pos = len,
-and cache slots beyond len stay empty. Every arch the port runs is a dense
-attention stack, which the length-aware prefill covers, so admission is
-always ragged; only the boot prefill is padded.
+Admission on a dense attention stack buckets prompts into power-of-two
+sub-buckets (P/4, P/2, P) of ``prompt_len`` and passes per-row real lengths
+to the length-aware prefill: logits come from each row's real last token,
+decode resumes at pos = len, and cache slots beyond len stay empty. A
+recurrent (SSM) stack integrates every position, so its admission runs the
+padded prefill over the full ``prompt_len`` bucket, as the reference's
+does: a short prompt's state runs through the PAD_ID pads and its first
+token is predicted after the last pad (ROADMAP R7). The boot prefill is
+always padded.
 
 The engine updates its decode state in place: the splices and the decode
-steps write into the cache tensors of ``self.state``.
+steps write into the cache tensors (KV rings or recurrent states) of
+``self.state``.
 
 Sync-free serving (``step_slot_sync``). ``step_slot`` pays two blocking
 readbacks per slot: admission reads the first tokens back and the decode
@@ -321,7 +325,9 @@ def _decode_n_paged(model, state, toks, n):
 
 
 def _splice_one(state: M.DecodeState, one: M.DecodeState, slot: int) -> M.DecodeState:
-    """Insert batch-1 prefill state into the batch state at ``slot``, in place."""
+    """Insert batch-1 prefill state into the batch state at ``slot``, in
+    place. Every cache leaf (KVCache or SSMState) has the layer axis first
+    and the batch axis second."""
     for big, new in zip(state.caches, one.caches, strict=True):
         for a, b in zip(big, new, strict=True):
             a[:, slot] = b[:, 0]
@@ -496,7 +502,14 @@ class Engine:
             req.truncated = True
         return toks
 
+    @property
+    def _ragged(self) -> bool:
+        """Length-aware admission: dense attention stacks only."""
+        return T.ragged_prefill_supported(self.cfg)
+
     def _pick_bucket(self, need: int) -> int:
+        if not self._ragged:
+            return self.ecfg.prompt_len
         for b in self._buckets:
             if b >= need:
                 return b
@@ -504,11 +517,13 @@ class Engine:
 
     def _run_prefill(self, toks: np.ndarray, lens: np.ndarray,
                      cache_len: Optional[int] = None):
-        """One bucketed, length-aware prefill dispatch."""
+        """One bucketed prefill dispatch: length-aware on a dense attention
+        stack, padded otherwise (``lens`` unused)."""
         return M.prefill(self.model, host_to_device(toks, self.device),
                          cache_len or self.ecfg.cache_len,
                          shape_window=self.ecfg.shape_window,
-                         prompt_lens=host_to_device(lens, self.device))
+                         prompt_lens=host_to_device(lens, self.device) if self._ragged
+                         else None)
 
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
         """Legacy batch-1 admission (the fused path's equivalence oracle)."""
@@ -531,8 +546,9 @@ class Engine:
         """Fill all free slots from the pending queue with ONE prefill.
 
         The prefill batch is padded to the full batch_slots rows (pad rows
-        are dropped by the splice's out-of-range slot index) and to the
-        smallest power-of-two prompt bucket covering the admitted lengths.
+        are dropped by the splice's out-of-range slot index) and, on a dense
+        attention stack, to the smallest power-of-two prompt bucket covering
+        the admitted lengths (else to ``prompt_len``).
         ``sync=True`` computes the first tokens on the device
         (``_sync_admit``) instead of reading the logits back. Returns k.
         """

@@ -19,6 +19,7 @@ from repro_torch.cache import parse_kv_precision
 from repro_torch.kernels import paged_attention as k_paged
 from repro_torch.kernels import paged_attention_quant as k_paged_quant
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as k_ssd
 from repro_torch.kernels.quant import quantize_kv
 
 
@@ -242,3 +243,77 @@ def test_paged_quant_kernel_matches_plain_on_card(cuda, pool, dtype, B, MP, ps, 
     assert torch.isfinite(got).all()
     assert not got[0].any()           # no valid slot: the kernel writes zeros
     assert _err_ok(got[1:], want[1:], dtype)
+
+
+# K6 against its plain version, element by element, per unit of (env +
+# |plain|) where env is the plain version run on |x|, |B|, |C| and |init|
+# (the sum of the terms' magnitudes). In f32 the two sum dt*A over a chunk
+# in other orders (the kernel in sequence, torch.cumsum by a scan), and exp
+# turns the rounding of |LA| ~ 1e2-1e3 into relative errors of ~1e-5
+# (chip_smoke.py's SSD_RTOL); bf16 x also because the plain version rounds
+# the weights and the carried state's part to bf16 before the sum (2e-3 of
+# env on the CPU at the full shape), the kernel only the output. Against the
+# sequential ssd_ref the chunked form's f32 cumulative log-decay differs from
+# the product of step decays (5e-5 of env between the plain version and
+# ssd_ref on the CPU).
+SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
+SSD_REF_RTOL = 2e-4
+# (B, S, H, P, N, chunk, init): the full mamba2-130m prefill, the smoke
+# shape with a tail, a tail after several chunks from an initial state,
+# chunk 32 with N 64
+GPU_SSD = [(8, 512, 24, 64, 128, 128, False), (2, 40, 8, 32, 32, 16, False),
+           (2, 300, 4, 64, 128, 128, True), (3, 100, 3, 32, 64, 32, True)]
+
+
+def _ssd_case(cuda, seed, B, S, H, P, N, init):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g, device=cuda))
+    A = -torch.linspace(1.0, 16.0, H, device=cuda)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=cuda) for _ in range(2))
+    st = 0.5 * torch.randn((B, H, P, N), generator=g, device=cuda) if init else None
+    return x, dt, A, Bm, Cm, st
+
+
+def _ssd_ok(got, want, env, rtol):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= rtol * (env.float() + want.float().abs())).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", GPU_SSD)
+def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, S, H, P, N, chunk, init):
+    x, dt, A, Bm, Cm, st = _ssd_case(cuda, S + N, B, S, H, P, N, init)
+    x = x.to(dtype)
+    k_ssd.launches["ssd_scan"] = 0
+    y, fin = k_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st)
+    ry, rfin = ref.ssd_chunked(x, dt, A, Bm, Cm, chunk, st)
+    ey, efin = ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk,
+                               None if st is None else st.abs())
+    torch.cuda.synchronize()
+    assert k_ssd.launches["ssd_scan"] == 1
+    assert y.dtype == dtype and fin.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    assert _ssd_ok(y, ry, ey, SSD_RTOL[dtype])
+    assert _ssd_ok(fin, rfin, efin, SSD_RTOL[torch.float32])
+    if dtype == torch.float32 and not init:
+        oy, ofin = ref.ssd_ref(x, dt, A, Bm, Cm)
+        torch.cuda.synchronize()
+        assert _ssd_ok(y, oy, ey, SSD_REF_RTOL)
+        assert _ssd_ok(fin, ofin, efin, SSD_REF_RTOL)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm, _ = _ssd_case(cuda, 0, 1, 32, 2, 32, 32, False)
+    with pytest.raises(ValueError, match="float32"):
+        k_ssd.ssd_scan(x, dt, A, Bm.bfloat16(), Cm, chunk=16)
+    with pytest.raises(ValueError, match="chunk"):
+        k_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        k_ssd.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm, chunk=16)
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # beyond a CTA's shared memory
+        k_ssd.ssd_scan(torch.zeros((1, 8, 1, 256), device=cuda), dt[:, :8, :1].contiguous(), A[:1],
+                       torch.zeros((1, 8, 256), device=cuda), torch.zeros((1, 8, 256), device=cuda),
+                       chunk=128)

@@ -92,7 +92,7 @@ def test_init_params_is_seeded_and_scaled():
 
 def test_unported_archs_raise_not_implemented():
     from repro_torch.models import Model
-    for arch in ("mamba2-130m", "olmoe-1b-7b", "recurrentgemma-2b"):
+    for arch in ("olmoe-1b-7b", "recurrentgemma-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             Model(get_config(arch, smoke=True), device="cpu")
     cfg = get_config("granite-3-2b", smoke=True).replace(kv_precision="int8")
