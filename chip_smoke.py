@@ -93,6 +93,30 @@ QUANT_ARGS = SERVE_ARGS + PAGED_POOL + [
 # over the full 512-token bucket (a recurrent stack is not ragged)
 SSM_ARGS = SERVE_ARGS + ["--arch", "mamba2-130m"]
 SSM_SYNC_ARGS = SSM_ARGS + ["--sync-free"]
+# the paged pool on the sync-free loop, and under continuous batching with
+# the chunked serve's token budget (chunks of 128 written through the
+# block tables, K4p)
+PAGED_SYNC_ARGS = PAGED_ARGS + ["--sync-free"]
+PAGED_CHUNKED_ARGS = SERVE_ARGS + PAGED_POOL + ["--chunked", "--policy", "token-aware",
+                                                "--token-budget", "1024"]
+# prefix_serve: the paged chunked loop with prefix sharing on an all-int8
+# pool of PAGED_POOL's geometry, fed by tenants' system prompts (the
+# shape of tests/test_differential.py::make_shared_workload and
+# examples/serve_prefix_cache.py at full width): each prompt is one of 4
+# tenants' 392-token system prompts (24 pages and a half) and a 16-120-token
+# suffix, so a hit shares 24 pages and forks the 25th copy-on-write. The
+# chunk budget is 4 chunks of 128 per slot: at the default (16 x 128) every
+# claimed row prefills at once, the prompts overcommit the 192 pages, and
+# eviction empties the index before a tenant's second request can hit it.
+PREFIX_TENANTS, PREFIX_SYS_LEN, PREFIX_SUFFIX = 4, 392, (16, 120)
+PREFIX_CHUNK_BUDGET = 512
+# max |kernel-path logit - plain-path logit| of the full-width paged
+# chunked prefill with prefix hits on an int8 pool and 16 decode steps
+# (check_paged_chunk_model): 1.5x the largest reading (0.109 at logit
+# scale 7.31, PERF.md), as SSM_MODEL_TOL was set. The chunk attention that
+# reads staging for the hit lands 0.88-6.1 away, the one with unit scales
+# 0.64-6.6.
+PAGED_CHUNK_MODEL_TOL = 0.16
 # max |kernel-path logit - plain-path logit| of the full-width mamba2-130m
 # check (prefill logits around the chunk boundaries and 16 decode steps):
 # 1.5x the largest reading (0.098 at logit scale 3.16, PERF.md). The kernel
@@ -418,6 +442,7 @@ def check_kernels(timer) -> dict:
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
                _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
     check_quant_kernel(rng, record)
+    check_paged_chunk_kernels(rng, record)
     check_ssd_kernel(record)
     return rows
 
@@ -512,6 +537,209 @@ def check_quant_kernel(rng, record) -> None:
                    pool == "mixed" and dtype == torch.bfloat16,
                    library="dequantize + index_select of the K and V pages + "
                            "scaled_dot_product_attention")
+
+
+def _chunk_quant_work(H, KVH, hd, esize, C, sp, pos0, valid):
+    """``_chunk_work`` over codes: per live slot one byte per code and a
+    4-byte scale per KV head for K and V."""
+    nbytes, flops = _chunk_work(H, KVH, hd, esize, C, sp, pos0, valid)
+    B, L = sp.shape
+    live = sum(min(int(pos0[b]) + int(valid[b]), L) for b in range(B) if valid[b])
+    return nbytes - esize * 2 * live * KVH * hd + 2 * live * KVH * (hd + 4), flops
+
+
+def _paged_chunk_inputs(rng, B, C, MP, ps, KVH, hd, Nn, staged):
+    """Rows cycling through a first chunk (base 0), a chunk right after a
+    prefix hit ending mid-page (base 24), the prefix serve's hit (base 392:
+    24 pages and 8 forked rows) with a 120-token chunk, a one-token chunk
+    after a hit of all but the last prompt token (base = pos0 = L - 1), a
+    second chunk after a mid-page hit (base 200, pos0 328) and an inactive
+    row (all -1). Tables over a random permutation of B * MP pages, ids
+    below Nn native; pool rows no query may read (past the chunk, and with
+    staging (``staged``) at or past base) hold +-1e30. Numpy arrays: k, v
+    (the whole pool as floats), block tables, pos0, valid, base, staging
+    buffers (B, MP * ps + 1, KVH, hd) or None."""
+    N, P = B * MP, MP * ps
+    perm = rng.permutation(N).astype(np.int32)
+    bt = np.full((B, MP), -1, np.int32)
+    live = np.zeros((N, ps), bool)
+    pos0, valid, base = (np.zeros(B, np.int32) for _ in range(3))
+    for b in range(B):
+        kind = b % 6
+        if kind == 5:
+            continue
+        L1 = int(rng.integers(200, 513))
+        p0, nv, bs = ((0, C, 0), (24, C, 24), (392, 120, 392), (L1 - 1, 1, L1 - 1),
+                      (328, C, 200))[kind]
+        pos0[b], valid[b], base[b] = p0, nv, bs
+        n = (p0 + nv - 1) // ps + 1
+        bt[b, :n] = perm[b * MP: b * MP + n]
+        for j in range(bs if staged else p0 + nv):
+            live[bt[b, j // ps], j % ps] = True
+    k = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    stage = None
+    if staged:
+        stage = rng.standard_normal((2, B, P + 1, KVH, hd)).astype(np.float32)
+    return (np.where(live[..., None, None], k, junk), np.where(live[..., None, None], v, -junk),
+            bt, pos0, valid, base, stage)
+
+
+def _paged_chunk_keys(bt, ps, Nn, pos0, valid, base, staged):
+    """Per row, the source of each logical key position up to its chunk's
+    last (0 none, 1 native page, 2 quantized page, 3 staging), the
+    kernel's resolution."""
+    B, MP = bt.shape
+    out = []
+    for b in range(B):
+        end = int(pos0[b] + valid[b]) if valid[b] else 0
+        j = np.arange(end)
+        page = np.where(j // ps < MP, bt[b, np.minimum(j // ps, MP - 1)], -1)
+        src = np.where(page < 0, 0, np.where(page < Nn, 1, 2))
+        if staged:
+            src = np.where(j >= base[b], 3, src)
+        out.append(src)
+    return out
+
+
+def _paged_chunk_work(H, KVH, hd, esize, ps, Nn, bt, pos0, valid, base, staged, C):
+    """Bytes and FLOPs this K4p call needs: each key position up to a row's
+    last query read once from its source (K and V rows in q's dtype from a
+    native page or staging, one-byte codes and a 4-byte scale per KV head
+    from a quantized page), q rows below valid, the whole output, the
+    tables and the per-row ints; 4*hd FLOPs per (head, query, visible key)."""
+    B = bt.shape[0]
+    nbytes = esize * B * C * H * hd + 4 * (bt.size + 3 * B)
+    pairs = 0
+    for b, src in enumerate(_paged_chunk_keys(bt, ps, Nn, pos0, valid, base, staged)):
+        nbytes += 2 * KVH * (hd * esize * int(((src == 1) | (src == 3)).sum())
+                             + (hd + 4) * int((src == 2).sum()))
+        nbytes += esize * int(valid[b]) * H * hd
+        have = np.cumsum(src > 0)
+        pairs += int(sum(have[int(pos0[b]) + i] for i in range(int(valid[b]))))
+    return nbytes, 4.0 * hd * H * pairs
+
+
+def check_paged_chunk_kernels(rng, record) -> None:
+    """K4q at the chunked serve's shape (B 8, C 128, L 1024, H 32/8, hd 64)
+    over int8 and fp8 codes of ``_chunk_inputs``'s mix, bf16 q and one f32
+    case; K4p at the paged pool's shape (B 16, 64-page tables of 16 rows,
+    chunks of 128) on a native pool without staging and on int8, fp8 and
+    mixed pools with staging, bases at 0, mid-page and L - 1 (plus an int8
+    f32 case). Each against its plain version, with the library route's
+    time for the record: dequantize, ``index_select`` the pages (and
+    concatenate staging), ``scaled_dot_product_attention``. K4p's native
+    bf16 case goes into the ``kernels`` line as paged_chunk_attention, its
+    int8 bf16 case as paged_chunk_attention_quant (K4q's arithmetic through
+    the tables); the standalone K4q entry serves no path."""
+    from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels import paged_chunk_attention as kpc
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+
+    B, C, L, H, KVH, hd = 8, 128, 1024, 32, 8, 64
+    for prec, dtype in (("int8", torch.bfloat16), ("fp8", torch.bfloat16),
+                        ("int8", torch.float32)):
+        k_np, v_np, sp_np, p0_np, nv_np = _chunk_inputs(rng, B, C, L, KVH, hd)
+        spec = parse_kv_precision(prec)
+        qk, ks = quantize_kv(torch.from_numpy(k_np).cuda(), spec)
+        qv, vs = quantize_kv(torch.from_numpy(v_np).cuda(), spec)
+        q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).cuda()
+        q = q.to(dtype)
+        sp, pos0, valid = (torch.from_numpy(a).cuda() for a in (sp_np, p0_np, nv_np))
+        case = f"chunk_attention_quant {prec} B{B} C{C} L{L} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs: kpc.chunk_attention_quant(
+            q, qk, qv, ks, vs, sp, pos0, valid)
+        plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs: ref.chunk_attention_quant_ref(
+            q, qk, qv, ks, vs, sp, pos0, valid)
+        env = ref.chunk_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos0, valid)
+        got = fn()
+        torch.cuda.synchronize()
+        if got[torch.from_numpy(nv_np == 0).cuda()].any():
+            raise AssertionError(f"{case}: an inactive row is not zeros")
+        qpos = pos0[:, None] + torch.arange(C, device="cuda")[None, :]
+        mask = ((sp[:, None, :] >= 0) & (sp[:, None, :] <= qpos[:, :, None]))[:, None]
+
+        def lib(q=q, qk=qk, qv=qv, ks=ks, vs=vs, mask=mask):
+            kk = dequantize_kv(qk, ks, q.dtype).transpose(1, 2)
+            vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv, attn_mask=mask,
+                                                  enable_gqa=True)
+        record(case, "chunk_attention_quant", dtype, got, plain(), env, fn, plain, lib,
+               _chunk_quant_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np),
+               prec == "int8" and dtype == torch.bfloat16,
+               library="dequantize + scaled_dot_product_attention")
+
+    B, MP, ps = 16, 64, 16
+    N = B * MP
+    for pool, staged, dtype in (("native", False, torch.bfloat16),
+                                ("int8", True, torch.bfloat16), ("fp8", True, torch.bfloat16),
+                                ("mixed", True, torch.bfloat16), ("int8", True, torch.float32)):
+        Nn = N if pool == "native" else N // 2 if pool == "mixed" else 0
+        k_np, v_np, bt_np, p0_np, nv_np, base_np, st_np = _paged_chunk_inputs(
+            rng, B, C, MP, ps, KVH, hd, Nn, staged)
+        kn = vn = qk = qv = ks = vs = stk = stv = None
+        if Nn:
+            kn, vn = (torch.from_numpy(a[:Nn]).cuda().to(dtype) for a in (k_np, v_np))
+        if Nn < N:
+            spec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
+            qk, ks = quantize_kv(torch.from_numpy(k_np[Nn:]).cuda(), spec)
+            qv, vs = quantize_kv(torch.from_numpy(v_np[Nn:]).cuda(), spec)
+        if staged:
+            stk, stv = (torch.from_numpy(a).cuda().to(dtype) for a in st_np)
+        q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).cuda()
+        q = q.to(dtype)
+        bt, pos0, valid, base = (torch.from_numpy(a).cuda() for a in (bt_np, p0_np, nv_np,
+                                                                     base_np))
+        name = "paged_chunk_attention" if pool == "native" else "paged_chunk_attention_quant"
+        case = f"{name} {pool}{' staged' if staged else ''} B{B} MP{MP} ps{ps} C{C} " \
+               f"H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+        args = (q, kn, vn, qk, qv, ks, vs, bt, pos0, valid)
+        kw = dict(stage_k=stk, stage_v=stv, base=base)
+        fn = lambda args=args, kw=kw: kpc.paged_chunk_attention(*args, **kw)
+        plain = lambda args=args, kw=kw: ref.paged_chunk_attention_ref(*args, **kw)
+        env = ref.paged_chunk_attention_ref(
+            q, kn, None if vn is None else vn.abs(), qk, None if qv is None else _abs_codes(qv),
+            ks, vs, bt, pos0, valid, stage_k=stk, stage_v=None if stv is None else stv.abs(),
+            base=base)
+        got = fn()
+        torch.cuda.synchronize()
+        if got[torch.from_numpy(nv_np == 0).cuda()].any():
+            raise AssertionError(f"{case}: an inactive row is not zeros")
+        keys = _paged_chunk_keys(bt_np, ps, Nn, p0_np, nv_np, base_np, staged)
+        S = MP * ps + (MP * ps + 1 if staged else 0)
+        ok = np.zeros((B, C, S), bool)   # the reference's mask: pool slots, then staging
+        for b, src in enumerate(keys):
+            for i in range(int(nv_np[b])):
+                j = np.arange(int(p0_np[b]) + i + 1)
+                sel = src[j]
+                ok[b, i, j[(sel == 1) | (sel == 2)]] = True
+                if staged:
+                    ok[b, i, MP * ps + j[sel == 3]] = True
+        mask = torch.from_numpy(ok).cuda()[:, None]
+        flat = bt.clamp(0, N - 1).flatten()
+
+        def lib(q=q, kn=kn, vn=vn, qk=qk, qv=qv, ks=ks, vs=vs, stk=stk, stv=stv, mask=mask,
+                flat=flat):
+            kk = [] if kn is None else [kn]
+            vv = [] if vn is None else [vn]
+            if qk is not None:
+                kk.append(dequantize_kv(qk, ks, q.dtype))
+                vv.append(dequantize_kv(qv, vs, q.dtype))
+            kk = torch.cat(kk).index_select(0, flat).view(B, MP * ps, KVH, hd)
+            vv = torch.cat(vv).index_select(0, flat).view(B, MP * ps, KVH, hd)
+            if stk is not None:
+                kk, vv = torch.cat((kk, stk), 1), torch.cat((vv, stv), 1)
+            return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                                  vv.transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=True)
+        record(case, name, dtype, got, plain(), env, fn, plain, lib,
+               _paged_chunk_work(H, KVH, hd, q.element_size(), ps, Nn, bt_np, p0_np, nv_np,
+                                 base_np, staged, C),
+               dtype == torch.bfloat16 and pool in ("native", "int8"),
+               library="dequantize + index_select of the pages (+ staging) + "
+                       "scaled_dot_product_attention")
 
 
 def _ssd_work(B, S, H, P, N, Q, esize, init):
@@ -1086,6 +1314,145 @@ def check_chunk_model() -> dict:
     return res
 
 
+def _paged_chunk_impls():
+    """Stand-ins for ``repro_torch.kernels.ops`` in the paged chunked model
+    check: the plain versions, and two deliberately faulty chunk
+    attentions: one that reads the staging buffers for the prefix hit [0,
+    base) as well (base taken as 0), one that dequantizes with unit
+    scales."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops, ref
+
+    def quant(q, k, v, qk, qv, ks, vs, bt, pos):
+        return ref.paged_decode_attention_quant_ref(q, qk, qv, ks, vs, bt, pos)
+
+    def staging_for_the_hit(q, *pool_and_tables, stage_k=None, stage_v=None, base=None):
+        return ops.paged_chunk_attention(q, *pool_and_tables, stage_k=stage_k, stage_v=stage_v,
+                                         base=torch.zeros_like(base))
+
+    def unit_scales(q, k, v, qk, qv, ks, vs, *rest, **kw):
+        return ops.paged_chunk_attention(q, k, v, qk, qv, torch.ones_like(ks),
+                                         torch.ones_like(vs), *rest, **kw)
+
+    plain = SimpleNamespace(paged_chunk_attention=ref.paged_chunk_attention_ref,
+                            paged_decode_attention_quant=quant)
+    faults = {name: SimpleNamespace(paged_chunk_attention=fn,
+                                    paged_decode_attention_quant=ops.paged_decode_attention_quant)
+              for name, fn in (("staging_read_for_the_prefix_hit", staging_for_the_hit),
+                               ("unit_scales", unit_scales))}
+    return plain, faults
+
+
+def _paged_chunk_logits(model, sys_toks, suffixes, impl, feed=None):
+    """Full width, an all-int8 pool with staging buffers: rows 0-3 (the
+    writers) each prefill tenant i's system prompt and a suffix through
+    ``chunk_step_paged`` in chunks of 128; rows 4-7 (the readers) share the
+    writer's 24 full system-prompt pages, fork its 25th page copy-on-write
+    (``fork_pages``) and prefill only their own tokens from base 392 on,
+    reading the hit from the pool and the rest from staging; then 16
+    decode steps on ``feed`` (None: each step's argmax). Returns the
+    (17, 8, V) float32 logits: each row's activation logits, then the
+    decode steps."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    kernels_ops, A.ops = A.ops, impl
+    cfg = model.cfg.replace(kv_precision="int8")
+    B, P, ps, MP, C = 8, 512, 16, 64, 128
+    N = B * MP
+    toks = [np.concatenate([sys_toks[b % 4], suffixes[b]]) for b in range(B)]
+    lens = np.asarray([len(t) for t in toks], np.int32)
+    perm = np.random.default_rng(3).permutation(N).astype(np.int32)
+    bt = perm.reshape(B, MP).copy()
+    hit = PREFIX_SYS_LEN // ps
+    bt[4:, :hit] = bt[:4, :hit]              # the readers share the writers' full pages
+    pools = T.paged_pools_init(cfg, N, ps, "cuda", stage_rows=B, stage_len=P)
+    state = M.PagedDecodeState(pools, torch.from_numpy(bt).cuda(),
+                               torch.zeros(B, dtype=torch.int32, device="cuda"),
+                               torch.zeros(B, dtype=torch.int32, device="cuda"))
+    first = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device="cuda")
+    base = np.where(np.arange(B) >= 4, PREFIX_SYS_LEN, 0).astype(np.int32)
+    for rows in (range(4), range(4, B)):
+        if rows.start:   # the readers' copy-on-write forks of the boundary pages
+            M.fork_pages(pools, torch.from_numpy(bt[:4, hit].astype(np.int64)).cuda(),
+                         torch.from_numpy(bt[4:, hit].astype(np.int64)).cuda())
+        for pos0 in range(int(base[rows.start]), P, C):
+            tok = np.zeros((B, C), np.int32)
+            p0 = np.zeros(B, np.int32)
+            nv = np.zeros(B, np.int32)
+            for b in rows:
+                n = int(np.clip(lens[b] - pos0, 0, C))
+                tok[b, :n] = toks[b][pos0:pos0 + n]
+                p0[b], nv[b] = pos0, n
+            if not nv.any():
+                break
+            logits, state = M.chunk_step_paged(
+                model, state, *(torch.from_numpy(a).cuda() for a in (tok, p0, nv, base)))
+            fin = torch.from_numpy((nv > 0) & (p0 + nv == lens)).cuda()
+            first = torch.where(fin[:, None], logits.float(), first)
+    out = [first]
+    for step in range(16):
+        nxt = out[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+        logits, state = M.decode_step_paged(model, state, nxt)
+        out.append(logits.float())
+    A.ops = kernels_ops
+    del state, pools
+    return torch.stack(out)
+
+
+def check_paged_chunk_model() -> dict:
+    """Full-width granite-3-2b on seeded weights, bf16: the paged chunked
+    prefill with prefix hits on an int8 pool (``_paged_chunk_logits``) and
+    16 decode steps through the kernels (K4p, K3q) against the plain
+    versions on the same fed tokens; the two faulty chunk attentions of
+    ``_paged_chunk_impls`` must land beyond PAGED_CHUNK_MODEL_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    sys_toks = [rng.integers(0, cfg.vocab_size, PREFIX_SYS_LEN).astype(np.int32)
+                for _ in range(4)]
+    suffixes = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in (120, 16, 64, 100, 16, 120, 77, 40)]
+    plain, faults = _paged_chunk_impls()
+    lp = _paged_chunk_logits(model, sys_toks, suffixes, plain)
+    feed = lp[:-1].argmax(-1).to(torch.int32)
+    lk = _paged_chunk_logits(model, sys_toks, suffixes, ops, feed)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and lk.shape == lp.shape):
+        raise AssertionError("bad paged chunked kernel-path logits")
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    reader_errs = (lk[:, 4:] - lp[:, 4:]).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > PAGED_CHUNK_MODEL_TOL
+    res = {"tol": PAGED_CHUNK_MODEL_TOL, "logit_scale": lp.abs().max().item(),
+           "max_abs_err_per_step": errs, "readers_max_abs_err_per_step": reader_errs,
+           "tokens_checked": int(sure.sum()),
+           "token_mismatches_beyond_margin": int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())}
+    failed = []
+    for name, impl in faults.items():
+        lf = _paged_chunk_logits(model, sys_toks, suffixes, impl, feed)
+        torch.cuda.synchronize()
+        fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+        res[f"{name}_max_abs_err_per_step"] = fault
+        if not max(fault) > PAGED_CHUNK_MODEL_TOL:
+            failed.append(f"the tolerance does not catch {name}")
+        del lf
+    emit("paged_chunk_model", **res)
+    del model, lp, lk
+    torch.cuda.empty_cache()
+    if max(errs) > PAGED_CHUNK_MODEL_TOL or res["token_mismatches_beyond_margin"]:
+        failed.append("paged chunked kernel path and plain path disagree")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return res
+
+
 def _ssd_impls():
     """Stand-ins for ``repro_torch.kernels.ops`` that the Mamba-2 block's
     prefill calls: the plain scan, and a deliberately faulty one that runs
@@ -1226,6 +1593,9 @@ SYNC_KERNELS = ("flash_attention_ragged", "decode_attention")
 CHUNKED_KERNELS = ("chunk_attention", "decode_attention")
 QUANT_KERNELS = ("flash_attention_ragged", "paged_decode_attention_quant")
 SSM_KERNELS = ("ssd_scan",)
+PAGED_SYNC_KERNELS = PAGED_KERNELS
+PAGED_CHUNKED_KERNELS = ("paged_chunk_attention", "paged_decode_attention")
+PREFIX_KERNELS = ("paged_chunk_attention_quant", "paged_decode_attention_quant")
 
 
 def _sync_checked(sched) -> None:
@@ -1254,8 +1624,8 @@ def _watch_precision(sched, engine) -> list:
         log.append({"chosen": ask(occupancy)})
         return log[-1]["chosen"]
 
-    def ensure_watched(n_steps):
-        ensure(n_steps)
+    def ensure_watched(n_steps, sync=False):
+        ensure(n_steps, sync)
         alloc = engine.allocator
         log[-1].update(quant_used_pages=alloc.stats().quant_used_pages,
                        regions=sorted({alloc.precision_of(r) for r in alloc.holders()}))
@@ -1265,14 +1635,37 @@ def _watch_precision(sched, engine) -> list:
 
 
 def _count_mixed(engine) -> list:
-    """Count the engine's mixed (chunk + decode) dispatches."""
-    mixed, run = [0], engine._chunk_decode_sync
+    """Count the engine's mixed (chunk + decode) dispatches, and those with
+    a row whose prompt starts past a prefix-cache hit (base > 0: its chunk
+    attention reads the hit's pool pages)."""
+    mixed, run = [0, 0], engine._chunk_decode_sync
 
     def counted(plan, n_steps):
         mixed[0] += 1
+        mixed[1] += bool((plan["ints"][3] > 0).any())
         return run(plan, n_steps)
     engine._chunk_decode_sync = counted
     return mixed
+
+
+def _paged_decode_sync_checked():
+    """Run the paged fused loop's decode dispatch (``_decode_n_paged``)
+    under ``set_sync_debug_mode("error")``: its write targets come from the
+    device, so nothing inside it reads back to the host (fault F1). The
+    slot's one counted readback, the tokens, comes after it. Returns the
+    function that puts the original back."""
+    from repro_torch.runtime import engine as E
+
+    decode = E._decode_n_paged
+
+    def checked(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return decode(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    E._decode_n_paged = checked
+    return lambda: setattr(E, "_decode_n_paged", decode)
 
 
 def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
@@ -1295,7 +1688,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     asynchronous = args.sync_free or args.chunked
     if asynchronous:
         _sync_checked(sched)
-    mixed = _count_mixed(engine) if args.chunked else [0]
+    restore = _paged_decode_sync_checked() if args.paged and not asynchronous else None
+    mixed = _count_mixed(engine) if args.chunked else [0, 0]
     watch = args.policy == "precision-aware"
     precision = _watch_precision(sched, engine) if watch else []
     t1 = time.perf_counter()
@@ -1306,6 +1700,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
             torch.cuda.synchronize()   # the last slot's work, before the clock stops
     finally:
         torch.cuda.set_sync_debug_mode(0)
+        if restore is not None:
+            restore()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
     res = {"summary": launcher.summary(args, tr, sched), "build_s": t1 - t0,
@@ -1339,10 +1735,13 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     if ssm:   # every prefill (the boot's too) runs the scan once per layer
         want = {"ssd_scan": n_layers * (engine.prefill_dispatches + 1)}
     elif args.paged:
-        decode = ("paged_decode_attention_quant" if args.kv_precision in ("int8", "fp8")
-                  else "paged_decode_attention")
+        quant = args.kv_precision in ("int8", "fp8")
+        decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
                 decode: n_layers * engine.decode_dispatches * 2}
+        if args.chunked:
+            chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
+            want[chunk] = n_layers * mixed[0]
     elif asynchronous:
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
                 "decode_attention": n_layers * engine.decode_dispatches * 2,
@@ -1360,11 +1759,133 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         if not max(res["quant_used_pages"]) or not res["slots_with_both_regions"]:
             raise AssertionError(f"{phase}: the quantized region was not used beside the "
                                  "native one")
-    if args.chunked or watch or ssm:
+    if args.chunked or watch or ssm or (args.paged and asynchronous):
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
             raise AssertionError(f"{phase}: the trace {res['trace']} is not the CPU run's {cpu}")
+    return res
+
+
+PREFIX_HORIZON = 12
+
+
+def _prefix_source():
+    """prefix_serve's seeded request source: the launcher's raw rate of 5
+    per slot subsampled at the controller's rate, max_new_tokens 4; each
+    prompt is one of PREFIX_TENANTS fixed PREFIX_SYS_LEN-token system
+    prompts and a random suffix of PREFIX_SUFFIX tokens. Token ids below
+    256 serve the smoke model's vocabulary and the full one alike: a prefix
+    hit depends on the ids only."""
+    from repro_torch.runtime import Request
+
+    class TenantPromptSource:
+        def __init__(self, seed: int = 0, raw_rate: int = 5):
+            self.rng = np.random.default_rng(seed)
+            self.raw_rate = raw_rate
+            self.system = [self.rng.integers(0, 256, PREFIX_SYS_LEN, dtype=np.int32)
+                           for _ in range(PREFIX_TENANTS)]
+            self.next_id = 0
+
+        def poll(self, slot: int, rate: float) -> list:
+            out = []
+            for _ in range(int(self.rng.binomial(self.raw_rate, min(rate / self.raw_rate, 1.0)))):
+                tenant = int(self.rng.integers(0, PREFIX_TENANTS))
+                n = int(self.rng.integers(PREFIX_SUFFIX[0], PREFIX_SUFFIX[1] + 1))
+                toks = np.concatenate([self.system[tenant],
+                                       self.rng.integers(0, 256, n, dtype=np.int32)])
+                out.append(Request(rid=self.next_id, arrival_slot=slot, tokens=toks,
+                                   max_new_tokens=4))
+                self.next_id += 1
+            return out
+
+    return TenantPromptSource()
+
+
+def _prefix_build(device: str = "cuda", smoke: bool = False):
+    """prefix_serve's model, engine and scheduler: PagedEngine with prefix
+    sharing on an all-int8 pool (16 rows, 192 pages of 16, prompt_len 512,
+    cache_len 1024, chunks of 128, PREFIX_CHUNK_BUDGET prompt tokens per
+    slot) under TokenBacklogAware (token budget 1024, the chunked serve's),
+    and the seeded tenant source."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import PagedEngine, PagedEngineConfig, TokenAwareScheduler
+
+    cfg = get_config("granite-3-2b", smoke=smoke)
+    model = init_params(cfg, seed=0, device=device)
+    engine = PagedEngine(model, PagedEngineConfig(
+        prompt_len=512, cache_len=1024, page_size=16, num_pages=192, max_active=16,
+        prefix_sharing=True, kv_precision="int8", chunk_budget=PREFIX_CHUNK_BUDGET))
+    sched = TokenAwareScheduler(rates=tuple(float(f) for f in range(1, 6)), V=20.0,
+                                token_budget=1024.0, tokens_per_request=512.0, capacity=32)
+    return engine, sched, _prefix_source()
+
+
+def _prefix_run(engine, sched, src) -> dict:
+    """The launcher's loop (``repro_torch.runtime.serve``), chunked."""
+    from repro_torch.runtime import serve
+
+    return serve(engine, sched, src, horizon=PREFIX_HORIZON, steps_per_slot=2, chunked=True)
+
+
+def drive_prefix_serve() -> dict:
+    """prefix_serve at full width: every slot after the first under the
+    sync debug mode with 0 blocking syncs; the launch counts (K4p over the
+    int8 pool once per layer and mixed dispatch, K3q per layer and decode
+    step); prefix hits and copy-on-write forks taken, and K4p launched on
+    the quantized pages of a hit; the trace held to the CPU run's with the
+    smoke model."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import paged_summary, prefix_summary
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    engine, sched, src = _prefix_build()
+    torch.cuda.synchronize()
+    _sync_checked(sched)
+    mixed = _count_mixed(engine)
+    t1 = time.perf_counter()
+    try:
+        tr = _prefix_run(engine, sched, src)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    n_layers = engine.cfg.n_layers
+    line = prefix_summary(engine)
+    print(line, flush=True)
+    res = {"prefix": line, "paged": paged_summary(tr, engine), "build_s": t1 - t0,
+           "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / PREFIX_HORIZON * 1e3,
+           "launches": counts, "served": int(tr["served"].sum()),
+           "mixed_dispatches": mixed[0], "mixed_dispatches_with_a_hit": mixed[1],
+           "quantized_hit_launches": n_layers * mixed[1],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
+           "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches",
+                                                 "occupancy")}}
+    emit("prefix_serve", **res)
+    c = res["counters"]
+    want = {"paged_chunk_attention_quant": n_layers * mixed[0],
+            "paged_decode_attention_quant": n_layers * engine.decode_dispatches * 2}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"prefix_serve: launches {counts} are not {want}")
+    if res["served"] <= 0 or engine.prefill_dispatches or max(res["trace"]["dispatches"]) > 1:
+        raise AssertionError("prefix_serve: served nothing, ran a prefill or over-dispatched")
+    if engine.blocking_syncs or max(res["syncs"]):
+        raise AssertionError(f"prefix_serve: blocking syncs {res['syncs']}")
+    if not (c["prefix_hit_tokens"] > 0 and c["prefix_forks"] > 0 and mixed[1] > 0):
+        raise AssertionError("prefix_serve: no prefix hit, fork or K4p launch on a hit's "
+                             "quantized pages")
+    engine.allocator.check()
+    cpu_engine, cpu_sched, cpu_src = _prefix_build("cpu", smoke=True)
+    cpu = _prefix_run(cpu_engine, cpu_sched, cpu_src)
+    cpu = {k: cpu[k].tolist() for k in res["trace"]}
+    if cpu != res["trace"] or cpu_engine.prefix_hits != engine.prefix_hits:
+        raise AssertionError(f"prefix_serve: the trace {res['trace']} is not the CPU run's {cpu}")
     return res
 
 
@@ -1383,6 +1904,7 @@ def cpu_trace(argv: list) -> dict:
 # kernel name fragments of each kind of device work, tried in order
 # ("decode_attention_kernel" is also inside the paged kernel's name)
 KERNEL_KINDS = (("K6", ("ssd_scan_kernel",)),
+                ("K4p/K4q", ("paged_chunk_attention_kernel",)),
                 ("K3q", ("paged_decode_attention_quant_kernel",)),
                 ("K3", ("paged_decode_attention_kernel",)),
                 ("K2", ("decode_attention_kernel",)),
@@ -1400,19 +1922,28 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
-def profile_main_path(argv: list, serve_s: float, phase: str = "profile") -> None:
+def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
+                      prefix: bool = False) -> None:
     """Device time by kernel over a second, identical serve run (same seeds,
-    same work). The profiler slows the host, so the device's idle share is
-    taken against the unprofiled run's serve time."""
+    same work): the launcher's with ``argv``, or prefix_serve's. The
+    profiler slows the host, so the device's idle share is taken against
+    the unprofiled run's serve time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as launcher
 
-    args = launcher.build_parser().parse_args(argv)
-    engine, sched, src = launcher.build(args)
+    if prefix:
+        engine, sched, src = _prefix_build()
+        horizon = PREFIX_HORIZON
+        run = lambda: _prefix_run(engine, sched, src)
+    else:
+        args = launcher.build_parser().parse_args(argv)
+        engine, sched, src = launcher.build(args)
+        horizon = args.horizon
+        run = lambda: launcher.run(args, engine, sched, src)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        launcher.run(args, engine, sched, src)
+        run()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1428,10 +1959,10 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile") -> Non
     busy = sum(r["device_ms"] for r in rows)
     by_kind = {}
     for r in rows:
-        by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["device_ms"] / args.horizon
-    emit(phase, slots=args.horizon, device_busy_ms=busy,
-         device_busy_ms_per_slot=busy / args.horizon, device_ms_per_slot_by_kind=by_kind,
-         kernel_launches_per_slot=sum(r["count"] for r in rows) / args.horizon,
+        by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["device_ms"] / horizon
+    emit(phase, slots=horizon, device_busy_ms=busy,
+         device_busy_ms_per_slot=busy / horizon, device_ms_per_slot_by_kind=by_kind,
+         kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
          top=rows[:14], attention=[r for r in rows if "attention_kernel" in r["name"]])
@@ -1456,6 +1987,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import paged_attention as kp
     from repro_torch.kernels import paged_attention_quant as kpq
+    from repro_torch.kernels import paged_chunk_attention as kpc
     from repro_torch.kernels import ssd_scan as kssd
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
          dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
@@ -1463,6 +1995,7 @@ def main() -> int:
                              "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64": kc.smem_bytes(64),
+                             "paged_chunk_attention_hd64": kpc.smem_bytes(64),
                              "ssd_scan_chunk128_P64_N128": kssd.smem_bytes(128, 64, 128)})
 
     timer = Timer()
@@ -1473,6 +2006,7 @@ def main() -> int:
     check_preemption()
     check_chunk_model()
     check_quant_model()
+    check_paged_chunk_model()
     check_ssm_model()
     main_path = drive_main_path(SERVE_ARGS)
     profile_main_path(SERVE_ARGS, main_path["serve_s"])
@@ -1488,6 +2022,13 @@ def main() -> int:
     profile_main_path(SSM_ARGS, ssm_path["serve_s"], "ssm_profile")
     ssm_sync = drive_main_path(SSM_SYNC_ARGS, "ssm_sync_serve", SSM_KERNELS)
     profile_main_path(SSM_SYNC_ARGS, ssm_sync["serve_s"], "ssm_sync_profile")
+    paged_sync = drive_main_path(PAGED_SYNC_ARGS, "paged_sync_serve", PAGED_SYNC_KERNELS)
+    profile_main_path(PAGED_SYNC_ARGS, paged_sync["serve_s"], "paged_sync_profile")
+    paged_chunked = drive_main_path(PAGED_CHUNKED_ARGS, "paged_chunked_serve",
+                                    PAGED_CHUNKED_KERNELS)
+    profile_main_path(PAGED_CHUNKED_ARGS, paged_chunked["serve_s"], "paged_chunked_profile")
+    prefix = drive_prefix_serve()
+    profile_main_path([], prefix["serve_s"], "prefix_profile", prefix=True)
 
     # launches: each kernel's count from the run of the path it serves
     counts = {**main_path["launches"],
@@ -1495,7 +2036,9 @@ def main() -> int:
               "paged_decode_attention_quant":
                   quant_path["launches"]["paged_decode_attention_quant"],
               "chunk_attention": chunked_path["launches"]["chunk_attention"],
-              "ssd_scan": ssm_path["launches"]["ssd_scan"]}
+              "ssd_scan": ssm_path["launches"]["ssd_scan"],
+              "paged_chunk_attention": paged_chunked["launches"]["paged_chunk_attention"],
+              "paged_chunk_attention_quant": prefix["launches"]["paged_chunk_attention_quant"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1510,7 +2053,14 @@ def main() -> int:
            "chunk_attention": ("src/repro_torch/kernels/csrc/chunk_attention.cu",
                                "src/repro/kernels/chunk_attention.py:48"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                        "src/repro/kernels/ssd_scan.py:28")}
+                        "src/repro/kernels/ssd_scan.py:28"),
+           # K4p: no Pallas kernel; the reference's attn_chunk_paged gathers in XLA
+           "paged_chunk_attention": ("src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
+                                     "src/repro/models/attention.py:731"),
+           # K4p over quantized pages: K4q's dequantizing loads
+           "paged_chunk_attention_quant": (
+               "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
+               "src/repro/kernels/chunk_attention.py:75")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

@@ -28,9 +28,8 @@ recycled pages are never zeroed because the attention mask (logical index
 
 This is the reference package's allocator, kept as the port's own copy
 (pure Python). The port's paged engine runs it with one or two regions
-(native, quantized) and without prefix sharing so far; the pinning and
-fork paths are here for the slice that ports them (ROADMAP.md queue 1
-item 8).
+(native, quantized), and with prefix sharing its pins, shared allocations
+and forks serve ``repro_torch.cache.prefix.PrefixIndex``.
 
 Occupancy (used_pages / num_pages) is the signal the ``MemoryAware`` policy
 (repro_torch.control.policy) prices with a virtual queue, extending Algorithm 1's

@@ -32,14 +32,13 @@
 // per element instead of 2 in bf16) plus 4 bytes of scale per row per KV
 // head, for a few MFLOP. As in K3 a tile is computed only after it has
 // arrived, and the grid is (KVH, B).
-#include <cuda_fp8.h>
-
-#include "common.cuh"
+#include "dequant.cuh"
 
 namespace {
 
 using repro::from_f;
 using repro::load_rows;
+using repro::load_rows_dequant;
 using repro::load_rows_gather;
 using repro::NEG_INF;
 using repro::to_f;
@@ -49,7 +48,7 @@ using repro::warp_sum;
 constexpr int BL = 64;  // logical slots per tile: two per lane
 
 // NROW entries: a native pool row (>= 0), an invalid slot (-1: zeros), or a
-// slot of the quantized region (-2: left to load_rows_dequant by
+// slot of the quantized region (-2: left to dequant.cuh::load_rows_dequant by
 // common.cuh::load_rows_gather)
 constexpr int INVALID = -1;
 constexpr int QUANT = -2;
@@ -58,64 +57,6 @@ template <int HD>
 size_t smem_bytes(int G) {
   return sizeof(float) * ((size_t)G * HD + (size_t)BL * (HD + 1) + (size_t)BL * HD) +
          2 * sizeof(int) * BL;
-}
-
-// A one-byte code (the low 8 bits of ``byte``) as a float, exactly.
-template <typename C> __device__ __forceinline__ float code_to_f(uint32_t byte);
-template <> __device__ __forceinline__ float code_to_f<int8_t>(uint32_t byte) {
-  return (float)(int)(signed char)(byte & 0xffu);
-}
-template <> __device__ __forceinline__ float code_to_f<__nv_fp8_e4m3>(uint32_t byte) {
-  __nv_fp8_e4m3 c;
-  c.__x = (__nv_fp8_storage_t)(byte & 0xffu);
-  return static_cast<float>(c);
-}
-
-// The tile rows named by ``qrows`` (>= 0: a row of the quantized pool, rows
-// ``src_stride`` codes apart; -1: not in this region) as codes C with 16-byte
-// loads, dequantized with the row's scale (``scales[row * scale_stride]``)
-// and rounded to T, then stored as floats.
-template <typename C, typename T, int HD>
-__device__ __forceinline__ void load_rows_dequant(float* dst, int dst_stride,
-                                                  const C* __restrict__ src,
-                                                  size_t src_stride,
-                                                  const float* __restrict__ scales,
-                                                  int scale_stride, const int* qrows,
-                                                  int tid, int nthreads) {
-  constexpr int VEC = 16;       // one-byte codes per 16-byte load
-  constexpr int VPR = HD / VEC;
-  constexpr int U = 4;
-  constexpr int nv = BL * VPR;
-  for (int base = tid; base < nv; base += U * nthreads) {
-    uint4 buf[U];
-    float sc[U];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = base + u * nthreads;
-      buf[u] = make_uint4(0u, 0u, 0u, 0u);
-      sc[u] = 0.f;
-      if (i < nv) {
-        const int r = qrows[i / VPR];
-        if (r >= 0) {
-          buf[u] = __ldg(reinterpret_cast<const uint4*>(
-              src + (size_t)r * src_stride + (i % VPR) * VEC));
-          sc[u] = __ldg(scales + (size_t)r * scale_stride);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int i = base + u * nthreads;
-      if (i < nv && qrows[i / VPR] >= 0) {
-        const int r = i / VPR;
-        const uint32_t w[4] = {buf[u].x, buf[u].y, buf[u].z, buf[u].w};
-        float* d = dst + r * dst_stride + (i - r * VPR) * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e)  // little-endian: code e is byte e % 4 of word e / 4
-          d[e] = to_f(from_f<T>(code_to_f<C>(w[e / 4] >> (8 * (e % 4))) * sc[u]));
-      }
-    }
-  }
 }
 
 template <typename T, typename C, int HD>
@@ -186,9 +127,9 @@ __global__ void paged_decode_attention_quant_kernel(
     load_rows_gather<T, HD>(Ks, KS, k_base, row_stride, NROW, BL, tid, nthreads);
     load_rows_gather<T, HD>(Vs, HD, v_base, row_stride, NROW, BL, tid, nthreads);
     if (anyq) {
-      load_rows_dequant<C, T, HD>(Ks, KS, qk_base, row_stride, ks_base, KVH, QROW, tid,
+      load_rows_dequant<C, T, HD>(Ks, KS, qk_base, row_stride, ks_base, KVH, QROW, BL, tid,
                                   nthreads);
-      load_rows_dequant<C, T, HD>(Vs, HD, qv_base, row_stride, vs_base, KVH, QROW, tid,
+      load_rows_dequant<C, T, HD>(Vs, HD, qv_base, row_stride, vs_base, KVH, QROW, BL, tid,
                                   nthreads);
     }
     __syncthreads();

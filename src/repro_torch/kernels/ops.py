@@ -16,9 +16,12 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_quant as _paq
+from repro_torch.kernels import paged_chunk_attention as _pca
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import (attention_ref, chunk_attention_ref,
-                                     decode_attention_ref, paged_decode_attention_mixed_ref,
+from repro_torch.kernels.ref import (attention_ref, chunk_attention_quant_ref,
+                                     chunk_attention_ref, decode_attention_ref,
+                                     paged_chunk_attention_ref,
+                                     paged_decode_attention_mixed_ref,
                                      paged_decode_attention_quant_ref,
                                      paged_decode_attention_ref, ssd_chunked)
 
@@ -73,13 +76,43 @@ def paged_decode_attention_quant(q: torch.Tensor, k_pages: Optional[torch.Tensor
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    slot_pos: torch.Tensor, pos0: torch.Tensor,
-                    valid: torch.Tensor) -> torch.Tensor:
+                    slot_pos: torch.Tensor, pos0: torch.Tensor, valid: torch.Tensor, *,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked-prefill attention: each row's chunk queries (at positions
-    pos0 ..) over the row's cache, which already holds the chunk."""
+    pos0 ..) over the row's cache, which already holds the chunk.
+    ``k_scale``/``v_scale`` (B, L, KVH) float32 make k/v int8 or fp8 codes,
+    dequantized as they load (K4q)."""
     if q.device.type == "cpu":
+        if k_scale is not None:
+            return chunk_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos0, valid)
         return chunk_attention_ref(q, k, v, slot_pos, pos0, valid)
+    if k_scale is not None:
+        return _pca.chunk_attention_quant(q, k, v, k_scale, v_scale, slot_pos, pos0, valid)
     return _ca.chunk_attention(q, k, v, slot_pos, pos0, valid)
+
+
+def paged_chunk_attention(q: torch.Tensor, k_pages: Optional[torch.Tensor],
+                          v_pages: Optional[torch.Tensor], qk_pages: Optional[torch.Tensor],
+                          qv_pages: Optional[torch.Tensor], k_scale: Optional[torch.Tensor],
+                          v_scale: Optional[torch.Tensor], block_tables: torch.Tensor,
+                          pos0: torch.Tensor, valid: torch.Tensor, *,
+                          stage_k: Optional[torch.Tensor] = None,
+                          stage_v: Optional[torch.Tensor] = None,
+                          base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Chunked-prefill attention over a paged pool (K4p): native pages
+    ``k_pages``/``v_pages`` and quantized ones (codes with scales), either
+    absent (None); table ids below the native page count read the native
+    region, the rest the quantized one at ``id - N_n``. With the staging
+    buffers ``stage_k``/``stage_v`` (B, S, KVH, hd) positions at or past
+    ``base`` (B,) read staging, the ones below it the pool."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_ref(q, k_pages, v_pages, qk_pages, qv_pages, k_scale,
+                                         v_scale, block_tables, pos0, valid, stage_k=stage_k,
+                                         stage_v=stage_v, base=base)
+    return _pca.paged_chunk_attention(q, k_pages, v_pages, qk_pages, qv_pages, k_scale, v_scale,
+                                      block_tables, pos0, valid, stage_k=stage_k,
+                                      stage_v=stage_v, base=base)
 
 
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -117,34 +117,58 @@ def paged_decode_attention_quant_ref(q: torch.Tensor, qk_pages: torch.Tensor,
                                       block_tables, pos)
 
 
+def pool_gather_ref(block_tables: torch.Tensor, dtype: torch.dtype,
+                    k_pages: Optional[torch.Tensor], v_pages: Optional[torch.Tensor],
+                    qk_pages: Optional[torch.Tensor] = None,
+                    qv_pages: Optional[torch.Tensor] = None,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None) -> tuple:
+    """Every row's logical K/V through its block table (B, MP), page by page
+    as the reference's ``_pool_read`` gathers: an id below N_n (the native
+    pages (N_n, ps, KVH, hd), None for none) reads the native region, an id
+    at or above it the quantized one at ``id - N_n`` (codes with scales,
+    None for none), dequantized; -1 entries read a clamped page (the caller
+    masks them). Returns k, v (B, MP * ps, KVH, hd) in ``dtype``."""
+    B, MP = block_tables.shape
+    Nn = 0 if k_pages is None else k_pages.shape[0]
+    if qk_pages is None:
+        nidx = block_tables.clamp(0, Nn - 1).long()
+        kk, vv = k_pages[nidx].to(dtype), v_pages[nidx].to(dtype)
+    else:
+        qidx = (block_tables - Nn).clamp(0, qk_pages.shape[0] - 1).long()
+        kk = dequant_ref(qk_pages[qidx], k_scale[qidx], dtype)
+        vv = dequant_ref(qv_pages[qidx], v_scale[qidx], dtype)
+        if k_pages is not None:
+            nidx = block_tables.clamp(0, Nn - 1).long()
+            native = ((block_tables >= 0) & (block_tables < Nn))[:, :, None, None, None]
+            kk = torch.where(native, k_pages[nidx].to(dtype), kk)
+            vv = torch.where(native, v_pages[nidx].to(dtype), vv)
+    ps, KVH, hd = kk.shape[2:]
+    return kk.reshape(B, MP * ps, KVH, hd), vv.reshape(B, MP * ps, KVH, hd)
+
+
+def _table_slot_pos(block_tables: torch.Tensor, ps: int) -> torch.Tensor:
+    """(B, MP * ps) int32: logical slot j holds position j on an allocated
+    page, -1 on an unallocated one."""
+    MP = block_tables.shape[1]
+    j = torch.arange(MP * ps, dtype=torch.int32, device=block_tables.device)[None, :]
+    return torch.where((block_tables >= 0).repeat_interleave(ps, dim=1), j, -1)
+
+
 def paged_decode_attention_mixed_ref(q: torch.Tensor, k_pages: torch.Tensor,
                                      v_pages: torch.Tensor, qk_pages: torch.Tensor,
                                      qv_pages: torch.Tensor, k_scale: torch.Tensor,
                                      v_scale: torch.Tensor, block_tables: torch.Tensor,
                                      pos: torch.Tensor) -> torch.Tensor:
-    """Paged decode over a two-region pool, gathered page by page as the
-    reference's ``_pool_read`` does: an id below N_n (the native pages
-    k_pages/v_pages (N_n, ps, KVH, hd), in q's dtype) reads the native
-    region, an id at or above it the quantized one at ``id - N_n``,
-    dequantized to q's dtype. Unallocated (-1) entries read quantized page
-    0 and are masked. Then the dense ``decode_attention_ref``, with the mask
-    of ``paged_decode_attention_ref``."""
-    B, H, hd = q.shape
-    Nn, ps, KVH, _ = k_pages.shape
-    Nq = qk_pages.shape[0]
-    MP = block_tables.shape[1]
-    nidx = block_tables.clamp(0, Nn - 1).long()
-    qidx = (block_tables - Nn).clamp(0, Nq - 1).long()
-    native = ((block_tables >= 0) & (block_tables < Nn))[:, :, None, None, None]
-    kk = torch.where(native, k_pages[nidx].to(q.dtype),
-                     dequant_ref(qk_pages[qidx], k_scale[qidx], q.dtype))
-    vv = torch.where(native, v_pages[nidx].to(q.dtype),
-                     dequant_ref(qv_pages[qidx], v_scale[qidx], q.dtype))
-    j = torch.arange(MP * ps, dtype=torch.int32, device=q.device)[None, :]
-    allocated = (block_tables >= 0).repeat_interleave(ps, dim=1)
-    slot_pos = torch.where(allocated, j, -1)
-    return decode_attention_ref(q, kk.reshape(B, MP * ps, KVH, hd),
-                                vv.reshape(B, MP * ps, KVH, hd), slot_pos, pos)
+    """Paged decode over a two-region pool: ``pool_gather_ref`` (native
+    pages k_pages/v_pages in q's dtype, quantized ones dequantized to it;
+    unallocated entries read quantized page 0 and are masked), then the
+    dense ``decode_attention_ref`` with the mask of
+    ``paged_decode_attention_ref``."""
+    kk, vv = pool_gather_ref(block_tables, q.dtype, k_pages, v_pages, qk_pages, qv_pages,
+                             k_scale, v_scale)
+    return decode_attention_ref(q, kk, vv, _table_slot_pos(block_tables, k_pages.shape[1]),
+                                pos)
 
 
 def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -176,6 +200,46 @@ def chunk_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rows = cols[None, :] < valid[:, None]
     return torch.where(rows[..., None, None], out,
                        torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def chunk_attention_quant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              k_scale: torch.Tensor, v_scale: torch.Tensor,
+                              slot_pos: torch.Tensor, pos0: torch.Tensor,
+                              valid: torch.Tensor) -> torch.Tensor:
+    """K4q's plain version: dequantize the cache (codes (B,L,KVH,hd), scales
+    (B,L,KVH)) to q's dtype, then ``chunk_attention_ref``."""
+    return chunk_attention_ref(q, dequant_ref(k, k_scale, q.dtype),
+                               dequant_ref(v, v_scale, q.dtype), slot_pos, pos0, valid)
+
+
+def paged_chunk_attention_ref(q: torch.Tensor, k_pages: Optional[torch.Tensor],
+                              v_pages: Optional[torch.Tensor],
+                              qk_pages: Optional[torch.Tensor],
+                              qv_pages: Optional[torch.Tensor],
+                              k_scale: Optional[torch.Tensor],
+                              v_scale: Optional[torch.Tensor], block_tables: torch.Tensor,
+                              pos0: torch.Tensor, valid: torch.Tensor, *,
+                              stage_k: Optional[torch.Tensor] = None,
+                              stage_v: Optional[torch.Tensor] = None,
+                              base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4p's plain version, the reference's ``attn_chunk_paged`` attention:
+    gather the pool (``pool_gather_ref``) and, with staging buffers (B, S,
+    KVH, hd), concatenate them after it; pool slot j counts as position j
+    when its page is allocated (and, with staging, j < base), staging slot
+    j as position j when j >= base. Then ``chunk_attention_ref``, whose
+    mask keeps the positions <= each query's and zeros rows at or past
+    ``valid``."""
+    kk, vv = pool_gather_ref(block_tables, q.dtype, k_pages, v_pages, qk_pages, qv_pages,
+                             k_scale, v_scale)
+    ps = (k_pages if k_pages is not None else qk_pages).shape[1]
+    sp = _table_slot_pos(block_tables, ps)
+    if stage_k is not None:
+        sp = torch.where(sp < base[:, None], sp, -1)
+        js = torch.arange(stage_k.shape[1], dtype=torch.int32, device=q.device)[None, :]
+        kk = torch.cat([kk, stage_k.to(q.dtype)], dim=1)
+        vv = torch.cat([vv, stage_v.to(q.dtype)], dim=1)
+        sp = torch.cat([sp, torch.where(js >= base[:, None], js, -1)], dim=1)
+    return chunk_attention_ref(q, kk, vv, sp, pos0, valid)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

@@ -40,6 +40,16 @@ prices the quantized region's fill against ``--quant-budget``:
       --quant-pages 64 --policy precision-aware --downgrade-at 0.5 \
       --upgrade-at 0.3 --horizon 12 [--device cpu]
 
+``--sync-free`` and ``--chunked`` serve the paged engine too, over any
+pool; ``--prefix-sharing`` (with ``--paged``) shares resident prompt-prefix
+pages between requests, page by page on the fused and sync-free loops and
+token by token with copy-on-write forks on the chunked one, and prints a
+``prefix:`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --paged --chunked --prefix-sharing --kv-precision int8 \
+      --policy token-aware --horizon 12 [--device cpu]
+
 ``--arch mamba2-130m`` serves the Mamba-2 stack on the dense engine (the
 fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
 ``--paged`` refuse it with ValueError, as the reference does.
@@ -66,7 +76,6 @@ from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
 
 # flag -> the ROADMAP.md queue-1 item that will bring its path
 _UNPORTED = {
-    "prefix_sharing": "item 8 (prefix sharing)",
     "replicas": "item 8 (the fleet)",
     "temperature": "item 7 (per-request sampling)",
     "top_k": "item 7 (per-request sampling)",
@@ -78,8 +87,6 @@ _UNPORTED = {
     "trace_out": "item 10 (observability and reliability)",
     "decisions_out": "item 10 (observability and reliability)",
 }
-# the paged engine's sync-free and chunked loops
-_UNPORTED_PAGED = "item 6 (the paged sync-free loop and paged chunked batching)"
 _UNPORTED_DENSE_QUANT = "item 9 (the dense quantized ring cache)"
 _UNPORTED_POLICIES = {
     "conformal-slo": "item 10 (observability and reliability)",
@@ -151,9 +158,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=64)
     ap.add_argument("--capacity", type=int, default=32)
-    for flag in ("prefix_sharing", "metrics"):
-        ap.add_argument("--" + flag.replace("_", "-"), action="store_true",
-                        help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="paged: share resident prompt-prefix pages between requests "
+                         "(copy-on-write forks on the chunked path)")
+    ap.add_argument("--metrics", action="store_true",
+                    help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED['metrics']}")
     for flag in ("replicas", "temperature", "top_k", "top_p", "rep_penalty",
                  "sampling_seed", "tenants", "trace_out", "decisions_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
@@ -208,11 +217,6 @@ def build(args):
         raise NotImplementedError(
             f"--kv-precision {args.kv_precision} without --paged is not ported yet; see "
             f"ROADMAP.md queue 1 {_UNPORTED_DENSE_QUANT}")
-    if args.paged and (args.sync_free or args.chunked):
-        flag = "--chunked" if args.chunked else "--sync-free"
-        raise NotImplementedError(
-            f"--paged with {flag} is not ported yet; see ROADMAP.md queue 1 "
-            f"{_UNPORTED_PAGED}")
     if args.policy in _UNPORTED_POLICIES:
         raise NotImplementedError(
             f"--policy {args.policy} is not ported yet; see ROADMAP.md queue 1 "
@@ -234,7 +238,9 @@ def build(args):
             prompt_len=args.prompt_len, cache_len=args.cache_len,
             page_size=args.page_size, num_pages=args.num_pages,
             max_active=args.max_active, eos_id=args.eos_id,
-            kv_precision=args.kv_precision, quant_pages=args.quant_pages))
+            prefix_sharing=args.prefix_sharing, chunk_size=args.chunk_size,
+            chunk_budget=args.chunk_budget, kv_precision=args.kv_precision,
+            quant_pages=args.quant_pages))
     else:
         engine = Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
@@ -311,6 +317,11 @@ def quant_summary(args, engine: PagedEngine) -> str:
     return line
 
 
+def prefix_summary(engine: PagedEngine) -> str:
+    return (f"prefix: hit_tokens={engine.prefix_hits} forks={engine.prefix_forks} "
+            f"indexed_pages={len(engine._prefix)} evicted={engine._prefix.evicted_pages}")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     engine, sched, src = build(args)
@@ -320,6 +331,8 @@ def main(argv=None):
         print(paged_summary(tr, engine))
         if args.kv_precision in ("int8", "fp8"):
             print(quant_summary(args, engine))
+        if args.prefix_sharing:
+            print(prefix_summary(engine))
     print("latency:", latency_stats(engine))
 
 

@@ -13,8 +13,10 @@ The paged path keeps K/V in a shared pool of pages (``PagedKVPool``) that
 block tables index; its decode attention goes to
 ``kernels.ops.paged_decode_attention`` (a native pool) or
 ``kernels.ops.paged_decode_attention_quant`` (a pool with a quantized
-region), which read the pages through the tables and so replace the
-reference's ``_pool_read`` gather and dequantization.
+region), and its chunked-prefill attention to
+``kernels.ops.paged_chunk_attention`` (any pool, with the staging buffers
+of a lossy one), which read the pages through the tables and so replace
+the reference's ``_pool_read`` gather and dequantization.
 
 Unlike the reference, which returns new caches, the port writes K/V into
 the cache tensors and pools it is handed, in place.
@@ -208,6 +210,8 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
     return p.out(o)
 
 
+
+
 class PagedKVPool(NamedTuple):
     """Shared-pool paged KV storage. In a decode state each leaf carries a
     leading layer axis; the attention functions take one layer's view of it.
@@ -223,22 +227,35 @@ class PagedKVPool(NamedTuple):
     as int8 or fp8 codes with k_scale/v_scale, one float32 scale per token
     and KV head. Either region may be empty (its leaves None); a pool with
     no quantized region is the native pool of two leaves.
+
+    Each region holds one page more than its ids: a scratch page past its
+    last id, which no block table lists. Every write the reference drops
+    (``mode="drop"``: an inactive row, a position past the table, an
+    unallocated page, a row bound for the other region) lands there
+    instead, so each pool write has a fixed shape and reads nothing back to
+    the host. No kernel reads the scratch page, since no table names it.
+
+    ``stage_k``/``stage_v`` (rows, stage_len + 1, KVH, hd), at the compute
+    dtype, are the native staging buffers of the chunked prompt phase over
+    a lossy pool (None otherwise), with a scratch row past stage_len.
     """
 
-    k: Optional[torch.Tensor]             # (native_pages, ps, KVH, hd), RoPE applied
+    k: Optional[torch.Tensor]             # (native_pages + 1, ps, KVH, hd), RoPE applied
     v: Optional[torch.Tensor]
-    qk: Optional[torch.Tensor] = None     # (quant_pages, ps, KVH, hd) codes
+    qk: Optional[torch.Tensor] = None     # (quant_pages + 1, ps, KVH, hd) codes
     qv: Optional[torch.Tensor] = None
-    k_scale: Optional[torch.Tensor] = None  # (quant_pages, ps, KVH) float32
+    k_scale: Optional[torch.Tensor] = None  # (quant_pages + 1, ps, KVH) float32
     v_scale: Optional[torch.Tensor] = None
+    stage_k: Optional[torch.Tensor] = None  # (rows, stage_len + 1, KVH, hd)
+    stage_v: Optional[torch.Tensor] = None
 
     @property
     def native_pages(self) -> int:
-        return self.k.shape[-4] if self.k is not None else 0
+        return self.k.shape[-4] - 1 if self.k is not None else 0
 
     @property
     def quant_pages(self) -> int:
-        return self.qk.shape[-4] if self.qk is not None else 0
+        return self.qk.shape[-4] - 1 if self.qk is not None else 0
 
     @property
     def num_pages(self) -> int:
@@ -251,14 +268,25 @@ class PagedKVPool(NamedTuple):
     def layer(self, i: int) -> "PagedKVPool":
         return PagedKVPool(*(None if t is None else t[i] for t in self))
 
+    def regions(self) -> tuple:
+        """The two regions without their scratch pages, as views: native
+        k, v, then the quantized codes qk, qv and scales k_scale, v_scale
+        (None where a region is absent)."""
+        def cut(t, n, trailing):
+            return None if t is None else t.narrow(t.dim() - trailing, 0, n)
+        nn, nq = self.native_pages, self.quant_pages
+        return (cut(self.k, nn, 4), cut(self.v, nn, 4), cut(self.qk, nq, 4),
+                cut(self.qv, nq, 4), cut(self.k_scale, nq, 3), cut(self.v_scale, nq, 3))
+
 
 def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
-                    layers: Optional[int] = None,
-                    native_pages: Optional[int] = None) -> PagedKVPool:
+                    layers: Optional[int] = None, native_pages: Optional[int] = None,
+                    stage_rows: int = 0, stage_len: int = 0) -> PagedKVPool:
     """Zeroed pool; ``layers`` adds a leading layer axis. Under a quantized
     ``cfg.kv_precision`` the top ``num_pages - native_pages`` ids form the
     quantized region (``native_pages`` None: every page quantized; at
-    native precision: none)."""
+    native precision: none). ``stage_rows`` > 0 under a lossy precision
+    adds the staging buffers, ``stage_len`` positions per row."""
     prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
     if native_pages is None:
         native_pages = 0 if prec.is_quantized else num_pages
@@ -266,20 +294,25 @@ def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
     if nq and not prec.is_quantized:
         raise ValueError("a quantized page region needs a quantized kv_precision")
     lead = (layers,) if layers is not None else ()
+    KVH, hd = cfg.n_kv_heads, cfg.head_dim_
     kw = {}
     if native_pages:
-        shape = (*lead, native_pages, page_size, cfg.n_kv_heads, cfg.head_dim_)
+        shape = (*lead, native_pages + 1, page_size, KVH, hd)
         kw.update(k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
                   v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
     else:
         kw.update(k=None, v=None)
     if nq:
-        shape = (*lead, nq, page_size, cfg.n_kv_heads, cfg.head_dim_)
+        shape = (*lead, nq + 1, page_size, KVH, hd)
         qdt = qdtype_of(prec)
         kw.update(qk=torch.zeros(shape, dtype=qdt, device=device),
                   qv=torch.zeros(shape, dtype=qdt, device=device),
                   k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
                   v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    if stage_rows and prec.lossy and prec.staging == "auto":
+        shape = (*lead, stage_rows, stage_len + 1, KVH, hd)
+        kw.update(stage_k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
+                  stage_v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
     return PagedKVPool(**kw)
 
 
@@ -301,44 +334,77 @@ def _quant_write(pool: PagedKVPool, index: tuple, k: torch.Tensor, v: torch.Tens
 
 
 class PagedWrites(NamedTuple):
-    """Where one decode step writes each row's new K/V: only the rows whose
-    position falls in an allocated page of their block table, split by the
-    page's region (quantized pages by their region-local id)."""
+    """Where one step writes its K/V rows: per written position the page of
+    each region (a region-local id, or that region's scratch page where the
+    reference drops the write) and the row inside the page; for a chunk
+    over a pool with staging buffers, the staging row too (its scratch row
+    for pad columns). Every field has the shape of the positions, (B,) for
+    a decode step and (B, C) for a chunk, and all layers share them."""
 
-    rows: torch.Tensor    # (k,) int64 batch rows that write a native page
-    pages: torch.Tensor   # (k,) int64 native page of each
-    offs: torch.Tensor    # (k,) int64 row inside the page
-    qrows: torch.Tensor   # (kq,) int64 batch rows that write a quantized page
-    qpages: torch.Tensor  # (kq,) int64 its id minus native_pages
-    qoffs: torch.Tensor   # (kq,) int64
+    pages: torch.Tensor                   # native region page, or native_pages
+    qpages: torch.Tensor                  # quantized region page, or quant_pages
+    offs: torch.Tensor                    # row inside the page
+    stage: Optional[torch.Tensor] = None  # (B, C) staging row, or stage_len
 
 
 def paged_write_targets(block_table: torch.Tensor, pos: torch.Tensor, native_pages: int,
-                        num_pages: int, page_size: int) -> PagedWrites:
-    """The rows of ``block_table`` (B, MP) that write position ``pos`` (B,),
-    by region.
+                        quant_pages: int, page_size: int,
+                        keep: Optional[torch.Tensor] = None) -> PagedWrites:
+    """The write targets of positions ``pos`` (B,) or (B, C) through
+    ``block_table`` (B, MP), by region.
 
-    The reference scatters every row into each region and drops the ids
-    outside it (an inactive row's -1 page becomes id num_pages,
-    ``mode="drop"``). PyTorch has no dropping scatter, and clamping would
-    overwrite a page another request owns, so the rows are selected: an
-    inactive row (all -1), a position past the table or an unallocated page
-    writes nowhere. One stable sort orders the rows native first, then
-    quantized, then the rest, and the two counts are read back to the host
-    together: one readback per decode step, whatever the pool's regions
-    (all layers share the result).
+    The reference scatters every position into each region and drops the
+    ids outside it (``mode="drop"``). PyTorch has no dropping scatter, and
+    clamping would overwrite a page another request owns, so a position
+    that writes nowhere (``keep`` False, an inactive row's -1 page, a
+    position past the table, an unallocated page) and a position bound for
+    the other region write the region's scratch page. Computed on the
+    device from the device's positions: nothing is read back, and a row
+    whose position froze on the device (a finished row of the sync-free
+    loop) writes where that position says.
     """
     MP = block_table.shape[1]
     lp = torch.div(pos, page_size, rounding_mode="floor")
-    page = block_table.gather(1, lp.clamp(0, MP - 1).long()[:, None])[:, 0].long()
-    ok = (lp < MP) & (page >= 0) & (page < num_pages)
-    key = torch.where(ok, (page >= native_pages).long(), 2)   # 0 native, 1 quantized
-    order = torch.argsort(key, stable=True)
-    n_native, n_quant = torch.stack(((key == 0).sum(), (key == 1).sum())).tolist()
-    rows, qrows = order[:n_native], order[n_native:n_native + n_quant]
-    offs = pos.long() % page_size
-    return PagedWrites(rows, page[rows], offs[rows],
-                       qrows, page[qrows] - native_pages, offs[qrows])
+    idx = lp.clamp(0, MP - 1).long()
+    page = block_table.gather(1, idx if pos.dim() == 2 else idx[:, None])
+    page = (page if pos.dim() == 2 else page[:, 0]).long()
+    ok = (pos >= 0) & (lp < MP) & (page >= 0) & (page < native_pages + quant_pages)
+    if keep is not None:
+        ok = ok & keep
+    return PagedWrites(torch.where(ok & (page < native_pages), page, native_pages),
+                       torch.where(ok & (page >= native_pages), page - native_pages,
+                                   quant_pages),
+                       (pos % page_size).long())
+
+
+def paged_chunk_targets(block_table: torch.Tensor, pos0: torch.Tensor, valid: torch.Tensor,
+                        pool: PagedKVPool, C: int) -> PagedWrites:
+    """``paged_write_targets`` of a chunk: column c of row b writes position
+    pos0[b] + c when c < valid[b]. Over a pool with staging buffers the
+    valid columns also name their staging row (the position) and the rest
+    the scratch row."""
+    cols = torch.arange(C, device=pos0.device)[None, :]
+    pos = pos0[:, None] + cols
+    keep = cols < valid[:, None]
+    w = paged_write_targets(block_table, pos, pool.native_pages, pool.quant_pages,
+                            pool.page_size, keep)
+    if pool.stage_k is None:
+        return w
+    SL = pool.stage_k.shape[-3] - 1
+    return w._replace(stage=torch.where(keep & (pos < SL), pos, SL).long())
+
+
+def _paged_write(pool: PagedKVPool, writes: PagedWrites, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Write K/V rows (..., KVH, hd), shaped like ``writes``' fields, into
+    both regions in place: at the compute dtype into the native region,
+    quantized into the quantized one; each region's other rows land on its
+    scratch page."""
+    if pool.k is not None:
+        pool.k[writes.pages, writes.offs] = k.to(pool.k.dtype)
+        pool.v[writes.pages, writes.offs] = v.to(pool.v.dtype)
+    if pool.qk is not None:
+        _quant_write(pool, (writes.qpages, writes.offs), k, v)
 
 
 def attn_decode_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
@@ -349,8 +415,7 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
     lies in the quantized region), then attend over the row's pages. x
     (B, D); block_table (B, MP) int32 (-1 = unallocated); pos (B,) int32,
     the position of the new token. ``writes`` (from
-    ``paged_write_targets``) lets the layers of one step share the
-    selection.
+    ``paged_write_targets``) lets the layers of one step share the targets.
 
     Mirrors ``attn_decode`` op for op, so with a native pool and
     MP * page_size == cache_len the two paths are bit-identical on the CPU:
@@ -363,18 +428,56 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
     q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     if writes is None:
-        writes = paged_write_targets(block_table, pos, pool.native_pages, pool.num_pages,
+        writes = paged_write_targets(block_table, pos, pool.native_pages, pool.quant_pages,
                                      pool.page_size)
-    if writes.rows.numel():
-        pool.k[writes.pages, writes.offs] = k[writes.rows].to(pool.k.dtype)
-        pool.v[writes.pages, writes.offs] = v[writes.rows].to(pool.v.dtype)
-    if writes.qrows.numel():
-        _quant_write(pool, (writes.qpages, writes.qoffs), k[writes.qrows], v[writes.qrows])
-    if pool.qk is None:
-        o = ops.paged_decode_attention(q, pool.k, pool.v, block_table, pos)
+    _paged_write(pool, writes, k, v)
+    kn, vn, qk, qv, ks, vs = pool.regions()
+    if qk is None:
+        o = ops.paged_decode_attention(q, kn, vn, block_table, pos)
     else:
-        o = ops.paged_decode_attention_quant(q, pool.k, pool.v, pool.qk, pool.qv,
-                                             pool.k_scale, pool.v_scale, block_table, pos)
+        o = ops.paged_decode_attention_quant(q, kn, vn, qk, qv, ks, vs, block_table, pos)
+    return p.out(o)
+
+
+def attn_chunk_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
+                     block_table: torch.Tensor, pos0: torch.Tensor, valid: torch.Tensor,
+                     cfg: ModelConfig, writes: PagedWrites,
+                     base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``attn_chunk`` over the shared page pool: rope the chunk at pos0 +
+    arange(C), write its valid K/V rows into their block-table pages in
+    place (``writes``, from ``paged_chunk_targets``), then attend the
+    chunk's queries over the row's logical cache with the validity mask
+    ``allocated & (j <= qpos)``. x (B, C, D); block_table (B, MP) int32;
+    pos0 and valid (B,) int32. No slot_pos reset is needed: a previous
+    tenant's rows survive only at logical slots this request has not yet
+    written, all of them at j > qpos.
+
+    Over a lossy pool (``pool.stage_k`` present) the chunk's rows also
+    land in the native staging buffers, and the prompt phase reads pool
+    pages only for the prefix-cache hit [0, ``base``) (positions an
+    earlier tenant wrote, already rounded) and staging for [base, qpos]:
+    chunk N re-reads chunk N-1 exactly. ``base`` (B,) int32, None: 0.
+    Query rows at or beyond ``valid`` come out as zeros; the caller never
+    reads them. The attention is ``ops.paged_chunk_attention``: K4p on the
+    card, which reads both sources in place (dequantizing quantized pages
+    as it loads, K4q's arithmetic) where the reference gathers the pool
+    and concatenates staging.
+    """
+    B, C, _ = x.shape
+    q, k, v = p.qkv(x, cfg)
+    pos = pos0[:, None] + torch.arange(C, device=x.device)[None, :]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    _paged_write(pool, writes, k, v)
+    if pool.stage_k is not None:
+        rows = torch.arange(B, device=x.device)[:, None]
+        pool.stage_k[rows, writes.stage] = k.to(pool.stage_k.dtype)
+        pool.stage_v[rows, writes.stage] = v.to(pool.stage_v.dtype)
+        if base is None:
+            base = torch.zeros_like(pos0)
+    kn, vn, qk, qv, ks, vs = pool.regions()
+    o = ops.paged_chunk_attention(q, kn, vn, qk, qv, ks, vs, block_table, pos0, valid,
+                                  stage_k=pool.stage_k, stage_v=pool.stage_v, base=base)
     return p.out(o)
 
 
@@ -385,11 +488,12 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray)
     (prefill with cache_len == P never wraps), at the compute dtype; pool
     leaves (..., N, ps, KVH, hd) with the same leading (layer) axes.
     page_idx (B, P // ps), on the host: the physical page of each prompt
-    block; pad rows and blocks past a prompt's pages carry an id outside
-    [0, N). Those entries are left out (the reference's scatter drops
-    them), so only the listed pages change. Blocks bound for the quantized
-    region are quantized there; the ids are on the host, so the split by
-    region costs no readback.
+    block; pad rows, blocks past a prompt's pages and blocks a shared
+    prefix page already holds carry an id outside [0, N). Those entries
+    are left out (the reference's scatter drops them), so only the listed
+    pages change. Blocks bound for the quantized region are quantized
+    there; the ids are on the host, so the split by region costs no
+    readback.
     """
     B, P = cache.k.shape[-4], cache.k.shape[-3]
     npp = page_idx.shape[1]
@@ -402,8 +506,8 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray)
         rows, cols = np.nonzero((page_idx >= lo) & (page_idx < hi))
         if not len(rows):
             continue
-        idx = torch.as_tensor(np.stack([rows, cols, page_idx[rows, cols] - lo]).astype(np.int64),
-                              device=dev)
+        idx = host_to_device(np.stack([rows, cols, page_idx[rows, cols] - lo]).astype(np.int64),
+                             dev)
         kb = k_blocks[..., idx[0], idx[1], :, :, :]
         vb = v_blocks[..., idx[0], idx[1], :, :, :]
         if not quant:
@@ -411,3 +515,28 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray)
             pool.v[..., idx[2], :, :, :] = vb.to(pool.v.dtype)
         else:
             _quant_write(pool, (slice(None),) * (pool.qk.dim() - 4) + (idx[2],), kb, vb)
+
+
+def fork_pages(pool: PagedKVPool, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Copy whole pages src -> dst (copy-on-write forks) in place, in every
+    layer of ``pool``. src, dst (F,) int64 physical ids on the pool's
+    device; a pad entry's dst lies outside [0, num_pages) and its copy
+    lands on the scratch page, so one fixed-shape copy per leaf forks any
+    number of pages. Forks never cross regions (the allocator hands out a
+    dst in the src's region), so each region copies on its own, quantized
+    pages with their scales, byte for byte. The copy is whole-page: rows
+    past the fork point are overwritten by the new holder's chunks, and
+    rows past its position are masked."""
+    nn, nq = pool.native_pages, pool.quant_pages
+    for leaves, lo, n, trailing in (((pool.k, pool.v), 0, nn, (4, 4)),
+                                    ((pool.qk, pool.qv, pool.k_scale, pool.v_scale), nn, nq,
+                                     (4, 4, 3, 3))):
+        if leaves[0] is None:
+            continue
+        d = torch.where((dst >= lo) & (dst < lo + n), dst - lo, n)
+        s = (src - lo).clamp(0, n - 1)
+        for t, tr in zip(leaves, trailing, strict=True):
+            axis = t.dim() - tr
+            if t.dtype == torch.float8_e4m3fn:   # copied as bytes: no fp8 index_copy_
+                t = t.view(torch.uint8)
+            t.index_copy_(axis, d, t.index_select(axis, s))

@@ -1,9 +1,11 @@
-"""Carry the reference package's weights into the port.
+"""Carry the reference package's weights and page pools into the port.
 
 The reference keeps its parameters as a pytree of arrays and stacks each
 segment's layers on a leading axis; ``params_from_numpy`` takes that tree
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's ``Model`` with the same values, one block per layer.
+``paged_pool_from_numpy`` carries a reference ``PagedKVPool``'s arrays into
+the port's pool layout, scratch pages and rows included.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import PagedKVPool
 from repro_torch.models.model import Model
 
 
@@ -52,3 +55,35 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
             for name in ("w_gate", "w_up", "w_down"):
                 _put(getattr(blk, name), leaves["mlp"][name][i], f"{at}.mlp.{name}")
     return model
+
+
+def _torch(a) -> torch.Tensor:
+    """A numpy array as a tensor of its dtype: bfloat16 widened exactly and
+    narrowed back, fp8 codes carried as raw bytes."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.tensor(a.view(np.uint8)).view(torch.float8_e4m3fn)
+    return torch.tensor(a)
+
+
+@torch.no_grad()
+def paged_pool_from_numpy(k=None, v=None, qk=None, qv=None, k_scale=None, v_scale=None,
+                          stage_k=None, stage_v=None, device="cpu") -> PagedKVPool:
+    """The port's pool holding the reference pool's contents, the leaves of
+    a reference ``PagedKVPool`` as numpy arrays (None where the reference
+    has none; any leading layer axes). Each region gains its scratch page
+    (zeros) past its last page, and each staging buffer its scratch row
+    past its last position, as ``attention.paged_pool_init`` lays them
+    out."""
+    def pad(a, axis):
+        if a is None:
+            return None
+        t = _torch(a)
+        axis = t.dim() + axis
+        zero = torch.zeros((*t.shape[:axis], 1, *t.shape[axis + 1:]), dtype=t.dtype)
+        return torch.cat([t, zero], dim=axis).to(device)
+    return PagedKVPool(k=pad(k, -4), v=pad(v, -4), qk=pad(qk, -4), qv=pad(qv, -4),
+                       k_scale=pad(k_scale, -3), v_scale=pad(v_scale, -3),
+                       stage_k=pad(stage_k, -3), stage_v=pad(stage_v, -3))

@@ -6,7 +6,10 @@
   decode_step_paged(model, state, tokens)         -> (logits, PagedDecodeState)
   chunk_step(model, state, tokens, pos0, valid, reset, writes)
                                                   -> (logits, DecodeState)
+  chunk_step_paged(model, state, tokens, pos0, valid, base)
+                                                  -> (logits, PagedDecodeState)
   paged_splice_prompt(pools, caches, page_idx)    -> pools (prefill -> pages)
+  fork_pages(pools, src, dst)                     -> pools (copy-on-write forks)
 
 ``Model`` keeps the reference package's parameter layouts (see
 ``models/convert.py`` for the mapping).
@@ -208,10 +211,47 @@ def decode_step_paged(model: Model, state: PagedDecodeState,
 
 
 @torch.no_grad()
+def chunk_step_paged(model: Model, state: PagedDecodeState, tokens: torch.Tensor,
+                     pos0: torch.Tensor, valid: torch.Tensor,
+                     base: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, PagedDecodeState]:
+    """``chunk_step`` against the paged pools, in place: the chunk writes
+    only into pages its rows already own (page allocation is the host's),
+    so the block tables are unchanged. ``base`` (B,) is each row's
+    prefix-cache hit length, read by the staging split of a lossy pool.
+    Returns the logits at each row's last valid chunk position and a state
+    whose ``pos`` is pos0 + valid and ``last_tok`` the chunk's last token
+    for chunk rows, unchanged elsewhere."""
+    cfg = model.cfg
+    B, C = tokens.shape
+    h = _embed(model, tokens)
+    h = T.chunk_hidden_paged(model.stack, h, state.pools, state.block_tables, pos0, valid, cfg,
+                             base)
+    last = torch.clamp(valid - 1, 0, C - 1).long()
+    rows = torch.arange(B, device=tokens.device)
+    logits = unembed(model.tok, rmsnorm(model.ln_f, h[rows, last], cfg.norm_eps))
+    chunked = valid > 0
+    return logits, PagedDecodeState(
+        pools=state.pools, block_tables=state.block_tables,
+        pos=torch.where(chunked, pos0 + valid, state.pos),
+        last_tok=torch.where(chunked, tokens[rows, last].to(torch.int32), state.last_tok))
+
+
+@torch.no_grad()
 def paged_splice_prompt(pools: list, caches: list, page_idx) -> list:
     """Copy prefill-built dense caches (cache_len == prompt bucket) into the
     page pools, in place. page_idx (B, P // ps) on the host: each row's
-    physical pages; ids outside the pool (pad rows) are left out."""
+    physical pages; ids outside the pool (pad rows, shared pages) are left
+    out."""
     for pool, cache in zip(pools, caches, strict=True):
         A.paged_splice_prompt(pool, cache, page_idx)
+    return pools
+
+
+@torch.no_grad()
+def fork_pages(pools: list, src: torch.Tensor, dst: torch.Tensor) -> list:
+    """Copy-on-write page forks across every segment's pools, in place: one
+    fixed-shape copy per leaf forks all of a slot's pages. src, dst (F,)
+    int64 physical ids on the pools' device (pad: a dst outside the pool)."""
+    for pool in pools:
+        A.fork_pages(pool, src, dst)
     return pools

@@ -206,19 +206,23 @@ def paged_segments_supported(cfg: ModelConfig) -> bool:
 
 
 def paged_pools_init(cfg: ModelConfig, num_pages: int, page_size: int, device,
-                     native_pages: Optional[int] = None) -> list:
+                     native_pages: Optional[int] = None, stage_rows: int = 0,
+                     stage_len: int = 0) -> list:
     """Per-segment page pools with leaves stacked on the layer axis: k/v
-    (n, native_pages, page_size, KVH, hd) and, under a quantized
+    (n, native_pages + 1, page_size, KVH, hd) and, under a quantized
     ``cfg.kv_precision``, codes and scales for the other
-    ``num_pages - native_pages`` ids (``native_pages`` None: all of them).
-    All layers share page indexing (one block table per request serves the
-    whole stack)."""
+    ``num_pages - native_pages`` ids (``native_pages`` None: all of them),
+    each region with its scratch page; under a lossy precision
+    ``stage_rows`` > 0 adds the staging buffers (n, stage_rows,
+    stage_len + 1, KVH, hd). All layers share page indexing (one block
+    table per request serves the whole stack)."""
     if not paged_segments_supported(cfg):
         raise ValueError(
             f"paged decode requires an all-attention stack; {cfg.name} has "
             f"segments {[s.kind for s in plan_segments(cfg, 'decoder')]}")
     return [A.paged_pool_init(num_pages, page_size, cfg, device, layers=seg.n,
-                              native_pages=native_pages)
+                              native_pages=native_pages, stage_rows=stage_rows,
+                              stage_len=stage_len)
             for seg in plan_segments(cfg, "decoder")]
 
 
@@ -227,14 +231,31 @@ def decode_hidden_paged(stack: nn.ModuleList, h: torch.Tensor, pools: list,
                         cfg: ModelConfig) -> torch.Tensor:
     """One-token pass over the paged pools. h: (B, D). Mirrors
     ``decode_hidden`` with ``attn_decode_paged`` in place of
-    ``attn_decode``; the block table is shared by every layer, so the rows
-    that write (and the region each writes) are selected once for the
-    step."""
-    writes = A.paged_write_targets(block_table, pos, pools[0].native_pages,
-                                   pools[0].num_pages, pools[0].page_size)
+    ``attn_decode``; the block table is shared by every layer, so the write
+    targets are computed once for the step, on the device."""
+    pool0 = pools[0]
+    writes = A.paged_write_targets(block_table, pos, pool0.native_pages, pool0.quant_pages,
+                                   pool0.page_size)
     for seg, pool in zip(stack, pools, strict=True):
         for i, p in enumerate(seg):
             a = A.attn_decode_paged(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
                                     pool.layer(i), block_table, pos, cfg, writes)
+            h = _ffn(p, h + a, cfg)
+    return h
+
+
+def chunk_hidden_paged(stack: nn.ModuleList, h: torch.Tensor, pools: list,
+                       block_table: torch.Tensor, pos0: torch.Tensor, valid: torch.Tensor,
+                       cfg: ModelConfig, base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One prompt-chunk pass over the paged pools, h (B, C, D): ``chunk_hidden``
+    with ``attn_chunk_paged`` (one block table for the whole stack, so the
+    write targets are computed once). ``base`` (B,) is each row's
+    prefix-cache hit length: over a lossy pool it splits attention between
+    pool pages [0, base) and the staging buffers."""
+    writes = A.paged_chunk_targets(block_table, pos0, valid, pools[0], h.shape[1])
+    for seg, pool in zip(stack, pools, strict=True):
+        for i, p in enumerate(seg):
+            a = A.attn_chunk_paged(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), pool.layer(i),
+                                   block_table, pos0, valid, cfg, writes, base)
             h = _ffn(p, h + a, cfg)
     return h

@@ -56,9 +56,11 @@ decode. Rows mid-prompt ride the decode done-masked. ``chunk_budget``
 bounds the prompt tokens one slot adds across rows. The slot runs no
 prefill pass over padded buckets at all.
 
-``PagedEngine`` serves the fused loop from one shared pool of KV pages:
-admission allocates pages, page growth and preempt-and-recompute keep the
-decode covered, and retirement frees the pages (see its docstring).
+``PagedEngine`` serves the fused, sync-free and chunked loops from one
+shared pool of KV pages: admission allocates pages, page growth and
+preempt-and-recompute keep the decode covered, retirement frees the pages,
+and prefix sharing maps resident prompt prefixes onto shared pages (see
+its docstring).
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.cache import PageAllocator, resolve_kv_precision
+from repro_torch.cache import PageAllocator, PrefixIndex, pages_for, resolve_kv_precision
 from repro_torch.device import host_to_device
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
@@ -131,8 +133,8 @@ class PagedEngineConfig(EngineConfig):
     quantized region at the top of the pool: -1 quantizes every page, a
     value in (0, num_pages) builds a mixed pool whose region new
     admissions draw from is ``PagedEngine.admit_precision``.
-    ``prefix_sharing`` is the reference's option that the port refuses
-    until ROADMAP.md queue 1 item 8 brings it.
+    ``prefix_sharing`` shares resident prompt pages between requests
+    through a ``PrefixIndex``.
     """
 
     page_size: int = 16
@@ -232,16 +234,17 @@ def _sync_activate(sync: SyncState, logits: torch.Tensor, final: torch.Tensor,
         gen_buf=_ring_write(sync.gen_buf, zero, final, first))
 
 
-def _decode_n_sync(model, state, sync: SyncState, n: int, shape_window,
-                   eos_id: Optional[int]):
+def _decode_n_sync(step, state, sync: SyncState, n: int, eos_id: Optional[int]):
     """Sync-free fused decode: selection, EOS and the ring buffer stay on
-    the device. Rows whose stop mask latched keep computing (masked) but
-    stop advancing: their pos freezes, so a finished row rewrites its own
-    last cache slot. Returns (state, sync, served per step (n,) int32)."""
+    the device; ``step(state, tokens) -> (logits, state)`` is one decode
+    step of the engine (dense or paged). Rows whose stop mask latched keep
+    computing (masked) but stop advancing: their pos freezes, so a
+    finished row rewrites its own last cache slot (a paged row's write
+    targets follow that pos on the device). Returns (state, sync, served
+    per step (n,) int32)."""
     served = []
     for _ in range(n):
-        logits, nstate = M.decode_step(model, state, sync.cur_tok,
-                                       shape_window=shape_window)
+        logits, nstate = step(state, sync.cur_tok)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         state = nstate._replace(pos=torch.where(sync.done, state.pos, nstate.pos))
         sync, s = _sync_step(sync, nxt, eos_id)
@@ -678,6 +681,10 @@ class Engine:
                                 admitted=admitted)
 
     # ------------------------------------------------- sync-free protocol
+    def _decode_step(self, state, tokens: torch.Tensor):
+        """One decode step of this engine's state: (logits, state)."""
+        return M.decode_step(self.model, state, tokens, shape_window=self.ecfg.shape_window)
+
     def _validate_gen_cap(self, req: Request) -> None:
         if req.max_new_tokens > self._gen_cap:
             raise ValueError(
@@ -782,8 +789,7 @@ class Engine:
         n_active = sum(r is not None for r in self.active)
         if n_active:
             self.state, self.sync, served_steps = _decode_n_sync(
-                self.model, self.state, self.sync, n_steps, self.ecfg.shape_window,
-                self.ecfg.eos_id)
+                self._decode_step, self.state, self.sync, n_steps, self.ecfg.eos_id)
             self.decode_dispatches += 1
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
@@ -817,7 +823,7 @@ class Engine:
         for row in self.free_slots():
             if not self.pending:
                 break
-            self._validate_gen_cap(self.pending[0])   # raise before popping
+            self._validate_chunked(self.pending[0])   # raise before popping
             req = self.pending.pop(0)
             L = max(1, min(len(req.tokens), P))
             if len(req.tokens) > P:
@@ -832,6 +838,11 @@ class Engine:
             req.admit_slot = now
             k += 1
         return k
+
+    def _validate_chunked(self, req: Request) -> None:
+        """Refuse a request the chunked path can never serve, before it is
+        popped."""
+        self._validate_gen_cap(req)
 
     def _claim_row(self, row: int, toks: np.ndarray) -> int:
         """Engine-specific setup when a chunked admission claims a row;
@@ -863,7 +874,7 @@ class Engine:
         B, C = len(self.active), self._chunk
         left = self.ecfg.chunk_budget or (B * C)
         toks = np.zeros((B, C), np.int32)
-        ints = np.zeros((3, B), np.int32)        # pos0, valid, budgets
+        ints = np.zeros((4, B), np.int32)        # pos0, valid, budgets, base
         flags = np.zeros((2, B), bool)           # reset, final
         plan = []
         for row, cur in list(self._cursors.items()):
@@ -877,7 +888,8 @@ class Engine:
                 continue
             left -= take
             toks[row, :take] = cur.toks[cur.off:cur.off + take]
-            ints[:, row] = (cur.off, take, cur.req.max_new_tokens)
+            # base: the pool-resident prefix (the staging split of a lossy pool)
+            ints[:, row] = (cur.off, take, cur.req.max_new_tokens, cur.cached)
             flags[:, row] = (cur.off == 0, fin)
             plan.append((row, cur, take, fin))
         if not plan:
@@ -917,8 +929,7 @@ class Engine:
         logits, state = M.chunk_step(self.model, self.state, toks, pos0, valid,
                                      flags[0], writes)
         sync = _sync_activate(self.sync, logits, flags[1], budgets, self.ecfg.eos_id)
-        return _decode_n_sync(self.model, state, sync, n_steps, self.ecfg.shape_window,
-                              self.ecfg.eos_id)
+        return _decode_n_sync(self._decode_step, state, sync, n_steps, self.ecfg.eos_id)
 
     def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
         """One continuous-batching control slot: admission (host bookkeeping
@@ -942,8 +953,7 @@ class Engine:
             self._post_readback(now, served_steps)
         elif n_active:
             self.state, self.sync, served_steps = _decode_n_sync(
-                self.model, self.state, self.sync, n_steps, self.ecfg.shape_window,
-                self.ecfg.eos_id)
+                self._decode_step, self.state, self.sync, n_steps, self.ecfg.eos_id)
             self.decode_dispatches += 1
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
@@ -953,10 +963,15 @@ class Engine:
                                 admitted=admitted)
 
 
-_ITEM8 = "ROADMAP.md queue 1 item 8 (prefix sharing)"
 _ITEM9 = "ROADMAP.md queue 1 item 9 (quantized KV pages)"
-_ITEM6 = ("ROADMAP.md queue 1 item 6 (the paged sync-free loop and paged chunked "
-          "batching)")
+
+
+def _sync_clear(sync: SyncState, rows: torch.Tensor) -> SyncState:
+    """Deactivate the rows where ``rows`` (B,) bool is True (a preempted
+    row): latch done, zero the budget. A select, so no index leaves the
+    host."""
+    return sync._replace(done=sync.done | rows,
+                         budget=torch.where(rows, 0, sync.budget))
 
 
 class PagedEngine(Engine):
@@ -980,8 +995,9 @@ class PagedEngine(Engine):
     prefill — the same tokens under greedy decoding).
 
     Greedy generation is per request the dense engine's: every per-row op
-    matches the dense path. ``occupancy()`` is the pool's fill fraction,
-    the signal ``MemoryAware`` prices.
+    matches the dense path. ``occupancy()`` is the pool's fill fraction
+    (committed occupancy with prefix sharing), the signal ``MemoryAware``
+    prices.
 
     Under a quantized ``kv_precision`` the pool has a quantized region
     (``quant_pages``): its pages hold int8 or fp8 codes with per-token-
@@ -995,9 +1011,26 @@ class PagedEngine(Engine):
     ``admit_precision`` points then. ``quant_occupancy()`` is the
     quantized region's fill, the signal ``PrecisionAware`` prices.
 
-    The port serves greedy and fused, without prefix sharing; the other
-    paths raise NotImplementedError naming the ROADMAP.md item that brings
-    them.
+    The sync-free loop (``step_slot_sync``) is the dense engine's protocol
+    with the decode over the pages: a row's position advances by exactly
+    ``n_steps`` per dispatch on the host (a row that finished on the device
+    froze there instead and retires at the next consume, its host mirror
+    over-covering by at most one page). Chunked continuous batching
+    (``step_slot_chunked``) writes prompt chunks through the block tables
+    inside the mixed dispatch; a chunk's pages are reserved when it is
+    scheduled, and when every occupied row is a stalled prefill the
+    youngest is preempted. Over a lossy pool the chunks also land in
+    native staging buffers, which the prompt phase reads.
+
+    ``prefix_sharing`` indexes every fully written prompt page in a
+    ``PrefixIndex``: the fused and sync-free admissions share resident full
+    pages (the whole prompt still prefills; the win is pool capacity), and
+    the chunked admission starts the prompt past its resident prefix,
+    forking a partially matched page copy-on-write (``_flush_forks``, one
+    fixed-shape copy per slot before the mixed dispatch). A hit is capped
+    at the prompt's length minus one, so the last prompt token always
+    computes the activation logits, and no decode write lands in a shared
+    page.
     """
 
     def __init__(self, model: M.Model, ecfg: PagedEngineConfig):
@@ -1023,8 +1056,6 @@ class PagedEngine(Engine):
         if qp and not kvp.is_quantized:
             raise ValueError(f"quant_pages={qp} needs a quantized kv_precision, "
                              f"got {kvp.tag!r}")
-        if ecfg.prefix_sharing:
-            raise NotImplementedError(f"prefix sharing is not ported yet; see {_ITEM8}")
         if not ecfg.greedy:
             raise NotImplementedError(
                 "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
@@ -1033,15 +1064,32 @@ class PagedEngine(Engine):
         self.device = model.device
         self.MP = ecfg.max_pages_per_req or max(ecfg.cache_len // ps, P // ps + 1)
         self._buckets = _prompt_buckets(P, quantum=ps)
+        self._gen_cap = ecfg.gen_buf_len or ecfg.cache_len
+        # the chunk width rounds up to whole pages unless it was given
+        self._chunk = ecfg.chunk_size or -(-max(P // 4, 1) // ps) * ps
+        self._chunk_ok = T.chunked_prefill_supported(cfg)
+        # a lossy pool's chunked prompt phase reads native staging buffers
+        staged = self._chunk_ok and kvp.lossy and kvp.staging == "auto"
         self.pools = T.paged_pools_init(cfg, ecfg.num_pages, ps, self.device,
-                                        native_pages=ecfg.num_pages - qp)
+                                        native_pages=ecfg.num_pages - qp,
+                                        stage_rows=R if staged else 0, stage_len=P)
         self.allocator = PageAllocator(ecfg.num_pages, ps, quant_pages=qp,
                                        quant_precision=kvp.tag if qp else "int8")
         # the region new admissions draw pages from: the PrecisionAware
         # scheduler's lever, which the serve loop sets between slots
         self.admit_precision = "native" if qp < ecfg.num_pages else kvp.tag
+        # prefix sharing: the radix index over resident prompt pages and the
+        # slot's copy-on-write fork plan (row -> (src, dst)), flushed as one
+        # device copy before the slot's mixed dispatch
+        self._prefix = PrefixIndex(self.allocator) if ecfg.prefix_sharing else None
+        self._fork_plan: dict = {}
+        self.prefix_hits = 0          # prompt tokens served from the cache
+        self.prefix_forks = 0         # copy-on-write forks of partly matched pages
+        self.fork_dispatches = 0
+        self.eviction_raced_hits = 0  # prefix hits degraded by a racing eviction
         self.block_tables = np.full((R, self.MP), -1, np.int32)
         self.pos = np.zeros(R, np.int32)
+        self.sync = sync_state_init(R, self._gen_cap, self.device)
         self.active: list = [None] * R
         self.pending: list = []
         self.finished: list = []
@@ -1066,8 +1114,12 @@ class PagedEngine(Engine):
         c = super().counters()
         st = self.allocator.stats()
         c.update(
+            fork_dispatches=self.fork_dispatches,
             preemptions=self.preemptions,
             alloc_failures=self.alloc_failures,
+            eviction_raced_hits=self.eviction_raced_hits,
+            prefix_hit_tokens=self.prefix_hits,
+            prefix_forks=self.prefix_forks,
             occupancy=self.allocator.occupancy(),
             occupancy_hwm=float(self.occupancy_hwm),
             committed_occupancy=self.allocator.committed_occupancy(),
@@ -1081,6 +1133,9 @@ class PagedEngine(Engine):
             pages_quant_used=st.quant_used_pages,
             quant_occupancy=st.quant_occupancy,
         )
+        if self._prefix is not None:
+            c.update(prefix_inserted_pages=self._prefix.inserted_pages,
+                     prefix_evicted_pages=self._prefix.evicted_pages)
         return c
 
     def _slot_stats(self, n_active: int, served: int, **extra) -> dict:
@@ -1090,12 +1145,88 @@ class PagedEngine(Engine):
         return d
 
     def occupancy(self) -> float:
-        return self.allocator.occupancy()
+        """The pool's fill fraction. With prefix sharing the controller
+        prices committed occupancy: pages only the index pins are
+        reclaimable on demand, so charging them would throttle admission
+        below the pool's true marginal cost."""
+        if self._prefix is None:
+            return self.allocator.occupancy()
+        return self.allocator.committed_occupancy()
 
     def quant_occupancy(self) -> float:
         """In-use fraction of the quantized page region (0.0 without one):
         the signal ``PrecisionAware`` prices."""
         return self.allocator.quant_occupancy()
+
+    def prefix_hit_tokens(self, tokens) -> int:
+        """Prompt tokens of ``tokens`` resident in the prefix cache at the
+        current admission precision, LRU state untouched (a router's
+        affinity probe)."""
+        if self._prefix is None:
+            return 0
+        L = max(1, min(len(tokens), self.ecfg.prompt_len))
+        return min(self._prefix.peek_tokens(np.asarray(tokens[:L], np.int32),
+                                            precision=self.admit_precision), L - 1)
+
+    # ------------------------------------------- page acquisition helpers
+    def _evict_short(self, short: int) -> bool:
+        """Reclaim ``short`` pages from the prefix index's LRU tail."""
+        return (self._prefix is not None and short > 0
+                and self._prefix.evict(short) >= short)
+
+    def _raced_hit(self, row: int, what: str) -> None:
+        """A prefix hit degraded by an eviction in the same allocation."""
+        self.eviction_raced_hits += 1
+
+    def _alloc_pages(self, row: int, tokens: int, shared=(),
+                     precision: str = "native") -> tuple[Optional[list], list]:
+        """Allocate with one eviction retry. Returns (block table or None,
+        the shared pages actually taken): after a deep eviction a shared
+        page may itself be gone, and sharing is then dropped for this
+        request (a hit saves work; it is never needed for correctness).
+        ``precision`` names the region the novel pages come from."""
+        shared = list(shared)
+        pages = self.allocator.alloc(row, tokens, shared=shared, precision=precision)
+        if pages is not None or self._prefix is None:
+            return pages, shared
+        short = (pages_for(tokens, self.ecfg.page_size) - len(shared)
+                 - self.allocator.free_pages_for(precision))
+        if not self._evict_short(short):
+            return None, shared
+        if any(self.allocator.refcount(p) <= 0 for p in shared):
+            self._raced_hit(row, "shared-page-evicted")
+            shared = []
+        return self.allocator.alloc(row, tokens, shared=shared, precision=precision), shared
+
+    def _extend_pages(self, row: int, tokens: int) -> Optional[list]:
+        """Extend with one eviction retry; growth stays in the row's own
+        region."""
+        pages = self.allocator.extend(row, tokens)
+        if pages is None and self._prefix is not None:
+            prec = self.allocator.precision_of(row)
+            short = (pages_for(tokens, self.ecfg.page_size)
+                     - len(self.allocator.block_table(row))
+                     - self.allocator.free_pages_for(prec))
+            if self._evict_short(short):
+                pages = self.allocator.extend(row, tokens)
+        return pages
+
+    def _flush_forks(self) -> None:
+        """Copy every staged copy-on-write page in ONE fixed-shape copy
+        (pad entries aim at the scratch page), before the slot's mixed
+        dispatch, so a forked page is resident before any chunk writes or
+        reads its private copy."""
+        if not self._fork_plan:
+            return
+        R, N = self.ecfg.max_active, self.ecfg.num_pages
+        idx = np.zeros((2, R), np.int64)
+        idx[1] = N
+        for j, (src, dst) in enumerate(self._fork_plan.values()):
+            idx[:, j] = (src, dst)
+        self._fork_plan.clear()
+        idx = host_to_device(idx, self.device)
+        self.pools = M.fork_pages(self.pools, idx[0], idx[1])
+        self.fork_dispatches += 1
 
     # ------------------------------------------------------------------
     def step(self, now: int) -> dict:
@@ -1104,26 +1235,21 @@ class PagedEngine(Engine):
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
         raise NotImplementedError("the paged engine admits via admit_pending")
 
-    def step_slot_sync(self, now: int, n_steps: int = 1) -> dict:
-        raise NotImplementedError(f"the sync-free paged loop is not ported yet; see {_ITEM6}")
-
-    def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
-        raise NotImplementedError(f"chunked paged batching is not ported yet; see {_ITEM6}")
-
     def _retire(self, row: int, r: Request, now: int) -> None:
         super()._retire(row, r, now)
         self._release_row(row)
 
     def _release_row(self, row: int) -> None:
-        self.allocator.free(row)
+        self.allocator.free(row)   # refcounted: shared prefix pages survive
+        self._fork_plan.pop(row, None)
         self.block_tables[row] = -1
         self.pos[row] = 0
         self.slot_age[row] = 0
 
-    def _preempt(self, row: int) -> None:
-        """Bounce an active request back to pending (pages exhausted). Its
-        pages return to the pool and its generation restarts from a fresh
-        prefill on re-admission — the same tokens under greedy decoding."""
+    def _bounce(self, row: int) -> Request:
+        """Free a row's pages and put its request back at the head of the
+        queue: it restarts from scratch on re-admission (the same tokens
+        under greedy decoding)."""
         req = self.active[row]
         self._release_row(row)
         self.active[row] = None
@@ -1133,8 +1259,33 @@ class PagedEngine(Engine):
         req.first_token_slot = None
         self.pending.insert(0, req)
         self.preemptions += 1
+        return req
 
-    def admit_pending(self, now: int, lookahead: int = 1) -> int:
+    def _preempt(self, row: int) -> None:
+        """Bounce an active request back to pending (pages exhausted)."""
+        self._bounce(row)
+
+    def _preempt_cursor(self, row: int) -> None:
+        """Bounce a mid-prefill request back to pending (the pool starved by
+        concurrent prefills); its prompt restarts from chunk 0."""
+        del self._cursors[row]
+        self._bounce(row)
+
+    def _decode_step(self, state, tokens: torch.Tensor):
+        return M.decode_step_paged(self.model, state, tokens)
+
+    def _device_state(self) -> M.PagedDecodeState:
+        """The decode state of a sync-free dispatch: host block tables and
+        positions through pinned memory (copies, so the host may change
+        them before the dispatch runs); ``last_tok`` is unused there (the
+        decode reads the sync state's tokens)."""
+        R = self.ecfg.max_active
+        return M.PagedDecodeState(
+            pools=self.pools, block_tables=host_to_device(self.block_tables, self.device),
+            pos=host_to_device(self.pos, self.device),
+            last_tok=torch.zeros(R, dtype=torch.int32, device=self.device))
+
+    def admit_pending(self, now: int, lookahead: int = 1, sync: bool = False) -> int:
         """Fill free rows from the pending queue with ONE bucketed prefill.
 
         Admission = page allocation: a request enters only if the pool can
@@ -1143,6 +1294,10 @@ class PagedEngine(Engine):
         slot comes page by page). All k admissions share one batch-R
         prefill whose dense cache (cache_len = the bucket) is copied into
         the pages; pad rows carry out-of-pool page ids and copy nothing.
+        With prefix sharing a request's resident full pages are shared
+        (capped at (L - 1) // page_size) and the copy skips them: the whole
+        prompt still prefills. ``sync=True`` computes the first tokens on
+        the device (``_sync_admit``) instead of reading the logits back.
         """
         R, P, ps = self.ecfg.max_active, self.ecfg.prompt_len, self.ecfg.page_size
         N = self.ecfg.num_pages
@@ -1155,82 +1310,115 @@ class PagedEngine(Engine):
                 raise ValueError(
                     f"request {req.rid}: max_new_tokens {req.max_new_tokens} "
                     f"exceeds the block table ({self.MP} pages x {ps})")
+            if sync:
+                self._validate_gen_cap(req)
             L = max(1, min(len(req.tokens), P))
+            shared: list = []
+            if self._prefix is not None:
+                hit = self._prefix.lookup(np.asarray(req.tokens[:L], np.int32),
+                                          precision=self.admit_precision)
+                shared = hit.pages[: (L - 1) // ps]
             # pages are keyed by engine row: a row uniquely owns its request
             # while active, whereas rids are unique only per RequestSource
-            pages = self.allocator.alloc(row, min(L + lookahead, self.MP * ps),
-                                         precision=self.admit_precision)
+            pages, shared = self._alloc_pages(row, min(L + lookahead, self.MP * ps),
+                                              shared=shared, precision=self.admit_precision)
             if pages is None:
                 self.alloc_failures += 1
                 break
+            self.prefix_hits += len(shared) * ps
             self.pending.pop(0)
-            take.append((row, req, pages, L))
+            take.append((row, req, pages, L, len(shared)))
         if not take:
             return 0
-        bucket = self._pick_bucket(max(L for *_, L in take))
+        k = len(take)
+        bucket = self._pick_bucket(max(L for _r, _q, _p, L, _s in take))
         npp = bucket // ps
         toks = np.zeros((R, bucket), np.int32)
         lens = np.full(R, bucket, np.int32)
         page_idx = np.full((R, npp), N, np.int32)   # N: outside the pool, not copied
-        for j, (_row, req, pages, L) in enumerate(take):
+        for j, (_row, req, pages, L, n_shared) in enumerate(take):
             toks[j] = self._bucket(req.tokens, req, bucket)
             lens[j] = L
             pg = pages[:npp]
             page_idx[j, : len(pg)] = pg
+            # a shared page already holds this block's K/V: never write into
+            # a page other requests read
+            page_idx[j, :n_shared] = N
         # cache_len == bucket: the dense prefill cache is exactly the prompt
         # rows, ready to copy into pages (no ring wraparound)
         logits, state = self._run_prefill(toks, lens, bucket)
         self.prefill_dispatches += 1
         self.pools = M.paged_splice_prompt(self.pools, state.caches, page_idx)
         del state
-        self.blocking_syncs += 1
-        first = torch.argmax(logits[: len(take)], dim=-1).cpu().numpy()
-        for j, (row, req, pages, L) in enumerate(take):
+        if sync:
+            adm = host_to_device(np.asarray([[t[0] for t in take],
+                                             [t[1].max_new_tokens for t in take]], np.int64),
+                                 self.device)
+            self.sync = _sync_admit(self.sync, logits[:k], adm[0], adm[1].to(torch.int32),
+                                    self.ecfg.eos_id)
+        else:
+            self.blocking_syncs += 1
+            first = torch.argmax(logits[:k], dim=-1).cpu().numpy()
+        for j, (row, req, pages, L, _ns) in enumerate(take):
             req.start_slot = now
             req.first_token_slot = now
-            req.generated = [int(first[j])]
+            req.generated = None if sync else [int(first[j])]
             req.admit_slot = now
             self.active[row] = req
             self.block_tables[row, : len(pages)] = pages
             self.pos[row] = L
             self.slot_age[row] = 1   # first token came from prefill
+            if self._prefix is not None:
+                # index the prompt's fully written full pages (shared ones are
+                # indexed already: insert walks past them), under the region
+                # they were written in
+                self._prefix.insert(np.asarray(req.tokens[:L], np.int32), pages[: L // ps],
+                                    precision=self.allocator.precision_of(row))
+            if sync:
+                self._row_epoch[row] += 1
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.active))
-        return len(take)
+        return k
 
-    def _ensure_pages(self, n_steps: int) -> None:
-        """Pre-extend every active row to cover this slot's decode writes.
+    def _ensure_pages(self, n_steps: int, sync: bool = False) -> None:
+        """Pre-extend every decoding row to cover this slot's decode writes.
 
         The fused decode writes rows pos..pos+n_steps-1 for every active row
         (rows finishing mid-dispatch keep writing, masked), so the pages
         must exist up front; growing here keeps the decode free of host
-        round-trips. Rows the pool cannot cover are preempted."""
+        round-trips. Rows the pool cannot cover are preempted, and under the
+        sync-free protocol deactivated on the device too. Rows mid-prefill
+        are skipped: ``_chunk_reserve`` reserves their pages chunk by
+        chunk."""
         ps = self.ecfg.page_size
+        cleared = np.zeros(self.ecfg.max_active, bool)
         for row, req in enumerate(self.active):
-            if req is None:
+            if req is None or row in self._cursors:
                 continue
             need = min(int(self.pos[row]) + n_steps, self.MP * ps)
-            pages = self.allocator.extend(row, need)
+            pages = self._extend_pages(row, need)
             if pages is None:
                 self._preempt(row)
+                cleared[row] = True
                 continue
             self.block_tables[row, : len(pages)] = pages
+        if sync and cleared.any():
+            self.sync = _sync_clear(self.sync, host_to_device(cleared, self.device))
 
     def step_slot(self, now: int, n_steps: int = 1) -> dict:
         """One control slot: batched admit -> page extension -> fused decode
-        -> retire (pages freed). <= 1 prefill + 1 decode dispatch."""
+        -> retire (pages freed). <= 1 prefill + 1 decode dispatch; the
+        decode's tokens are read back once (the slot's blocking sync)."""
         admitted = self.admit_pending(now, lookahead=n_steps)
         self._ensure_pages(n_steps)
         self.occupancy_hwm = self.occupancy()
         n_active = sum(r is not None for r in self.active)
         per_step = [0] * n_steps
         if n_active:
-            toks = torch.tensor([r.generated[-1] if r else 0 for r in self.active],
-                                dtype=torch.int32, device=self.device)
+            toks = host_to_device(np.asarray([r.generated[-1] if r else 0 for r in self.active],
+                                             np.int32), self.device)
             state = M.PagedDecodeState(
-                pools=self.pools,
-                block_tables=torch.tensor(self.block_tables, device=self.device),
-                pos=torch.tensor(self.pos, device=self.device),
-                last_tok=toks)
+                pools=self.pools, block_tables=host_to_device(self.block_tables, self.device),
+                pos=host_to_device(self.pos, self.device), last_tok=toks)
             all_toks, state = _decode_n_paged(self.model, state, toks, n_steps)
             self.pools = state.pools
             self.decode_dispatches += 1
@@ -1251,4 +1439,188 @@ class PagedEngine(Engine):
         self.served_history.append(served)
         self.steps += n_steps
         return self._slot_stats(n_active, served, served_per_step=per_step,
+                                admitted=admitted)
+
+    def step_slot_sync(self, now: int, n_steps: int = 1) -> dict:
+        """One sync-free control slot over the pool: admission (pages and
+        the first token on the device) -> page extension -> the fused
+        decode from device-resident state -> start the counter copy -> THEN
+        consume the previous slot's copy. Page tables are pure host
+        arithmetic: a decoding row's position advances by ``n_steps`` per
+        dispatch. No device read gates a dispatch (the reference's early
+        consume is left out, as on the dense engine: ROADMAP R5)."""
+        prev, self._pending_read = self._pending_read, None
+        admitted = self.admit_pending(now, lookahead=n_steps, sync=True)
+        self._ensure_pages(n_steps, sync=True)
+        self.occupancy_hwm = self.occupancy()
+        n_active = sum(r is not None for r in self.active)
+        if n_active:
+            state, self.sync, served_steps = _decode_n_sync(
+                self._decode_step, self._device_state(), self.sync, n_steps, self.ecfg.eos_id)
+            self.pools = state.pools
+            self.decode_dispatches += 1
+            for row, req in enumerate(self.active):
+                if req is not None:
+                    self.pos[row] += n_steps
+            self._post_readback(now, served_steps)
+        served_prev, per_step_prev = self._consume_read(prev)
+        self.served_history.append(served_prev)
+        self.steps += n_steps
+        return self._slot_stats(n_active, served_prev, served_per_step=per_step_prev,
+                                admitted=admitted)
+
+    # --------------------------------------- continuous batching (chunked)
+    def _validate_chunked(self, req: Request) -> None:
+        """Refuse what the block table cannot hold and a prompt that cannot
+        fit the whole pool with its first decode write (it could never
+        activate: refusing it beats a silent stall)."""
+        ps, P = self.ecfg.page_size, self.ecfg.prompt_len
+        if req.max_new_tokens > self.MP * ps - P + 1:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens {req.max_new_tokens} "
+                f"exceeds the block table ({self.MP} pages x {ps})")
+        L = max(1, min(len(req.tokens), P))
+        if pages_for(L + 1, ps) > self.ecfg.num_pages:
+            raise ValueError(
+                f"request {req.rid}: prompt of {L} tokens needs {pages_for(L + 1, ps)} "
+                f"pages; the pool holds {self.ecfg.num_pages}")
+        super()._validate_chunked(req)
+
+    def _claim_row(self, row: int, toks: np.ndarray) -> int:
+        """Claim a row for chunked prefill; with prefix sharing, take the
+        prompt's resident prefix so the cursor starts past it.
+
+        Full resident pages are shared outright. When the radix walk also
+        matches a partial block (the next resident page agrees on its first
+        ``fork_len`` tokens), that page is forked copy-on-write: a private
+        page joins the row's table, its copy is staged for
+        ``_flush_forks``, and only the block's divergent tail recomputes.
+        The hit is capped at L - 1 tokens, so the last prompt token always
+        computes the activation logits."""
+        prec = self.admit_precision
+        if self._prefix is None:
+            self.allocator.alloc(row, 0, precision=prec)   # remembers the region
+            return 0
+        ps, L = self.ecfg.page_size, len(toks)
+        hit = self._prefix.lookup(np.asarray(toks, np.int32), precision=prec)
+        want = hit.pages[: (L - 1) // ps]
+        fork_len = 0
+        if hit.fork_src is not None and len(want) == len(hit.pages):
+            fork_len = max(0, min(hit.fork_len, L - 1 - len(want) * ps))
+        pages, shared = self._alloc_pages(row, len(want) * ps + fork_len, shared=want,
+                                          precision=prec)
+        if pages is None:
+            self.allocator.alloc(row, 0, precision=prec)   # a cold start
+            return 0
+        if len(shared) < len(want):
+            cached = len(shared) * ps      # a deep eviction ate part of the hit
+        else:
+            cached = len(want) * ps
+            # the fork source is pinned only by the index and this very
+            # allocation's eviction retry may have reclaimed it: fork only
+            # while its pin holds (a pinned page is still the node's)
+            if fork_len > 0:
+                if self.allocator.pages[hit.fork_src].pinned:
+                    self._fork_plan[row] = (hit.fork_src, pages[-1])
+                    self.prefix_forks += 1
+                    cached += fork_len
+                else:
+                    self._raced_hit(row, "fork-source-evicted")
+        self.block_tables[row, : len(pages)] = pages
+        self.pos[row] = cached   # chunk writes resume past the resident rows
+        self.prefix_hits += cached
+        return cached
+
+    def _on_activate(self, row: int, cur: PrefillCursor, now: int) -> None:
+        super()._on_activate(row, cur, now)
+        if self._prefix is not None:
+            # every prompt row is written now: index the full pages (a forked
+            # boundary page qualifies: its rows before the fork point equal
+            # a recompute)
+            L = len(cur.toks)
+            pages = self.allocator.block_table(row)
+            self._prefix.insert(np.asarray(cur.toks, np.int32),
+                                pages[: L // self.ecfg.page_size],
+                                precision=self.allocator.precision_of(row))
+
+    def _chunk_reserve(self, row: int, cur: PrefillCursor, take: int,
+                       fin: bool, n_steps: int) -> bool:
+        """A chunk enters only if the pool covers its writes (plus the slot's
+        decode writes when it activates the row); a refused chunk waits for
+        pages that retiring decodes free."""
+        ps = self.ecfg.page_size
+        need = min(cur.off + take + (n_steps if fin else 0), self.MP * ps)
+        pages = self._extend_pages(row, need)
+        if pages is None:
+            self.alloc_failures += 1
+            return False
+        self.block_tables[row, : len(pages)] = pages
+        return True
+
+    def _chunk_decode_sync(self, plan: dict, n_steps: int):
+        """ONE mixed dispatch over the pool: the rows' prompt chunks,
+        written through the block tables (and into staging over a lossy
+        pool), device-side activation of the rows finishing their prompt,
+        then the n-step sync-free decode. Rows mid-prompt carry done, so the
+        decode freezes their pos; their one masked write (a dummy token's
+        K/V at the next chunk offset) is overwritten by that chunk before
+        anything attends it. Returns (state, sync, served per step)."""
+        dev = self.device
+        toks = host_to_device(plan["toks"], dev)
+        ints = host_to_device(plan["ints"], dev)
+        flags = host_to_device(plan["flags"], dev)
+        pos0, valid, budgets, base = ints[0], ints[1], ints[2], ints[3]
+        logits, state = M.chunk_step_paged(self.model, self._device_state(), toks, pos0, valid,
+                                           base)
+        sync = _sync_activate(self.sync, logits, flags[1], budgets, self.ecfg.eos_id)
+        return _decode_n_sync(self._decode_step, state, sync, n_steps, self.ecfg.eos_id)
+
+    def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
+        """Continuous batching over the pool: admission (host bookkeeping
+        and prefix hits) -> the slot's copy-on-write forks -> ONE mixed
+        dispatch of per-row prompt chunks written through the block tables
+        and the fused sync-free decode -> the counter copy, consumed a slot
+        later. Chunk pages are reserved when a chunk is scheduled; decoding
+        rows pre-extend as on the sync-free loop."""
+        self._require_chunked()
+        prev, self._pending_read = self._pending_read, None
+        admitted = self._admit_chunked(now)
+        self._flush_forks()   # forked pages land before this slot's chunks
+        self.peak_active = max(self.peak_active, sum(r is not None for r in self.active))
+        plan = self._chunk_plan(n_steps)
+        if plan is None and len(self._cursors) > 1 and all(
+                r is None or row in self._cursors for row, r in enumerate(self.active)):
+            # every occupied row is a stalled prefill: no decode will retire
+            # and free pages, so bounce the youngest prefill and let the
+            # oldest finish
+            self._preempt_cursor(next(reversed(self._cursors)))
+            plan = self._chunk_plan(n_steps)
+        self._ensure_pages(n_steps, sync=True)
+        self.occupancy_hwm = self.occupancy()
+        n_active = sum(r is not None for r in self.active)
+        decoding = any(r is not None and row not in self._cursors
+                       for row, r in enumerate(self.active))
+        if plan is not None or decoding:
+            if plan is not None:
+                state, self.sync, served_steps = self._chunk_decode_sync(plan, n_steps)
+            else:
+                state, self.sync, served_steps = _decode_n_sync(
+                    self._decode_step, self._device_state(), self.sync, n_steps,
+                    self.ecfg.eos_id)
+            self.pools = state.pools
+            self.decode_dispatches += 1
+            for row, req in enumerate(self.active):
+                if req is not None and row not in self._cursors:
+                    self.pos[row] += n_steps   # decoding rows (the host mirror)
+            if plan is not None:
+                for row, _cur, take, fin in plan["plan"]:
+                    # the chunk's writes, plus the same slot's decode for a row
+                    # the chunk activated
+                    self.pos[row] += take + (n_steps if fin else 0)
+                self._finish_chunk_plan(plan, now)
+            self._post_readback(now, served_steps)
+        served_prev, per_step_prev = self._consume_read(prev)
+        self.served_history.append(served_prev)
+        self.steps += n_steps
+        return self._slot_stats(n_active, served_prev, served_per_step=per_step_prev,
                                 admitted=admitted)

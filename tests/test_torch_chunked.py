@@ -292,7 +292,7 @@ def _launch_late(module, *extra):
     (["--chunked", "--legacy-loop"], ValueError, "mutually exclusive"),
     (["--chunked", "--chunk-size", "-1"], ValueError, "--chunk-size must be >= 0"),
     (["--chunked", "--chunk-budget", "-2"], ValueError, "--chunk-budget must be >= 0"),
-    (["--paged", "--sync-free"], NotImplementedError, "item 6"),
+    (["--paged", "--chunked", "--chunk-budget", "-2"], ValueError, "--chunk-budget must be >= 0"),
 ])
 def test_launcher_checks_chunked_arguments(argv, err, match):
     from repro_torch.launch import serve as launcher

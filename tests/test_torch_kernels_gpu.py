@@ -18,9 +18,11 @@ from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.cache import parse_kv_precision
 from repro_torch.kernels import paged_attention as k_paged
 from repro_torch.kernels import paged_attention_quant as k_paged_quant
+from repro_torch.kernels import paged_chunk_attention as k_pchunk
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as k_ssd
 from repro_torch.kernels.quant import quantize_kv
+from repro_torch.models.attention import PagedKVPool, fork_pages
 
 
 def _ring(B, L, pos):
@@ -317,3 +319,153 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         k_ssd.ssd_scan(torch.zeros((1, 8, 1, 256), device=cuda), dt[:, :8, :1].contiguous(), A[:1],
                        torch.zeros((1, 8, 256), device=cuda), torch.zeros((1, 8, 256), device=cuda),
                        chunk=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,L,H,KVH,hd", GPU_CHUNK)
+def test_chunk_quant_kernel_matches_plain_on_card(cuda, prec, dtype, B, C, L, H, KVH, hd):
+    """K4q: the chunk mix of ``chunk_case`` over int8 or fp8 codes (its
+    +-1e30 garbage quantizes to +-qmax codes with huge scales)."""
+    rng = np.random.default_rng(C * L + B + len(prec))
+    q, k, v, sp, pos0, valid = chunk_case(rng, B, C, L, H, KVH, hd)
+    spec = parse_kv_precision(prec)
+    qk, ks = quantize_kv(torch.from_numpy(k).to(cuda), spec)
+    qv, vs = quantize_kv(torch.from_numpy(v).to(cuda), spec)
+    q = torch.from_numpy(q).to(cuda, dtype)
+    sp, pos0_t, valid_t = (torch.from_numpy(a).to(cuda) for a in (sp, pos0, valid))
+    got = k_pchunk.chunk_attention_quant(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
+    want = ref.chunk_attention_quant_ref(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(valid):
+        assert not got[b, n:].any()
+    assert _err_ok(got, want, dtype)
+
+
+def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged):
+    """A pool of B * MP pages ("native", "int8", "fp8", or "mixed": the
+    lower half native, the rest int8) and per row, cycling: a first chunk
+    (pos0 0, base 0); a prefix hit ending mid-page (base ps + ps // 2) with
+    the chunk there; a hit covering all but the last prompt token (a
+    one-token chunk at base = pos0 = L - 1); an inactive row (all -1).
+    Each row's table covers its positions up to the chunk's last. Pool
+    rows no row may read hold +-1e30 garbage: those past the chunk and,
+    with staging buffers (``staged``), those at or past base, which the
+    buffers serve. Returns (k, v or None, None; codes, scales or None; block
+    tables, pos0, valid, base, stage_k, stage_v or None) as CPU tensors."""
+    N, P = B * MP, MP * ps
+    perm = rng.permutation(N).astype(np.int32)
+    bt = np.full((B, MP), -1, np.int32)
+    live = np.zeros((N, ps), bool)
+    pos0, valid, base = (np.zeros(B, np.int32) for _ in range(3))
+    for b in range(B):
+        kind = b % 4
+        if kind == 3:
+            continue
+        if kind == 0:
+            p0, nv, bs = 0, C, 0
+        elif kind == 1:
+            bs = ps + ps // 2
+            p0, nv = bs, min(C, P - bs)
+        else:
+            p0 = bs = int(rng.integers(ps, P))
+            nv = 1
+        pos0[b], valid[b], base[b] = p0, nv, bs
+        end = p0 + nv
+        bt[b, : (end - 1) // ps + 1] = perm[b * MP: b * MP + (end - 1) // ps + 1]
+        for j in range(bs if staged else end):
+            live[bt[b, j // ps], j % ps] = True
+    k = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    v = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
+    junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
+    k = torch.from_numpy(np.where(live[..., None, None], k, junk))
+    v = torch.from_numpy(np.where(live[..., None, None], v, -junk))
+    Nn = N if pool == "native" else N // 2 if pool == "mixed" else 0
+    codes = (None,) * 4
+    if Nn < N:
+        spec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
+        qk, ks = quantize_kv(k[Nn:], spec)
+        qv, vs = quantize_kv(v[Nn:], spec)
+        codes = (qk, qv, ks, vs)
+    native = (k[:Nn], v[:Nn]) if Nn else (None, None)
+    stage = (None, None)
+    if staged:
+        S = P + 1
+        stage = tuple(torch.from_numpy(rng.standard_normal((B, S, KVH, hd)).astype(np.float32))
+                      for _ in range(2))
+    return (*native, *codes, *(torch.from_numpy(a) for a in (bt, pos0, valid, base)), *stage)
+
+
+# (B, C, MP, ps, H, KVH, hd): the chunked serve's pool (64-page tables of
+# 16 rows, chunks of 128), a page size that is no power of two with hd 128,
+# and a page larger than the kernel's 64-slot tile
+GPU_PAGED_CHUNK = [(16, 128, 64, 16, 32, 8, 64), (5, 40, 9, 12, 8, 2, 128),
+                   (4, 16, 3, 128, 8, 2, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool,staged", [("native", False), ("int8", True), ("fp8", True),
+                                         ("mixed", True), ("int8", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,MP,ps,H,KVH,hd", GPU_PAGED_CHUNK)
+def test_paged_chunk_kernel_matches_plain_on_card(cuda, pool, staged, dtype, B, C, MP, ps, H,
+                                                  KVH, hd):
+    """K4p on every pool kind, with the staging split at base 0, mid-page
+    and L - 1, and without staging buffers."""
+    rng = np.random.default_rng(MP * ps + B + len(pool) + staged)
+    case = paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged)
+    case = [None if t is None else t.to(cuda) for t in case]
+    for i in (0, 1, 10, 11):   # native pages and staging buffers in q's dtype
+        if case[i] is not None:
+            case[i] = case[i].to(dtype)
+    k, v, qk, qv, ks, vs, bt, pos0, valid, base, stk, stv = case
+    q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).to(cuda, dtype)
+    kw = dict(stage_k=stk, stage_v=stv, base=base)
+    got = k_pchunk.paged_chunk_attention(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
+    want = ref.paged_chunk_attention_ref(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(valid.tolist()):
+        assert not got[b, n:].any()
+    assert _err_ok(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["int8", "mixed"])
+def test_fork_then_read_on_card(cuda, pool):
+    """A copy-on-write fork on the card, then K4p through the forked pages:
+    bit for bit what it reads through the source pages (codes and scales
+    move together), and a pad entry touches only the scratch pages."""
+    rng = np.random.default_rng(5)
+    B, C, MP, ps, H, KVH, hd = 4, 16, 8, 16, 8, 2, 64
+    k, v, qk, qv, ks, vs, bt, pos0, valid, base, stk, stv = (
+        None if t is None else t.to(cuda)
+        for t in paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, True))
+    pad = lambda t: None if t is None else torch.cat([t, torch.zeros_like(t[:1])])
+    pl = PagedKVPool(pad(k), pad(v), pad(qk), pad(qv), pad(ks), pad(vs))
+    N = B * MP
+    Nn = pl.native_pages
+    used = set(bt[bt >= 0].tolist())
+    free = [p for p in range(N) if p not in used]
+    src = [int(bt[1, 0]), int(bt[2, 1])]        # a page of each of two rows
+    dst = [next(p for p in free if (p < Nn) == (s < Nn)) for s in src]
+    dst[1] = next(p for p in free if (p < Nn) == (src[1] < Nn) and p != dst[0])
+    before = [t.clone() for t in pl if t is not None]
+    fork_pages(pl, torch.tensor(src + [0], device=cuda), torch.tensor(dst + [N], device=cuda))
+    forked = bt.clone()
+    forked[1, 0], forked[2, 1] = dst[0], dst[1]
+    q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).to(cuda)
+    regions = pl.regions()
+    a = k_pchunk.paged_chunk_attention(q, *regions, bt, pos0, valid, stage_k=stk, stage_v=stv,
+                                       base=base)
+    b = k_pchunk.paged_chunk_attention(q, *regions, forked, pos0, valid, stage_k=stk,
+                                       stage_v=stv, base=base)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    native = {d for d in dst if d < Nn} | {Nn}               # region-local; scratch last
+    quant = {d - Nn for d in dst if d >= Nn} | {N - Nn}
+    for t, was in zip((t for t in pl if t is not None), before, strict=True):
+        pages = set((t != was).reshape(t.shape[0], -1).any(-1).nonzero()[:, 0].tolist())
+        assert pages <= (native if t.dim() == 4 and t.dtype == q.dtype else quant)

@@ -218,23 +218,25 @@ def test_plain_paged_matches_pallas_and_oracle(B, MP, ps, H, KVH, hd):
 
 def test_paged_write_selects_only_allocated_rows():
     """An inactive row, a position past the block table and a position in
-    an unallocated page write nowhere; every other row writes exactly its
-    (page, offset)."""
+    an unallocated page write nowhere in the pool's pages (their write lands
+    on the scratch page past the last id, where the reference drops it);
+    every other row writes exactly its (page, offset)."""
     port = _weights()["port"]
     cfg = port.cfg
     N, ps, MP = 6, 4, 2
     pool = A.paged_pool_init(N, ps, cfg, "cpu")
+    assert pool.k.shape[0] == N + 1 and pool.native_pages == N
     pool.k.fill_(7.0)
     pool.v.fill_(-7.0)
     before_k, before_v = pool.k.clone(), pool.v.clone()
     bt = torch.tensor([[-1, -1], [3, 0], [5, 2], [1, -1]], dtype=torch.int32)
     pos = torch.tensor([0, 5, 8, 6], dtype=torch.int32)   # row 2 past the table, row 3 in a -1 page
-    w = A.paged_write_targets(bt, pos, N, N, ps)
-    assert w.rows.tolist() == [1] and w.pages.tolist() == [0] and w.offs.tolist() == [1]
+    w = A.paged_write_targets(bt, pos, N, 0, ps)
+    assert w.pages.tolist() == [N, 0, N, N] and w.offs.tolist() == [0, 1, 0, 2]
     x = torch.randn(4, cfg.d_model)
     A.attn_decode_paged(port.stack[0][0].attn, x, pool, bt, pos, cfg)
     changed = (pool.k != before_k).any(dim=(2, 3)) | (pool.v != before_v).any(dim=(2, 3))
-    assert changed.nonzero().tolist() == [[0, 1]]
+    assert changed[:N].nonzero().tolist() == [[0, 1]]
 
 
 def test_paged_splice_writes_only_listed_pages():
@@ -303,8 +305,9 @@ def test_decode_step_paged_matches_reference(lens, ps):
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
         nxt = np.asarray(jnp.argmax(ref_logits, -1)).astype(np.int32)
     for pool, ref_pool in zip(state.pools, ref_state.pools, strict=True):
-        np.testing.assert_allclose(pool.k.numpy(), np.asarray(ref_pool.k), **TOL)
-        np.testing.assert_allclose(pool.v.numpy(), np.asarray(ref_pool.v), **TOL)
+        kn, vn = pool.regions()[:2]   # the pages without the scratch page
+        np.testing.assert_allclose(kn.numpy(), np.asarray(ref_pool.k), **TOL)
+        np.testing.assert_allclose(vn.numpy(), np.asarray(ref_pool.v), **TOL)
     np.testing.assert_array_equal(state.pos.numpy(), np.asarray(ref_state.pos))
     np.testing.assert_array_equal(state.last_tok.numpy(), np.asarray(ref_state.last_tok))
 
@@ -433,16 +436,37 @@ def test_paged_preemption_recovers(w):
 
 
 @pytest.mark.parametrize("kw,call,match", [
-    (dict(prefix_sharing=True), None, "item 8"),
     (dict(kv_precision="float16"), None, "item 9"),
-    (dict(), "step_slot_sync", "item 6"),
-    (dict(), "step_slot_chunked", "item 6"),
     (dict(), "step", "no legacy per-step loop"),
 ])
 def test_paged_engine_refuses_unported_paths(w, kw, call, match):
     cfg = PagedEngineConfig(prompt_len=16, cache_len=64, num_pages=8, max_active=2, **kw)
     with pytest.raises(NotImplementedError, match=match):
         getattr(PagedEngine(w["port"], cfg), call or "counters")(0)
+
+
+@pytest.mark.parametrize("kw,call", [
+    (dict(prefix_sharing=True), "step_slot"),
+    (dict(), "step_slot_sync"),
+    (dict(), "step_slot_chunked"),
+])
+def test_paged_engine_runs_the_ported_paths(w, kw, call):
+    """Prefix sharing and the sync-free and chunked loops, which the paged
+    engine refused before they were ported, serve two requests to the end
+    and leave nothing allocated but the prefix index's pins."""
+    eng = PagedEngine(w["port"], PagedEngineConfig(prompt_len=16, cache_len=64, num_pages=8,
+                                                   max_active=2, **kw))
+    reqs = _reqs(w["cfg"], 2)
+    eng.submit([copy.deepcopy(r) for r in reqs])
+    for t in range(8):
+        getattr(eng, call)(t, n_steps=2)
+    if call != "step_slot":
+        eng.drain()
+    assert sorted(r.rid for r in eng.finished) == sorted(r.rid for r in reqs)
+    assert all(len(r.generated) == r.max_new_tokens for r in eng.finished)
+    pins = len(eng._prefix) if eng._prefix is not None else 0
+    assert eng.allocator.used_pages == pins
+    eng.allocator.check()
 
 
 # ---------------------------------------------------------------- control

@@ -247,43 +247,47 @@ def test_decode_step_quant_paged_matches_reference(prec, native_pages):
         np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=tol, rtol=0)
         nxt = torch.from_numpy(np.asarray(jnp.argmax(ref_logits, -1)).astype(np.int32))
     for pool, ref_pool in zip(state.pools, ref_state.pools, strict=True):
-        flips = (_codes(pool.qk) != _codes(ref_pool.qk)).sum() + \
-            (_codes(pool.qv) != _codes(ref_pool.qv)).sum()
+        kn, vn, qk, qv, ks, _ = pool.regions()   # the pages without the scratch pages
+        flips = (_codes(qk) != _codes(ref_pool.qk)).sum() + \
+            (_codes(qv) != _codes(ref_pool.qv)).sum()
         assert flips <= 1
-        np.testing.assert_allclose(pool.k_scale.numpy(), np.asarray(ref_pool.k_scale),
+        np.testing.assert_allclose(ks.numpy(), np.asarray(ref_pool.k_scale),
                                    rtol=1e-5, atol=0)
         if native_pages:
-            np.testing.assert_allclose(pool.k.numpy(), np.asarray(ref_pool.k), **TOL)
-            np.testing.assert_allclose(pool.v.numpy(), np.asarray(ref_pool.v), **TOL)
+            np.testing.assert_allclose(kn.numpy(), np.asarray(ref_pool.k), **TOL)
+            np.testing.assert_allclose(vn.numpy(), np.asarray(ref_pool.v), **TOL)
 
 
 def test_decode_write_splits_regions_with_one_readback():
     """Rows on native pages, rows on quantized pages, an inactive row and a
     row past its table: each writes its own region (quantized pages at
-    id - native_pages), the others nowhere."""
+    id - native_pages), the others only the region's scratch page past its
+    last id, where the reference drops the write. The targets are computed
+    on the device with no readback at all."""
     from repro_torch.models import attention as A
     port = _weights()["port"]
     cfg = port.cfg.replace(kv_precision="int8")
     N, nn, ps = 8, 4, 4
+    nq = N - nn
     pool = A.paged_pool_init(N, ps, cfg, "cpu", native_pages=nn)
+    assert (pool.native_pages, pool.quant_pages) == (nn, nq)
     bt = torch.tensor([[-1, -1], [5, 1], [2, 6], [7, 3], [0, -1]], dtype=torch.int32)
     pos = torch.tensor([0, 5, 2, 9, 3], dtype=torch.int32)   # row 3 past its table
-    w = A.paged_write_targets(bt, pos, nn, N, ps)
-    assert (w.rows.tolist(), w.pages.tolist(), w.offs.tolist()) == ([1, 2, 4], [1, 2, 0],
-                                                                   [1, 2, 3])
-    assert (w.qrows.tolist(), w.qpages.tolist(), w.qoffs.tolist()) == ([], [], [])
+    w = A.paged_write_targets(bt, pos, nn, nq, ps)
+    assert (w.pages.tolist(), w.offs.tolist()) == ([nn, 1, 2, nn, 0], [0, 1, 2, 1, 3])
+    assert w.qpages.tolist() == [nq] * 5
     pos = torch.tensor([0, 2, 5, 1, 3], dtype=torch.int32)
-    w = A.paged_write_targets(bt, pos, nn, N, ps)
-    assert (w.rows.tolist(), w.pages.tolist(), w.offs.tolist()) == ([4], [0], [3])
-    assert (w.qrows.tolist(), w.qpages.tolist(), w.qoffs.tolist()) == ([1, 2, 3],
-                                                                      [1, 2, 3], [2, 1, 1])
-    before = [t.clone() for t in pool]
+    w = A.paged_write_targets(bt, pos, nn, nq, ps)
+    assert (w.pages.tolist(), w.offs.tolist()) == ([nn, nn, nn, nn, 0], [0, 2, 1, 1, 3])
+    assert w.qpages.tolist() == [nq, 1, 2, 3, nq]
+    before = [t.clone() for t in pool if t is not None]
     A.attn_decode_paged(port.stack[0][0].attn, torch.randn(5, cfg.d_model), pool, bt, pos, cfg)
+    after = [t for t in pool if t is not None]
     changed = [sorted(set(map(tuple, (a != b).reshape(*a.shape[:2], -1).any(-1)
-                               .nonzero().tolist()))) for a, b in zip(pool, before)]
-    assert changed[0] == changed[1] == [(0, 3)]
-    assert changed[2] == changed[3] == [(1, 2), (2, 1), (3, 1)]
-    assert changed[4] == changed[5] == [(1, 2), (2, 1), (3, 1)]
+                               .nonzero().tolist()))) for a, b in zip(after, before)]
+    assert changed[0] == changed[1] == [(0, 3), (nn, 0), (nn, 1), (nn, 2)]   # (nn, *): scratch
+    assert changed[2] == changed[3] == [(1, 2), (2, 1), (3, 1), (nq, 0), (nq, 3)]
+    assert changed[4] == changed[5] == [(1, 2), (2, 1), (3, 1), (nq, 0), (nq, 3)]
 
 
 # -------------------------------------------------------------- allocator
@@ -596,7 +600,8 @@ def test_precision_aware_fp8_admits_onto_the_fp8_region(capsys):
     (["--paged", "--kv-precision", "int8", "--downgrade-at", "0.3", "--upgrade-at", "0.5"],
      ValueError, "hysteresis"),
     (["--kv-precision", "fp8"], NotImplementedError, "item 9"),
-    (["--paged", "--kv-precision", "int8", "--chunked"], NotImplementedError, "item 6"),
+    (["--paged", "--kv-precision", "int8", "--chunked", "--policy", "precision-aware"],
+     ValueError, r"--quant-pages in \(0, num-pages\)"),
 ])
 def test_launcher_checks_quant_arguments(argv, err, match):
     from repro_torch.launch import serve as launcher
