@@ -35,8 +35,15 @@ through the kernel against the plain scan, with a scan that drops the state
 carried between chunks beside it, and the smoke model on the card against
 the CPU path), then ssm_serve, ssm_profile, ssm_sync_serve and
 ssm_sync_profile (the fused and the sync-free loops, their traces held to
-the CPU run's). Each serve phase zeroes the launch counts just before it
-and reads them just after. Then the ``kernels`` summary line, the card's
+the CPU run's). The dense quantized ring: K1q/K1rq and K2q among the
+kernels (int8 and fp8 codes, with an extreme-scale sweep), dense_quant_model
+(full-width int8 and fp8 rings through K1r and K2q against the plain path,
+two faulty K2q paths beside it, the int8 ring against an all-int8 page pool
+bit for bit, and K1q on the int8 prefill's own ring), then
+dense_quant_serve and dense_quant_profile (``--kv-precision int8`` on the
+main path) and dense_quant_chunked_serve (``--chunked --kv-precision fp8``,
+under the sync debug mode), their traces held to the CPU run's. Each serve
+phase zeroes the launch counts just before it and reads them just after. Then the ``kernels`` summary line, the card's
 name and power limit from nvidia-smi, and the result line.
 """
 from __future__ import annotations
@@ -97,6 +104,11 @@ SSM_SYNC_ARGS = SSM_ARGS + ["--sync-free"]
 # the chunked serve's token budget (chunks of 128 written through the
 # block tables, K4p)
 PAGED_SYNC_ARGS = PAGED_ARGS + ["--sync-free"]
+# the dense quantized ring: the main path over an int8 ring (K2q's decode),
+# and the chunked path over an fp8 one (its prompt phase reads the native
+# staging buffers through K4)
+DENSE_QUANT_ARGS = SERVE_ARGS + ["--kv-precision", "int8"]
+DENSE_QUANT_CHUNKED_ARGS = CHUNKED_ARGS + ["--kv-precision", "fp8"]
 PAGED_CHUNKED_ARGS = SERVE_ARGS + PAGED_POOL + ["--chunked", "--policy", "token-aware",
                                                 "--token-budget", "1024"]
 # prefix_serve: the paged chunked loop with prefix sharing on an all-int8
@@ -127,8 +139,12 @@ PAGED_CHUNK_MODEL_TOL = 0.16
 SSM_MODEL_TOL = 0.15
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, "elapsed_s": time.perf_counter() - T0, **kw}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -315,15 +331,7 @@ def check_kernels(timer) -> dict:
         if causal_only:
             return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                           enable_gqa=True)
-        S = q.shape[1]
-        qp = torch.arange(S, device="cuda")[:, None]
-        kp = torch.arange(S, device="cuda")[None, :]
-        mask = (kp <= qp)[None]
-        if window is not None:
-            mask = mask & (kp > qp - window)[None]
-        if lens is not None:
-            mask = mask & (kp[None] < lens[:, None, None])
-        mask = mask[:, None]
+        mask = _prefill_mask(q.shape[1], lens, window)
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                       enable_gqa=True)
 
@@ -442,6 +450,7 @@ def check_kernels(timer) -> dict:
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
                _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
     check_quant_kernel(rng, record)
+    check_quant_attention_kernels(rng, record)
     check_paged_chunk_kernels(rng, record)
     check_ssd_kernel(record)
     return rows
@@ -537,6 +546,143 @@ def check_quant_kernel(rng, record) -> None:
                    pool == "mixed" and dtype == torch.bfloat16,
                    library="dequantize + index_select of the K and V pages + "
                            "scaled_dot_product_attention")
+
+
+def _prefill_quant_work(B, S, H, KVH, hd, esize, lens, window):
+    """``_prefill_work`` over codes: per K/V row below a row's length one
+    byte per code and a 4-byte scale per KV head."""
+    nbytes, flops = _prefill_work(B, S, H, KVH, hd, esize, lens, window)
+    rows = B * S if lens is None else sum(lens)
+    return nbytes - esize * 2 * rows * KVH * hd + 2 * rows * KVH * (hd + 4), flops
+
+
+def _decode_quant_work(B, L, H, KVH, hd, esize, sp, pos, window):
+    """``_decode_work`` over ring codes: per valid slot one byte per code
+    and a 4-byte scale per KV head."""
+    nbytes, flops = _decode_work(B, L, H, KVH, hd, esize, sp, pos, window)
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    if window is not None:
+        valid &= sp > pos[:, None] - window
+    nv = int(valid.sum())
+    return nbytes - esize * 2 * nv * KVH * hd + 2 * nv * KVH * (hd + 4), flops
+
+
+def _prefill_mask(S, lens, window):
+    """The boolean (B or 1, 1, S, S) mask of a causal prefill with a window
+    and per-row lengths, for scaled_dot_product_attention."""
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(S, device="cuda")[None, :]
+    mask = (kp <= qp)[None]
+    if window is not None:
+        mask = mask & (kp > qp - window)[None]
+    if lens is not None:
+        mask = mask & (kp[None] < lens[:, None, None])
+    return mask[:, None]
+
+
+# the quantized prefill's ragged lengths at the main path's shape (128-512)
+QUANT_PREFILL_LENS = [512, 300, 129, 128, 450, 200, 384, 511]
+
+
+def check_quant_attention_kernels(rng, record) -> None:
+    """K1q/K1rq (one kernel) and K2q against their plain versions
+    (``attention_quant_ref``, ``decode_attention_quant_ref``) over int8 and
+    fp8 codes, bf16 and f32 q: K1q at the main path's prefill (B 8, S 512,
+    H 32/8, hd 64) dense, ragged (lengths 128-512) and with a window of 37,
+    and at the smoke shapes in f32; an extreme-scale sweep in f32 (the KV
+    heads' values spread over 1e-3..1e3, so their scales do) held to the
+    same f32 rule; K2q over a ring of 1,024 slots (rows 0 and 1 partly
+    empty, the rest wrapped) with and without a window of 300, and at the
+    smoke shapes in f32. The library route, timed for the record only, is
+    dequantize + one scaled_dot_product_attention. The int8 bf16 cases
+    without a window go into the ``kernels`` line."""
+    from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+
+    def codes(shape, prec, spread=None):
+        out = []
+        for _ in range(2):
+            x = rng.standard_normal(shape).astype(np.float32)
+            if spread is not None:
+                x *= spread[None, None, :, None]
+            out.extend(quantize_kv(torch.from_numpy(x).cuda(), parse_kv_precision(prec)))
+        qk, ks, qv, vs = out
+        return qk, qv, ks, vs
+
+    lib_name = "dequantize + scaled_dot_product_attention"
+    prefill_cases = [(8, 512, 32, 8, 64, prec, dtype, False) for prec in ("int8", "fp8")
+                     for dtype in (torch.bfloat16, torch.float32)]
+    prefill_cases += [(4, 16, 8, 2, 32, prec, torch.float32, False) for prec in ("int8", "fp8")]
+    prefill_cases += [(8, 512, 32, 8, 64, prec, torch.float32, True) for prec in ("int8", "fp8")]
+    for B, S, H, KVH, hd, prec, dtype, extreme in prefill_cases:
+        spread = np.logspace(-3, 3, KVH).astype(np.float32) if extreme else None
+        qk, qv, ks, vs = codes((B, S, KVH, hd), prec, spread)
+        q = torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).cuda()
+        q = q.to(dtype)
+        lens_l = QUANT_PREFILL_LENS if S == 512 else [16, 1, 9, 5]
+        lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
+        variants = [(None, None), (lens, None)] + ([] if extreme else [(None, 37 if S == 512
+                                                                          else 5)])
+        for sl, win in variants:
+            name = "flash_attention_quant" + ("" if sl is None else "_ragged")
+            case = (f"{name} {prec} B{B} S{S} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
+                    + (f" window{win}" if win else "") + (" extreme-scales" if extreme else ""))
+            fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sl=sl, win=win: \
+                kf.flash_attention_quant(q, qk, qv, ks, vs, sl, window=win)
+            plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sl=sl, win=win: \
+                ref.attention_quant_ref(q, qk, qv, ks, vs, window=win, seq_lens=sl)
+            env = ref.attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, window=win, seq_lens=sl)
+            mask = None if sl is None and win is None else _prefill_mask(S, sl, win)
+
+            def lib(q=q, qk=qk, qv=qv, ks=ks, vs=vs, mask=mask):
+                kk = dequantize_kv(qk, ks, q.dtype).transpose(1, 2)
+                vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
+                if mask is None:
+                    return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
+                                                          is_causal=True, enable_gqa=True)
+                return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv,
+                                                      attn_mask=mask, enable_gqa=True)
+            record(case, name, dtype, fn(), plain(), env, fn, plain, lib,
+                   _prefill_quant_work(B, S, H, KVH, hd, q.element_size(),
+                                       lens_l if sl is not None else None, win),
+                   prec == "int8" and dtype == torch.bfloat16 and win is None and S == 512,
+                   library=lib_name)
+
+    decode_cases = [(8, 1024, 32, 8, 64, prec, dtype) for prec in ("int8", "fp8")
+                    for dtype in (torch.bfloat16, torch.float32)]
+    decode_cases += [(4, 64, 8, 2, 32, prec, torch.float32) for prec in ("int8", "fp8")]
+    for B, L, H, KVH, hd, prec, dtype in decode_cases:
+        qk, qv, ks, vs = codes((B, L, KVH, hd), prec)
+        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(dtype)
+        pos_np = np.asarray([L // 2 - 1, L // 8] + [L + 37 * b for b in range(2, B)], np.int32)
+        sp_np = _ring_slot_pos(B, L, pos_np)
+        sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+        for win in (None, 300 if L == 1024 else 20):
+            case = (f"decode_attention_quant {prec} B{B} L{L} H{H}/{KVH} hd{hd} "
+                    f"{str(dtype)[6:]}" + (f" window{win}" if win else ""))
+            fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, win=win: kd.decode_attention_quant(
+                q, qk, qv, ks, vs, sp, pos, window=win)
+            plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, win=win: \
+                ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=win)
+            env = ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos,
+                                                 window=win)
+            valid = (sp >= 0) & (sp <= pos[:, None])
+            if win is not None:
+                valid = valid & (sp > pos[:, None] - win)
+            mask = valid[:, None, None, :]
+
+            def lib(q=q, qk=qk, qv=qv, ks=ks, vs=vs, mask=mask):
+                kk = dequantize_kv(qk, ks, q.dtype).transpose(1, 2)
+                vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
+                return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                                      enable_gqa=True)
+            record(case, "decode_attention_quant", dtype, fn(), plain(), env, fn, plain, lib,
+                   _decode_quant_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, win),
+                   prec == "int8" and dtype == torch.bfloat16 and win is None and L == 1024,
+                   library=lib_name)
 
 
 def _chunk_quant_work(H, KVH, hd, esize, C, sp, pos0, valid):
@@ -842,13 +988,16 @@ def _attention_impls():
     def flash(q, k, v, seq_lens=None, *, causal, window):
         return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
 
-    def decode(q, k, v, slot_pos, pos, *, window):
+    def decode(q, k, v, slot_pos, pos, *, k_scale=None, v_scale=None, window=None):
+        if k_scale is not None:
+            return ref.decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
+                                                  window=window)
         return ref.decode_attention_ref(q, k, v, slot_pos, pos, window=window)
 
-    def decode_skipping_a_tile(q, k, v, slot_pos, pos, *, window):
+    def decode_skipping_a_tile(q, k, v, slot_pos, pos, **kw):
         sp = slot_pos.clone()
         sp[:, 64:128] = -1
-        return ref.decode_attention_ref(q, k, v, sp, pos, window=window)
+        return decode(q, k, v, sp, pos, **kw)
 
     return (SimpleNamespace(flash_attention=flash, decode_attention=decode),
             SimpleNamespace(flash_attention=flash, decode_attention=decode_skipping_a_tile))
@@ -1161,6 +1310,155 @@ def check_quant_model() -> dict:
     res["decode_step_kernel_launches"] = launches
     emit("quant_model", **res)
     del model, native
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return res
+
+
+def _dense_quant_impls():
+    """Stand-ins for ``repro_torch.kernels.ops`` in the dense quantized
+    model check: the plain versions, and two deliberately faulty ring
+    decodes through K2q: one that dequantizes with unit scales (the scale
+    table not read), one that skips a KV tile (slots 64-127)."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops, ref
+
+    def flash(q, k, v, seq_lens=None, *, causal, window):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
+
+    def decode(q, k, v, slot_pos, pos, *, k_scale, v_scale, window=None):
+        return ref.decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
+                                              window=window)
+
+    def unit_scales(q, k, v, slot_pos, pos, *, k_scale, v_scale, window=None):
+        one = torch.ones_like(k_scale)
+        return ops.decode_attention(q, k, v, slot_pos, pos, k_scale=one, v_scale=one,
+                                    window=window)
+
+    def skipped_tile(q, k, v, slot_pos, pos, **kw):
+        sp = slot_pos.clone()
+        sp[:, 64:128] = -1
+        return ops.decode_attention(q, k, v, sp, pos, **kw)
+
+    return (SimpleNamespace(flash_attention=flash, decode_attention=decode),
+            {"int8": ("unit_scales", SimpleNamespace(flash_attention=ops.flash_attention,
+                                                     decode_attention=unit_scales)),
+             "fp8": ("skipped_tile", SimpleNamespace(flash_attention=ops.flash_attention,
+                                                     decode_attention=skipped_tile))})
+
+
+def check_dense_quant_model() -> dict:
+    """Full-width granite-3-2b on seeded weights, prompts of 1-512 tokens,
+    a dense ring of 1,024 slots at int8 and at fp8: prefill (K1r over the
+    prompt's native K/V, then the quantized write) and 16 decode steps on
+    fed tokens. Per precision the kernel path (K1r, K2q) stays within
+    MODEL_TOL of the plain path (plain attention and the plain quantized
+    decode), and a faulty K2q path (unit scales; a skipped tile) lands
+    beyond it. The same prompts over an all-int8 page pool (K3q) give the
+    dense int8 ring's logits bit for bit at every step. K1q is held once
+    more on the int8 prefill's own data: the layer-0 codes and scales it
+    wrote into its ring, with that layer's queries."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step, decode_step_paged, init_params, prefill
+
+    cfg = get_config("granite-3-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, ps, MP = 8, 512, 1024, 16, 64
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([512, 300, 129, 1, 512, 64, 200, 511], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    plain, faults = _dense_quant_impls()
+    seen = {}
+
+    def first_queries(q, k, v, seq_lens=None, *, causal, window):
+        seen.setdefault("q", q)   # the first call is layer 0's
+        return ops.flash_attention(q, k, v, seq_lens, causal=causal, window=window)
+
+    def run(impl, prec, feed=None, on_prefill=None):
+        kernels_ops, A.ops = A.ops, impl
+        logits, state = prefill(model, toks, L, prompt_lens=lens, kv_precision=prec)
+        if on_prefill is not None:
+            on_prefill(state)
+        steps = [logits.float()]
+        for step in range(16):
+            nxt = steps[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+            logits, state = decode_step(model, state, nxt)
+            steps.append(logits.float())
+        A.ops = kernels_ops
+        del state
+        return torch.stack(steps)
+
+    real = {}
+
+    def k1q_on_the_ring(state):
+        c = state.caches[0]
+        qk, qv, ks, vs = (t[0, :, :S].contiguous() for t in (c.k, c.v, c.k_scale, c.v_scale))
+        q = seen["q"]
+        got = kf.flash_attention_quant(q, qk, qv, ks, vs, lens)
+        want = ref.attention_quant_ref(q, qk, qv, ks, vs, seq_lens=lens)
+        env = ref.attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, seq_lens=lens)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        tol = KERNEL_RTOL[q.dtype] * (env.float() + want.float().abs())
+        real.update(max_abs_err=diff.max().item(),
+                    max_err_over_tol=(diff / tol.clamp_min(1e-30)).max().item())
+
+    capture = SimpleNamespace(flash_attention=first_queries, decode_attention=ops.decode_attention)
+    res, failed = {"tol": MODEL_TOL}, []
+    feed = None
+    for prec in ("int8", "fp8"):
+        if feed is None:   # the int8 kernel path greedy; every later path is fed its tokens
+            lk = run(capture, prec, on_prefill=k1q_on_the_ring)
+            feed = lk[:-1].argmax(-1).to(torch.int32)
+        else:
+            lk = run(ops, prec, feed)
+        lp = run(plain, prec, feed)
+        fault_name, fault_impl = faults[prec]
+        lf = run(fault_impl, prec, feed)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(lk).all() and lk.shape == (17, B, cfg.vocab_size)):
+            raise AssertionError(f"bad {prec} kernel-path logits")
+        errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+        fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+        top2 = lp.topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+        res[prec] = {"logit_scale": lp.abs().max().item(), "max_abs_err_per_step": errs,
+                     "tokens_checked": int(sure.sum()),
+                     "token_mismatches_beyond_margin":
+                         int((lk.argmax(-1) != lp.argmax(-1))[sure].sum()),
+                     "fault": fault_name, "fault_max_abs_err_per_step": fault}
+        if max(errs) > MODEL_TOL or res[prec]["token_mismatches_beyond_margin"]:
+            failed.append(f"{prec}: kernel path and plain path disagree")
+        if not max(fault) > MODEL_TOL:
+            failed.append(f"{prec}: the model tolerance does not catch {fault_name}")
+        if prec == "int8":
+            kernels_ops, A.ops = A.ops, ops
+            logits, pstate = _paged_state(model, toks, lens, ps, MP, 16, "int8")
+            paged = [logits.float()]
+            for step in range(16):
+                logits, pstate = decode_step_paged(model, pstate, feed[step])
+                paged.append(logits.float())
+            A.ops = kernels_ops
+            del pstate
+            paged = torch.stack(paged)
+            res["paged_int8_equal_steps"] = [bool(torch.equal(a, b)) for a, b in zip(paged, lk)]
+            res["paged_int8_max_abs_diff_per_step"] = (paged - lk).abs().amax(dim=(1, 2)).tolist()
+            if not all(res["paged_int8_equal_steps"]):
+                failed.append("the dense int8 ring and the all-int8 page pool disagree")
+            del paged
+        del lk, lp, lf
+    res["k1q_on_the_int8_ring_layer0"] = real
+    if not real["max_err_over_tol"] <= 1.0:
+        failed.append("K1q disagrees with its plain version on the int8 ring's codes")
+    emit("dense_quant_model", **res)
+    del model
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError("; ".join(failed))
@@ -1596,6 +1894,8 @@ SSM_KERNELS = ("ssd_scan",)
 PAGED_SYNC_KERNELS = PAGED_KERNELS
 PAGED_CHUNKED_KERNELS = ("paged_chunk_attention", "paged_decode_attention")
 PREFIX_KERNELS = ("paged_chunk_attention_quant", "paged_decode_attention_quant")
+DENSE_QUANT_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_quant")
+DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
 
 
 def _sync_checked(sched) -> None:
@@ -1731,6 +2031,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
     n_layers = engine.cfg.n_layers
     ssm = engine.cfg.is_ssm
+    quant = args.kv_precision in ("int8", "fp8")
+    ring = "decode_attention_quant" if quant else "decode_attention"   # the dense decode
     want = {}
     if ssm:   # every prefill (the boot's too) runs the scan once per layer
         want = {"ssd_scan": n_layers * (engine.prefill_dispatches + 1)}
@@ -1742,10 +2044,12 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         if args.chunked:
             chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
             want[chunk] = n_layers * mixed[0]
-    elif asynchronous:
+    elif asynchronous or quant:
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                "decode_attention": n_layers * engine.decode_dispatches * 2,
+                ring: n_layers * engine.decode_dispatches * 2,
                 "chunk_attention": n_layers * mixed[0]}
+        if quant:   # a quantized ring never reaches the native decode
+            want["decode_attention"] = 0
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"{phase}: launches {counts} are not {want}")
     if asynchronous and (engine.blocking_syncs or max(res["syncs"])):
@@ -1759,7 +2063,7 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         if not max(res["quant_used_pages"]) or not res["slots_with_both_regions"]:
             raise AssertionError(f"{phase}: the quantized region was not used beside the "
                                  "native one")
-    if args.chunked or watch or ssm or (args.paged and asynchronous):
+    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant:
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -1907,8 +2211,9 @@ KERNEL_KINDS = (("K6", ("ssd_scan_kernel",)),
                 ("K4p/K4q", ("paged_chunk_attention_kernel",)),
                 ("K3q", ("paged_decode_attention_quant_kernel",)),
                 ("K3", ("paged_decode_attention_kernel",)),
+                ("K2q", ("decode_attention_quant_kernel",)),
                 ("K2", ("decode_attention_kernel",)),
-                ("K1/K1r", ("flash_attention_kernel",)),
+                ("K1/K1r/K1q", ("flash_attention_kernel",)),
                 ("K4", ("chunk_attention_kernel",)),
                 ("matmuls", ("nvjet", "gemm", "cutlass", "xmma")))
 
@@ -1965,7 +2270,7 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
          kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
-         top=rows[:14], attention=[r for r in rows if "attention_kernel" in r["name"]])
+         top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
 
 
 def main() -> int:
@@ -1992,6 +2297,7 @@ def main() -> int:
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
          dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
                              "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
+                             "decode_attention_quant_hd64_G4": kd.quant_smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64": kc.smem_bytes(64),
@@ -2006,6 +2312,7 @@ def main() -> int:
     check_preemption()
     check_chunk_model()
     check_quant_model()
+    check_dense_quant_model()
     check_paged_chunk_model()
     check_ssm_model()
     main_path = drive_main_path(SERVE_ARGS)
@@ -2029,6 +2336,10 @@ def main() -> int:
     profile_main_path(PAGED_CHUNKED_ARGS, paged_chunked["serve_s"], "paged_chunked_profile")
     prefix = drive_prefix_serve()
     profile_main_path([], prefix["serve_s"], "prefix_profile", prefix=True)
+    dense_quant = drive_main_path(DENSE_QUANT_ARGS, "dense_quant_serve", DENSE_QUANT_KERNELS)
+    profile_main_path(DENSE_QUANT_ARGS, dense_quant["serve_s"], "dense_quant_profile")
+    drive_main_path(DENSE_QUANT_CHUNKED_ARGS, "dense_quant_chunked_serve",
+                    DENSE_QUANT_CHUNKED_KERNELS)
 
     # launches: each kernel's count from the run of the path it serves
     counts = {**main_path["launches"],
@@ -2038,7 +2349,13 @@ def main() -> int:
               "chunk_attention": chunked_path["launches"]["chunk_attention"],
               "ssd_scan": ssm_path["launches"]["ssd_scan"],
               "paged_chunk_attention": paged_chunked["launches"]["paged_chunk_attention"],
-              "paged_chunk_attention_quant": prefix["launches"]["paged_chunk_attention_quant"]}
+              "paged_chunk_attention_quant": prefix["launches"]["paged_chunk_attention_quant"],
+              # K1q/K1rq: no serve path attends quantized K/V at prefill (every
+              # prefill attends its own native K/V, as the reference's does)
+              "flash_attention_quant": dense_quant["launches"]["flash_attention_quant"],
+              "flash_attention_quant_ragged":
+                  dense_quant["launches"]["flash_attention_quant_ragged"],
+              "decode_attention_quant": dense_quant["launches"]["decode_attention_quant"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2060,7 +2377,15 @@ def main() -> int:
            # K4p over quantized pages: K4q's dequantizing loads
            "paged_chunk_attention_quant": (
                "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
-               "src/repro/kernels/chunk_attention.py:75")}
+               "src/repro/kernels/chunk_attention.py:75"),
+           "flash_attention_quant": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                     "src/repro/kernels/flash_attention.py:57"),
+           "flash_attention_quant_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                            "src/repro/kernels/flash_attention.py:118"),
+           # K2q: no Pallas kernel; the reference's attn_decode dequantizes the
+           # ring in XLA
+           "decode_attention_quant": ("src/repro_torch/kernels/csrc/decode_attention_quant.cu",
+                                      "src/repro/models/attention.py:584")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

@@ -1,9 +1,11 @@
 // Causal (optionally windowed, optionally ragged) GQA prefill attention for
-// Hopper (sm_90a), written for clarity first.
+// Hopper (sm_90a), over native or quantized K/V, written for clarity first.
 //
 // Replaces the Pallas TPU kernels `_attn_kernel` and `_attn_kernel_ragged`
-// (src/repro/kernels/flash_attention.py). Layouts are the reference's:
+// (src/repro/kernels/flash_attention.py), K1 and K1r, and their
+// `quantized=True` variants, K1q and K1rq. Layouts are the reference's:
 //   q, out (B, Sq, H, hd)   k, v (B, Sk, KVH, hd)   seq_lens (B,) int32 or null
+//   quantized: k, v int8 or float8_e4m3fn codes, k_scale, v_scale (B, Sk, KVH) f32
 // Query head h reads KV head h / (H / KVH).
 //
 // One CTA per (q-tile of 64 rows, head, batch row). The TPU kernel's
@@ -19,17 +21,28 @@
 // row's length are written as zeros. Any Sq and Sk are accepted (the ragged
 // tile edge is masked); hd must be 32, 64 or 128.
 //
+// Quantized K/V (K1q, K1rq) change only the two tile loads: each code is
+// fetched with 16-byte loads, converted exactly, multiplied by its row and
+// head's scale in f32 and rounded to q's dtype right after the load
+// (dequant.cuh::load_rows_dequant_range), as the reference's `dequantize_kv`
+// and the Pallas kernel's per-tile dequant do. Everything after the load is
+// K1's arithmetic.
+//
 // What bounds it: at the serving shapes (B 8, S 512, H 32, hd 64) the
-// causal work is ~8.6 GFLOP against ~42 MB of q/k/v/out, so the tensor
-// cores would make it byte-bound (~12.5 us). This first version does the
-// products on the CUDA cores in f32 FMAs from shared memory, so it is bound
-// by FMA issue instead; moving QK^T and PV onto wgmma is the next step.
-#include "common.cuh"
+// causal work is ~8.6 GFLOP against ~42 MB of q/k/v/out (~38 MB with int8
+// codes), so the tensor cores would make it byte-bound (~11-12.5 us). This
+// first version does the products on the CUDA cores in f32 FMAs from shared
+// memory, so it is bound by FMA issue instead; moving QK^T and PV onto wgmma
+// is the next step.
+#include <type_traits>
+
+#include "dequant.cuh"
 
 namespace {
 
 using repro::from_f;
 using repro::load_rows;
+using repro::load_rows_dequant_range;
 using repro::NEG_INF;
 using repro::to_f;
 
@@ -47,12 +60,16 @@ struct Smem {
   static constexpr size_t bytes = sizeof(float) * floats;
 };
 
-template <typename T, int HD>
+// C is the K/V element type: T for native K/V, or int8_t / __nv_fp8_e4m3
+// codes with their scales (k_scale, v_scale; unused when C is T).
+template <typename T, typename C, int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int* __restrict__ seq_lens,
+flash_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
+                       const C* __restrict__ v, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ seq_lens,
                        T* __restrict__ out, int Sq, int Sk, int H, int KVH,
                        int causal, int window, float scale) {
+  constexpr bool QUANT = !std::is_same<C, T>::value;
   using S = Smem<HD>;
   constexpr int HALF_K = BK / 2;
   constexpr int HALF_D = HD / 2;
@@ -77,8 +94,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)KVH * HD;
   const T* q_base = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
-  const T* k_base = k + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
-  const T* v_base = v + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  const C* k_base = k + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  const C* v_base = v + (size_t)b * Sk * kv_stride + (size_t)kvh * HD;
+  // scales (B, Sk, KVH): row s of this head at [s * KVH]
+  const float* ks_base = QUANT ? k_scale + (size_t)b * Sk * KVH + kvh : nullptr;
+  const float* vs_base = QUANT ? v_scale + (size_t)b * Sk * KVH + kvh : nullptr;
   T* o_base = out + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
   if (ragged && q0 >= len) {  // every row of the tile is padding
@@ -106,8 +126,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's K/V/P reads are done
-    load_rows<T, HD>(Ks, S::KS, k_base, kv_stride, k0, BK, Sk, tid, THREADS);
-    load_rows<T, HD>(Vs, S::VS, v_base, kv_stride, k0, BK, Sk, tid, THREADS);
+    if constexpr (QUANT) {
+      load_rows_dequant_range<C, T, HD>(Ks, S::KS, k_base, kv_stride, ks_base, KVH, k0, BK,
+                                        Sk, tid, THREADS);
+      load_rows_dequant_range<C, T, HD>(Vs, S::VS, v_base, kv_stride, vs_base, KVH, k0, BK,
+                                        Sk, tid, THREADS);
+    } else {
+      load_rows<T, HD>(Ks, S::KS, k_base, kv_stride, k0, BK, Sk, tid, THREADS);
+      load_rows<T, HD>(Vs, S::VS, v_base, kv_stride, k0, BK, Sk, tid, THREADS);
+    }
     __syncthreads();
 
     float sc[HALF_K];
@@ -181,32 +208,56 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* seq_lens,
-                   void* out, int B, int Sq, int Sk, int H, int KVH, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, HD>;
+template <typename T, typename C, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
+                   const float* v_scale, const int* seq_lens, void* out, int B, int Sq,
+                   int Sk, int H, int KVH, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  auto kern = flash_attention_kernel<T, C, HD>;
   const size_t smem = Smem<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      seq_lens, static_cast<T*>(out), Sq, Sk, H, KVH, causal, window, scale);
+      static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v), k_scale,
+      v_scale, seq_lens, static_cast<T*>(out), Sq, Sk, H, KVH, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename C>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const int* seq_lens, void* out, int B, int Sq, int Sk, int H,
-                        int KVH, int causal, int window, float scale, cudaStream_t s) {
+                        const float* ks, const float* vs, const int* seq_lens, void* out,
+                        int B, int Sq, int Sk, int H, int KVH, int causal, int window,
+                        float scale, cudaStream_t s) {
   switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+    case 32:
+      return launch<T, C, 32>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
+                              window, scale, s);
+    case 64:
+      return launch<T, C, 64>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
+                              window, scale, s);
+    case 128:
+      return launch<T, C, 128>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
+                               window, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch_code(int is_fp8, int hd, const void* q, const void* k, const void* v,
+                          const float* ks, const float* vs, const int* seq_lens, void* out,
+                          int B, int Sq, int Sk, int H, int KVH, int causal, int window,
+                          float scale, cudaStream_t s) {
+  if (is_fp8)
+    return dispatch_hd<T, __nv_fp8_e4m3>(hd, q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H,
+                                         KVH, causal, window, scale, s);
+  return dispatch_hd<T, int8_t>(hd, q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH,
+                                causal, window, scale, s);
+}
+
+bool bad_shape(int B, int Sq, int Sk, int H, int KVH) {
+  return B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0;
 }
 
 }  // namespace
@@ -218,14 +269,37 @@ extern "C" cudaError_t flash_attention_fwd(const void* q, const void* k, const v
                                            int Sk, int H, int KVH, int hd, int causal,
                                            int window, int is_bf16, float scale,
                                            void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
+  if (bad_shape(B, Sq, Sk, H, KVH)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
-  return dispatch_hd<float>(hd, q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale, s);
+    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, nullptr, nullptr, seq_lens,
+                                                     out, B, Sq, Sk, H, KVH, causal, window,
+                                                     scale, s);
+  return dispatch_hd<float, float>(hd, q, k, v, nullptr, nullptr, seq_lens, out, B, Sq, Sk, H,
+                                   KVH, causal, window, scale, s);
 }
 
-// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported).
+// K1q / K1rq: k, v int8 (is_fp8 0) or float8_e4m3fn (is_fp8 1) codes with
+// k_scale, v_scale (B, Sk, KVH) float32; q and out bfloat16 (is_bf16 1) or
+// float32. The other arguments are flash_attention_fwd's.
+extern "C" cudaError_t flash_attention_quant_fwd(const void* q, const void* k, const void* v,
+                                                 const float* k_scale, const float* v_scale,
+                                                 const int* seq_lens, void* out, int B,
+                                                 int Sq, int Sk, int H, int KVH, int hd,
+                                                 int causal, int window, int is_bf16,
+                                                 int is_fp8, float scale, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KVH) || k_scale == nullptr || v_scale == nullptr)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch_code<__nv_bfloat16>(is_fp8, hd, q, k, v, k_scale, v_scale, seq_lens, out,
+                                        B, Sq, Sk, H, KVH, causal, window, scale, s);
+  return dispatch_code<float>(is_fp8, hd, q, k, v, k_scale, v_scale, seq_lens, out, B, Sq, Sk,
+                              H, KVH, causal, window, scale, s);
+}
+
+// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported);
+// the quantized kernel stages the same float tiles.
 extern "C" int flash_attention_smem_bytes(int hd) {
   switch (hd) {
     case 32: return (int)Smem<32>::bytes;

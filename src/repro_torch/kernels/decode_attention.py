@@ -1,7 +1,11 @@
-"""Wrapper of the hand-written decode attention kernel (csrc/decode_attention.cu).
+"""Wrappers of the hand-written decode attention kernels
+(csrc/decode_attention.cu, csrc/decode_attention_quant.cu).
 
-Replaces the Pallas TPU kernel ``_decode_kernel`` (K2) of
-``src/repro/kernels/decode_attention.py``. Decode attention is byte-bound
+``decode_attention`` replaces the Pallas TPU kernel ``_decode_kernel`` (K2)
+of ``src/repro/kernels/decode_attention.py``; ``decode_attention_quant``
+(K2q) is K2 over a quantized ring (int8 or fp8 codes with per-token-per-head
+scales), which has no Pallas kernel: the reference's ``attn_decode``
+dequantizes the whole ring in XLA first. Decode attention is byte-bound
 on the H100: each step reads the whole ring cache (B 8, L 1024, KVH 8,
 hd 64 in bf16: 16.8 MB, ~5 us at 3.35 TB/s) for a few MFLOP. The kernel
 reads each K/V tile once for all G query heads of its KV head (one warp
@@ -9,9 +13,9 @@ per query head), as the TPU kernel's group packing does. Its grid (KVH, B)
 is 64 CTAs at B = 8, which leaves most of the 132 SMs idle; splitting L
 across CTAs (flash-decoding) is the first redesign.
 
-This wrapper takes CUDA tensors only and raises on anything the kernel does
-not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
-version instead.
+These wrappers take CUDA tensors only and raise on anything the kernel
+does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
+versions instead.
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ import torch
 from repro_torch.kernels import build
 
 # launches of the kernel: the wrapper counts where it launches, nowhere else
-launches = {"decode_attention": 0}
+launches = {"decode_attention": 0, "decode_attention_quant": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_CODES = (torch.int8, torch.float8_e4m3fn)
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -38,21 +43,34 @@ def _fn():
     return fn
 
 
+def _quant_fn():
+    fn = build.library("decode_attention_quant").decode_attention_quant_fwd
+    # q, k, v, k_scale, v_scale, slot_pos, pos, out; B, H, KVH, L, hd, window,
+    # is_bf16, is_fp8; scale; stream
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                               ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def smem_bytes(hd: int, G: int) -> int:
     """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``."""
     return int(build.library("decode_attention").decode_attention_smem_bytes(hd, G))
 
 
-def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     slot_pos: torch.Tensor, pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """q (B,H,hd), cache k/v (B,L,KVH,hd), slot_pos (B,L) int32, pos (B,)
-    int32 -> (B,H,hd), on the card."""
+def quant_smem_bytes(hd: int, G: int) -> int:
+    """``smem_bytes`` of the quantized kernel (K2q)."""
+    return int(build.library("decode_attention_quant").decode_attention_quant_smem_bytes(hd, G))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Tensor,
+           pos: torch.Tensor, window: Optional[int], kv_dtypes) -> None:
+    """Raise on anything the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"decode_attention takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in _DTYPES or k.dtype not in kv_dtypes or v.dtype != k.dtype:
+        raise ValueError(f"decode_attention takes float32 or bfloat16 q with k/v of "
+                         f"{kv_dtypes}, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -75,6 +93,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:   # the kernel reads rows with 16-byte loads
             raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """q (B,H,hd), cache k/v (B,L,KVH,hd), slot_pos (B,L) int32, pos (B,)
+    int32 -> (B,H,hd), on the card."""
+    _check(q, k, v, slot_pos, pos, window, (q.dtype,))
+    B, H, hd = q.shape
+    _, L, KVH, _ = k.shape
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
                 pos.data_ptr(), out.data_ptr(), B, H, KVH, L, hd,
@@ -84,4 +112,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd failed: cudaError_t {err}")
     launches["decode_attention"] += 1
+    return out
+
+
+def decode_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           k_scale: torch.Tensor, v_scale: torch.Tensor,
+                           slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                           window: Optional[int] = None) -> torch.Tensor:
+    """K2q: q (B,H,hd) float32 or bfloat16, ring codes k/v (B,L,KVH,hd) int8
+    or float8_e4m3fn with k_scale/v_scale (B,L,KVH) float32, slot_pos (B,L)
+    int32, pos (B,) int32 -> (B,H,hd) in q's dtype, on the card."""
+    _check(q, k, v, slot_pos, pos, window, _CODES)
+    B, H, hd = q.shape
+    _, L, KVH, _ = k.shape
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t.dtype != torch.float32 or t.shape != (B, L, KVH) or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B}, {L}, {KVH}) float32 "
+                             f"tensor on {q.device}")
+    out = torch.empty_like(q)
+    err = _quant_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                      v_scale.data_ptr(), slot_pos.data_ptr(), pos.data_ptr(),
+                      out.data_ptr(), B, H, KVH, L, hd, -1 if window is None else int(window),
+                      int(q.dtype == torch.bfloat16), int(k.dtype == torch.float8_e4m3fn),
+                      hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_quant_fwd failed: cudaError_t {err}")
+    launches["decode_attention_quant"] += 1
     return out

@@ -1,7 +1,11 @@
-"""Wrapper of the hand-written prefill attention kernel (csrc/flash_attention.cu).
+"""Wrappers of the hand-written prefill attention kernel (csrc/flash_attention.cu).
 
 Replaces the Pallas TPU kernels ``_attn_kernel`` (K1) and
-``_attn_kernel_ragged`` (K1r) of ``src/repro/kernels/flash_attention.py``.
+``_attn_kernel_ragged`` (K1r) of ``src/repro/kernels/flash_attention.py``,
+and their ``quantized=True`` variants (K1q, K1rq) through
+``flash_attention_quant``: the same kernel over int8 or fp8 K/V codes,
+each tile dequantized right after its load.
+
 On the H100 the prefill at serving shapes would be byte-bound on the tensor
 cores (B 8, S 512, H 32, hd 64: ~8.6 GFLOP causal against ~42 MB); this
 first kernel computes on the CUDA cores in f32 FMAs from shared memory, so
@@ -9,9 +13,9 @@ FMA issue bounds it. One CTA per (q-tile, head, batch row) loops over the
 live KV tiles with the online softmax in registers and skips tiles above
 the diagonal, outside the window or in the row's padding.
 
-This wrapper takes CUDA tensors only and raises on anything the kernel does
-not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
-version instead.
+These wrappers take CUDA tensors only and raise on anything the kernel
+does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
+versions instead.
 """
 from __future__ import annotations
 
@@ -23,9 +27,11 @@ import torch
 from repro_torch.kernels import build
 
 # launches of each kernel: the wrapper counts where it launches, nowhere else
-launches = {"flash_attention": 0, "flash_attention_ragged": 0}
+launches = {"flash_attention": 0, "flash_attention_ragged": 0,
+            "flash_attention_quant": 0, "flash_attention_quant_ragged": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_CODES = (torch.int8, torch.float8_e4m3fn)
 _HEAD_DIMS = (32, 64, 128)
 
 
@@ -39,25 +45,29 @@ def _fn():
     return fn
 
 
+def _quant_fn():
+    fn = build.library("flash_attention").flash_attention_quant_fwd
+    # q, k, v, k_scale, v_scale, seq_lens, out; B, Sq, Sk, H, KVH, hd, causal,
+    # window, is_bf16, is_fp8; scale; stream
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def smem_bytes(hd: int) -> int:
     """Dynamic shared memory of one CTA at head dim ``hd``."""
     return int(build.library("flash_attention").flash_attention_smem_bytes(hd))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    seq_lens: Optional[torch.Tensor] = None, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd) -> (B,Sq,H,hd), on the card.
-
-    ``seq_lens`` (B,) int32 selects the ragged kernel (K1r): keys at or
-    beyond a row's length are masked and its query rows there are zeroed.
-    """
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           seq_lens: Optional[torch.Tensor], window: Optional[int], kv_dtypes) -> None:
+    """Raise on anything the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in _DTYPES or k.dtype not in kv_dtypes or v.dtype != k.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16 q with k/v of "
+                         f"{kv_dtypes}, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -76,6 +86,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 or seq_lens.device != q.device or not seq_lens.is_contiguous()):
             raise ValueError("seq_lens must be a contiguous (B,) int32 tensor "
                              f"on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    seq_lens: Optional[torch.Tensor] = None, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd) -> (B,Sq,H,hd), on the card.
+
+    ``seq_lens`` (B,) int32 selects the ragged kernel (K1r): keys at or
+    beyond a row's length are masked and its query rows there are zeroed.
+    """
+    _check(q, k, v, seq_lens, window, (q.dtype,))
+    B, Sq, H, hd = q.shape
+    _, Sk, KVH, _ = k.shape
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if seq_lens is None else seq_lens.data_ptr(), out.data_ptr(),
@@ -86,4 +110,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd failed: cudaError_t {err}")
     launches["flash_attention" if seq_lens is None else "flash_attention_ragged"] += 1
+    return out
+
+
+def flash_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          k_scale: torch.Tensor, v_scale: torch.Tensor,
+                          seq_lens: Optional[torch.Tensor] = None, *,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """K1q (K1rq with ``seq_lens``): q (B,Sq,H,hd) float32 or bfloat16, k/v
+    (B,Sk,KVH,hd) int8 or float8_e4m3fn codes with k_scale/v_scale
+    (B,Sk,KVH) float32 -> (B,Sq,H,hd) in q's dtype, on the card."""
+    _check(q, k, v, seq_lens, window, _CODES)
+    B, Sq, H, hd = q.shape
+    _, Sk, KVH, _ = k.shape
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t.dtype != torch.float32 or t.shape != (B, Sk, KVH) or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({B}, {Sk}, {KVH}) float32 "
+                             f"tensor on {q.device}")
+    out = torch.empty_like(q)
+    err = _quant_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+                      v_scale.data_ptr(), None if seq_lens is None else seq_lens.data_ptr(),
+                      out.data_ptr(), B, Sq, Sk, H, KVH, hd, int(causal),
+                      -1 if window is None else int(window),
+                      int(q.dtype == torch.bfloat16), int(k.dtype == torch.float8_e4m3fn),
+                      hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_quant_fwd failed: cudaError_t {err}")
+    launches["flash_attention_quant" if seq_lens is None
+             else "flash_attention_quant_ragged"] += 1
     return out

@@ -18,8 +18,9 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_quant as _paq
 from repro_torch.kernels import paged_chunk_attention as _pca
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.kernels.ref import (attention_ref, chunk_attention_quant_ref,
-                                     chunk_attention_ref, decode_attention_ref,
+from repro_torch.kernels.ref import (attention_quant_ref, attention_ref,
+                                     chunk_attention_quant_ref, chunk_attention_ref,
+                                     decode_attention_quant_ref, decode_attention_ref,
                                      paged_chunk_attention_ref,
                                      paged_decode_attention_mixed_ref,
                                      paged_decode_attention_quant_ref,
@@ -28,21 +29,41 @@ from repro_torch.kernels.ref import (attention_ref, chunk_attention_quant_ref,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seq_lens: Optional[torch.Tensor] = None, *,
+                    k_scale: Optional[torch.Tensor] = None,
+                    v_scale: Optional[torch.Tensor] = None,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Prefill attention; ``seq_lens`` selects the ragged (length-aware) path."""
+    """Prefill attention; ``seq_lens`` selects the ragged (length-aware) path.
+    ``k_scale``/``v_scale`` (B, Sk, KVH) float32 make k/v int8 or fp8 codes,
+    dequantized as they load (K1q, K1rq)."""
     if q.device.type == "cpu":
+        if k_scale is not None:
+            return attention_quant_ref(q, k, v, k_scale, v_scale, causal=causal,
+                                       window=window, seq_lens=seq_lens)
         return attention_ref(q, k, v, causal=causal, window=window,
                              seq_lens=seq_lens)
+    if k_scale is not None:
+        return _fa.flash_attention_quant(q, k, v, k_scale, v_scale, seq_lens, causal=causal,
+                                         window=window)
     return _fa.flash_attention(q, k, v, seq_lens, causal=causal, window=window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None,
                      window: Optional[int] = None) -> torch.Tensor:
-    """One-token attention over the ring cache."""
+    """One-token attention over the ring cache. ``k_scale``/``v_scale``
+    (B, L, KVH) float32 make the ring int8 or fp8 codes, dequantized as
+    they load (K2q)."""
     if q.device.type == "cpu":
+        if k_scale is not None:
+            return decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
+                                              window=window)
         return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
+    if k_scale is not None:
+        return _da.decode_attention_quant(q, k, v, k_scale, v_scale, slot_pos, pos,
+                                          window=window)
     return _da.decode_attention(q, k, v, slot_pos, pos, window=window)
 
 

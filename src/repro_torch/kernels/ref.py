@@ -105,6 +105,28 @@ def dequant_ref(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) ->
     return (codes.float() * scale[..., None]).to(dtype)
 
 
+def attention_quant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        k_scale: torch.Tensor, v_scale: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1q's (K1rq's with ``seq_lens``) plain version: dequantize the codes
+    k/v (B,Sk,KVH,hd) with their scales (B,Sk,KVH) to q's dtype, then
+    ``attention_ref``."""
+    return attention_ref(q, dequant_ref(k, k_scale, q.dtype), dequant_ref(v, v_scale, q.dtype),
+                         causal=causal, window=window, seq_lens=seq_lens)
+
+
+def decode_attention_quant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               k_scale: torch.Tensor, v_scale: torch.Tensor,
+                               slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """K2q's plain version, the reference ``attn_decode``'s quantized read:
+    dequantize the whole ring (codes (B,L,KVH,hd), scales (B,L,KVH)) to q's
+    dtype, then ``decode_attention_ref``."""
+    return decode_attention_ref(q, dequant_ref(k, k_scale, q.dtype),
+                                dequant_ref(v, v_scale, q.dtype), slot_pos, pos, window=window)
+
+
 def paged_decode_attention_quant_ref(q: torch.Tensor, qk_pages: torch.Tensor,
                                      qv_pages: torch.Tensor, k_scale: torch.Tensor,
                                      v_scale: torch.Tensor, block_tables: torch.Tensor,

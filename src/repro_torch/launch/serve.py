@@ -27,8 +27,15 @@ which prices pending prompt tokens against ``--token-budget``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --smoke --chunked --policy token-aware --horizon 12 [--device cpu]
 
-``--kv-precision int8|fp8`` (with ``--paged``) stores pages as int8 or fp8
-codes with per-token-per-head scales; ``--quant-pages n`` in (0,
+``--kv-precision int8|fp8`` stores K/V as int8 or fp8 codes with
+per-token-per-head scales: in the dense engine's ring cache on every
+dense loop (fused, ``--legacy-loop``, ``--sync-free``, ``--chunked``), or
+with ``--paged`` in the pages:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --kv-precision int8 --horizon 12 [--device cpu]
+
+With ``--paged``, ``--quant-pages n`` in (0,
 ``--num-pages``) makes only the top n ids quantized, a mixed pool, and
 ``--policy precision-aware`` then moves new admissions onto the quantized
 pages while occupancy is high (``--downgrade-at``/``--upgrade-at``) and
@@ -87,7 +94,6 @@ _UNPORTED = {
     "trace_out": "item 10 (observability and reliability)",
     "decisions_out": "item 10 (observability and reliability)",
 }
-_UNPORTED_DENSE_QUANT = "item 9 (the dense quantized ring cache)"
 _UNPORTED_POLICIES = {
     "conformal-slo": "item 10 (observability and reliability)",
 }
@@ -103,8 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["adaptive", "static", "latency-aware", "memory-aware",
                              "token-aware", "precision-aware", *_UNPORTED_POLICIES])
     ap.add_argument("--kv-precision", choices=["native", "int8", "fp8"], default="",
-                    help="KV storage: int8/fp8 store pages as codes with per-token-"
-                         "per-head scales (needs --paged)")
+                    help="KV storage: int8/fp8 store the dense ring (or, with "
+                         "--paged, the pages) as codes with per-token-per-head scales")
     ap.add_argument("--quant-pages", type=int, default=-1,
                     help="paged + quantized: size of the quantized page region (-1 = "
                          "every page; 0 < n < num-pages builds a mixed pool for "
@@ -213,10 +219,6 @@ def build(args):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
                 f"queue 1 {item}")
-    if quantized and not args.paged:
-        raise NotImplementedError(
-            f"--kv-precision {args.kv_precision} without --paged is not ported yet; see "
-            f"ROADMAP.md queue 1 {_UNPORTED_DENSE_QUANT}")
     if args.policy in _UNPORTED_POLICIES:
         raise NotImplementedError(
             f"--policy {args.policy} is not ported yet; see ROADMAP.md queue 1 "

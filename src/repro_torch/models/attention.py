@@ -9,6 +9,12 @@ decode attention to ``kernels.ops.decode_attention`` and chunked-prefill
 attention to ``kernels.ops.chunk_attention`` (the hand-written kernels on
 the card, their plain versions on the CPU).
 
+Under a quantized KV precision (int8, fp8) the dense ring holds codes with
+one float32 scale per token and KV head, written by quantizing each K/V
+row as it enters, and the decode reads them through the dequantizing ring
+kernel (K2q); native staging buffers beside the ring carry the chunked
+prompt phase, as the reference's ``KVCache`` does.
+
 The paged path keeps K/V in a shared pool of pages (``PagedKVPool``) that
 block tables index; its decode attention goes to
 ``kernels.ops.paged_decode_attention`` (a native pool) or
@@ -73,33 +79,99 @@ class Attention(nn.Module):
 
 
 class KVCache(NamedTuple):
-    """Dense ring cache at native precision. In a DecodeState each leaf
-    carries a leading layer axis; the attention functions take one layer's
-    view of it."""
+    """Dense ring cache. In a DecodeState each leaf carries a leading layer
+    axis; the attention functions take one layer's view of it.
+
+    Under a quantized precision k/v hold int8 or fp8 codes and
+    k_scale/v_scale the per-token-per-head float32 scales; under a lossy
+    one stage_k/stage_v carry the chunked prompt phase's native staging
+    buffers (``_staged``). The optional leaves are None at native
+    precision, as the reference's are."""
 
     k: torch.Tensor          # (B, L, KVH, hd) — RoPE already applied
     v: torch.Tensor          # (B, L, KVH, hd)
     slot_pos: torch.Tensor   # (B, L) int32, absolute position held; -1 empty
+    k_scale: Optional[torch.Tensor] = None  # (B, L, KVH) float32, quantized only
+    v_scale: Optional[torch.Tensor] = None
+    stage_k: Optional[torch.Tensor] = None  # (B, L, KVH, hd) compute dtype, staged only
+    stage_v: Optional[torch.Tensor] = None
 
     @property
     def cache_len(self) -> int:
         return self.k.shape[-3]
 
     def layer(self, i: int) -> "KVCache":
-        return KVCache(self.k[i], self.v[i], self.slot_pos[i])
+        return KVCache(*(None if t is None else t[i] for t in self))
+
+
+def _staged(prec: KVPrecision) -> bool:
+    """Does the chunked prompt phase need native staging buffers? Exactly
+    when the storage is lossy: chunk N re-reads chunk N-1's K/V, which must
+    be the values a one-shot prefill attends."""
+    return prec.lossy and prec.staging == "auto"
 
 
 def kv_cache_init(batch: int, cache_len: int, cfg: ModelConfig, device,
                   layers: Optional[int] = None) -> KVCache:
-    """Empty cache; ``layers`` adds a leading layer axis."""
+    """Empty cache at ``cfg.kv_precision``: codes with scales under a
+    quantized precision, and the staging buffers under a lossy one (on
+    every dense cache, whatever the loop, as the reference allocates
+    them). ``layers`` adds a leading layer axis."""
+    prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
     lead = (layers,) if layers is not None else ()
     shape = (*lead, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
+    store = qdtype_of(prec) if prec.is_quantized else cdtype(cfg)
+    kw = {}
+    if prec.is_quantized:
+        kw.update(k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+                  v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+    if _staged(prec):
+        kw.update(stage_k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
+                  stage_v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
     return KVCache(
-        k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
-        v=torch.zeros(shape, dtype=cdtype(cfg), device=device),
+        k=torch.zeros(shape, dtype=store, device=device),
+        v=torch.zeros(shape, dtype=store, device=device),
         slot_pos=torch.full((*lead, batch, cache_len), -1, dtype=torch.int32,
                             device=device),
-    )
+        **kw)
+
+
+def _code_precision(codes: torch.Tensor) -> KVPrecision:
+    """The quantized spec of a ring or page region, from its code dtype."""
+    return parse_kv_precision(str(codes.dtype).removeprefix("torch."))
+
+
+def as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """fp8 codes as raw bytes, a view (any other tensor as it is): copies
+    and selections of codes go through it, since not every fp8 op is
+    implemented on every device. The byte 0 is the code of 0.0."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _quant_write(targets: tuple, index: tuple, k: torch.Tensor, v: torch.Tensor,
+                 keep: Optional[torch.Tensor] = None) -> None:
+    """Quantize K and V rows (..., KVH, hd) per token and head, one
+    quantization for both, and write codes and scales in place into
+    ``targets`` = (k codes, v codes, k scales, v scales) at ``index``.
+    ``keep`` (the rows' leading shape) zeroes codes and scales of the rows
+    it is False for AFTER the quantize, so a kept row's codes never depend
+    on the others."""
+    codes, scale = quantize_kv(torch.stack((k, v)), _code_precision(targets[0]))
+    codes = as_bytes(codes)
+    if keep is not None:
+        codes = torch.where(keep[..., None, None], codes, torch.zeros((), dtype=codes.dtype,
+                                                                      device=codes.device))
+        scale = torch.where(keep[..., None], scale, torch.zeros((), dtype=scale.dtype,
+                                                                device=scale.device))
+    qk, qv, ks, vs = targets
+    as_bytes(qk)[index] = codes[0]
+    as_bytes(qv)[index] = codes[1]
+    ks[index] = scale[0]
+    vs[index] = scale[1]
+
+
+def _ring_codes(cache: KVCache) -> tuple:
+    return cache.k, cache.v, cache.k_scale, cache.v_scale
 
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
@@ -112,6 +184,12 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     length-aware (ragged): attention runs the ragged kernel, and cache slots
     at or beyond a row's real length stay empty (zero K/V, slot_pos -1) so
     padding never enters decode attention.
+
+    A quantized ring stores each row quantized per token and head; pad rows
+    are zeroed after the quantize (codes and scales), so a real row's codes
+    never depend on the bucket. Staging buffers get the native rows. The
+    attention itself attends the prompt's native K/V, as the reference's
+    does.
     """
     B, S, _ = x.shape
     q, k, v = p.qkv(x, cfg)
@@ -125,17 +203,26 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     n = min(S, L)
     tail = torch.arange(S - n, S, device=x.device)   # absolute positions kept
     slots = tail % L                                  # ring placement
-    kw = k[:, S - n:].to(cache.k.dtype)
-    vw = v[:, S - n:].to(cache.v.dtype)
     spw = tail.to(torch.int32)[None, :].expand(B, n)
+    keep = None
     if seq_lens is not None:
         keep = tail[None, :] < seq_lens[:, None]
-        zero = torch.zeros((), dtype=kw.dtype, device=x.device)
-        kw = torch.where(keep[..., None, None], kw, zero)
-        vw = torch.where(keep[..., None, None], vw, zero)
         spw = torch.where(keep, spw, -1).to(torch.int32)
-    cache.k[:, slots] = kw
-    cache.v[:, slots] = vw
+
+    def kept(t):
+        if keep is None:
+            return t
+        return torch.where(keep[..., None, None], t, torch.zeros((), dtype=t.dtype,
+                                                                device=t.device))
+    if cache.k_scale is not None:
+        _quant_write(_ring_codes(cache), (slice(None), slots), k[:, S - n:], v[:, S - n:],
+                     keep)
+    else:
+        cache.k[:, slots] = kept(k[:, S - n:].to(cache.k.dtype))
+        cache.v[:, slots] = kept(v[:, S - n:].to(cache.v.dtype))
+    if cache.stage_k is not None:
+        cache.stage_k[:, slots] = kept(k[:, S - n:].to(cache.stage_k.dtype))
+        cache.stage_v[:, slots] = kept(v[:, S - n:].to(cache.stage_v.dtype))
     cache.slot_pos[:, slots] = spw
     return y
 
@@ -143,17 +230,23 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
 def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor,
                 cfg: ModelConfig, *, window: Optional[int] = None) -> torch.Tensor:
     """One decode step: rope at pos, write K/V into the ring in place, then
-    attend over the valid slots. x (B, D); pos (B,) int32."""
+    attend over the valid slots. x (B, D); pos (B,) int32. A quantized
+    ring takes the token quantized (codes and scales at ``pos % L``) and
+    is read through the dequantizing decode (K2q on the card)."""
     B = x.shape[0]
     q, k, v = p.qkv(x, cfg)
     q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     k = apply_rope(k[:, None], pos[:, None], cfg.rope_theta)[:, 0]
     slot = pos % cache.cache_len
     b_idx = torch.arange(B, device=x.device)
-    cache.k[b_idx, slot] = k.to(cache.k.dtype)
-    cache.v[b_idx, slot] = v.to(cache.v.dtype)
+    if cache.k_scale is not None:
+        _quant_write(_ring_codes(cache), (b_idx, slot), k, v)
+    else:
+        cache.k[b_idx, slot] = k.to(cache.k.dtype)
+        cache.v[b_idx, slot] = v.to(cache.v.dtype)
     cache.slot_pos[b_idx, slot] = pos
-    o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos, window=window)
+    o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos,
+                             k_scale=cache.k_scale, v_scale=cache.v_scale, window=window)
     return p.out(o)
 
 
@@ -195,6 +288,13 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
     tenant: their slot_pos is invalidated before the write (stale K/V need
     no zeroing, an invalid slot's weight is exactly 0). Query rows at or
     beyond ``valid`` come out as zeros; the caller never reads them.
+
+    A quantized ring takes the chunk quantized, and with staging buffers
+    the chunk's native rows land there too; the prompt phase then attends
+    staging, not the rounded ring, with the reference's purely causal mask
+    ``arange(L) <= qpos``: during the prompt every position up to a query's
+    was written by the row's current tenant (chunks are contiguous from 0),
+    so staging slot j holds position j. The staging buffers are not reset.
     """
     B, C, _ = x.shape
     q, k, v = p.qkv(x, cfg)
@@ -203,10 +303,24 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
     k = apply_rope(k, pos, cfg.rope_theta)
     if reset is not None:
         cache.slot_pos.masked_fill_(reset[:, None], -1)
-    cache.k[writes.rows, writes.slots] = k[writes.rows, writes.cols].to(cache.k.dtype)
-    cache.v[writes.rows, writes.slots] = v[writes.rows, writes.cols].to(cache.v.dtype)
+    kc, vc = k[writes.rows, writes.cols], v[writes.rows, writes.cols]
+    if cache.k_scale is not None:
+        _quant_write(_ring_codes(cache), (writes.rows, writes.slots), kc, vc)
+    else:
+        cache.k[writes.rows, writes.slots] = kc.to(cache.k.dtype)
+        cache.v[writes.rows, writes.slots] = vc.to(cache.v.dtype)
     cache.slot_pos[writes.rows, writes.slots] = writes.pos
-    o = ops.chunk_attention(q, cache.k, cache.v, cache.slot_pos, pos0, valid)
+    if cache.stage_k is None:
+        o = ops.chunk_attention(q, cache.k, cache.v, cache.slot_pos, pos0, valid)
+        return p.out(o)
+    cache.stage_k[writes.rows, writes.slots] = kc.to(cache.stage_k.dtype)
+    cache.stage_v[writes.rows, writes.slots] = vc.to(cache.stage_v.dtype)
+    # K4 over staging with slot_pos = arange(L) on every row: its mask
+    # 0 <= slot_pos <= qpos is then exactly the reference's arange(L) <= qpos
+    # (no window on this branch), so no kernel of its own is needed
+    L = cache.cache_len
+    causal = torch.arange(L, dtype=torch.int32, device=x.device).repeat(B, 1)
+    o = ops.chunk_attention(q, cache.stage_k, cache.stage_v, causal, pos0, valid)
     return p.out(o)
 
 
@@ -309,28 +423,15 @@ def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
                   qv=torch.zeros(shape, dtype=qdt, device=device),
                   k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
                   v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device))
-    if stage_rows and prec.lossy and prec.staging == "auto":
+    if stage_rows and _staged(prec):
         shape = (*lead, stage_rows, stage_len + 1, KVH, hd)
         kw.update(stage_k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
                   stage_v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
     return PagedKVPool(**kw)
 
 
-def _pool_precision(pool: PagedKVPool) -> KVPrecision:
-    """The quantized region's spec, from its code dtype."""
-    return parse_kv_precision(str(pool.qk.dtype).removeprefix("torch."))
-
-
-def _quant_write(pool: PagedKVPool, index: tuple, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Quantize K and V rows (..., KVH, hd) and write codes and scales into
-    the quantized region in place, at ``index``: leading slices over the
-    pool's layer axes, then region-local page ids (and rows in the page).
-    One quantization covers K and V stacked."""
-    codes, scale = quantize_kv(torch.stack((k, v)), _pool_precision(pool))
-    pool.qk[index] = codes[0]
-    pool.qv[index] = codes[1]
-    pool.k_scale[index] = scale[0]
-    pool.v_scale[index] = scale[1]
+def _pool_codes(pool: PagedKVPool) -> tuple:
+    return pool.qk, pool.qv, pool.k_scale, pool.v_scale
 
 
 class PagedWrites(NamedTuple):
@@ -404,7 +505,7 @@ def _paged_write(pool: PagedKVPool, writes: PagedWrites, k: torch.Tensor,
         pool.k[writes.pages, writes.offs] = k.to(pool.k.dtype)
         pool.v[writes.pages, writes.offs] = v.to(pool.v.dtype)
     if pool.qk is not None:
-        _quant_write(pool, (writes.qpages, writes.offs), k, v)
+        _quant_write(_pool_codes(pool), (writes.qpages, writes.offs), k, v)
 
 
 def attn_decode_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
@@ -514,7 +615,8 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray)
             pool.k[..., idx[2], :, :, :] = kb.to(pool.k.dtype)
             pool.v[..., idx[2], :, :, :] = vb.to(pool.v.dtype)
         else:
-            _quant_write(pool, (slice(None),) * (pool.qk.dim() - 4) + (idx[2],), kb, vb)
+            _quant_write(_pool_codes(pool), (slice(None),) * (pool.qk.dim() - 4) + (idx[2],),
+                         kb, vb)
 
 
 def fork_pages(pool: PagedKVPool, src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -537,6 +639,5 @@ def fork_pages(pool: PagedKVPool, src: torch.Tensor, dst: torch.Tensor) -> None:
         s = (src - lo).clamp(0, n - 1)
         for t, tr in zip(leaves, trailing, strict=True):
             axis = t.dim() - tr
-            if t.dtype == torch.float8_e4m3fn:   # copied as bytes: no fp8 index_copy_
-                t = t.view(torch.uint8)
+            t = as_bytes(t)   # fp8 copied as bytes: no fp8 index_copy_ on the CPU
             t.index_copy_(axis, d, t.index_select(axis, s))

@@ -5,7 +5,11 @@ segment's layers on a leading axis; ``params_from_numpy`` takes that tree
 as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's ``Model`` with the same values, one block per layer.
 ``paged_pool_from_numpy`` carries a reference ``PagedKVPool``'s arrays into
-the port's pool layout, scratch pages and rows included.
+the port's pool layout, scratch pages and rows included, and
+``kv_cache_from_numpy`` a reference dense ``KVCache``'s (codes, scales and
+staging buffers included), so both packages can start from one cache
+state. Like every entry point of the port they place what they build on the
+card unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import PagedKVPool
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import KVCache, PagedKVPool
 from repro_torch.models.model import Model
 
 
@@ -70,13 +75,15 @@ def _torch(a) -> torch.Tensor:
 
 @torch.no_grad()
 def paged_pool_from_numpy(k=None, v=None, qk=None, qv=None, k_scale=None, v_scale=None,
-                          stage_k=None, stage_v=None, device="cpu") -> PagedKVPool:
+                          stage_k=None, stage_v=None, device=None) -> PagedKVPool:
     """The port's pool holding the reference pool's contents, the leaves of
     a reference ``PagedKVPool`` as numpy arrays (None where the reference
     has none; any leading layer axes). Each region gains its scratch page
     (zeros) past its last page, and each staging buffer its scratch row
     past its last position, as ``attention.paged_pool_init`` lays them
-    out."""
+    out. ``device`` None: the card."""
+    device = resolve_device(device)
+
     def pad(a, axis):
         if a is None:
             return None
@@ -87,3 +94,18 @@ def paged_pool_from_numpy(k=None, v=None, qk=None, qv=None, k_scale=None, v_scal
     return PagedKVPool(k=pad(k, -4), v=pad(v, -4), qk=pad(qk, -4), qv=pad(qv, -4),
                        k_scale=pad(k_scale, -3), v_scale=pad(v_scale, -3),
                        stage_k=pad(stage_k, -3), stage_v=pad(stage_v, -3))
+
+
+@torch.no_grad()
+def kv_cache_from_numpy(k, v, slot_pos, k_scale=None, v_scale=None, stage_k=None,
+                        stage_v=None, device=None) -> KVCache:
+    """The port's dense ring cache holding a reference ``KVCache``'s
+    contents, its leaves as numpy arrays (None where the reference has
+    none: the scales at native precision, the staging buffers unless the
+    storage is lossy; any leading layer axes). ``device`` None: the card."""
+    device = resolve_device(device)
+
+    def put(a):
+        return None if a is None else _torch(a).to(device)
+    return KVCache(k=put(k), v=put(v), slot_pos=put(slot_pos), k_scale=put(k_scale),
+                   v_scale=put(v_scale), stage_k=put(stage_k), stage_v=put(stage_v))

@@ -119,15 +119,24 @@ def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
             shape_window: Optional[int] = None,
-            prompt_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, DecodeState]:
+            prompt_lens: Optional[torch.Tensor] = None,
+            kv_precision: Optional[str] = None) -> tuple[torch.Tensor, DecodeState]:
     """Process the prompt (B, S) int; build decode caches; return
     last-position logits (B, V).
 
     prompt_lens (B,) int32: real prompt lengths — the ragged length-aware
     path. Logits are taken at each row's real last token, decode resumes at
     ``pos = len``, and cache slots beyond ``len`` stay empty.
+
+    kv_precision ("native", "int8", "fp8"; None: the model config's) sets
+    the storage of the caches built: a quantized ring stores codes and
+    scales, which ``decode_step`` and ``chunk_step`` read and write as the
+    cache's own leaves say.
     """
     cfg = model.cfg
+    if kv_precision is not None:
+        cfg = cfg.replace(kv_precision=kv_precision)
+        T.check_supported(cfg)
     B, S = tokens.shape
     h = _embed(model, tokens)
     if prompt_lens is not None:

@@ -16,6 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.cache.precision import resolve_kv_precision
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
@@ -75,20 +76,19 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port's models run dense decoder-only attention stacks, whose own
-    caches hold K/V at the compute dtype (quantized storage lives in the
-    paged engine's page pools), and pure Mamba-2 stacks."""
+    caches hold K/V at the compute dtype or as int8 or fp8 codes with
+    per-token-per-head scales (``kv_precision``), and pure Mamba-2 stacks."""
     dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
     ssm = cfg.arch_type == "ssm" and plan_segments(cfg) == (Segment("ssm", cfg.n_layers),)
     if not (dense or ssm):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
-    if cfg.kv_precision not in ("", "native") or cfg.cache_dtype:
+    if resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype).is_cast:
         raise NotImplementedError(
-            f"{cfg.name}: kv_precision {cfg.kv_precision or cfg.cache_dtype!r} in the "
-            "model's dense caches is not ported yet (the paged engine stores "
-            "quantized pages: PagedEngineConfig.kv_precision); see ROADMAP.md queue 1 "
-            "item 9 (the dense quantized ring cache)")
+            f"{cfg.name}: the unscaled KV storage cast "
+            f"{cfg.kv_precision or cfg.cache_dtype!r} is not ported yet (int8 and fp8 "
+            "are); see ROADMAP.md queue 1 item 9 (the legacy unscaled casts)")
     if not cfg.tie_embeddings or cfg.attn_logit_softcap or cfg.act != "silu":
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings, logit softcap and non-SiLU MLPs are "

@@ -115,8 +115,9 @@ class EngineConfig:
     # the bounded wait on a pending readback packet before the consumer
     # raises ReadbackTimeout; <= 0 waits without a bound
     readback_timeout_s: float = 30.0
-    # KV storage: "" / "native" on the dense engine; the paged engine also
-    # takes "int8" / "fp8" (a quantized page region)
+    # KV storage: "" (the model config's) / "native" / "int8" / "fp8": the
+    # dense ring, or the paged engine's quantized page region, holds codes
+    # with per-token-per-head scales
     kv_precision: str = ""
 
 
@@ -330,10 +331,12 @@ def _decode_n_paged(model, state, toks, n):
 def _splice_one(state: M.DecodeState, one: M.DecodeState, slot: int) -> M.DecodeState:
     """Insert batch-1 prefill state into the batch state at ``slot``, in
     place. Every cache leaf (KVCache or SSMState) has the layer axis first
-    and the batch axis second."""
+    and the batch axis second; a KVCache's absent leaves (None: the scales
+    and staging buffers at native precision) are skipped."""
     for big, new in zip(state.caches, one.caches, strict=True):
         for a, b in zip(big, new, strict=True):
-            a[:, slot] = b[:, 0]
+            if a is not None:
+                A.as_bytes(a)[:, slot] = A.as_bytes(b)[:, 0]
     state.pos[slot] = one.pos[0]
     state.last_tok[slot] = one.last_tok[0]
     return state
@@ -350,7 +353,8 @@ def _splice_many(state: M.DecodeState, new: M.DecodeState,
     src, dst = idx[0], idx[1]
     for big, nw in zip(state.caches, new.caches, strict=True):
         for a, b in zip(big, nw, strict=True):
-            a[:, dst] = b[:, src]
+            if a is not None:
+                A.as_bytes(a)[:, dst] = A.as_bytes(b)[:, src]
     state.pos[dst] = new.pos[src]
     state.last_tok[dst] = new.last_tok[src]
     return state
@@ -374,16 +378,17 @@ class Engine:
     """Dense serving engine over ``model`` (on the model's device)."""
 
     def __init__(self, model: M.Model, ecfg: EngineConfig):
-        if ecfg.kv_precision not in ("", "native"):
-            raise NotImplementedError(
-                f"kv_precision {ecfg.kv_precision!r} on the dense engine is not ported "
-                "yet (the paged engine takes it); see ROADMAP.md queue 1 item 9 (the "
-                "dense quantized ring cache)")
+        cfg = model.cfg
+        if ecfg.kv_precision:
+            cfg = cfg.replace(kv_precision=ecfg.kv_precision)
         if not ecfg.greedy:
             raise NotImplementedError(
                 "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
                 "(per-request sampling)")
-        self.cfg, self.model, self.ecfg = model.cfg, model, ecfg
+        self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        # every prefill builds the dense ring at the engine's precision (a
+        # quantized one holds codes and scales, which the decode reads)
+        self._prefill_kv = cfg.kv_precision
         self.device = model.device
         B, P = ecfg.batch_slots, ecfg.prompt_len
         self._buckets = _prompt_buckets(P)
@@ -392,7 +397,8 @@ class Engine:
         # boot: empty batch state from a dummy prefill over the whole batch
         boot = torch.zeros((B, P), dtype=torch.int32, device=self.device)
         _, self.state = M.prefill(model, boot, ecfg.cache_len,
-                                  shape_window=ecfg.shape_window)
+                                  shape_window=ecfg.shape_window,
+                                  kv_precision=self._prefill_kv)
         self.sync = sync_state_init(B, self._gen_cap, self.device)
         self.active: list = [None] * B
         self.pending: list = []
@@ -526,7 +532,7 @@ class Engine:
                          cache_len or self.ecfg.cache_len,
                          shape_window=self.ecfg.shape_window,
                          prompt_lens=host_to_device(lens, self.device) if self._ragged
-                         else None)
+                         else None, kv_precision=self._prefill_kv)
 
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
         """Legacy batch-1 admission (the fused path's equivalence oracle)."""
@@ -963,7 +969,9 @@ class Engine:
                                 admitted=admitted)
 
 
-_ITEM9 = "ROADMAP.md queue 1 item 9 (quantized KV pages)"
+
+
+_ITEM9 = "ROADMAP.md queue 1 item 9 (the legacy unscaled casts)"
 
 
 def _sync_clear(sync: SyncState, rows: torch.Tensor) -> SyncState:
@@ -1061,6 +1069,9 @@ class PagedEngine(Engine):
                 "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
                 "(per-request sampling)")
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        # prefill at native storage: the page copy quantizes what lands in
+        # the quantized region
+        self._prefill_kv = "native"
         self.device = model.device
         self.MP = ecfg.max_pages_per_req or max(ecfg.cache_len // ps, P // ps + 1)
         self._buckets = _prompt_buckets(P, quantum=ps)

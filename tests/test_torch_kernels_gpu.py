@@ -469,3 +469,113 @@ def test_fork_then_read_on_card(cuda, pool):
     for t, was in zip((t for t in pl if t is not None), before, strict=True):
         pages = set((t != was).reshape(t.shape[0], -1).any(-1).nonzero()[:, 0].tolist())
         assert pages <= (native if t.dim() == 4 and t.dtype == q.dtype else quant)
+
+
+def _codes_on_card(cuda, rng, shape, prec, spread=None):
+    """Seeded K and V rows quantized on the card: codes and scales.
+    ``spread`` multiplies each KV head (axis 2) by its own factor."""
+    spec = parse_kv_precision(prec)
+    out = []
+    for _ in range(2):
+        x = rng.standard_normal(shape).astype(np.float32)
+        if spread is not None:
+            x *= spread[None, None, :, None]
+        out.extend(quantize_kv(torch.from_numpy(x).to(cuda), spec))
+    qk, ks, qv, vs = out
+    return qk, qv, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extreme", [False, True])
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,hd", GPU_PREFILL)
+def test_flash_quant_kernel_matches_plain_on_card(cuda, dtype, prec, extreme, B, S, H, KVH,
+                                                  hd):
+    """K1q and K1rq (dense, ragged, windowed) against ``attention_quant_ref``;
+    ``extreme`` spreads the KV heads' scales over 1e-3..1e3."""
+    rng = np.random.default_rng(S + hd + KVH)
+    spread = np.logspace(-3, 3, KVH).astype(np.float32) if extreme else None
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, S, KVH, hd), prec, spread)
+    q = torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).to(cuda, dtype)
+    lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(np.int32)).to(cuda)
+    lens[0] = 1
+    for seq_lens, window in ((None, None), (None, 37), (lens, None), (lens, 9)):
+        got = k_flash.flash_attention_quant(q, qk, qv, ks, vs, seq_lens, window=window)
+        want = ref.attention_quant_ref(q, qk, qv, ks, vs, window=window, seq_lens=seq_lens)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        assert _err_ok(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KVH,hd", [(3, 64, 8, 2, 32), (8, 1024, 32, 8, 64),
+                                          (2, 100, 8, 1, 128)])
+def test_decode_quant_kernel_matches_plain_on_card(cuda, dtype, prec, B, L, H, KVH, hd):
+    """K2q against ``decode_attention_quant_ref`` over a ring with empty
+    slots (row 0), wrapped rows, and a window."""
+    rng = np.random.default_rng(L + hd)
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), prec)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    pos_np = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    sp = torch.from_numpy(_ring(B, L, pos_np)).to(cuda)
+    pos = torch.from_numpy(pos_np).to(cuda)
+    for window in (None, 50):
+        got = k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=window)
+        want = ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=window)
+        torch.cuda.synchronize()
+        assert _err_ok(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_int8_decode_equals_paged_int8_decode_on_card(cuda, dtype):
+    """The same int8 codes in a dense ring that has not wrapped (slot j holds
+    position j) and in pages of an all-int8 pool, shuffled: K2q and K3q give
+    the same output bit for bit, rows of 1 to 1,024 positions."""
+    rng = np.random.default_rng(11)
+    B, L, H, KVH, hd, ps = 8, 1024, 32, 8, 64, 16
+    MP = L // ps
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), "int8")
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    pos_np = np.asarray([0, 15, 16, 63, 64, 500, 1000, 1023], np.int32)
+    sp = np.where(np.arange(L)[None, :] <= pos_np[:, None], np.arange(L)[None, :], -1)
+    perm = rng.permutation(B * MP).astype(np.int32)
+    bt = perm.reshape(B, MP).copy()
+    pages = torch.from_numpy(bt.reshape(-1)).long().to(cuda)
+    pool = [torch.empty((B * MP, ps, KVH) + t.shape[3:], dtype=t.dtype, device=cuda)
+            for t in (qk, qv, ks, vs)]
+    for dst, src in zip(pool, (qk, qv, ks, vs), strict=True):
+        dst[pages] = src.reshape(B * MP, ps, KVH, *src.shape[3:])
+    bt[np.arange(MP)[None, :] * ps > pos_np[:, None]] = -1   # pages past pos unallocated
+    pos = torch.from_numpy(pos_np).to(cuda)
+    dense = k_decode.decode_attention_quant(q, qk, qv, ks, vs,
+                                            torch.from_numpy(sp.astype(np.int32)).to(cuda), pos)
+    paged = k_paged_quant.paged_decode_attention_quant(q, None, None, *pool,
+                                                       torch.from_numpy(bt).to(cuda), pos)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.gpu
+def test_quant_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(0)
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (2, 64, 2, 32), "int8")
+    q = torch.zeros((2, 64, 4, 32), device=cuda)
+    with pytest.raises(ValueError, match="k/v"):
+        k_flash.flash_attention_quant(q, qk.float(), qv.float(), ks, vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        k_flash.flash_attention_quant(q, qk, qv, ks[:, :32], vs)
+    with pytest.raises(ValueError, match="k_scale"):
+        k_flash.flash_attention_quant(q, qk, qv, ks.transpose(0, 1).contiguous().transpose(0, 1),
+                                      vs)
+    sp = torch.arange(64, dtype=torch.int32, device=cuda).repeat(2, 1)
+    pos = torch.full((2,), 63, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="v_scale"):
+        k_decode.decode_attention_quant(torch.zeros((2, 4, 32), device=cuda), qk, qv, ks,
+                                        vs.double(), sp, pos)
+    with pytest.raises(ValueError, match="bad shapes"):
+        k_decode.decode_attention_quant(torch.zeros((2, 4, 48), device=cuda), qk[..., :48],
+                                        qv[..., :48], ks, vs, sp, pos)

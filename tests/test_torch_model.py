@@ -95,6 +95,7 @@ def test_unported_archs_raise_not_implemented():
     for arch in ("olmoe-1b-7b", "recurrentgemma-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             Model(get_config(arch, smoke=True), device="cpu")
-    cfg = get_config("granite-3-2b", smoke=True).replace(kv_precision="int8")
+    cfg = get_config("granite-3-2b", smoke=True)
+    assert Model(cfg.replace(kv_precision="int8"), device="cpu").cfg.kv_precision == "int8"
     with pytest.raises(NotImplementedError, match="item 9"):
-        Model(cfg, device="cpu")
+        Model(cfg.replace(kv_precision="float16"), device="cpu")

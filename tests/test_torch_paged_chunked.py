@@ -135,7 +135,8 @@ def _pools(rng, cfg, kind, prec, nn, B, SL):
         for name in ("stage_k", "stage_v"):
             leaves[name] = rng.standard_normal((B, SL, KVH, hd)).astype(np.float32)
     ref = ref._replace(**{n: jnp.asarray(a) for n, a in leaves.items()})
-    return qcfg, ref, paged_pool_from_numpy(**{n: np.asarray(a) for n, a in leaves.items()})
+    return qcfg, ref, paged_pool_from_numpy(**{n: np.asarray(a) for n, a in leaves.items()},
+                                              device="cpu")
 
 
 def _chunk_rows(rng, B, C, L):
@@ -256,7 +257,7 @@ def test_chunk_step_paged_matches_reference(prec, nn):
                 p[n] = np.abs(x) / 64 if n.endswith("scale") else x
     ref_pools = [rp._replace(**{n: jnp.asarray(a) for n, a in p.items()})
                  for rp, p in zip(ref_pools, leaves, strict=True)]
-    pools = [paged_pool_from_numpy(**p) for p in leaves]
+    pools = [paged_pool_from_numpy(**p, device="cpu") for p in leaves]
     bt = np.full((B, MP), -1, np.int32)
     bt[0, :4] = [3, 8, 1, 14]
     bt[1, :5] = [5, 0, 11, 2, 9]

@@ -599,7 +599,7 @@ def test_precision_aware_fp8_admits_onto_the_fp8_region(capsys):
      r"--quant-pages in \(0, num-pages\)"),
     (["--paged", "--kv-precision", "int8", "--downgrade-at", "0.3", "--upgrade-at", "0.5"],
      ValueError, "hysteresis"),
-    (["--kv-precision", "fp8"], NotImplementedError, "item 9"),
+    (["--kv-precision", "int8", "--quant-pages", "4"], ValueError, "requires --paged"),
     (["--paged", "--kv-precision", "int8", "--chunked", "--policy", "precision-aware"],
      ValueError, r"--quant-pages in \(0, num-pages\)"),
 ])
@@ -610,6 +610,8 @@ def test_launcher_checks_quant_arguments(argv, err, match):
 
 
 def test_dense_engine_refuses_quantized_precision(w):
+    """int8 and fp8 rings are ported (tests/test_torch_quant_dense.py); the
+    legacy unscaled cast is not."""
     from repro_torch.runtime import Engine, EngineConfig
     with pytest.raises(NotImplementedError, match="item 9"):
-        Engine(w["port"], EngineConfig(kv_precision="int8"))
+        Engine(w["port"], EngineConfig(kv_precision="float16"))
