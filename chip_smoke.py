@@ -4,12 +4,16 @@ against its plain version. Exits nonzero on any fault; nothing is caught.
   python3 chip_smoke.py
 
 Phases, each printing one JSON line: device, build (nvcc, all sources at
-once), kernels (each CUDA kernel against its plain PyTorch version, element
-by element, at the full-width granite-3-2b serving shapes in bf16 and in
-f32 and at the smoke shapes in f32, with CUDA-event times, the roofline
-bound and the time of the library's counterpart for the record: one
-scaled_dot_product_attention call, or for the paged kernel a page gather
-plus that call), model (full-width granite-3-2b prefill + greedy decode
+once; each flash_attention instantiation's shared memory, registers and
+spills), kernels (each CUDA kernel against its plain PyTorch version,
+element by element, at the full-width granite-3-2b serving shapes in bf16
+and in f32 and at the smoke shapes in f32, with CUDA-event times, the
+roofline bound and the time of the library's counterpart for the record:
+one scaled_dot_product_attention call, or for the paged kernel a page
+gather plus that call; the prefill rows name their instantiation, bf16 on
+wgmma and f32 on the CUDA cores, and bf16 adds keys that rise tile by tile
+so every tile rescales the output), flash_anatomy (the bf16 prefill kernel
+beside variants that each change one factor of its work), model (full-width granite-3-2b prefill + greedy decode
 through the kernels against the plain versions on the same weights, with a
 path whose decode attention skips one KV tile read beside it to show the
 tolerance catches such a fault, and the smoke model on the card against
@@ -43,12 +47,14 @@ bit for bit, and K1q on the int8 prefill's own ring), then
 dense_quant_serve and dense_quant_profile (``--kv-precision int8`` on the
 main path) and dense_quant_chunked_serve (``--chunked --kv-precision fp8``,
 under the sync debug mode), their traces held to the CPU run's. Each serve
-phase zeroes the launch counts just before it and reads them just after. Then the ``kernels`` summary line, the card's
-name and power limit from nvidia-smi, and the result line.
+phase zeroes the launch counts just before it and reads them just after.
+Then the ``kernels`` summary line, the card's name and power limit from
+nvidia-smi, and the result line.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -294,6 +300,17 @@ def _ring_slot_pos(B, L, pos):
     return np.where(sp < 0, -1, sp).astype(np.int32)
 
 
+# which kernel of csrc/flash_attention.cu serves each dtype of q
+FLASH_ROUTE = {torch.bfloat16: "wgmma (tensor cores)", torch.float32: "CUDA cores"}
+
+
+def _rising(S):
+    """(S,) factors 1, 2, 3, ... per 64-key tile: keys scaled by them make
+    each later KV tile hold a new row maximum, so every tile rescales the
+    running output."""
+    return (1 + torch.arange(S, device="cuda") // 64).float()
+
+
 def check_kernels(timer) -> dict:
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
@@ -307,7 +324,7 @@ def check_kernels(timer) -> dict:
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     def record(case, name, dtype, got, want, env, fn, plain, lib, work, main,
-               library="scaled_dot_product_attention", rtol=KERNEL_RTOL):
+               library="scaled_dot_product_attention", rtol=KERNEL_RTOL, **extra):
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         tol = rtol[dtype] * (env.float() + want.float().abs())
@@ -319,7 +336,7 @@ def check_kernels(timer) -> dict:
                "ms": timer(fn), "plain_ms": timer(plain, n=5),
                "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
                "library_ms": timer(lib) if lib is not None else None, "library": library,
-               "bytes": work[0], "flops": work[1]}
+               "bytes": work[0], "flops": work[1], **extra}
         emit("kernels", **row)
         if not worst <= 1.0:
             raise AssertionError(f"{case}: an element is {worst:.3g}x its tolerance")
@@ -335,9 +352,11 @@ def check_kernels(timer) -> dict:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                       enable_gqa=True)
 
-    # K1 / K1r: (B, S, H, KVH, hd, dtype, main-path shape and dtype?). The
-    # f32 run of the main-path shape holds the cross-tile rescale and the
-    # tile skips to 2e-5.
+    # K1 / K1r: (B, S, H, KVH, hd, dtype, main-path shape and dtype?). bf16
+    # runs the wgmma kernel, f32 the CUDA-core one; the f32 run of the
+    # main-path shape holds the CUDA-core kernel's cross-tile rescale and
+    # tile skips to 2e-5, and the bf16 rising-score runs (each later KV tile
+    # holds a new row maximum) hold the wgmma kernel's.
     for B, S, H, KVH, hd, dtype, main in ((8, 512, 32, 8, 64, torch.bfloat16, True),
                                           (8, 512, 32, 8, 64, torch.float32, False),
                                           (4, 16, 8, 2, 32, torch.float32, False)):
@@ -346,18 +365,24 @@ def check_kernels(timer) -> dict:
         lens_l = ([512, 300, 129, 1, 512, 64, 200, 511] if S == 512 else [16, 1, 9, 5])
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
         esize = q.element_size()
-        for name, sl, win in (("flash_attention", None, None),
-                              ("flash_attention_ragged", lens, None),
-                              ("flash_attention", None, 37 if S == 512 else 5)):
+        variants = [("flash_attention", None, None, k),
+                    ("flash_attention_ragged", lens, None, k),
+                    ("flash_attention", None, 37 if S == 512 else 5, k)]
+        if dtype == torch.bfloat16:
+            kr = (k.float() * _rising(S)[None, :, None, None]).to(dtype)
+            variants += [("flash_attention", None, None, kr),
+                         ("flash_attention_ragged", lens, None, kr)]
+        for name, sl, win, kk in variants:
             case = f"{name} B{B} S{S} H{H}/{KVH} hd{hd} {str(dtype)[6:]}" + (
-                f" window{win}" if win else "")
-            fn = lambda sl=sl, win=win: kf.flash_attention(q, k, v, sl, window=win)
-            plain = lambda sl=sl, win=win: ref.attention_ref(q, k, v, window=win, seq_lens=sl)
-            env = ref.attention_ref(q, k, v.abs(), window=win, seq_lens=sl)
+                f" window{win}" if win else "") + (" rising-scores" if kk is not k else "")
+            fn = lambda sl=sl, win=win, kk=kk: kf.flash_attention(q, kk, v, sl, window=win)
+            plain = lambda sl=sl, win=win, kk=kk: ref.attention_ref(q, kk, v, window=win,
+                                                                    seq_lens=sl)
+            env = ref.attention_ref(q, kk, v.abs(), window=win, seq_lens=sl)
             record(case, name, dtype, fn(), plain(), env, fn, plain,
-                   sdpa_prefill(q, k, v, sl, win, sl is None and win is None),
+                   sdpa_prefill(q, kk, v, sl, win, sl is None and win is None),
                    _prefill_work(B, S, H, KVH, hd, esize, lens_l if sl is not None else None, win),
-                   main and win is None)
+                   main and win is None and kk is k, instantiation=FLASH_ROUTE[dtype])
 
     # K2: ring caches with empty slots (row 0) and wrapped rows
     for B, L, H, KVH, hd, dtype, main in ((8, 1024, 32, 8, 64, torch.bfloat16, True),
@@ -449,11 +474,42 @@ def check_kernels(timer) -> dict:
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
                _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
+    check_flash_anatomy(timer)
     check_quant_kernel(rng, record)
     check_quant_attention_kernels(rng, record)
     check_paged_chunk_kernels(rng, record)
     check_ssd_kernel(record)
     return rows
+
+
+def check_flash_anatomy(timer) -> None:
+    """What bounds the bf16 prefill kernel: K1 at the main shape beside
+    variants that each change one factor, with the CTA-tiles each computes
+    (64 queries x 64 keys, the diagonal tiles' masked halves included) and
+    the tensor-core rate on them: every tile without masking (non-causal),
+    more tiles per CTA (S 2048, B 2), four times the K/V bytes over the same
+    tiles (no GQA: KV heads = query heads) and twice the FLOPs per tile (hd
+    128 on half the heads)."""
+    from repro_torch.kernels import flash_attention as kf
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    variants = []
+    for label, B, S, H, KVH, hd, causal in (("main", 8, 512, 32, 8, 64, True),
+                                            ("non-causal", 8, 512, 32, 8, 64, False),
+                                            ("S 2048", 2, 2048, 32, 8, 64, True),
+                                            ("no GQA", 8, 512, 32, 32, 64, True),
+                                            ("hd 128", 8, 512, 16, 4, 128, True)):
+        q, k, v = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for shape in ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))
+        ms = timer(lambda q=q, k=k, v=v, causal=causal: kf.flash_attention(q, k, v,
+                                                                            causal=causal))
+        nq = S // 64
+        tiles = B * H * (nq * (nq + 1) // 2 if causal else nq * nq)
+        variants.append({"variant": label, "B": B, "S": S, "H": H, "KVH": KVH, "hd": hd,
+                         "causal": causal, "ms": ms, "cta_tiles": tiles,
+                         "us_per_1000_tiles": ms * 1e6 / tiles,
+                         "tflops_on_tiles": tiles * 4.0 * 64 * 64 * hd / ms / 1e9})
+    emit("flash_anatomy", variants=variants)
 
 
 def _abs_codes(c):
@@ -602,34 +658,41 @@ def check_quant_attention_kernels(rng, record) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 
-    def codes(shape, prec, spread=None):
+    def codes(shape, prec, spread=None, rising=False):
         out = []
-        for _ in range(2):
+        for i in range(2):
             x = rng.standard_normal(shape).astype(np.float32)
             if spread is not None:
                 x *= spread[None, None, :, None]
+            if rising and i == 0:   # K only: see _rising
+                x *= _rising(shape[1]).cpu().numpy()[None, :, None, None]
             out.extend(quantize_kv(torch.from_numpy(x).cuda(), parse_kv_precision(prec)))
         qk, ks, qv, vs = out
         return qk, qv, ks, vs
 
     lib_name = "dequantize + scaled_dot_product_attention"
-    prefill_cases = [(8, 512, 32, 8, 64, prec, dtype, False) for prec in ("int8", "fp8")
+    # (..., extreme: KV heads' scales spread over 1e-3..1e3, rising: see _rising)
+    prefill_cases = [(8, 512, 32, 8, 64, prec, dtype, False, False) for prec in ("int8", "fp8")
                      for dtype in (torch.bfloat16, torch.float32)]
-    prefill_cases += [(4, 16, 8, 2, 32, prec, torch.float32, False) for prec in ("int8", "fp8")]
-    prefill_cases += [(8, 512, 32, 8, 64, prec, torch.float32, True) for prec in ("int8", "fp8")]
-    for B, S, H, KVH, hd, prec, dtype, extreme in prefill_cases:
+    prefill_cases += [(4, 16, 8, 2, 32, prec, torch.float32, False, False)
+                      for prec in ("int8", "fp8")]
+    prefill_cases += [(8, 512, 32, 8, 64, prec, torch.float32, True, False)
+                      for prec in ("int8", "fp8")]
+    prefill_cases += [(8, 512, 32, 8, 64, "int8", torch.bfloat16, False, True)]
+    for B, S, H, KVH, hd, prec, dtype, extreme, rising in prefill_cases:
         spread = np.logspace(-3, 3, KVH).astype(np.float32) if extreme else None
-        qk, qv, ks, vs = codes((B, S, KVH, hd), prec, spread)
+        qk, qv, ks, vs = codes((B, S, KVH, hd), prec, spread, rising)
         q = torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).cuda()
         q = q.to(dtype)
         lens_l = QUANT_PREFILL_LENS if S == 512 else [16, 1, 9, 5]
         lens = torch.tensor(lens_l, dtype=torch.int32, device="cuda")
-        variants = [(None, None), (lens, None)] + ([] if extreme else [(None, 37 if S == 512
-                                                                          else 5)])
+        variants = [(None, None), (lens, None)] + ([] if extreme or rising else [
+            (None, 37 if S == 512 else 5)])
         for sl, win in variants:
             name = "flash_attention_quant" + ("" if sl is None else "_ragged")
             case = (f"{name} {prec} B{B} S{S} H{H}/{KVH} hd{hd} {str(dtype)[6:]}"
-                    + (f" window{win}" if win else "") + (" extreme-scales" if extreme else ""))
+                    + (f" window{win}" if win else "") + (" extreme-scales" if extreme else "")
+                    + (" rising-scores" if rising else ""))
             fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sl=sl, win=win: \
                 kf.flash_attention_quant(q, qk, qv, ks, vs, sl, window=win)
             plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sl=sl, win=win: \
@@ -648,8 +711,8 @@ def check_quant_attention_kernels(rng, record) -> None:
             record(case, name, dtype, fn(), plain(), env, fn, plain, lib,
                    _prefill_quant_work(B, S, H, KVH, hd, q.element_size(),
                                        lens_l if sl is not None else None, win),
-                   prec == "int8" and dtype == torch.bfloat16 and win is None and S == 512,
-                   library=lib_name)
+                   prec == "int8" and dtype == torch.bfloat16 and win is None and S == 512
+                   and not rising, library=lib_name, instantiation=FLASH_ROUTE[dtype])
 
     decode_cases = [(8, 1024, 32, 8, 64, prec, dtype) for prec in ("int8", "fp8")
                     for dtype in (torch.bfloat16, torch.float32)]
@@ -2273,6 +2336,29 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
          top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
 
 
+_FLASH_SYMBOL = re.compile(r"flash_attention_kernel(_wgmma)?I(f|13__nv_bfloat16)?"
+                           r"(a|f|13__nv_fp8_e4m3|13__nv_bfloat16)Li(\d+)E")
+_CXX_TYPE = {"a": "int8", "f": "float32", "13__nv_fp8_e4m3": "fp8", "13__nv_bfloat16": "bf16"}
+
+
+def flash_instantiations(ptxas: list) -> list:
+    """Each instantiation of csrc/flash_attention.cu's two kernels, from
+    ``-Xptxas -v`` (build.BUILD_INFO): q and K/V types, hd, route,
+    registers and spill bytes."""
+    out = []
+    for f in ptxas:
+        m = _FLASH_SYMBOL.search(f["function"])
+        if m is None:
+            continue
+        wgmma = m.group(1) is not None
+        out.append({"q": "bf16" if wgmma else "float32", "kv": _CXX_TYPE[m.group(3)],
+                    "hd": int(m.group(4)),
+                    "route": FLASH_ROUTE[torch.bfloat16 if wgmma else torch.float32],
+                    "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
+                    "spill_loads": f.get("spill_loads")})
+    return sorted(out, key=lambda r: (r["q"], r["kv"], r["hd"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2295,14 +2381,21 @@ def main() -> int:
     from repro_torch.kernels import paged_chunk_attention as kpc
     from repro_torch.kernels import ssd_scan as kssd
     emit("build", wall_s=time.perf_counter() - t0, sources=info,
-         dynamic_smem_bytes={"flash_attention_hd64": kf.smem_bytes(64),
+         dynamic_smem_bytes={"flash_attention_hd64_f32_cuda_cores":
+                                 kf.smem_bytes(64, torch.float32),
+                             "flash_attention_hd64_bf16_wgmma": kf.smem_bytes(64, torch.bfloat16),
+                             "flash_attention_quant_hd64_f32_cuda_cores":
+                                 kf.smem_bytes(64, torch.float32, quantized=True),
+                             "flash_attention_quant_hd64_bf16_wgmma":
+                                 kf.smem_bytes(64, torch.bfloat16, quantized=True),
                              "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
                              "decode_attention_quant_hd64_G4": kd.quant_smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64": kc.smem_bytes(64),
                              "paged_chunk_attention_hd64": kpc.smem_bytes(64),
-                             "ssd_scan_chunk128_P64_N128": kssd.smem_bytes(128, 64, 128)})
+                             "ssd_scan_chunk128_P64_N128": kssd.smem_bytes(128, 64, 128)},
+         flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]))
 
     timer = Timer()
     rows = check_kernels(timer)

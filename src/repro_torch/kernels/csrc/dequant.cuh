@@ -22,6 +22,13 @@ template <> __device__ __forceinline__ float code_to_f<__nv_fp8_e4m3>(uint32_t b
   return static_cast<float>(c);
 }
 
+// The code in the low 8 bits of ``byte`` dequantized with ``scale`` and
+// rounded to T: the one conversion every dequantizing load shares.
+template <typename C, typename T>
+__device__ __forceinline__ T dequant_code(uint32_t byte, float scale) {
+  return from_f<T>(code_to_f<C>(byte) * scale);
+}
+
 // The 16 one-byte codes of ``u`` dequantized with ``scale`` and rounded to
 // T, as floats into d[0..15].
 template <typename C, typename T>
@@ -29,7 +36,25 @@ __device__ __forceinline__ void store_dequant16(float* d, uint4 u, float scale) 
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int e = 0; e < 16; ++e)  // little-endian: code e is byte e % 4 of word e / 4
-    d[e] = to_f(from_f<T>(code_to_f<C>(w[e / 4] >> (8 * (e % 4))) * scale));
+    d[e] = to_f(dequant_code<C, T>(w[e / 4] >> (8 * (e % 4)), scale));
+}
+
+// The 16 codes of ``u`` dequantized and rounded as store_dequant16 does,
+// kept as bf16: codes 0-7 in ``lo`` and 8-15 in ``hi``, code 2i in the low
+// half of word i (the bytes of a row of a bf16 tile).
+template <typename C>
+__device__ __forceinline__ void dequant16_bf16(uint4 u, float scale, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {  // codes 2p and 2p + 1: bytes 2(p % 2) and up of word p / 2
+    const uint32_t pair = w[p / 2] >> (16 * (p % 2));
+    o[p] = (uint32_t)__bfloat16_as_ushort(dequant_code<C, __nv_bfloat16>(pair, scale)) |
+           ((uint32_t)__bfloat16_as_ushort(dequant_code<C, __nv_bfloat16>(pair >> 8, scale))
+            << 16);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 // The tile rows named by ``qrows`` (``nrows`` entries; >= 0: a row of the

@@ -4,14 +4,20 @@ Replaces the Pallas TPU kernels ``_attn_kernel`` (K1) and
 ``_attn_kernel_ragged`` (K1r) of ``src/repro/kernels/flash_attention.py``,
 and their ``quantized=True`` variants (K1q, K1rq) through
 ``flash_attention_quant``: the same kernel over int8 or fp8 K/V codes,
-each tile dequantized right after its load.
+each tile dequantized in shared memory before its products.
 
-On the H100 the prefill at serving shapes would be byte-bound on the tensor
-cores (B 8, S 512, H 32, hd 64: ~8.6 GFLOP causal against ~42 MB); this
-first kernel computes on the CUDA cores in f32 FMAs from shared memory, so
-FMA issue bounds it. One CTA per (q-tile, head, batch row) loops over the
-live KV tiles with the online softmax in registers and skips tiles above
-the diagonal, outside the window or in the row's padding.
+One CTA per (64-row q-tile, head, batch row) loops over the live KV tiles
+with the online softmax in registers and skips tiles above the diagonal,
+outside the window or in the row's padding. For bf16 q the CTA is one
+warpgroup that runs QK^T and PV on the tensor cores (wgmma), fed by a
+two-stage ring of cp.async copies, so the next tile's loads overlap this
+tile's products. At serving shapes (B 8, S 512, H 32, hd 64: ~8.6 GFLOP
+causal against ~42 MB) the work is byte-bound on the tensor cores; what
+holds the kernel above that bound is issue: each CTA's serial chain of
+copies, products and softmax, with the causal grid's diagonal tiles and
+triangular load on top (``chip_smoke.py``'s flash_anatomy phase). f32 q
+keeps a CUDA-core kernel: a tensor-core product in f32 is TF32, which its
+f32 tolerance does not allow.
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -55,9 +61,14 @@ def _quant_fn():
     return fn
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``."""
-    return int(build.library("flash_attention").flash_attention_smem_bytes(hd))
+def smem_bytes(hd: int, dtype: torch.dtype, quantized: bool = False) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd`` for q of ``dtype``
+    (bf16: the wgmma kernel; f32: the CUDA-core kernel), over native K/V or
+    over codes (``quantized``)."""
+    fn = build.library("flash_attention").flash_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return int(fn(hd, int(dtype == torch.bfloat16), int(quantized)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -57,23 +57,55 @@ def _err_ok(got, want, dtype):
     return err <= GPU_TOL[dtype] * max(1.0, want.abs().max().item())
 
 
-GPU_PREFILL = [(2, 16, 8, 2, 32), (8, 512, 32, 8, 64), (2, 100, 4, 4, 128)]
+# (B, Sq, Sk, H, KVH, hd): the smoke and main-path shapes, hd 128, and Sq
+# not a multiple of 64 with Sk above it and below it. bf16 runs the wgmma
+# kernel, f32 the CUDA-core one.
+GPU_PREFILL = [(2, 16, 16, 8, 2, 32), (8, 512, 512, 32, 8, 64), (2, 100, 100, 4, 4, 128),
+               (4, 130, 200, 8, 2, 64), (4, 200, 77, 4, 2, 32), (4, 190, 190, 8, 4, 128)]
+
+
+def _prefill_cases(cuda, g, B, Sq, Sk):
+    """(seq_lens, window) pairs: dense and ragged (random lengths with a row
+    of 1, and lengths 1, 63, 64 and 65 around the 64-row tile), without a
+    window, with one inside a tile (9, 37) and with one that cuts a tile in
+    two (96). A window over Sk < Sq would leave rows that see no key, which
+    the kernel and the plain version do not average alike: those shapes run
+    without one."""
+    lens = torch.randint(1, Sq + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
+    lens[0] = 1
+    edges = torch.tensor([(1, 63, 64, 65)[b % 4] for b in range(B)], dtype=torch.int32,
+                         device=cuda).clamp(max=Sq)
+    windows = (None, 37, 96) if Sk >= Sq else (None,)
+    return [(sl, w) for sl in (None, lens, edges) for w in windows] + (
+        [(lens, 9)] if Sk >= Sq else [])
+
+
+def _rising(x):
+    """K rows (axis 1) scaled by 1, 2, 3, ... per 64-key tile: each later
+    KV tile holds a new row maximum, so every tile rescales the output."""
+    f = 1 + torch.arange(x.shape[1], device=x.device) // 64
+    return x * f[None, :, None, None].to(x.dtype)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,KVH,hd", GPU_PREFILL)
-def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KVH, hd):
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", GPU_PREFILL)
+def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
-               for s in ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))
-    lens = torch.randint(1, S + 1, (B,), generator=g, device=cuda, dtype=torch.int32)
-    lens[0] = 1
-    for seq_lens, window in ((None, None), (None, 37), (lens, None), (lens, 9)):
-        got = k_flash.flash_attention(q, k, v, seq_lens, window=window)
-        want = ref.attention_ref(q, k, v, window=window, seq_lens=seq_lens)
+               for s in ((B, Sq, H, hd), (B, Sk, KVH, hd), (B, Sk, KVH, hd)))
+    cases = _prefill_cases(cuda, g, B, Sq, Sk)
+    kr = _rising(k.float()).to(dtype)
+    for kk, seq_lens, window in ([(k, sl, w) for sl, w in cases]
+                                 + [(kr, sl, None) for sl in (None, cases[-1][0])]):
+        got = k_flash.flash_attention(q, kk, v, seq_lens, window=window)
+        want = ref.attention_ref(q, kk, v, window=window, seq_lens=seq_lens)
         torch.cuda.synchronize()
-        assert _err_ok(got, want, dtype)
+        assert _err_ok(got, want, dtype), (seq_lens, window, kk is kr)
+    # deterministic: no atomics, no split across CTAs
+    sl, w = cases[-1]
+    first = k_flash.flash_attention(q, k, v, sl, window=w)
+    assert torch.equal(first, k_flash.flash_attention(q, k, v, sl, window=w))
 
 
 @pytest.mark.gpu
@@ -471,16 +503,20 @@ def test_fork_then_read_on_card(cuda, pool):
         assert pages <= (native if t.dim() == 4 and t.dtype == q.dtype else quant)
 
 
-def _codes_on_card(cuda, rng, shape, prec, spread=None):
+def _codes_on_card(cuda, rng, shape, prec, spread=None, rising=False):
     """Seeded K and V rows quantized on the card: codes and scales.
-    ``spread`` multiplies each KV head (axis 2) by its own factor."""
+    ``spread`` multiplies each KV head (axis 2) by its own factor;
+    ``rising`` scales K's rows as ``_rising`` does."""
     spec = parse_kv_precision(prec)
     out = []
-    for _ in range(2):
+    for i in range(2):
         x = rng.standard_normal(shape).astype(np.float32)
         if spread is not None:
             x *= spread[None, None, :, None]
-        out.extend(quantize_kv(torch.from_numpy(x).to(cuda), spec))
+        x = torch.from_numpy(x).to(cuda)
+        if rising and i == 0:
+            x = _rising(x)
+        out.extend(quantize_kv(x, spec))
     qk, ks, qv, vs = out
     return qk, qv, ks, vs
 
@@ -489,23 +525,29 @@ def _codes_on_card(cuda, rng, shape, prec, spread=None):
 @pytest.mark.parametrize("extreme", [False, True])
 @pytest.mark.parametrize("prec", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,KVH,hd", GPU_PREFILL)
-def test_flash_quant_kernel_matches_plain_on_card(cuda, dtype, prec, extreme, B, S, H, KVH,
-                                                  hd):
-    """K1q and K1rq (dense, ragged, windowed) against ``attention_quant_ref``;
-    ``extreme`` spreads the KV heads' scales over 1e-3..1e3."""
-    rng = np.random.default_rng(S + hd + KVH)
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", GPU_PREFILL)
+def test_flash_quant_kernel_matches_plain_on_card(cuda, dtype, prec, extreme, B, Sq, Sk, H,
+                                                  KVH, hd):
+    """K1q and K1rq (dense, ragged, windowed; ``_prefill_cases``) against
+    ``attention_quant_ref``; ``extreme`` spreads the KV heads' scales over
+    1e-3..1e3; K rows rising tile by tile, and two launches equal."""
+    rng = np.random.default_rng(Sq + Sk + hd + KVH)
     spread = np.logspace(-3, 3, KVH).astype(np.float32) if extreme else None
-    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, S, KVH, hd), prec, spread)
-    q = torch.from_numpy(rng.standard_normal((B, S, H, hd)).astype(np.float32)).to(cuda, dtype)
-    lens = torch.from_numpy(rng.integers(1, S + 1, B).astype(np.int32)).to(cuda)
-    lens[0] = 1
-    for seq_lens, window in ((None, None), (None, 37), (lens, None), (lens, 9)):
-        got = k_flash.flash_attention_quant(q, qk, qv, ks, vs, seq_lens, window=window)
-        want = ref.attention_quant_ref(q, qk, qv, ks, vs, window=window, seq_lens=seq_lens)
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, Sk, KVH, hd), prec, spread)
+    rk, _, rks, _ = _codes_on_card(cuda, rng, (B, Sk, KVH, hd), prec, spread, rising=True)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H, hd)).astype(np.float32)).to(cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(Sq)
+    cases = _prefill_cases(cuda, g, B, Sq, Sk)
+    for k, k_scale, seq_lens, window in ([(qk, ks, sl, w) for sl, w in cases]
+                                         + [(rk, rks, sl, None) for sl in (None, cases[-1][0])]):
+        got = k_flash.flash_attention_quant(q, k, qv, k_scale, vs, seq_lens, window=window)
+        want = ref.attention_quant_ref(q, k, qv, k_scale, vs, window=window, seq_lens=seq_lens)
         torch.cuda.synchronize()
         assert got.dtype == dtype and torch.isfinite(got).all()
-        assert _err_ok(got, want, dtype)
+        assert _err_ok(got, want, dtype), (seq_lens, window, k is rk)
+    sl, w = cases[-1]
+    first = k_flash.flash_attention_quant(q, qk, qv, ks, vs, sl, window=w)
+    assert torch.equal(first, k_flash.flash_attention_quant(q, qk, qv, ks, vs, sl, window=w))
 
 
 @pytest.mark.gpu
