@@ -4,20 +4,25 @@ against its plain version. Exits nonzero on any fault; nothing is caught.
   python3 chip_smoke.py
 
 Phases, each printing one JSON line: device, build (nvcc, all sources at
-once; each flash_attention instantiation's shared memory, registers and
-spills), kernels (each CUDA kernel against its plain PyTorch version,
-element by element, at the full-width granite-3-2b serving shapes in bf16
-and in f32 and at the smoke shapes in f32, with CUDA-event times, the
-roofline bound and the time of the library's counterpart for the record:
-one scaled_dot_product_attention call, or for the paged kernel a page
-gather plus that call; the prefill rows name their instantiation, bf16 on
-wgmma and f32 on the CUDA cores, and bf16 adds keys that rise tile by tile
-so every tile rescales the output), flash_anatomy (the bf16 prefill kernel
-beside variants that each change one factor of its work), model (full-width granite-3-2b prefill + greedy decode
-through the kernels against the plain versions on the same weights, with a
-path whose decode attention skips one KV tile read beside it to show the
-tolerance catches such a fault, and the smoke model on the card against
-the CPU path the CPU tests hold against the JAX package), paged_model (the
+once; each flash_attention and chunk attention (K4, K4p, K4q)
+instantiation's shared memory, registers and spills), kernels (each CUDA
+kernel against its plain PyTorch version, element by element, at the
+full-width granite-3-2b serving shapes in bf16 and in f32 and at the smoke
+shapes in f32, with CUDA-event times, the roofline bound and the time of
+the library's counterpart for the record: one scaled_dot_product_attention
+call, or for the paged kernel a page gather plus that call; the prefill and
+chunk rows name their instantiation, bf16 on wgmma and f32 on the CUDA
+cores, and bf16 prefill adds keys that rise tile by tile so every tile
+rescales the output), flash_anatomy (the bf16 prefill kernel beside
+variants that each change one factor of its work), chunk_anatomy (the
+CTA-tiles and longest CTA chain of the main bf16 K4, K4q and K4p cases,
+with the device time of each kernel and of its library route from
+torch.profiler, and the time per tile), model (full-width granite-3-2b
+prefill + greedy decode through the kernels against the plain versions on
+the same weights, with a path whose decode attention skips one KV tile read
+beside it to show the tolerance catches such a fault, and the smoke model
+on the card against the CPU path the CPU tests hold against the JAX
+package), paged_model (the
 same prompts through the paged decode against the dense one, with a path
 whose block table swaps two pages of one row beside it), preemption (a
 full-width paged engine whose pool is too small for both of its rows to
@@ -292,6 +297,23 @@ def _chunk_inputs(rng, B, C, L, KVH, hd):
     return np.where(empty, junk, k), np.where(empty, -junk, v), sp, pos0, valid
 
 
+def _chunk_tiles(H, C, pos0, valid, k_end, has_key=None):
+    """The 64 x 64 CTA-tiles a chunk kernel computes and its longest CTA
+    chain, counted from the inputs as the kernel walks them: per (batch
+    row, head) each 64-query tile below ``valid`` visits the key tiles
+    below ``k_end(b, last)`` (``last`` one past the tile's last live query
+    position), less those ``has_key(b, t, end)`` finds without a key."""
+    tiles = chain = 0
+    for b in range(len(valid)):
+        nv, p0 = int(valid[b]), int(pos0[b])
+        for q0 in range(0, min(C, nv), 64):
+            end = k_end(b, p0 + min(q0 + 64, nv))
+            n = sum(1 for t in range(-(-end // 64)) if has_key is None or has_key(b, t, end))
+            tiles += H * n
+            chain = max(chain, n)
+    return {"cta_tiles": tiles, "longest_chain": chain}
+
+
 def _ring_slot_pos(B, L, pos):
     """slot i holds the latest position p <= pos with p % L == i (-1: none)."""
     i = np.arange(L)[None, :]
@@ -300,8 +322,9 @@ def _ring_slot_pos(B, L, pos):
     return np.where(sp < 0, -1, sp).astype(np.int32)
 
 
-# which kernel of csrc/flash_attention.cu serves each dtype of q
-FLASH_ROUTE = {torch.bfloat16: "wgmma (tensor cores)", torch.float32: "CUDA cores"}
+# which kernel serves each dtype of q, in csrc/flash_attention.cu (K1) and in
+# the chunk attention files (K4, K4p, K4q) alike
+KERNEL_ROUTE = {torch.bfloat16: "wgmma (tensor cores)", torch.float32: "CUDA cores"}
 
 
 def _rising(S):
@@ -342,6 +365,8 @@ def check_kernels(timer) -> dict:
             raise AssertionError(f"{case}: an element is {worst:.3g}x its tolerance")
         if main:
             rows[name] = row
+            if name in CHUNK_ANATOMY:   # read here, while fn and lib hold this case's tensors
+                row["device_ms"], row["library_device_ms"] = _device_ms(fn), _device_ms(lib)
 
     def sdpa_prefill(q, k, v, lens, window, causal_only):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -382,7 +407,7 @@ def check_kernels(timer) -> dict:
             record(case, name, dtype, fn(), plain(), env, fn, plain,
                    sdpa_prefill(q, kk, v, sl, win, sl is None and win is None),
                    _prefill_work(B, S, H, KVH, hd, esize, lens_l if sl is not None else None, win),
-                   main and win is None and kk is k, instantiation=FLASH_ROUTE[dtype])
+                   main and win is None and kk is k, instantiation=KERNEL_ROUTE[dtype])
 
     # K2: ring caches with empty slots (row 0) and wrapped rows
     for B, L, H, KVH, hd, dtype, main in ((8, 1024, 32, 8, 64, torch.bfloat16, True),
@@ -473,11 +498,16 @@ def check_kernels(timer) -> dict:
         lib = lambda mask=mask, qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
-               _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main)
+               _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main,
+               instantiation=KERNEL_ROUTE[dtype],
+               **_chunk_tiles(H, C, p0_np, nv_np,
+                              lambda b, last, p0_np=p0_np, L=L: last
+                              if p0_np[b] >= 0 and last <= L else L))
     check_flash_anatomy(timer)
     check_quant_kernel(rng, record)
     check_quant_attention_kernels(rng, record)
     check_paged_chunk_kernels(rng, record)
+    check_chunk_anatomy(rows)
     check_ssd_kernel(record)
     return rows
 
@@ -510,6 +540,62 @@ def check_flash_anatomy(timer) -> None:
                          "us_per_1000_tiles": ms * 1e6 / tiles,
                          "tflops_on_tiles": tiles * 4.0 * 64 * 64 * hd / ms / 1e9})
     emit("flash_anatomy", variants=variants)
+
+
+def _device_ms(fn, n: int = 20) -> float:
+    """Mean device time of one ``fn()`` call over ``n`` calls, each after an
+    L2 flush: the time of the kernels it launches, from torch.profiler, so
+    the host's time to issue them is not in it (the flush's kernel is left
+    out). ``Timer`` reads event to event, which takes in the host's issue
+    time where a call's kernels are shorter than it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or "bitwise_not" in e.key:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        us += e.self_cuda_time_total if dev is None else dev
+    if us <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return us / n / 1e3
+
+
+# the main bf16 cases of the kernels phase that chunk_anatomy reads
+CHUNK_ANATOMY = ("chunk_attention", "chunk_attention_quant", "paged_chunk_attention",
+                 "paged_chunk_attention_quant")
+
+
+def check_chunk_anatomy(rows) -> None:
+    """What bounds the bf16 chunk kernels: for the main K4, K4q and K4p
+    cases of the kernels phase, the CTA-tiles each computes (64 chunk
+    queries x 64 key slots, skipped tiles not counted) and the longest CTA
+    chain, beside the device time of the kernel and of its library route
+    (``_device_ms``, read by the kernels phase; its ``ms`` is kept beside
+    it), and from the kernel's device time the time per 1,000 tiles across
+    the card, the tensor-core rate on the tiles computed and the time per
+    tile of the longest chain."""
+    cases = []
+    for name in CHUNK_ANATOMY:
+        r = rows[name]
+        hd = int(r["case"].split(" hd")[1].split()[0])
+        dev, lib_dev = r["device_ms"], r["library_device_ms"]
+        cases.append({"kernel": name, "case": r["case"], "instantiation": r["instantiation"],
+                      "ms": r["ms"], "device_ms": dev, "library": r["library"],
+                      "library_device_ms": lib_dev, "over_library": dev / lib_dev,
+                      "cta_tiles": r["cta_tiles"], "longest_chain": r["longest_chain"],
+                      "us_per_1000_tiles": dev * 1e6 / r["cta_tiles"],
+                      "tflops_on_tiles": r["cta_tiles"] * 4.0 * 64 * 64 * hd / dev / 1e9,
+                      "us_per_chain_tile": dev * 1e3 / r["longest_chain"]})
+    emit("chunk_anatomy", cases=cases)
 
 
 def _abs_codes(c):
@@ -712,7 +798,7 @@ def check_quant_attention_kernels(rng, record) -> None:
                    _prefill_quant_work(B, S, H, KVH, hd, q.element_size(),
                                        lens_l if sl is not None else None, win),
                    prec == "int8" and dtype == torch.bfloat16 and win is None and S == 512
-                   and not rising, library=lib_name, instantiation=FLASH_ROUTE[dtype])
+                   and not rising, library=lib_name, instantiation=KERNEL_ROUTE[dtype])
 
     decode_cases = [(8, 1024, 32, 8, 64, prec, dtype) for prec in ("int8", "fp8")
                     for dtype in (torch.bfloat16, torch.float32)]
@@ -875,10 +961,17 @@ def check_paged_chunk_kernels(rng, record) -> None:
             vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
             return F.scaled_dot_product_attention(q.transpose(1, 2), kk, vv, attn_mask=mask,
                                                   enable_gqa=True)
+        # K4q's tile has a key where a slot of it has slot_pos >= 0 (the live
+        # range bounds the tiles, not the slots inside one)
+        has_key = lambda b, t, end, sp_np=sp_np: bool((sp_np[b, t * 64:t * 64 + 64] >= 0).any())
         record(case, "chunk_attention_quant", dtype, got, plain(), env, fn, plain, lib,
                _chunk_quant_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np),
                prec == "int8" and dtype == torch.bfloat16,
-               library="dequantize + scaled_dot_product_attention")
+               library="dequantize + scaled_dot_product_attention",
+               instantiation=KERNEL_ROUTE[dtype],
+               **_chunk_tiles(H, C, p0_np, nv_np,
+                              lambda b, last, p0_np=p0_np: last
+                              if p0_np[b] >= 0 and last <= L else L, has_key))
 
     B, MP, ps = 16, 64, 16
     N = B * MP
@@ -943,12 +1036,16 @@ def check_paged_chunk_kernels(rng, record) -> None:
             return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
                                                   vv.transpose(1, 2), attn_mask=mask,
                                                   enable_gqa=True)
+        has_key = lambda b, t, end, keys=keys: bool((keys[b][t * 64:min(end, t * 64 + 64)]
+                                                     > 0).any())
         record(case, name, dtype, got, plain(), env, fn, plain, lib,
                _paged_chunk_work(H, KVH, hd, q.element_size(), ps, Nn, bt_np, p0_np, nv_np,
                                  base_np, staged, C),
                dtype == torch.bfloat16 and pool in ("native", "int8"),
                library="dequantize + index_select of the pages (+ staging) + "
-                       "scaled_dot_product_attention")
+                       "scaled_dot_product_attention",
+               instantiation=KERNEL_ROUTE[dtype],
+               **_chunk_tiles(H, C, p0_np, nv_np, lambda b, last: last, has_key))
 
 
 def _ssd_work(B, S, H, P, N, Q, esize, init):
@@ -2353,10 +2450,44 @@ def flash_instantiations(ptxas: list) -> list:
         wgmma = m.group(1) is not None
         out.append({"q": "bf16" if wgmma else "float32", "kv": _CXX_TYPE[m.group(3)],
                     "hd": int(m.group(4)),
-                    "route": FLASH_ROUTE[torch.bfloat16 if wgmma else torch.float32],
+                    "route": KERNEL_ROUTE[torch.bfloat16 if wgmma else torch.float32],
                     "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
                     "spill_loads": f.get("spill_loads")})
     return sorted(out, key=lambda r: (r["q"], r["kv"], r["hd"]))
+
+
+_CHUNK_SYMBOL = re.compile(r"(paged_)?chunk_attention_kernel(_wgmma)?I(f)?(a|13__nv_fp8_e4m3)?"
+                           r"Li(\d+)E(?:Lb([01])E)?")
+
+
+def chunk_instantiations(ptxas: list) -> list:
+    """Each instantiation of the chunk attention kernels (K4 in
+    csrc/chunk_attention.cu; K4p and K4q in csrc/paged_chunk_attention.cu),
+    from ``-Xptxas -v``: kernel, q and code types, hd, route, dynamic shared
+    memory (K4p's bf16 kernel over a native pool and over one with codes),
+    registers and spill bytes."""
+    from repro_torch.kernels import chunk_attention as kc
+    from repro_torch.kernels import paged_chunk_attention as kpc
+
+    out = []
+    for f in ptxas:
+        m = _CHUNK_SYMBOL.search(f["function"])
+        if m is None:
+            continue
+        dtype = torch.bfloat16 if m.group(2) else torch.float32
+        hd = int(m.group(5))
+        row = {"kernel": "K4" if m.group(1) is None else "K4p" if m.group(6) == "1" else "K4q",
+               "q": str(dtype).removeprefix("torch."), "hd": hd, "route": KERNEL_ROUTE[dtype]}
+        if m.group(1) is None:
+            row["smem_bytes"] = kc.smem_bytes(hd, dtype)
+        else:
+            row["codes"] = _CXX_TYPE[m.group(4)]
+            row["smem_bytes"] = kpc.smem_bytes(hd, dtype, quantized=True)
+            if row["kernel"] == "K4p" and dtype == torch.bfloat16:
+                row["smem_bytes_native_pool"] = kpc.smem_bytes(hd, dtype)
+        out.append({**row, "registers": f.get("registers"),
+                    "spill_stores": f.get("spill_stores"), "spill_loads": f.get("spill_loads")})
+    return sorted(out, key=lambda r: (r["kernel"], r["q"], r.get("codes", ""), r["hd"]))
 
 
 def main() -> int:
@@ -2392,10 +2523,19 @@ def main() -> int:
                              "decode_attention_quant_hd64_G4": kd.quant_smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
-                             "chunk_attention_hd64": kc.smem_bytes(64),
-                             "paged_chunk_attention_hd64": kpc.smem_bytes(64),
+                             "chunk_attention_hd64_f32_cuda_cores":
+                                 kc.smem_bytes(64, torch.float32),
+                             "chunk_attention_hd64_bf16_wgmma": kc.smem_bytes(64, torch.bfloat16),
+                             "paged_chunk_attention_hd64_f32_cuda_cores":
+                                 kpc.smem_bytes(64, torch.float32),
+                             "paged_chunk_attention_hd64_bf16_wgmma_native_pool":
+                                 kpc.smem_bytes(64, torch.bfloat16),
+                             "paged_chunk_attention_hd64_bf16_wgmma_codes":
+                                 kpc.smem_bytes(64, torch.bfloat16, quantized=True),
                              "ssd_scan_chunk128_P64_N128": kssd.smem_bytes(128, 64, 128)},
-         flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]))
+         flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]),
+         chunk_attention_instantiations=chunk_instantiations(
+             info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]))
 
     timer = Timer()
     rows = check_kernels(timer)

@@ -5,13 +5,19 @@ Replaces the Pallas TPU kernel ``_chunk_kernel`` (K4) of
 ``src/repro/kernels/chunk_attention.py``: the kernel behind continuous
 batching, where each admitted prompt enters the cache a chunk per control
 slot and the chunk's queries attend everything the row has written so far.
-At the serving mix (B 8, C 128, H 32 on KVH 8, hd 64, bf16) the call is
-byte-bound on the tensor cores (~10-14 MB for ~2 GFLOP); this first kernel
-computes on the CUDA cores in f32 FMAs from shared memory, as the prefill
-kernel does, so FMA issue bounds it. One CTA per (tile of 64 chunk
-queries, head, batch row) loops over the KV tiles up to the tile's last
-live query position (the cache of a chunk row is position-ordered), with
-the online softmax in registers and the slot_pos mask applied per tile.
+One CTA per (tile of 64 chunk queries, head, batch row) loops over the KV
+tiles up to the tile's last live query position (the cache of a chunk row
+is position-ordered), with the online softmax in registers and the
+slot_pos mask applied per tile. For bf16 q the CTA is one warpgroup that
+runs QK^T and PV on the tensor cores (wgmma; ``csrc/chunk_core.cuh``, the
+core K4p and K4q share), fed by a two-stage ring of cp.async copies that
+carries each tile's slot_pos beside its K/V. At the serving mix (B 8, C
+128, H 32 on KVH 8, hd 64) the call is byte-bound on the tensor cores
+(~10-14 MB for ~2 GFLOP); what holds the kernel above that bound is the
+per-tile chain of one warpgroup and the grid's longest CTA chain
+(``chip_smoke.py``'s chunk_anatomy phase). f32 q keeps a CUDA-core kernel:
+a tensor-core product in f32 is TF32, which its f32 tolerance does not
+allow.
 
 This wrapper takes CUDA tensors only and raises on anything the kernel does
 not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -41,9 +47,13 @@ def _fn():
     return fn
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``."""
-    return int(build.library("chunk_attention").chunk_attention_smem_bytes(hd))
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd`` for q of ``dtype``
+    (bf16: the wgmma kernel; f32: the CUDA-core kernel)."""
+    fn = build.library("chunk_attention").chunk_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return int(fn(hd, int(dtype == torch.bfloat16)))
 
 
 def chunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,37 +1,51 @@
-// Chunked-prefill attention (continuous batching) for Hopper (sm_90a),
-// written for clarity first.
+// Chunked-prefill attention (continuous batching) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_chunk_kernel`
-// (src/repro/kernels/chunk_attention.py). Layouts are the reference's:
+// (src/repro/kernels/chunk_attention.py), K4. Layouts are the reference's:
 //   q, out (B, C, H, hd)   k, v (B, L, KVH, hd)   slot_pos (B, L) int32
 //   pos0, valid (B,) int32
 // Query head h reads KV head h / (H / KVH). Query i of row b sits at the
 // absolute position pos0[b] + i; the row's cache already holds the chunk.
 //
-// The structure is the ragged prefill kernel's (flash_attention.cu): one
-// CTA per (tile of 64 chunk queries, head, batch row); the TPU kernel's
-// sequential KV grid axis (VMEM scratch m, l, acc) becomes a loop inside
-// the CTA with the online-softmax state in f32 registers. Two threads
-// share a query row: each scores half of a 64-key tile and owns half of
-// the output dims. K/V tiles are staged in shared memory as f32, beside
-// the tile's slot_pos.
+// One CTA per (tile of 64 chunk queries, head, batch row); the TPU
+// kernel's sequential KV grid axis (VMEM scratch m, l, acc) becomes a loop
+// inside the CTA with the online-softmax state in f32 registers. Masking
+// follows the TPU kernel: a key is visible when 0 <= slot_pos <= pos0 + i,
+// masked scores are -1e30, the output is acc / max(l, 1e-30), p is rounded
+// to the value dtype before the PV product, and query rows at or beyond
+// `valid` are written as zeros (a tile of such rows does nothing else).
+// KV tiles wholly beyond the tile's last live query position are skipped:
+// a chunk row's cache is position-ordered (slot j holds position j or
+// nothing), so they hold only masked keys. Where pos0 + valid would pass L
+// (a ring that wrapped) the loop visits every slot and the mask alone
+// decides. Any C and L are accepted (ragged tile edges are masked); hd must
+// be 32, 64 or 128.
 //
-// Masking follows the TPU kernel: a key is visible when
-// 0 <= slot_pos <= pos0 + i, masked scores are -1e30, the output is
-// acc / max(l, 1e-30), p is rounded to the value dtype before the PV
-// product, and query rows at or beyond `valid` are written as zeros (a
-// row with valid 0 does nothing else). KV tiles wholly beyond the tile's
-// last live query position are skipped: a chunk row's cache is
-// position-ordered (slot j holds position j or nothing), so they hold only
-// masked keys. Where pos0 + valid would pass L (a ring that wrapped) the
-// loop visits every slot and the mask alone decides. Any C and L are
-// accepted (ragged tile edges are masked); hd must be 32, 64 or 128.
+// Two kernels, one per dtype of q:
 //
-// What bounds it: at the serving mix (B 8, C 128, H 32/8, hd 64, bf16)
-// the call moves ~10-14 MB of q, live K/V and output for ~2 GFLOP, so
-// the tensor cores would make it byte-bound (a few us). Like the prefill
-// kernel it does the products on the CUDA cores in f32 FMAs from shared
-// memory, so FMA issue bounds it; wgmma and TMA are later work.
+// bf16 (chunk_attention_kernel_wgmma): chunk_core.cuh's tensor-core core,
+// which K4p and K4q share, with this file's tile load: slot j of the tile
+// is cache row j (zeros past L), its K row and slot_pos copied by one
+// thread, its V row by the next, by cp.async into the ring's next stage
+// while the current tile's QK^T runs.
+//
+// f32 (chunk_attention_kernel): on the CUDA cores, since a tensor-core
+// product in f32 is TF32 and would break the f32 rule it is held to. Two
+// threads share a query row: each scores half of a 64-key tile and owns
+// half of the output dims, from f32 tiles in shared memory beside the
+// tile's slot_pos.
+//
+// What bounds it: at the serving mix (B 8, C 128, H 32/8, hd 64, bf16) the
+// call moves ~10-14 MB of q, live K/V and output for ~2 GFLOP, so the
+// tensor cores would make it byte-bound (a few us). What held the CUDA-core
+// kernel far above that was FMA issue per tile. On wgmma neither bytes nor
+// FLOPs set the time but the chain: every CTA of the grid is resident at
+// once, so the time is the longest CTA's walk over its tiles (8 tiles for
+// a chunk at 384-511), each tile one warpgroup's copies, QK^T, softmax and
+// PV in turn beside the other CTAs of its SM.
+// chip_smoke.py's chunk_anatomy records the tiles, the chain and the time
+// per tile; PERF.md holds the readings.
+#include "chunk_core.cuh"
 #include "common.cuh"
 
 namespace {
@@ -186,19 +200,94 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ------------------------------------------------- bf16: wgmma kernel
+namespace ck = repro::chunk;
+using bf16 = __nv_bfloat16;
+
+// K4's tile load: slot j of the tile is cache row j of this batch row (zeros
+// and no key past L). The thread with ``which`` 0 copies the K row and its
+// slot_pos, the one with ``which`` 1 the V row.
+template <int HD>
+struct CacheRows {
+  const bf16* k;   // this (batch row, KV head)'s rows, ``stride`` apart
+  const bf16* v;
+  const int* sp;   // this batch row's slot_pos
+  size_t stride;
+  int L;
+
+  __device__ __forceinline__ void issue(uint8_t* smem, uint32_t sbase, int s, int k0, int r,
+                                        int which, int& kind, int& has_key) const {
+    using S = ck::Smem<HD>;
+    const int j = k0 + r;
+    const bool ok = j < L;
+    const bf16* row = (which ? v : k) + (size_t)(ok ? j : 0) * stride;
+    ck::copy_row<HD>(which ? S::v_tile(sbase, s) : S::k_tile(sbase, s), r, row, ok);
+    if (which == 0) {
+      if (ok)
+        repro::sm90::cp_async4(S::pos(sbase, s) + r * 4, sp + j, 4);
+      else
+        reinterpret_cast<int*>(smem + S::POS_OFF)[s * ck::BK + r] = -1;
+    }
+    kind = ok ? ck::NATIVE : ck::NONE;
+    has_key = 1;  // K4 visits every tile of its live range
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(ck::THREADS)
+chunk_attention_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const int* __restrict__ slot_pos,
+                             const int* __restrict__ pos0, const int* __restrict__ valid,
+                             bf16* __restrict__ out, int C, int L, int H, int KVH, float scale) {
+  const int q0 = blockIdx.x * ck::BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int nv = valid[b];
+  const int p0 = pos0[b];
+  const size_t q_stride = (size_t)H * HD;
+  const size_t kv_stride = (size_t)KVH * HD;
+  const bf16* q_base = q + (size_t)b * C * q_stride + (size_t)h * HD;
+  bf16* o_base = out + (size_t)b * C * q_stride + (size_t)h * HD;
+  if (q0 >= nv) {  // every row of the tile is padding (or the row is inactive)
+    ck::zero_rows<HD>(o_base, q_stride, q0, C, threadIdx.x);
+    return;
+  }
+  // Live slots: up to the tile's last live query position, when the chunk
+  // lies inside the cache without wrapping; otherwise all of them.
+  const int last = p0 + min(q0 + ck::BQ, nv);  // one past that position
+  const int k_end = (p0 >= 0 && last <= L) ? last : L;
+  const CacheRows<HD> src{k + (size_t)b * L * kv_stride + (size_t)kvh * HD,
+                          v + (size_t)b * L * kv_stride + (size_t)kvh * HD,
+                          slot_pos + (size_t)b * L, kv_stride, L};
+  ck::attend<bf16, HD>(src, q_base, o_base, q_stride, C, q0, nv, p0 + q0,
+                       (k_end + ck::BK - 1) / ck::BK, scale);
+}
+
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* slot_pos,
                    const int* pos0, const int* valid, void* out, int B, int C, int L,
                    int H, int KVH, float scale, cudaStream_t stream) {
-  auto kern = chunk_attention_kernel<T, HD>;
-  const size_t smem = Smem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((C + BQ - 1) / BQ, H, B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      slot_pos, pos0, valid, static_cast<T*>(out), C, L, H, KVH, scale);
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
+    auto kern = chunk_attention_kernel_wgmma<HD>;
+    const size_t smem = ck::Smem<HD>::bytes_native;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, ck::THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        slot_pos, pos0, valid, static_cast<bf16*>(out), C, L, H, KVH, scale);
+  } else {  // f32: the CUDA cores
+    auto kern = chunk_attention_kernel<T, HD>;
+    const size_t smem = Smem<HD>::bytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        slot_pos, pos0, valid, static_cast<T*>(out), C, L, H, KVH, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -229,12 +318,18 @@ extern "C" cudaError_t chunk_attention_fwd(const void* q, const void* k, const v
   return dispatch_hd<float>(hd, q, k, v, slot_pos, pos0, valid, out, B, C, L, H, KVH, scale, s);
 }
 
-// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported).
-extern "C" int chunk_attention_smem_bytes(int hd) {
+template <int HD>
+int smem_of(int is_bf16) {
+  return is_bf16 ? (int)ck::Smem<HD>::bytes_native : (int)Smem<HD>::bytes;
+}
+
+// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported):
+// the bf16 wgmma kernel's (is_bf16 1) or the f32 CUDA-core kernel's.
+extern "C" int chunk_attention_smem_bytes(int hd, int is_bf16) {
   switch (hd) {
-    case 32: return (int)Smem<32>::bytes;
-    case 64: return (int)Smem<64>::bytes;
-    case 128: return (int)Smem<128>::bytes;
+    case 32: return smem_of<32>(is_bf16);
+    case 64: return smem_of<64>(is_bf16);
+    case 128: return smem_of<128>(is_bf16);
     default: return 0;
   }
 }

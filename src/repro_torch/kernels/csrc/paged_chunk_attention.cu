@@ -29,28 +29,49 @@
 // pool serves only the prefix-cache hit [0, base): positions an earlier
 // request wrote and the pool already rounded.
 //
-// Both are K4's kernel (chunk_attention.cu) with another tile load: one
-// CTA per (tile of 64 chunk queries, head, row), the TPU kernel's
-// sequential KV grid axis a loop inside the CTA with the online softmax in
-// f32 registers, two threads per query row, masked scores -1e30, p rounded
-// to the value dtype before the PV product, output acc / max(l, 1e-30), and
-// zeros for query rows at or beyond `valid`. Each KV tile first resolves
-// every slot to a source row and its key position, then fetches native and
+// Both keep K4's contract (chunk_attention.cu): one CTA per (tile of 64
+// chunk queries, head, row), the TPU kernel's sequential KV grid axis a
+// loop inside the CTA with the online softmax in f32 registers, masked
+// scores -1e30, p rounded to the value dtype before the PV product, output
+// acc / max(l, 1e-30), and zeros for query rows at or beyond `valid`. Code
+// rows are dequantized exactly as `dequantize_kv` does: (float(code) *
+// scale) rounded to q's dtype (dequant.cuh). Tiles wholly beyond the tile's
+// last live query position are skipped (the keys are position-ordered:
+// K4p's key position is j, and K4q keeps K4's assumption that a chunk
+// row's cache is position-ordered, with every slot visited where pos0 +
+// valid would pass L), and so are tiles with no key at all. K4p's
+// summation order is the pool's keys, then staging's, in position order,
+// whatever the page ids; the reference sums the same keys in the same
+// order, with masked ones between them.
+//
+// Two kernels, one per dtype of q:
+//
+// bf16 (paged_chunk_attention_kernel_wgmma): chunk_core.cuh's tensor-core
+// core, which K4 shares, with this file's tile load. The thread that copies
+// a slot's K row (and the one that copies its V row) resolves the slot
+// itself: one block-table read (K4p) or slot_pos read (K4q) gives its
+// source and key position. A native page row or a staging row is copied by
+// cp.async straight into the ring's bf16 tile; a code row's codes and scale
+// go into the ring's code stage, and the same thread dequantizes them into
+// the bf16 tile once they have landed; a slot with no source lands zeros.
+// So a tile may mix native, code and staging rows, and tile t + 1's copies
+// of every kind run while tile t's QK^T does.
+//
+// f32 (paged_chunk_attention_kernel): on the CUDA cores (a tensor-core
+// product in f32 is TF32, which the f32 rule does not allow). Each tile
+// first resolves every slot to a source row, then fetches native and
 // staging rows with common.cuh::load_rows_gather and code rows with
-// dequant.cuh::load_rows_dequant, which dequantizes right after the load
-// exactly as `dequantize_kv` does: (float(code) * scale) rounded to q's
-// dtype. Tiles wholly beyond the tile's last live query position are
-// skipped (the keys are position-ordered: K4p's key position is j, and K4q
-// keeps K4's assumption that a chunk row's cache is position-ordered, with
-// every slot visited where pos0 + valid would pass L), and so are tiles
-// with no key at all. K4p's summation order is the pool's keys, then
-// staging's, in position order; the reference sums the same keys in the
-// same order, with masked ones between them.
+// dequant.cuh::load_rows_dequant, into f32 tiles; two threads per query row.
 //
 // What bounds it: bytes on the tensor cores, as for K4 (q, the live K/V at
 // one byte per code plus 4 bytes of scale per row and KV head, the output;
-// a few MB at the chunked serve's mix). Like K4 it computes in f32 FMAs on
-// the CUDA cores from shared memory, so FMA issue bounds it.
+// a few MB at the chunked serve's mix), but what sets the time on wgmma is
+// K4's chain: one warpgroup's copies, QK^T, softmax and PV per tile, times
+// the longest CTA's tiles; at the paged serve's 16 rows the grid takes two
+// waves of resident CTAs, so two chains follow each other. The table read
+// before each slot's copies runs under the previous tile's QK^T.
+// chip_smoke.py's chunk_anatomy records the tiles and the chain.
+#include "chunk_core.cuh"
 #include "dequant.cuh"
 
 namespace {
@@ -278,6 +299,110 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pa
   }
 }
 
+// ------------------------------------------------- bf16: wgmma kernel
+namespace ck = repro::chunk;
+using bf16 = __nv_bfloat16;
+
+// K4p's and K4q's tile load (PAGED: K4p, ``tables`` = this row's block
+// table; else K4q, ``tables`` = this row's slot_pos, MP = L, the codes and
+// scales the quantized region at row b * L + j). The thread with
+// ``which`` 0 copies slot r's K row and stores its key position, the one
+// with ``which`` 1 its V row; each resolves the slot itself.
+template <typename C, int HD, bool PAGED>
+struct PoolRows {
+  const bf16 *kn, *vn;        // native pages (this KV head's column)
+  const bf16 *sk, *sv;        // staging buffers, or null
+  const C *qk, *qv;           // codes
+  const float *ks, *vs;       // their scales (this KV head's)
+  const int* tables;
+  const bf16* zeros_src;      // a valid address for the copies that land zeros
+  size_t stride;              // between K/V rows of every source (KVH * HD)
+  int KVH, b, Nn, Nq, ps, MP, S, base, k_end;
+
+  __device__ __forceinline__ void issue(uint8_t* smem, uint32_t sbase, int s, int k0, int r,
+                                        int which, int& kind, int& has_key) const {
+    using Sm = ck::Smem<HD>;
+    const int j = k0 + r;
+    int kp = -1, k = ck::NONE;
+    const bf16* row = zeros_src;
+    size_t code_row = 0;
+    if constexpr (PAGED) {
+      if (j < k_end) {
+        if (sk != nullptr && j >= base) {
+          if (j < S) {
+            k = ck::NATIVE;
+            row = (which ? sv : sk) + ((size_t)b * S + j) * stride;
+            kp = j;
+          }
+        } else if (j < MP * ps) {
+          const int page = tables[j / ps];
+          if (page >= 0 && page < Nn) {
+            k = ck::NATIVE;
+            row = (which ? vn : kn) + ((size_t)page * ps + j % ps) * stride;
+            kp = j;
+          } else if (page >= Nn && page - Nn < Nq) {
+            k = ck::CODES;
+            code_row = (size_t)(page - Nn) * ps + j % ps;
+            kp = j;
+          }
+        }
+      }
+    } else if (j < MP) {
+      k = ck::CODES;
+      code_row = (size_t)b * MP + j;
+      kp = tables[j];
+    }
+    if (k == ck::CODES)
+      ck::copy_code_row<HD>(Sm::codes(sbase, s, which), Sm::scales(sbase, s, which), r,
+                            (which ? qv : qk) + code_row * stride,
+                            (which ? vs : ks) + code_row * KVH);
+    else
+      ck::copy_row<HD>(which ? Sm::v_tile(sbase, s) : Sm::k_tile(sbase, s), r, row,
+                       k == ck::NATIVE);
+    if (which == 0) reinterpret_cast<int*>(smem + Sm::POS_OFF)[s * ck::BK + r] = kp;
+    kind = k;
+    has_key = kp >= 0;
+  }
+};
+
+template <typename C, int HD, bool PAGED>
+__global__ void __launch_bounds__(ck::THREADS)
+paged_chunk_attention_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
+                                   const bf16* __restrict__ v_pages, const C* __restrict__ qk,
+                                   const C* __restrict__ qv, const float* __restrict__ k_scale,
+                                   const float* __restrict__ v_scale,
+                                   const int* __restrict__ tables, const bf16* __restrict__ stage_k,
+                                   const bf16* __restrict__ stage_v, const int* __restrict__ base,
+                                   const int* __restrict__ pos0, const int* __restrict__ valid,
+                                   bf16* __restrict__ out, int Cq, int H, int KVH, int Nn, int Nq,
+                                   int ps, int MP, int S, float scale) {
+  const int q0 = blockIdx.x * ck::BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const int nv = valid[b];
+  const int p0 = pos0[b];
+  const size_t q_stride = (size_t)H * HD;
+  const bf16* q_base = q + (size_t)b * Cq * q_stride + (size_t)h * HD;
+  bf16* o_base = out + (size_t)b * Cq * q_stride + (size_t)h * HD;
+  if (q0 >= nv) {  // every row of the tile is padding (or the row is inactive)
+    ck::zero_rows<HD>(o_base, q_stride, q0, Cq, threadIdx.x);
+    return;
+  }
+  // One past the tile's last live query position: no later key is visible.
+  const int last = p0 + min(q0 + ck::BQ, nv);
+  const int k_end = PAGED ? last : ((p0 >= 0 && last <= MP) ? last : MP);
+  const bool staged = PAGED && stage_k != nullptr;
+  const size_t col = (size_t)kvh * HD;  // this KV head's column of every source
+  const PoolRows<C, HD, PAGED> src{
+      k_pages + col, v_pages + col, staged ? stage_k + col : nullptr,
+      staged ? stage_v + col : nullptr, qk + col, qv + col, k_scale + kvh, v_scale + kvh,
+      tables + (size_t)b * MP, q, (size_t)KVH * HD, KVH, b, Nn, Nq, ps, MP, S,
+      staged ? base[b] : 0, k_end};
+  ck::attend<C, HD>(src, q_base, o_base, q_stride, Cq, q0, nv, p0 + q0,
+                    k_end > 0 ? (k_end + ck::BK - 1) / ck::BK : 0, scale);
+}
+
 struct Args {
   const void *q, *k_pages, *v_pages, *qk, *qv;
   const float *k_scale, *v_scale;
@@ -291,18 +416,34 @@ struct Args {
 
 template <typename T, typename C, int HD, bool PAGED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kern = paged_chunk_attention_kernel<T, C, HD, PAGED>;
-  const size_t smem = Smem<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.Cq + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
-      static_cast<const T*>(a.v_pages), static_cast<const C*>(a.qk),
-      static_cast<const C*>(a.qv), a.k_scale, a.v_scale, a.tables,
-      static_cast<const T*>(a.stage_k), static_cast<const T*>(a.stage_v), a.base, a.pos0,
-      a.valid, static_cast<T*>(a.out), a.Cq, a.H, a.KVH, a.Nn, a.Nq, a.ps, a.MP, a.S, a.scale);
+  if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
+    auto kern = paged_chunk_attention_kernel_wgmma<C, HD, PAGED>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ck::Smem<HD>::bytes);
+    if (err != cudaSuccess) return err;
+    // a pool with no quantized page never touches the code stages
+    const size_t smem = (PAGED && a.Nq == 0) ? ck::Smem<HD>::bytes_native : ck::Smem<HD>::bytes;
+    kern<<<grid, ck::THREADS, smem, stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pages),
+        static_cast<const bf16*>(a.v_pages), static_cast<const C*>(a.qk),
+        static_cast<const C*>(a.qv), a.k_scale, a.v_scale, a.tables,
+        static_cast<const bf16*>(a.stage_k), static_cast<const bf16*>(a.stage_v), a.base,
+        a.pos0, a.valid, static_cast<bf16*>(a.out), a.Cq, a.H, a.KVH, a.Nn, a.Nq, a.ps, a.MP,
+        a.S, a.scale);
+  } else {  // f32: the CUDA cores
+    auto kern = paged_chunk_attention_kernel<T, C, HD, PAGED>;
+    const size_t smem = Smem<HD>::bytes;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, THREADS, smem, stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+        static_cast<const T*>(a.v_pages), static_cast<const C*>(a.qk),
+        static_cast<const C*>(a.qv), a.k_scale, a.v_scale, a.tables,
+        static_cast<const T*>(a.stage_k), static_cast<const T*>(a.stage_v), a.base, a.pos0,
+        a.valid, static_cast<T*>(a.out), a.Cq, a.H, a.KVH, a.Nn, a.Nq, a.ps, a.MP, a.S, a.scale);
+  }
   return cudaGetLastError();
 }
 
@@ -362,12 +503,21 @@ extern "C" cudaError_t paged_chunk_attention_fwd(
   return dispatch<true>(a, hd, is_bf16, is_fp8, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported).
-extern "C" int paged_chunk_attention_smem_bytes(int hd) {
+template <int HD>
+int smem_of(int is_bf16, int quantized) {
+  if (!is_bf16) return (int)Smem<HD>::bytes;
+  return quantized ? (int)ck::Smem<HD>::bytes : (int)ck::Smem<HD>::bytes_native;
+}
+
+// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported):
+// the f32 CUDA-core kernel's (is_bf16 0), or the bf16 wgmma kernel's over
+// a pool with quantized pages or K4q's codes (quantized 1) or over native
+// pages only (quantized 0).
+extern "C" int paged_chunk_attention_smem_bytes(int hd, int is_bf16, int quantized) {
   switch (hd) {
-    case 32: return (int)Smem<32>::bytes;
-    case 64: return (int)Smem<64>::bytes;
-    case 128: return (int)Smem<128>::bytes;
+    case 32: return smem_of<32>(is_bf16, quantized);
+    case 64: return smem_of<64>(is_bf16, quantized);
+    case 128: return smem_of<128>(is_bf16, quantized);
     default: return 0;
   }
 }

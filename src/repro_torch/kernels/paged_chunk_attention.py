@@ -10,10 +10,16 @@ tile loads. K4p has no Pallas counterpart: it is the attention of the
 reference's ``attn_chunk_paged``, which gathers the pool through the block
 tables (dequantizing quantized pages) and concatenates the native staging
 buffer; the kernel reads each key in place from a native page, a quantized
-page (K4q's arithmetic) or the staging buffer. At the chunked serve's mix
-(B 8-16, C 128, H 32 on KVH 8, hd 64) both are byte-bound on the tensor
-cores; like K4 they compute on the CUDA cores in f32 FMAs, so FMA issue
-bounds them.
+page (K4q's arithmetic) or the staging buffer. For bf16 q both run K4's
+tensor-core core (``csrc/chunk_core.cuh``: wgmma, a two-stage cp.async
+ring) with their own tile load: each slot is resolved to its source by the
+threads that copy it, native and staging rows land in the bf16 ring
+straight from their pages, code rows land in a code stage and are
+dequantized into it by the thread that copied them. At the chunked serve's
+mix (B 8-16, C 128, H 32 on KVH 8, hd 64) both are byte-bound on the
+tensor cores; what holds them above that bound is K4's: the per-tile chain
+of one warpgroup and the grid's longest CTA chain. f32 q keeps CUDA-core
+kernels (TF32 would break the f32 tolerance).
 
 These wrappers take CUDA tensors only and raise on anything the kernels do
 not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -44,9 +50,14 @@ def _lib():
     return build.library("paged_chunk_attention")
 
 
-def smem_bytes(hd: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``."""
-    return int(_lib().paged_chunk_attention_smem_bytes(hd))
+def smem_bytes(hd: int, dtype: torch.dtype, quantized: bool = False) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd`` for q of ``dtype``
+    (bf16: the wgmma kernel; f32: the CUDA-core kernel), over a pool with
+    quantized pages or K4q's codes (``quantized``) or native pages only."""
+    fn = _lib().paged_chunk_attention_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return int(fn(hd, int(dtype == torch.bfloat16), int(quantized)))
 
 
 def _check(named: list, dtype_of: dict) -> None:

@@ -179,12 +179,18 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, B, MP, ps, H, KVH, hd):
     assert _err_ok(got[1:], want[1:], dtype)
 
 
-def chunk_case(rng, B, C, L, H, KVH, hd):
+def chunk_case(rng, B, C, L, H, KVH, hd, variant="mix"):
     """Rows cycle through: a first chunk (pos0 0), a mid-prompt chunk with
     a hole in its prefix, a partial final chunk (valid < C) and an inactive
     row (valid 0). Each row's cache holds positions 0..pos0+valid-1 in
     order (capped at L); slots beyond the written prefix, and the hole, are
-    empty (slot_pos -1) and hold +-1e30 garbage. Numpy arrays."""
+    empty (slot_pos -1) and hold +-1e30 garbage. ``variant`` "wrapped"
+    moves each active row's chunk past the ring's end (pos0 + valid > L:
+    slot i holds the latest position p <= the chunk's last with p % L == i,
+    so the early queries of a chunk at L - 64 or later find a first tile of
+    later positions, all masked); "hole" empties the slots below each active
+    row's pos0, moved to 64 where the cache allows, so every query's first
+    tile there is all masked. Numpy arrays."""
     pos0 = np.zeros(B, np.int32)
     valid = np.zeros(B, np.int32)
     sp = np.full((B, L), -1, np.int32)
@@ -198,6 +204,20 @@ def chunk_case(rng, B, C, L, H, KVH, hd):
         sp[b, :end] = np.arange(end)
         if kind == 1 and end > 2:
             sp[b, end // 2] = -1
+    for b in range(B):
+        nv = int(valid[b])
+        if not nv or variant == "mix":
+            continue
+        sp[b] = -1
+        if variant == "wrapped":
+            pos0[b] = L + b - nv // 2
+            last = pos0[b] + nv - 1
+            i = np.arange(L)
+            slot = np.where(i <= last % L, last - last % L + i, last - last % L - L + i)
+            sp[b] = np.where(slot < 0, -1, slot)
+        else:   # "hole"
+            pos0[b] = min(64 + b, L - nv)
+            sp[b, pos0[b]:pos0[b] + nv] = np.arange(pos0[b], pos0[b] + nv)
     q = rng.standard_normal((B, C, H, hd)).astype(np.float32)
     k = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
     v = rng.standard_normal((B, L, KVH, hd)).astype(np.float32)
@@ -206,27 +226,48 @@ def chunk_case(rng, B, C, L, H, KVH, hd):
     return q, np.where(empty, junk, k), np.where(empty, -junk, v), sp, pos0, valid
 
 
+def _rising_np(k):
+    """``_rising`` on a numpy cache (B, L, KVH, hd): slot i scaled by 1 + i // 64."""
+    return k * (1 + np.arange(k.shape[1]) // 64)[None, :, None, None].astype(np.float32)
+
+
+# chunk_case's variants, each also with K rising tile by tile (every tile
+# holds a new row maximum, so alpha != 1 on every tile)
+CHUNK_VARIANTS = [(v, rising) for v in ("mix", "wrapped", "hole") for rising in (False, True)]
+
+
 # (B, C, L, H, KVH, hd): the serving shape, C of 16/64/128 against L of 64
-# and 1024, a ragged C, and a group of one
+# and 1024, a ragged C, and a group of one; C of 40 and 130 (not multiples
+# of 64) over L that are not either, at hd 32 and 128. bf16 runs the wgmma
+# kernel, f32 the CUDA-core one.
 GPU_CHUNK = [(8, 128, 1024, 32, 8, 64), (8, 64, 1024, 32, 8, 64), (8, 16, 1024, 32, 8, 64),
-             (4, 16, 64, 8, 2, 32), (4, 64, 64, 8, 2, 128), (5, 40, 100, 4, 4, 64)]
+             (4, 16, 64, 8, 2, 32), (4, 64, 64, 8, 2, 128), (5, 40, 100, 4, 4, 64),
+             (4, 130, 300, 8, 2, 128), (5, 40, 200, 4, 2, 32), (4, 130, 1000, 8, 2, 64)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,L,H,KVH,hd", GPU_CHUNK)
 def test_chunk_kernel_matches_plain_on_card(cuda, dtype, B, C, L, H, KVH, hd):
-    rng = np.random.default_rng(C * L + B)
-    arrs = chunk_case(rng, B, C, L, H, KVH, hd)
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
-    sp, pos0, valid = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
-    got = k_chunk.chunk_attention(q, k, v, sp, pos0, valid)
-    want = ref.chunk_attention_ref(q, k, v, sp, pos0, valid)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    for b, n in enumerate(arrs[5]):
-        assert not got[b, n:].any()    # padding rows, and all of an inactive row
-    assert _err_ok(got, want, dtype)
+    """K4 on chunk_case's mix, a wrapped ring and rows whose first tile is
+    all masked, each also with K rising tile by tile; two launches equal."""
+    for variant, rising in CHUNK_VARIANTS:
+        rng = np.random.default_rng(C * L + B)
+        arrs = list(chunk_case(rng, B, C, L, H, KVH, hd, variant))
+        if rising:
+            arrs[1] = _rising_np(arrs[1])
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in arrs[:3])
+        sp, pos0, valid = (torch.from_numpy(a).to(cuda) for a in arrs[3:])
+        got = k_chunk.chunk_attention(q, k, v, sp, pos0, valid)
+        want = ref.chunk_attention_ref(q, k, v, sp, pos0, valid)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), (variant, rising)
+        for b, n in enumerate(arrs[5]):
+            assert not got[b, n:].any()    # padding rows, and all of an inactive row
+        assert _err_ok(got, want, dtype), (variant, rising)
+        if variant == "mix" and not rising:
+            # deterministic: no atomics, no split across CTAs
+            assert torch.equal(got, k_chunk.chunk_attention(q, k, v, sp, pos0, valid))
 
 
 def quant_case(rng, B, MP, ps, KVH, hd, pool):
@@ -358,25 +399,33 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,L,H,KVH,hd", GPU_CHUNK)
 def test_chunk_quant_kernel_matches_plain_on_card(cuda, prec, dtype, B, C, L, H, KVH, hd):
-    """K4q: the chunk mix of ``chunk_case`` over int8 or fp8 codes (its
-    +-1e30 garbage quantizes to +-qmax codes with huge scales)."""
-    rng = np.random.default_rng(C * L + B + len(prec))
-    q, k, v, sp, pos0, valid = chunk_case(rng, B, C, L, H, KVH, hd)
+    """K4q: chunk_case's variants (the mix, a wrapped ring, all-masked first
+    tiles; each also with K rising tile by tile) over int8 or fp8 codes (its
+    +-1e30 garbage quantizes to +-qmax codes with huge scales); two launches
+    equal."""
     spec = parse_kv_precision(prec)
-    qk, ks = quantize_kv(torch.from_numpy(k).to(cuda), spec)
-    qv, vs = quantize_kv(torch.from_numpy(v).to(cuda), spec)
-    q = torch.from_numpy(q).to(cuda, dtype)
-    sp, pos0_t, valid_t = (torch.from_numpy(a).to(cuda) for a in (sp, pos0, valid))
-    got = k_pchunk.chunk_attention_quant(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
-    want = ref.chunk_attention_quant_ref(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    for b, n in enumerate(valid):
-        assert not got[b, n:].any()
-    assert _err_ok(got, want, dtype)
+    for variant, rising in CHUNK_VARIANTS:
+        rng = np.random.default_rng(C * L + B + len(prec))
+        q, k, v, sp, pos0, valid = chunk_case(rng, B, C, L, H, KVH, hd, variant)
+        if rising:
+            k = _rising_np(k)
+        qk, ks = quantize_kv(torch.from_numpy(k).to(cuda), spec)
+        qv, vs = quantize_kv(torch.from_numpy(v).to(cuda), spec)
+        q = torch.from_numpy(q).to(cuda, dtype)
+        sp, pos0_t, valid_t = (torch.from_numpy(a).to(cuda) for a in (sp, pos0, valid))
+        got = k_pchunk.chunk_attention_quant(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
+        want = ref.chunk_attention_quant_ref(q, qk, qv, ks, vs, sp, pos0_t, valid_t)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), (variant, rising)
+        for b, n in enumerate(valid):
+            assert not got[b, n:].any()
+        assert _err_ok(got, want, dtype), (variant, rising)
+        if variant == "mix" and not rising:
+            assert torch.equal(got, k_pchunk.chunk_attention_quant(q, qk, qv, ks, vs, sp,
+                                                                   pos0_t, valid_t))
 
 
-def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged):
+def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged, variant="mix"):
     """A pool of B * MP pages ("native", "int8", "fp8", or "mixed": the
     lower half native, the rest int8) and per row, cycling: a first chunk
     (pos0 0, base 0); a prefix hit ending mid-page (base ps + ps // 2) with
@@ -385,10 +434,24 @@ def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged):
     Each row's table covers its positions up to the chunk's last. Pool
     rows no row may read hold +-1e30 garbage: those past the chunk and,
     with staging buffers (``staged``), those at or past base, which the
-    buffers serve. Returns (k, v or None, None; codes, scales or None; block
-    tables, pos0, valid, base, stage_k, stage_v or None) as CPU tensors."""
+    buffers serve. ``variant`` "rising" scales each row's K by 1 + j // 64
+    at logical position j (per page, from the page's first position), so
+    alpha != 1 on every tile; "holes" puts the one-token chunks at or past
+    the pages that cover positions 0-63 and unallocates those pages, so the
+    row's first tile holds no key at all (a key's position is its slot, so
+    a tile with a key always shows it to some query); "alternate" gives a
+    mixed pool's rows int8 and native pages in turn, logical page by
+    logical page, so a 64-slot tile mixes both (and staging, past base). Returns (k,
+    v or None, None; codes, scales or None; block tables, pos0, valid, base,
+    stage_k, stage_v or None) as CPU tensors."""
     N, P = B * MP, MP * ps
+    Nn = N if pool == "native" else N // 2 if pool == "mixed" else 0
     perm = rng.permutation(N).astype(np.int32)
+    if variant == "alternate" and 0 < Nn < N:
+        native, coded = perm[perm < Nn], perm[perm >= Nn]   # N // 2 and the rest
+        perm = np.empty(N, np.int32)
+        perm[0::2], perm[1::2] = coded, native
+    n_hole = -(-64 // ps)   # pages that cover positions 0-63
     bt = np.full((B, MP), -1, np.int32)
     live = np.zeros((N, ps), bool)
     pos0, valid, base = (np.zeros(B, np.int32) for _ in range(3))
@@ -402,19 +465,26 @@ def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged):
             bs = ps + ps // 2
             p0, nv = bs, min(C, P - bs)
         else:
-            p0 = bs = int(rng.integers(ps, P))
+            lo = n_hole * ps if variant == "holes" else ps
+            p0 = bs = int(rng.integers(lo, P))
             nv = 1
         pos0[b], valid[b], base[b] = p0, nv, bs
         end = p0 + nv
         bt[b, : (end - 1) // ps + 1] = perm[b * MP: b * MP + (end - 1) // ps + 1]
+        if variant == "holes" and kind == 2:
+            bt[b, :n_hole] = -1
         for j in range(bs if staged else end):
-            live[bt[b, j // ps], j % ps] = True
+            if bt[b, j // ps] >= 0:
+                live[bt[b, j // ps], j % ps] = True
     k = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
     v = rng.standard_normal((N, ps, KVH, hd)).astype(np.float32)
     junk = np.where(rng.random((N, ps, KVH, hd)) < 0.5, -1e30, 1e30).astype(np.float32)
-    k = torch.from_numpy(np.where(live[..., None, None], k, junk))
+    k = np.where(live[..., None, None], k, junk)
+    if variant == "rising":
+        for b, lp in zip(*np.nonzero(bt >= 0)):
+            k[bt[b, lp]] *= 1 + lp * ps // 64
+    k = torch.from_numpy(k)
     v = torch.from_numpy(np.where(live[..., None, None], v, -junk))
-    Nn = N if pool == "native" else N // 2 if pool == "mixed" else 0
     codes = (None,) * 4
     if Nn < N:
         spec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
@@ -425,16 +495,19 @@ def paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged):
     stage = (None, None)
     if staged:
         S = P + 1
-        stage = tuple(torch.from_numpy(rng.standard_normal((B, S, KVH, hd)).astype(np.float32))
-                      for _ in range(2))
+        stage = [rng.standard_normal((B, S, KVH, hd)).astype(np.float32) for _ in range(2)]
+        if variant == "rising":
+            stage[0] = _rising_np(stage[0])
+        stage = tuple(torch.from_numpy(a) for a in stage)
     return (*native, *codes, *(torch.from_numpy(a) for a in (bt, pos0, valid, base)), *stage)
 
 
 # (B, C, MP, ps, H, KVH, hd): the chunked serve's pool (64-page tables of
 # 16 rows, chunks of 128), a page size that is no power of two with hd 128,
-# and a page larger than the kernel's 64-slot tile
+# a page larger than the kernel's 64-slot tile, and a chunk of 130 (no
+# multiple of 64)
 GPU_PAGED_CHUNK = [(16, 128, 64, 16, 32, 8, 64), (5, 40, 9, 12, 8, 2, 128),
-                   (4, 16, 3, 128, 8, 2, 32)]
+                   (4, 16, 3, 128, 8, 2, 32), (4, 130, 24, 16, 8, 2, 64)]
 
 
 @pytest.mark.gpu
@@ -445,23 +518,31 @@ GPU_PAGED_CHUNK = [(16, 128, 64, 16, 32, 8, 64), (5, 40, 9, 12, 8, 2, 128),
 def test_paged_chunk_kernel_matches_plain_on_card(cuda, pool, staged, dtype, B, C, MP, ps, H,
                                                   KVH, hd):
     """K4p on every pool kind, with the staging split at base 0, mid-page
-    and L - 1, and without staging buffers."""
-    rng = np.random.default_rng(MP * ps + B + len(pool) + staged)
-    case = paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged)
-    case = [None if t is None else t.to(cuda) for t in case]
-    for i in (0, 1, 10, 11):   # native pages and staging buffers in q's dtype
-        if case[i] is not None:
-            case[i] = case[i].to(dtype)
-    k, v, qk, qv, ks, vs, bt, pos0, valid, base, stk, stv = case
-    q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).to(cuda, dtype)
-    kw = dict(stage_k=stk, stage_v=stv, base=base)
-    got = k_pchunk.paged_chunk_attention(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
-    want = ref.paged_chunk_attention_ref(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    for b, n in enumerate(valid.tolist()):
-        assert not got[b, n:].any()
-    assert _err_ok(got, want, dtype)
+    and L - 1, and without staging buffers; K rising tile by tile, leading
+    tiles with no key, and (mixed pools) native and int8 pages alternating
+    inside a tile; two launches equal."""
+    variants = ["mix", "rising", "holes"] + (["alternate"] if pool == "mixed" else [])
+    for variant in variants:
+        rng = np.random.default_rng(MP * ps + B + len(pool) + staged)
+        case = paged_chunk_case(rng, B, C, MP, ps, KVH, hd, pool, staged, variant)
+        case = [None if t is None else t.to(cuda) for t in case]
+        for i in (0, 1, 10, 11):   # native pages and staging buffers in q's dtype
+            if case[i] is not None:
+                case[i] = case[i].to(dtype)
+        k, v, qk, qv, ks, vs, bt, pos0, valid, base, stk, stv = case
+        q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).to(cuda,
+                                                                                       dtype)
+        kw = dict(stage_k=stk, stage_v=stv, base=base)
+        got = k_pchunk.paged_chunk_attention(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
+        want = ref.paged_chunk_attention_ref(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), variant
+        for b, n in enumerate(valid.tolist()):
+            assert not got[b, n:].any()
+        assert _err_ok(got, want, dtype), variant
+        if variant == "mix":
+            again = k_pchunk.paged_chunk_attention(q, k, v, qk, qv, ks, vs, bt, pos0, valid, **kw)
+            assert torch.equal(got, again)
 
 
 @pytest.mark.gpu
