@@ -4,13 +4,15 @@ against its plain version. Exits nonzero on any fault; nothing is caught.
   python3 chip_smoke.py
 
 Phases, each printing one JSON line: device, build (nvcc, all sources at
-once; each flash_attention and chunk attention (K4, K4p, K4q)
-instantiation's shared memory, registers and spills), kernels (each CUDA
-kernel against its plain PyTorch version, element by element, at the
+once; each flash_attention, chunk attention (K4, K4p, K4q) and SSD scan
+(K6) instantiation's shared memory, registers and spills), kernels (each
+CUDA kernel against its plain PyTorch version, element by element, at the
 full-width granite-3-2b serving shapes in bf16 and in f32 and at the smoke
 shapes in f32, with CUDA-event times, the roofline bound and the time of
 the library's counterpart for the record: one scaled_dot_product_attention
-call, or for the paged kernel a page gather plus that call; the prefill and
+call, or for the paged kernel a page gather plus that call; each main row
+also with the device time of the kernel and of its library route from
+torch.profiler; the prefill and
 chunk rows name their instantiation, bf16 on wgmma and f32 on the CUDA
 cores, and bf16 prefill adds keys that rise tile by tile so every tile
 rescales the output), flash_anatomy (the bf16 prefill kernel beside
@@ -38,7 +40,10 @@ token-aware``); every slot of the last two after the first runs under
 ``torch.cuda.set_sync_debug_mode("error")``, and the chunked trace is held
 to the same launcher's on the CPU with the smoke model. The Mamba-2 path
 (mamba2-130m at full width): the SSD scan kernel among the kernels (against
-its plain version and, in f32, its sequential oracle), ssm_model (prefill
+its plain version and, in f32, its sequential oracle), ssd_anatomy (the
+bf16 scan's three kernels each against its plain phase, two launches bit
+for bit, and the device time of the call and of each kernel beside the f32
+CUDA-core kernel's at the serve's shape), ssm_model (prefill
 logits at positions around the chunk boundaries and 16 greedy decode steps
 through the kernel against the plain scan, with a scan that drops the state
 carried between chunks beside it, and the smoke model on the card against
@@ -360,13 +365,13 @@ def check_kernels(timer) -> dict:
                "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
                "library_ms": timer(lib) if lib is not None else None, "library": library,
                "bytes": work[0], "flops": work[1], **extra}
+        if main:   # the device time of the kernel and of its library route (_device_ms)
+            row["device_ms"] = _device_ms(fn)
+            row["library_device_ms"] = _device_ms(lib) if lib is not None else None
+            rows[name] = row
         emit("kernels", **row)
         if not worst <= 1.0:
             raise AssertionError(f"{case}: an element is {worst:.3g}x its tolerance")
-        if main:
-            rows[name] = row
-            if name in CHUNK_ANATOMY:   # read here, while fn and lib hold this case's tensors
-                row["device_ms"], row["library_device_ms"] = _device_ms(fn), _device_ms(lib)
 
     def sdpa_prefill(q, k, v, lens, window, causal_only):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -509,6 +514,7 @@ def check_kernels(timer) -> dict:
     check_paged_chunk_kernels(rng, record)
     check_chunk_anatomy(rows)
     check_ssd_kernel(record)
+    rows.update(check_ssd_anatomy(timer))
     return rows
 
 
@@ -579,10 +585,10 @@ def check_chunk_anatomy(rows) -> None:
     cases of the kernels phase, the CTA-tiles each computes (64 chunk
     queries x 64 key slots, skipped tiles not counted) and the longest CTA
     chain, beside the device time of the kernel and of its library route
-    (``_device_ms``, read by the kernels phase; its ``ms`` is kept beside
-    it), and from the kernel's device time the time per 1,000 tiles across
-    the card, the tensor-core rate on the tiles computed and the time per
-    tile of the longest chain."""
+    (``_device_ms``, read by the kernels phase for every main row; its
+    ``ms`` is kept beside it), and from the kernel's device time the time
+    per 1,000 tiles across the card, the tensor-core rate on the tiles
+    computed and the time per tile of the longest chain."""
     cases = []
     for name in CHUNK_ANATOMY:
         r = rows[name]
@@ -1134,6 +1140,121 @@ def check_ssd_kernel(record) -> None:
         if not st_worst <= 1.0 or any(not o["max_err_over_tol"] <= 1.0 for o in oracle.values()):
             raise AssertionError(f"{case}: the final state or the oracle check is beyond its "
                                  "tolerance")
+
+
+# the bf16 route's three kernels (csrc/ssd_scan.cu), by wrapper
+SSD_PHASES = ("ssd_chunk_states", "ssd_state_passing", "ssd_chunk_outputs")
+
+
+def _ssd_phase_work(B, S, H, P, N, Q):
+    """Bytes and FLOPs each bf16 phase kernel needs, as _ssd_work counts
+    them: its inputs read once and outputs written once (the scratch of
+    states (B, nc, H, P, N) f32 and decays (B, nc, H) f32 among them); per
+    head and chunk of v real steps 2 v N P FLOPs for the chunk states, 2 P N
+    for the state passing, and for the outputs N v(v+1) (C B^T's causal
+    half, once per chunk: shared by the heads) plus P v(v+1) + 2 v N P per
+    head."""
+    nc = -(-S // Q)
+    x, dtb, bc = 2 * B * S * H * P, 4 * (B * S * H + H), 4 * B * S * N
+    scratch, decay, state = 4 * B * nc * H * P * N, 4 * B * nc * H, 4 * B * H * P * N
+    vs = [min(Q, S - c0) for c0 in range(0, S, Q)]
+    return {"ssd_chunk_states": (x + dtb + bc + scratch + decay,
+                                 float(B * H * sum(2 * v * N * P for v in vs))),
+            "ssd_state_passing": (2 * scratch + decay + state, float(2 * B * nc * H * P * N)),
+            "ssd_chunk_outputs": (2 * x + dtb + 2 * bc + scratch,
+                                  float(B * sum(N * v * (v + 1) + H * (P * v * (v + 1)
+                                                                       + 2 * v * N * P)
+                                                for v in vs)))}
+
+
+def check_ssd_anatomy(timer) -> dict:
+    """What bounds K6 at the serve's shape (B 8, S 512, H 24, P 64, N 128,
+    chunk 128): the bf16 call (three kernels on the tensor cores) and each
+    of its phase kernels, beside the f32 CUDA-core kernel at the same shape
+    (the first port's design; x in f32), with device times (``_device_ms``)
+    and ``Timer``'s, FLOPs, TFLOP/s and bounds. Each phase kernel is held to
+    its plain version on the same inputs (chunk states and entering states
+    by the f32 rule, y by the bf16 one; env the plain phase on |x|, |B|,
+    |C|), and two launches of the bf16 call are compared bit for bit.
+    Returns the phase kernels' rows for the kernels line."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as kssd
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    B, S, H, P, N, Q = 8, 512, 24, 64, 128, 128
+    x = torch.randn((B, S, H, P), generator=g, device="cuda").to(torch.bfloat16)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device="cuda") for _ in range(2))
+    work = _ssd_phase_work(B, S, H, P, N, Q)
+    rows, phases = {}, []
+
+    def check(name, got, want, env, rtol, fn, plain):
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        worst = (diff / (rtol * (env.float() + want.float().abs())).clamp_min(1e-30)).max().item()
+        dev = _device_ms(fn)
+        bms, by = bound(*work[name], torch.bfloat16)
+        row = {"kernel": name, "max_abs_err": diff.max().item(), "max_err_over_tol": worst,
+               "rtol": rtol, "ms": timer(fn), "plain_ms": timer(plain, n=5), "device_ms": dev,
+               "bound_ms": bms, "bound_by": by, "bytes": work[name][0], "flops": work[name][1],
+               "tflops": work[name][1] / dev / 1e9, "library_ms": None,
+               "library_device_ms": None}
+        rows[name] = row
+        phases.append(row)
+        if not worst <= 1.0:
+            emit("ssd_anatomy", phases=phases)
+            raise AssertionError(f"{name}: an element is {worst:.3g}x its tolerance")
+
+    f32 = SSD_RTOL[torch.float32]
+    contrib, decay = kssd.chunk_states(x, dt, A, Bm, chunk=Q)
+    rcontrib, rdecay = ref.ssd_chunk_states_ref(x, dt, A, Bm, Q)
+    econtrib, _ = ref.ssd_chunk_states_ref(x.abs(), dt, A, Bm.abs(), Q)
+    check("ssd_chunk_states", torch.cat([contrib.flatten(), decay.flatten()]),
+          torch.cat([rcontrib.flatten(), rdecay.flatten()]),
+          torch.cat([econtrib.flatten(), rdecay.flatten()]), f32,
+          lambda: kssd.chunk_states(x, dt, A, Bm, chunk=Q),
+          lambda: ref.ssd_chunk_states_ref(x, dt, A, Bm, Q))
+    entering = rcontrib.clone()   # the plain contributions: phase 2 alone is held
+    fin = kssd.state_passing(entering, rdecay)
+    rentering, rfin = ref.ssd_state_passing_ref(rcontrib, rdecay)
+    eentering, efin = ref.ssd_state_passing_ref(econtrib, rdecay)
+    scratch = rcontrib.clone()    # timed launches overwrite it in place
+    check("ssd_state_passing", torch.cat([entering.flatten(), fin.flatten()]),
+          torch.cat([rentering.flatten(), rfin.flatten()]),
+          torch.cat([eentering.flatten(), efin.flatten()]), f32,
+          lambda: kssd.state_passing(scratch, rdecay),
+          lambda: ref.ssd_state_passing_ref(rcontrib, rdecay))
+    y = kssd.chunk_outputs(x, dt, A, Bm, Cm, rentering, chunk=Q)
+    ry = ref.ssd_chunk_outputs_ref(x, dt, A, Bm, Cm, rentering, Q)
+    ey = ref.ssd_chunk_outputs_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), eentering, Q)
+    check("ssd_chunk_outputs", y, ry, ey, SSD_RTOL[torch.bfloat16],
+          lambda: kssd.chunk_outputs(x, dt, A, Bm, Cm, rentering, chunk=Q),
+          lambda: ref.ssd_chunk_outputs_ref(x, dt, A, Bm, Cm, rentering, Q))
+
+    y1, f1 = kssd.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+    y2, f2 = kssd.ssd_scan(x, dt, A, Bm, Cm, chunk=Q)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(y1, y2) and torch.equal(f1, f2))
+    flops = _ssd_work(B, S, H, P, N, Q, 2, False)[1]
+    calls = {}
+    for label, xx in (("bf16 (three kernels, tensor cores)", x),
+                      ("f32 (one kernel, CUDA cores)", x.float())):
+        fn = lambda xx=xx: kssd.ssd_scan(xx, dt, A, Bm, Cm, chunk=Q)
+        work_all = _ssd_work(B, S, H, P, N, Q, xx.element_size(), False)
+        bms, by = bound(*work_all, xx.dtype)
+        dev = _device_ms(fn)
+        calls[label] = {"device_ms": dev, "ms": timer(fn), "bound_ms": bms, "bound_by": by,
+                        "flops": flops, "tflops": flops / dev / 1e9, "over_bound": dev / bms}
+    bf, f3 = calls.values()
+    emit("ssd_anatomy", shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q},
+         calls=calls, phases=phases, phase_device_ms_sum=sum(r["device_ms"] for r in phases),
+         bf16_over_f32_device=bf["device_ms"] / f3["device_ms"], two_launches_equal=equal,
+         smem_bytes={**kssd.smem_bytes(Q, P, N, torch.bfloat16),
+                     **kssd.smem_bytes(Q, P, N, torch.float32)})
+    if not equal:
+        raise AssertionError("two launches of the bf16 K6 differ")
+    return rows
 
 
 # --------------------------------------------------------------- model
@@ -2194,8 +2315,9 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     quant = args.kv_precision in ("int8", "fp8")
     ring = "decode_attention_quant" if quant else "decode_attention"   # the dense decode
     want = {}
-    if ssm:   # every prefill (the boot's too) runs the scan once per layer
-        want = {"ssd_scan": n_layers * (engine.prefill_dispatches + 1)}
+    if ssm:   # every prefill (the boot's too) runs the scan once per layer, bf16: three kernels
+        want = {k: n_layers * (engine.prefill_dispatches + 1)
+                for k in ("ssd_scan", *SSD_PHASES)}
     elif args.paged:
         quant = args.kv_precision in ("int8", "fp8")
         decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
@@ -2367,7 +2489,8 @@ def cpu_trace(argv: list) -> dict:
 
 # kernel name fragments of each kind of device work, tried in order
 # ("decode_attention_kernel" is also inside the paged kernel's name)
-KERNEL_KINDS = (("K6", ("ssd_scan_kernel",)),
+KERNEL_KINDS = (("K6", ("ssd_scan_kernel", "ssd_chunk_states_kernel", "ssd_state_passing_kernel",
+                        "ssd_chunk_outputs_kernel")),
                 ("K4p/K4q", ("paged_chunk_attention_kernel",)),
                 ("K3q", ("paged_decode_attention_quant_kernel",)),
                 ("K3", ("paged_decode_attention_kernel",)),
@@ -2490,6 +2613,38 @@ def chunk_instantiations(ptxas: list) -> list:
     return sorted(out, key=lambda r: (r["kernel"], r["q"], r.get("codes", ""), r["hd"]))
 
 
+_SSD_SYMBOL = re.compile(r"(ssd_scan_kernel|ssd_chunk_states_kernel|ssd_state_passing_kernel|"
+                         r"ssd_chunk_outputs_kernel)(?:I(?:f|Li(\d+)E))?")
+
+
+def ssd_instantiations(ptxas: list) -> list:
+    """Each kernel of csrc/ssd_scan.cu from ``-Xptxas -v``: K6's f32
+    CUDA-core kernel and the bf16 route's three (the outputs kernel per
+    count of 64-row tiles in a chunk), with the route, the dynamic shared
+    memory at the serve's shape (chunk 128, P 64, N 128; the outputs kernel
+    at its own tile count's chunk), registers and spill bytes."""
+    from repro_torch.kernels import ssd_scan as kssd
+
+    out = []
+    for f in ptxas:
+        m = _SSD_SYMBOL.search(f["function"])
+        if m is None:
+            continue
+        name = m.group(1)
+        f32 = name == "ssd_scan_kernel"
+        row = {"kernel": name, "route": KERNEL_ROUTE[torch.float32 if f32 else torch.bfloat16]}
+        if m.group(2):
+            row["chunk_tiles"] = int(m.group(2))
+        chunk = 64 * row.get("chunk_tiles", 2)
+        smem = kssd.smem_bytes(chunk, 64, 128, torch.float32 if f32 else torch.bfloat16)
+        if name in smem:
+            row["smem_bytes"] = smem[name]
+            row["smem_at"] = {"chunk": chunk, "P": 64, "N": 128}
+        out.append({**row, "registers": f.get("registers"),
+                    "spill_stores": f.get("spill_stores"), "spill_loads": f.get("spill_loads")})
+    return sorted(out, key=lambda r: (r["kernel"], r.get("chunk_tiles", 0)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2532,10 +2687,14 @@ def main() -> int:
                                  kpc.smem_bytes(64, torch.bfloat16),
                              "paged_chunk_attention_hd64_bf16_wgmma_codes":
                                  kpc.smem_bytes(64, torch.bfloat16, quantized=True),
-                             "ssd_scan_chunk128_P64_N128": kssd.smem_bytes(128, 64, 128)},
+                             "ssd_scan_f32_chunk128_P64_N128":
+                                 kssd.smem_bytes(128, 64, 128, torch.float32),
+                             "ssd_scan_bf16_chunk128_P64_N128":
+                                 kssd.smem_bytes(128, 64, 128, torch.bfloat16)},
          flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]),
          chunk_attention_instantiations=chunk_instantiations(
-             info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]))
+             info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]),
+         ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]))
 
     timer = Timer()
     rows = check_kernels(timer)
@@ -2580,7 +2739,7 @@ def main() -> int:
               "paged_decode_attention_quant":
                   quant_path["launches"]["paged_decode_attention_quant"],
               "chunk_attention": chunked_path["launches"]["chunk_attention"],
-              "ssd_scan": ssm_path["launches"]["ssd_scan"],
+              **{k: ssm_path["launches"][k] for k in ("ssd_scan", *SSD_PHASES)},
               "paged_chunk_attention": paged_chunked["launches"]["paged_chunk_attention"],
               "paged_chunk_attention_quant": prefix["launches"]["paged_chunk_attention_quant"],
               # K1q/K1rq: no serve path attends quantized K/V at prefill (every
@@ -2604,6 +2763,9 @@ def main() -> int:
                                "src/repro/kernels/chunk_attention.py:48"),
            "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                         "src/repro/kernels/ssd_scan.py:28"),
+           # the bf16 K6's three kernels, each held to its plain phase (ssd_anatomy)
+           **{k: ("src/repro_torch/kernels/csrc/ssd_scan.cu", "src/repro/kernels/ssd_scan.py:28")
+              for k in SSD_PHASES},
            # K4p: no Pallas kernel; the reference's attn_chunk_paged gathers in XLA
            "paged_chunk_attention": ("src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
                                      "src/repro/models/attention.py:731"),
@@ -2623,7 +2785,8 @@ def main() -> int:
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],
              "bound_ms": rows[n]["bound_ms"], "bound_by": rows[n]["bound_by"],
-             "library_ms": rows[n]["library_ms"]} for n in src]
+             "library_ms": rows[n]["library_ms"], "device_ms": rows[n]["device_ms"],
+             "library_device_ms": rows[n]["library_device_ms"]} for n in src]
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
 // run their products on the tensor cores: cp.async copies into shared
 // memory, the async-proxy fence, the shared-memory matrix descriptors and
-// swizzled tile layout that wgmma reads, and the bf16 wgmma products with
-// f32 accumulators that those kernels issue.
+// swizzled tile layout that wgmma reads, and the bf16 and TF32 wgmma
+// products with f32 accumulators that those kernels issue.
 //
 // Tile layout. A tile is R rows of HD bf16 values (R a multiple of 8),
 // stored as column blocks of SW bytes per row (SW = 128 when a row has 128
@@ -170,5 +170,38 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// ----------------------------------------------------------------- TF32
+// A TF32 tile is a tile of f32 values in the same layout: the 16-byte
+// chunks of a row of 32 floats are those of a row of 64 bf16 values, so
+// Tile<64>'s offsets and descriptor<64> serve it (128B swizzle). TF32
+// products take both operands K-major; one k-step is 8 values, 32 bytes of
+// a row, as a bf16 k-step is.
+
+// x rounded to TF32 (10 mantissa bits, nearest, ties away), as an f32 whose
+// low 13 bits are zero: what the tensor cores read of a staged operand.
+__device__ __forceinline__ float round_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// D (+)= A B, m64n64k8 in TF32: A (64 x 8) and B (8 x 64, K-major) in
+// shared memory, both TF32 tiles.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
 }  // namespace repro::sm90

@@ -286,10 +286,77 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
+def _ssd_chunks(chunk: int, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                *mats: torch.Tensor) -> tuple:
+    """The scan's inputs padded to whole chunks with dt = 0 and cut into
+    them: x (B,nc,Q,H,P), dt (B,nc,Q,H), dA = dt*A and LA = cumsum(dA) over
+    each chunk (B,nc,Q,H), then each of ``mats`` (B,S,N) as (B,nc,Q,N)."""
+    Bsz, S = x.shape[:2]
+    pad = (-S) % chunk
+
+    def cut(t):
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(Bsz, (S + pad) // chunk, chunk, *t.shape[2:])
+
+    xc, dtc = cut(x), cut(dt)
+    dA = dtc * A
+    return (xc, dtc, dA, torch.cumsum(dA, dim=2), *(cut(m) for m in mats))
+
+
+def ssd_chunk_states_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                         chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 1 of the chunked scan, every chunk at once: its own state
+    contribution sum_s exp(LA_end - LA_s) dt_s x_s B_s^T (B,nc,H,P,N)
+    float32 and its decay exp(sum dt*A) (B,nc,H) float32."""
+    xc, dtc, dA, LA, Bc = _ssd_chunks(chunk, x, dt, A, Bm)
+    tail = torch.exp(LA[:, :, -1:, :] - LA)
+    contrib = torch.einsum("bcqh,bcqhp,bcqn->bchpn", (tail * dtc).float(), xc.float(),
+                           Bc.float())
+    return contrib, torch.exp(dA.sum(2))
+
+
+def ssd_state_passing_ref(contrib: torch.Tensor, decay: torch.Tensor,
+                          init_state: Optional[torch.Tensor] = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase 2: the state entering each chunk (B,nc,H,P,N) and the final
+    state (B,H,P,N), float32: state_c = decay_c state_{c-1} + contrib_c
+    from ``init_state`` (None: zeros)."""
+    Bsz, nc, H, P, N = contrib.shape
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=contrib.device)
+             if init_state is None else init_state)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + contrib[:, c]
+    return torch.stack(entering, dim=1), state
+
+
+def ssd_chunk_outputs_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                          Cm: torch.Tensor, states: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Phase 3: y (B,S,H,P) in x's dtype from the states entering each
+    chunk (B,nc,H,P,N): W x with W = (C_q . B_s) exp(LA_q - LA_s) dt_s for
+    s <= q (the exponent masked at -1e9 above the diagonal), cast to x's
+    dtype before it multiplies x, plus exp(LA_q) C_q . state, cast to x's
+    dtype before the two parts are added."""
+    Bsz, S, H, P = x.shape
+    xc, dtc, _, LA, Bc, Cc = _ssd_chunks(chunk, x, dt, A, Bm, Cm)
+    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    diff = LA[:, :, :, None, :] - LA[:, :, None, :, :]          # (B,nc,Q,Q,H)
+    M = torch.exp(torch.where(tril[None, None, :, :, None], diff, -1e9))
+    G = torch.einsum("bcqn,bcsn->bcqs", Cc, Bc)
+    W = G[..., None] * M * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcqsh,bcshp->bcqhp", W.to(x.dtype), xc)
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp", Cc.float(), states,
+                           torch.exp(LA)).to(x.dtype)
+    return (y_intra + y_inter).reshape(Bsz, -1, H, P)[:, :S]
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                 Cm: torch.Tensor, chunk: int,
                 init_state: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The chunked SSD scan, the plain version of the SSD kernel.
+    """The chunked SSD scan, the plain version of the SSD kernel: its three
+    phases composed (``ssd_chunk_states_ref``, ``ssd_state_passing_ref``,
+    ``ssd_chunk_outputs_ref``).
 
     x (B,S,H,P), dt (B,S,H) post-softplus, A (H,) negative, Bm/Cm (B,S,N),
     ``init_state`` (B,H,P,N) float32 or None (zeros). Returns y (B,S,H,P)
@@ -297,46 +364,9 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
 
     A sequence that is not a multiple of ``chunk`` is padded with dt = 0:
     the decay there is exp(0) = 1 and the contribution 0, so the final
-    state is the state after the real steps. Within a chunk, LA is the
-    cumulative sum of dt*A and the intra-chunk weights exp(LA_q - LA_s)
-    are taken with the exponent masked at -1e9 above the diagonal. The
-    rounding is the reference's: the weights are cast to x's dtype before
-    they multiply x, and the carried state's contribution is cast to x's
-    dtype before the two parts are added.
+    state is the state after the real steps. The rounding is the
+    reference's (``repro.models.ssm.ssd_chunked``).
     """
-    Bsz, S, H, P = x.shape
-    N = Bm.shape[-1]
-    pad = (-S) % chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        Bm = F.pad(Bm, (0, 0, 0, pad))
-        Cm = F.pad(Cm, (0, 0, 0, pad))
-    nc = (S + pad) // chunk
-    xc = x.reshape(Bsz, nc, chunk, H, P)
-    dtc = dt.reshape(Bsz, nc, chunk, H)
-    Bc = Bm.reshape(Bsz, nc, chunk, N)
-    Cc = Cm.reshape(Bsz, nc, chunk, N)
-    dA = dtc * A                                            # (B,nc,Q,H)
-    LA = torch.cumsum(dA, dim=2)
-    tril = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
-    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-             if init_state is None else init_state)
-    ys = []
-    for c in range(nc):
-        xq, dtq, Bq, Cq, dAq, LAq = xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], dA[:, c], LA[:, c]
-        diff = LAq[:, :, None, :] - LAq[:, None, :, :]         # (B,Q,Q,H)
-        M = torch.exp(torch.where(tril[None, :, :, None], diff, -1e9))
-        G = torch.einsum("bqn,bsn->bqs", Cq, Bq)
-        W = G[..., None] * M * dtq[:, None, :, :]
-        y_intra = torch.einsum("bqsh,bshp->bqhp", W.to(xq.dtype), xq)
-        decay_q = torch.exp(LAq)                               # (B,Q,H)
-        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", Cq.float(), state,
-                               decay_q).to(xq.dtype)
-        tail = torch.exp(LAq[:, -1:, :] - LAq)
-        contrib = torch.einsum("bqh,bqhp,bqn->bhpn", (tail * dtq).float(), xq.float(),
-                               Bq.float())
-        state = torch.exp(dAq.sum(1))[:, :, None, None] * state + contrib
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bsz, nc * chunk, H, P)
-    return y[:, :S], state
+    contrib, decay = ssd_chunk_states_ref(x, dt, A, Bm, chunk)
+    entering, final = ssd_state_passing_ref(contrib, decay, init_state)
+    return ssd_chunk_outputs_ref(x, dt, A, Bm, Cm, entering, chunk), final

@@ -335,9 +335,16 @@ SSD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 SSD_REF_RTOL = 2e-4
 # (B, S, H, P, N, chunk, init): the full mamba2-130m prefill, the smoke
 # shape with a tail, a tail after several chunks from an initial state,
-# chunk 32 with N 64
+# chunk 32 with N 64; then what a chunk-parallel grid can get wrong: H 5
+# (not a multiple of any head group above 1) with a tail and an initial
+# state at chunk 128, one chunk (S <= chunk), 16 chunks of carry (B 1, S
+# 2048), chunks of 192 and 256 (three and four 64-row tiles: two CTAs along
+# the chunk), and P 8, N 4 padded to the tiles
 GPU_SSD = [(8, 512, 24, 64, 128, 128, False), (2, 40, 8, 32, 32, 16, False),
-           (2, 300, 4, 64, 128, 128, True), (3, 100, 3, 32, 64, 32, True)]
+           (2, 300, 4, 64, 128, 128, True), (3, 100, 3, 32, 64, 32, True),
+           (2, 300, 5, 64, 128, 128, True), (3, 90, 6, 64, 128, 128, False),
+           (1, 2048, 24, 64, 128, 128, False), (2, 500, 4, 32, 32, 192, True),
+           (1, 600, 3, 32, 32, 256, False), (2, 50, 3, 8, 4, 16, True)]
 
 
 def _ssd_case(cuda, seed, B, S, H, P, N, init):
@@ -392,6 +399,76 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         k_ssd.ssd_scan(torch.zeros((1, 8, 1, 256), device=cuda), dt[:, :8, :1].contiguous(), A[:1],
                        torch.zeros((1, 8, 256), device=cuda), torch.zeros((1, 8, 256), device=cuda),
                        chunk=128)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match="chunk"):   # more than four 64-row tiles
+        k_ssd.ssd_scan(xb, dt, A, Bm, Cm, chunk=288)
+    with pytest.raises(ValueError, match="chunk"):
+        k_ssd.chunk_states(xb, dt, A, Bm, chunk=48)
+    with pytest.raises(ValueError, match="bfloat16"):   # the phases are the bf16 route's
+        k_ssd.chunk_outputs(x, dt, A, Bm, Cm, torch.zeros((1, 2, 2, 32, 32), device=cuda),
+                            chunk=16)
+    with pytest.raises(ValueError, match="states"):
+        k_ssd.chunk_outputs(xb, dt, A, Bm, Cm, torch.zeros((1, 3, 2, 32, 32), device=cuda),
+                            chunk=16)
+    with pytest.raises(RuntimeError, match="cudaError_t"):   # beyond a CTA's shared memory
+        k_ssd.ssd_scan(torch.zeros((1, 8, 1, 256), device=cuda, dtype=torch.bfloat16),
+                       dt[:, :8, :1].contiguous(), A[:1], torch.zeros((1, 8, 256), device=cuda),
+                       torch.zeros((1, 8, 256), device=cuda), chunk=256)
+
+
+# (B, S, H, P, N, chunk, init): the full prefill, a tail with an initial
+# state and H 5, one short chunk with P 8 and N 4
+GPU_SSD_PHASES = [(8, 512, 24, 64, 128, 128, False), (2, 300, 5, 64, 128, 128, True),
+                  (2, 50, 3, 8, 4, 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", GPU_SSD_PHASES)
+def test_ssd_phase_kernels_match_plain_on_card(cuda, B, S, H, P, N, chunk, init):
+    """Each of the bf16 route's three kernels against its plain version on
+    the same inputs: the chunk states and the entering states by the f32
+    rule, y by the bf16 one; env is the plain phase on |x|, |B|, |C| and
+    |state|."""
+    x, dt, A, Bm, Cm, st = _ssd_case(cuda, S + 7, B, S, H, P, N, init)
+    x = x.bfloat16()
+    before = dict(k_ssd.launches)
+    contrib, decay = k_ssd.chunk_states(x, dt, A, Bm, chunk=chunk)
+    rcontrib, rdecay = ref.ssd_chunk_states_ref(x, dt, A, Bm, chunk)
+    econtrib, _ = ref.ssd_chunk_states_ref(x.abs(), dt, A, Bm.abs(), chunk)
+    torch.cuda.synchronize()
+    assert _ssd_ok(contrib, rcontrib, econtrib, SSD_RTOL[torch.float32])
+    assert _ssd_ok(decay, rdecay, rdecay, SSD_RTOL[torch.float32])
+
+    entering = rcontrib.clone()   # the plain contributions, so phase 2 alone is held
+    fin = k_ssd.state_passing(entering, rdecay, st)
+    rentering, rfin = ref.ssd_state_passing_ref(rcontrib, rdecay, st)
+    eentering, efin = ref.ssd_state_passing_ref(econtrib, rdecay,
+                                                None if st is None else st.abs())
+    torch.cuda.synchronize()
+    assert _ssd_ok(entering, rentering, eentering, SSD_RTOL[torch.float32])
+    assert _ssd_ok(fin, rfin, efin, SSD_RTOL[torch.float32])
+
+    y = k_ssd.chunk_outputs(x, dt, A, Bm, Cm, rentering.contiguous(), chunk=chunk)
+    ry = ref.ssd_chunk_outputs_ref(x, dt, A, Bm, Cm, rentering, chunk)
+    ey = ref.ssd_chunk_outputs_ref(x.abs(), dt, A, Bm.abs(), Cm.abs(), eentering, chunk)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    assert _ssd_ok(y, ry, ey, SSD_RTOL[torch.bfloat16])
+    assert {k: k_ssd.launches[k] - before[k] for k in before} == {
+        "ssd_scan": 0, "ssd_chunk_states": 1, "ssd_state_passing": 1, "ssd_chunk_outputs": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_kernel_two_launches_equal_on_card(cuda, init):
+    """The bf16 route has no atomics: two launches on the same inputs give
+    the same bits (y and the final state), at the full prefill shape."""
+    x, dt, A, Bm, Cm, st = _ssd_case(cuda, 11, 8, 512, 24, 64, 128, init)
+    x = x.bfloat16()
+    y1, f1 = k_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=128, init_state=st)
+    y2, f2 = k_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=128, init_state=st)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
 
 
 @pytest.mark.gpu

@@ -96,6 +96,38 @@ def test_plain_ssd_chunked_matches_reference(B, S, H, P, N, chunk, init):
         _close(fin.numpy(), pfin)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk,init", SCANS)
+def test_plain_ssd_phases_compose_to_reference(B, S, H, P, N, chunk, init):
+    """K6's three phases in their plain versions (chunk states, state
+    passing, chunk outputs), composed by hand, against the reference's
+    ssd_chunked and, in the Pallas kernel's domain, the kernel in interpret
+    mode; the state entering chunk c is the reference scan's final state
+    over the first c chunks."""
+    x, dt, A, Bm, Cm, st = _scan_case(S + chunk, B, S, H, P, N, init)
+    tx, tdt, tA, tB, tC = (torch.from_numpy(a) for a in (x, dt, A, Bm, Cm))
+    contrib, decay = ref.ssd_chunk_states_ref(tx, tdt, tA, tB, chunk)
+    entering, fin = ref.ssd_state_passing_ref(contrib, decay,
+                                              None if st is None else torch.from_numpy(st))
+    y = ref.ssd_chunk_outputs_ref(tx, tdt, tA, tB, tC, entering, chunk)
+    nc = -(-S // chunk)
+    assert contrib.shape == entering.shape == (B, nc, H, P, N) and decay.shape == (B, nc, H)
+    jx, jdt, jA, jB, jC = (jnp.asarray(a) for a in (x, dt, A, Bm, Cm))
+    jst = None if st is None else jnp.asarray(st)
+    ry, rfin = RS.ssd_chunked(jx, jdt, jA, jB, jC, chunk, jst)
+    _close(y.numpy(), ry)
+    _close(fin.numpy(), rfin)
+    if S % chunk == 0 and not init:   # the Pallas kernel's domain
+        py, pfin = ref_ops.ssd(jx, jdt, jA, jB, jC, chunk=chunk, impl="interpret")
+        _close(y.numpy(), py)
+        _close(fin.numpy(), pfin)
+    assert torch.equal(entering[:, 0], torch.zeros_like(entering[:, 0]) if st is None
+                       else torch.from_numpy(st))
+    for c in range(1, nc):
+        a = c * chunk
+        _, rst = RS.ssd_chunked(jx[:, :a], jdt[:, :a], jA, jB[:, :a], jC[:, :a], chunk, jst)
+        _close(entering[:, c].numpy(), rst)
+
+
 @pytest.mark.parametrize("B,S,H,P,N", [(2, 40, 2, 32, 32), (1, 19, 3, 64, 128),
                                        (2, 64, 2, 32, 32)])
 def test_ssd_ref_matches_reference(B, S, H, P, N):
