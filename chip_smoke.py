@@ -4,15 +4,17 @@ against its plain version. Exits nonzero on any fault; nothing is caught.
   python3 chip_smoke.py
 
 Phases, each printing one JSON line: device, build (nvcc, all sources at
-once; each flash_attention, chunk attention (K4, K4p, K4q) and SSD scan
-(K6) instantiation's shared memory, registers and spills), kernels (each
+once; each flash_attention, chunk attention (K4, K4p, K4q), SSD scan (K6)
+and decode (K2, K3) instantiation's shared memory, registers and spills),
+kernels (each
 CUDA kernel against its plain PyTorch version, element by element, at the
 full-width granite-3-2b serving shapes in bf16 and in f32 and at the smoke
 shapes in f32, with CUDA-event times, the roofline bound and the time of
 the library's counterpart for the record: one scaled_dot_product_attention
 call, or for the paged kernel a page gather plus that call; each main row
 also with the device time of the kernel and of its library route from
-torch.profiler; the prefill and
+torch.profiler, as has K2 at the serves' own geometry, rows that have not
+wrapped, whose empty tiles it skips; the prefill and
 chunk rows name their instantiation, bf16 on wgmma and f32 on the CUDA
 cores, and bf16 prefill adds keys that rise tile by tile so every tile
 rescales the output), flash_anatomy (the bf16 prefill kernel beside
@@ -25,8 +27,9 @@ the same weights, with a path whose decode attention skips one KV tile read
 beside it to show the tolerance catches such a fault, and the smoke model
 on the card against the CPU path the CPU tests hold against the JAX
 package), paged_model (the
-same prompts through the paged decode against the dense one, with a path
-whose block table swaps two pages of one row beside it), preemption (a
+same prompts through the paged decode against the dense one, equal bit for
+bit on every step, with a path whose block table swaps two pages of one
+row beside it), preemption (a
 full-width paged engine whose pool is too small for both of its rows to
 grow, against the dense engine's tokens), chunk_model (full-width prompts
 through chunk_step in chunks of 128, K4, against the one-shot ragged
@@ -352,7 +355,8 @@ def check_kernels(timer) -> dict:
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     def record(case, name, dtype, got, want, env, fn, plain, lib, work, main,
-               library="scaled_dot_product_attention", rtol=KERNEL_RTOL, **extra):
+               library="scaled_dot_product_attention", rtol=KERNEL_RTOL, device=False,
+               **extra):
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         tol = rtol[dtype] * (env.float() + want.float().abs())
@@ -365,9 +369,10 @@ def check_kernels(timer) -> dict:
                "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by,
                "library_ms": timer(lib) if lib is not None else None, "library": library,
                "bytes": work[0], "flops": work[1], **extra}
-        if main:   # the device time of the kernel and of its library route (_device_ms)
+        if main or device:   # the device time of the kernel and of its library route
             row["device_ms"] = _device_ms(fn)
             row["library_device_ms"] = _device_ms(lib) if lib is not None else None
+        if main:
             rows[name] = row
         emit("kernels", **row)
         if not worst <= 1.0:
@@ -438,7 +443,27 @@ def check_kernels(timer) -> dict:
                                                                    enable_gqa=True)
             record(case, "decode_attention", dtype, fn(), plain(), env, fn, plain, lib,
                    _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, win),
-                   main and win is None)
+                   main and win is None, device=main)
+    # K2 at the granite serves' own geometry: rows that have not wrapped
+    # (prompts of 128-512 plus decode steps in a ring of 1024), so about
+    # half of the ring's tiles hold no valid slot and are skipped unread
+    B, L, H, KVH, hd, dtype = 8, 1024, 32, 8, 64, torch.bfloat16
+    pos_np = np.random.default_rng(21).integers(128, 541, B).astype(np.int32)
+    sp_np = _ring_slot_pos(B, L, pos_np)
+    q = randn((B, H, hd), dtype)
+    k, v = randn((B, L, KVH, hd), dtype), randn((B, L, KVH, hd), dtype)
+    sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kd.decode_attention(q, k, v, sp, pos)
+    plain = lambda: ref.decode_attention_ref(q, k, v, sp, pos)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    record(f"decode_attention B{B} L{L} H{H}/{KVH} hd{hd} bf16 unwrapped pos 128-540",
+           "decode_attention", dtype, fn(), plain(),
+           ref.decode_attention_ref(q, k, v.abs(), sp, pos), fn, plain, lib,
+           _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, None), False,
+           device=True, valid_tiles=int(((sp_np >= 0).reshape(B, L // 64, 64)).any(-1).sum()),
+           tiles=B * L // 64)
 
     # K3: the paged serve's shape (16 rows, 64-page tables of 16 rows), pos
     # spread over 128-1023, tables over a random permutation of the pool
@@ -548,31 +573,53 @@ def check_flash_anatomy(timer) -> None:
     emit("flash_anatomy", variants=variants)
 
 
-def _device_ms(fn, n: int = 20) -> float:
+def _device_ms(fn, n: int = 20, sessions: int = 3) -> float:
     """Mean device time of one ``fn()`` call over ``n`` calls, each after an
     L2 flush: the time of the kernels it launches, from torch.profiler, so
     the host's time to issue them is not in it (the flush's kernel is left
     out). ``Timer`` reads event to event, which takes in the host's issue
-    time where a call's kernels are shorter than it."""
+    time where a call's kernels are shorter than it.
+
+    Now and then a profiler session records no kernel at all. Such a
+    session is run again, up to ``sessions`` in all; if none of them saw
+    device time, the calls are timed with CUDA events around each call
+    instead, and a ``device_ms_by_events`` line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or "bitwise_not" in e.key:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        us += e.self_cuda_time_total if dev is None else dev
-    if us <= 0:
-        raise AssertionError("the profiler saw no device time")
-    return us / n / 1e3
+    seen = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        us, events = 0.0, {"cpu": 0, "cuda": 0}
+        for e in prof.key_averages():
+            cuda = e.device_type == torch.autograd.DeviceType.CUDA
+            events["cuda" if cuda else "cpu"] += e.count
+            if not cuda or "bitwise_not" in e.key:
+                continue
+            dev = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if dev is None else dev
+        if us > 0:
+            return us / n / 1e3
+        seen.append(events)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(n)]
+    for start, end in pairs:
+        flush.bitwise_not_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = sum(start.elapsed_time(end) for start, end in pairs) / n
+    emit("device_ms_by_events", profiler_sessions=seen, ms=ms)
+    if not ms > 0:
+        raise AssertionError("neither the profiler nor CUDA events saw device time")
+    return ms
 
 
 # the main bf16 cases of the kernels phase that chunk_anatomy reads
@@ -1400,7 +1447,9 @@ def _paged_state(model, toks, lens, ps, MP, n_steps, prec="", native_pages=None)
 def check_paged_model() -> dict:
     """Full-width granite-3-2b: the same prompts and fed tokens through the
     dense decode (K2 over the ring cache) and the paged decode (K3 over
-    pages in shuffled order), 16 steps; logits within MODEL_TOL. Beside it
+    pages in shuffled order), 16 steps; logits equal bit for bit on every
+    step (K2 and K3 share csrc/decode_core.cuh, its split and its combine
+    order), and within MODEL_TOL. Beside it
     a paged path whose block table swaps the first two pages of the row
     with the 1-token prompt must land beyond MODEL_TOL."""
     from types import SimpleNamespace
@@ -1460,6 +1509,9 @@ def check_paged_model() -> dict:
     torch.cuda.empty_cache()
     if max(errs) > MODEL_TOL or res["token_mismatches_beyond_margin"]:
         raise AssertionError("paged path and dense path disagree")
+    if res["bitwise_equal_steps"] < len(errs):   # K2 and K3 share one core (decode_core.cuh)
+        raise AssertionError(f"paged equals dense on {res['bitwise_equal_steps']} of "
+                             f"{len(errs)} steps, not on all")
     if not max(fault) > MODEL_TOL:
         raise AssertionError("the model tolerance does not catch two swapped pages")
     return res
@@ -2645,6 +2697,32 @@ def ssd_instantiations(ptxas: list) -> list:
     return sorted(out, key=lambda r: (r["kernel"], r.get("chunk_tiles", 0)))
 
 
+_DECODE_SYMBOL = re.compile(r"(paged_)?decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def decode_instantiations(ptxas: list) -> list:
+    """Each instantiation of K2 (csrc/decode_attention.cu) and K3
+    (csrc/paged_attention.cu), both csrc/decode_core.cuh, from ``-Xptxas
+    -v``: kernel, dtype, hd, the dynamic shared memory of one CTA at G 4,
+    registers and spill bytes."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import paged_attention as kp
+
+    out = []
+    for f in ptxas:
+        m = _DECODE_SYMBOL.search(f["function"])
+        if m is None:
+            continue
+        dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
+        hd = int(m.group(3))
+        paged = m.group(1) is not None
+        out.append({"kernel": "K3" if paged else "K2", "dtype": str(dtype).removeprefix("torch."),
+                    "hd": hd, "smem_bytes_G4": (kp if paged else kd).smem_bytes(hd, 4, dtype),
+                    "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
+                    "spill_loads": f.get("spill_loads")})
+    return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r["hd"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2674,9 +2752,9 @@ def main() -> int:
                                  kf.smem_bytes(64, torch.float32, quantized=True),
                              "flash_attention_quant_hd64_bf16_wgmma":
                                  kf.smem_bytes(64, torch.bfloat16, quantized=True),
-                             "decode_attention_hd64_G4": kd.smem_bytes(64, 4),
+                             "decode_attention_hd64_G4_bf16": kd.smem_bytes(64, 4),
                              "decode_attention_quant_hd64_G4": kd.quant_smem_bytes(64, 4),
-                             "paged_decode_attention_hd64_G4": kp.smem_bytes(64, 4),
+                             "paged_decode_attention_hd64_G4_bf16": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64_f32_cuda_cores":
                                  kc.smem_bytes(64, torch.float32),
@@ -2694,7 +2772,9 @@ def main() -> int:
          flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]),
          chunk_attention_instantiations=chunk_instantiations(
              info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]),
-         ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]))
+         ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]),
+         decode_instantiations=decode_instantiations(
+             info["decode_attention"]["ptxas"] + info["paged_attention"]["ptxas"]))
 
     timer = Timer()
     rows = check_kernels(timer)

@@ -11,7 +11,8 @@
 // A slot is valid when 0 <= slot_pos <= pos and, with a window,
 // slot_pos > pos - window, as in K2.
 //
-// K2's structure (decode_attention.cu): one CTA per (KV head, batch row),
+// The single-pass structure K2 had before it moved onto decode_core.cuh:
+// one CTA per (KV head, batch row),
 // one warp per query head of the group, 64-slot tiles with the online
 // softmax in f32 registers, masked scores -1e30, p rounded to q's dtype
 // before the PV product, output acc / max(l, 1e-30). What is new is the
@@ -21,8 +22,8 @@
 // valid slot has been seen, a tile with none is skipped: it would scale the
 // state by exp(0) = 1 and add p = 0 exactly, so the skip changes no bit and
 // saves its bytes (a ring that is mostly empty reads only its written
-// part). Tiles before the first valid one run as in K2, so a row with no
-// valid slot averages the ring as K2 and the plain version do.
+// part). Tiles before the first valid one run, so a row with no valid
+// slot averages the ring as the plain version does (K2 writes zeros).
 //
 // The score and PV loops are K3q's (paged_attention_quant.cu) line for
 // line, and a ring that has not wrapped holds position j at slot j as a
@@ -31,7 +32,7 @@
 //
 // What bounds it: bytes. A step reads each live tile's codes once (1 byte
 // per element instead of 2 in bf16) plus 4 bytes of scale per row per KV
-// head, for a few MFLOP. As in K2 a tile is computed only after it has
+// head, for a few MFLOP. A tile is computed only after it has
 // arrived, and the grid (KVH, B) leaves most SMs idle at B = 8.
 #include "dequant.cuh"
 

@@ -1,0 +1,454 @@
+// The core of one-token GQA decode attention for Hopper (sm_90a), shared by
+// K2 (decode_attention.cu, over the ring cache) and K3 (paged_attention.cu,
+// through block tables): flash-decoding inside one launch.
+//
+// A launch's grid is (KVH, B, SPLIT); the SPLIT CTAs of one (KV head, batch
+// row) pair form a thread-block cluster, and each takes every SPLIT-th tile
+// of 64 slots: tile t (slots 64t .. 64t+63) goes to cluster rank t % SPLIT.
+// The partition is a function of the slot index alone, never of L, the
+// number of valid slots or the page size, so a dense ring and a paged pool
+// that hold the same positions in the same slots run the same arithmetic
+// bit for bit (paged equals dense).
+//
+// A source says which row of the K/V arrays a slot reads: `row(slot)` is
+// the row index (rows `row_stride` elements apart from `k_base`/`v_base`)
+// or -1 for an invalid slot, and `n_slots` bounds the slots. K2's source
+// reads slot_pos (a ring slot is its own row), K3's the block table (a
+// slot's pool row). A CTA first resolves its tiles' 64 slots to rows; a
+// tile with no valid slot is skipped before any K/V load (its scores would
+// all be -1e30: before the first valid tile exp(-1e30 - m) = 0 scales it
+// away, after it it adds 0). The rows of valid slots are copied into shared
+// memory in their stored type by 16-byte cp.async copies, invalid rows land
+// as zeros, into a ring of two stages, so a CTA's first two tiles are in
+// flight before it computes the first; the rows of tile i + 2 are fetched
+// into registers while tile i computes. K and V rows lie an odd number of
+// 16-byte chunks apart, so eight rows' chunks at one column fall into eight
+// different bank groups (for ldmatrix and for the lanes' 16-byte reads).
+//
+// A tile's products, by dtype. Both keep the numeric rules of the Pallas
+// kernel: masked scores -1e30, the online softmax (m, l, acc) in f32, p
+// rounded to the value dtype before the PV product, l summed from p before
+// that rounding.
+// - bfloat16: on the tensor cores, warp-level mma.sync m16n8k16 with f32
+//   accumulators. The query heads are the rows of the products (rows past G
+//   zero), and the CTA is four warps per 16 heads: warp w takes slots
+//   16 (w % 4) .. +15 of every tile with an online softmax of its own, and
+//   the four partials are merged at the end. S = q K^T reads K by ldmatrix
+//   as it lies, the softmax runs on S's accumulator fragment (quad
+//   shuffles), and P, rounded to bf16, is the register A operand of
+//   O += P V, V read by ldmatrix.trans. Decode is byte-bound in FLOPs, but
+//   on the CUDA cores the conversions, shuffles and shared-memory reads of
+//   G warps that each redo the whole tile take as long as the bytes; here a
+//   warp does its quarter of a tile in about a hundred instructions.
+// - float32: on the CUDA cores, one warp per query head of the group
+//   (G = H / KVH <= 32): each lane scores two slots (lane, lane + 32)
+//   against q (f32 in shared memory) and owns HD/32 contiguous output dims.
+//
+// The combine, in the same launch: every CTA leaves (m, l, acc) per query
+// head in its own shared memory and the cluster meets at a barrier; then
+// rank r combines the r-th eighth of the G x HD outputs, reading the SPLIT
+// partials through distributed shared memory in rank order: M = max m_s,
+// out = sum exp(m_s - M) acc_s / max(sum exp(m_s - M) l_s, 1e-30); the
+// cluster meets again before any CTA exits. A rank with no valid tile
+// leaves m = -1e30, l = 0, acc = 0, so it adds nothing, and a row with no
+// valid slot at all gets zeros. No scratch in device memory, no atomics,
+// no second pass: the result does not depend on the order in which CTAs
+// run, and each call is one kernel launch.
+//
+// What bounds it: bytes. A step reads each valid K/V row once for all G
+// query heads that use it, at 4 * hd FLOPs per (head, slot), two orders of
+// magnitude below the card's ratio of FLOPs to bytes; the design spends its
+// effort on having many copies in flight on many SMs (B * KVH * SPLIT
+// CTAs) and on keeping each tile's instructions few.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace repro::decode {
+
+constexpr int BL = 64;      // slots per tile
+constexpr int SPLIT = 8;    // CTAs per cluster (the portable limit); tile t -> rank t % SPLIT
+constexpr int STAGES = 2;   // the ring of K/V tiles
+
+// Which products a dtype runs on, and its CTA: bf16 four warps per 16
+// query heads, f32 one warp per query head.
+template <typename T> struct Route {
+  static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr int MAX_THREADS = MMA ? 256 : 1024;
+  static int threads(int G) { return MMA ? 128 * ((G + 15) / 16) : 32 * G; }
+};
+
+// Shared memory in bytes: the K and V rings, the rows of each stage's
+// slots, q (f32), and the partial (acc, m, l) that the combine reads.
+template <typename T, int HD> struct Smem {
+  static constexpr int CPR = HD * (int)sizeof(T) / 16;  // 16-byte chunks per row
+  static constexpr int ROW = (CPR + 1) * 16;            // bytes between K (and V) rows
+  static constexpr int K_OFF = 0;                       // [stage][BL] rows
+  static constexpr int V_OFF = K_OFF + STAGES * BL * ROW;
+  static constexpr int ROWS_OFF = V_OFF + STAGES * BL * ROW;  // int [stage][BL]
+  static constexpr int Q_OFF = ROWS_OFF + STAGES * BL * 4;    // f32 [G][HD]
+  // then acc f32 [G][HD], m f32 [G], l f32 [G]
+  static size_t bytes(int G) { return Q_OFF + (size_t)G * HD * 4 * 2 + (size_t)G * 8; }
+};
+
+// The CUDA-core route (float32): warp g is query head g, lane `lane` scores
+// slots lane and lane + 32 and owns output dims [lane * PER, lane * PER +
+// PER). p needs no rounding: the value dtype is float32.
+template <int HD> struct WarpPerHead {
+  using S = Smem<float, HD>;
+  static constexpr int CPR = S::CPR;  // 16-byte chunks (four values) per row
+  static constexpr int PER = HD / 32;
+  static_assert(PER == 1 || PER == 2 || PER == 4, "HD must be 32, 64, 128");
+  int g, lane;
+  float m, l, acc[PER];
+
+  __device__ void init(const float* Qs, int G) {
+    g = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    m = repro::NEG_INF;
+    l = 0.f;
+#pragma unroll
+    for (int d = 0; d < PER; ++d) acc[d] = 0.f;
+  }
+
+  __device__ void tile(const char* Kt, const char* Vt, const int* R, const float* Qs,
+                       float scale) {
+    const float4* q4 = reinterpret_cast<const float4*>(Qs + g * HD);
+    const float4* k0 = reinterpret_cast<const float4*>(Kt + lane * S::ROW);
+    const float4* k1 = reinterpret_cast<const float4*>(Kt + (lane + 32) * S::ROW);
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPR; ++c) {
+      const float4 q = q4[c], a = k0[c], b = k1[c];
+      s0 = fmaf(q.x, a.x, s0), s1 = fmaf(q.x, b.x, s1);
+      s0 = fmaf(q.y, a.y, s0), s1 = fmaf(q.y, b.y, s1);
+      s0 = fmaf(q.z, a.z, s0), s1 = fmaf(q.z, b.z, s1);
+      s0 = fmaf(q.w, a.w, s0), s1 = fmaf(q.w, b.w, s1);
+    }
+    s0 = R[lane] >= 0 ? s0 * scale : repro::NEG_INF;
+    s1 = R[lane + 32] >= 0 ? s1 * scale : repro::NEG_INF;
+
+    const float m_new = fmaxf(m, repro::warp_max(fmaxf(s0, s1)));
+    const float alpha = expf(m - m_new);
+    const float p0 = expf(s0 - m_new);
+    const float p1 = expf(s1 - m_new);
+    l = l * alpha + repro::warp_sum(p0 + p1);
+    m = m_new;
+
+#pragma unroll
+    for (int d = 0; d < PER; ++d) acc[d] *= alpha;
+    const float* vcol = reinterpret_cast<const float*>(Vt) + lane * PER;
+    constexpr int VROW = S::ROW / 4;  // floats between V rows
+#pragma unroll 8
+    for (int j = 0; j < 32; ++j) {
+      const float pa = __shfl_sync(0xffffffffu, p0, j);
+      const float pb = __shfl_sync(0xffffffffu, p1, j);
+      float va[PER], vb[PER];
+#pragma unroll
+      for (int d = 0; d < PER; ++d) va[d] = vcol[j * VROW + d], vb[d] = vcol[(j + 32) * VROW + d];
+#pragma unroll
+      for (int d = 0; d < PER; ++d) {
+        acc[d] = fmaf(pa, va[d], acc[d]);
+        acc[d] = fmaf(pb, vb[d], acc[d]);
+      }
+    }
+  }
+
+  // The CTA's partial: each warp's own head.
+  __device__ void partial(char* scratch, float* ACC, float* Ms, float* Ls, int G) const {
+#pragma unroll
+    for (int d = 0; d < PER; ++d) ACC[g * HD + lane * PER + d] = acc[d];
+    if (lane == 0) {
+      Ms[g] = m;
+      Ls[g] = l;
+    }
+  }
+};
+
+// The tensor-core route (bf16): the CTA is four warps per 16 query heads.
+// Warp w takes heads 16 (w / 4) .. +15 as the M rows of m16n8k16 products
+// and slots 16 (w % 4) .. +15 of every tile, with an online softmax of its
+// own (flash-decoding again, inside the CTA); lane t holds rows r0 = 16 (w
+// / 4) + t / 4 and r1 = r0 + 8 and, of each 8-column block, the columns 2
+// (t % 4), +1. A warp whose slots of a tile are all masked (the tile has a
+// valid slot elsewhere) keeps m = -1e30 until it sees a valid slot, and a
+// partial with m = -1e30 weighs exp(-1e30 - M) = 0 in every merge.
+template <int HD> struct MmaHeads {
+  using S = Smem<__nv_bfloat16, HD>;
+  static constexpr int KC = HD / 16;  // 16-wide k-steps of q K^T; pairs of 8-dim blocks of O
+  int w, lane, cb, r0, r1;
+  bool two_rows;          // rows r1 hold heads (G > r0's block + 8); else they are zeros
+  uint32_t qa[KC][4];     // q as the A operand of S = q K^T
+  float o[2 * KC][4];     // O = P V, one accumulator per 8-dim block
+  float m[2], l[2];
+
+  __device__ void init(const float* Qs, int G) {
+    w = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    cb = w & 3;
+    r0 = 16 * (w >> 2) + (lane >> 2);
+    r1 = r0 + 8;
+    two_rows = 16 * (w >> 2) + 8 < G;
+    const int c = 2 * (lane & 3);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {  // a[0]: r0 low, a[1]: r1 low, a[2]: r0 high, a[3]: r1 high
+        const int r = (h & 1) ? r1 : r0;
+        const int d = 16 * kc + 8 * (h >> 1) + c;
+        qa[kc][h] = r < G ? repro::sm90::pack_bf16(Qs[r * HD + d], Qs[r * HD + d + 1]) : 0u;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 2 * KC; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[b][e] = 0.f;
+    m[0] = m[1] = repro::NEG_INF;
+    l[0] = l[1] = 0.f;
+  }
+  __device__ void tile(const char* Kt, const char* Vt, const int* R, const float* Qs,
+                       float scale) {
+    const int mi = lane >> 3, ri = lane & 7, c = 2 * (lane & 3);
+    const uint32_t kb = repro::sm90::smem_u32(Kt) + 16 * cb * S::ROW;  // this warp's 16 slots
+    const uint32_t vb = repro::sm90::smem_u32(Vt) + 16 * cb * S::ROW;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // S = q K^T: K rows are slots, hd contiguous, which is B's column-major layout
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t b[4];
+      repro::sm90::ldmatrix_x4(b, kb + (8 * (mi >> 1) + ri) * S::ROW + (16 * kc + 8 * (mi & 1)) * 2);
+      repro::sm90::mma_m16n8k16_bf16(s[0], qa[kc], b[0], b[1]);
+      repro::sm90::mma_m16n8k16_bf16(s[1], qa[kc], b[2], b[3]);
+    }
+    // mask, scale and the online softmax on the fragment
+    float mx0 = repro::NEG_INF, mx1 = repro::NEG_INF;
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const int2 ok = *reinterpret_cast<const int2*>(R + 16 * cb + 8 * nb + c);
+      s[nb][0] = ok.x >= 0 ? s[nb][0] * scale : repro::NEG_INF;
+      s[nb][1] = ok.y >= 0 ? s[nb][1] * scale : repro::NEG_INF;
+      s[nb][2] = ok.x >= 0 ? s[nb][2] * scale : repro::NEG_INF;
+      s[nb][3] = ok.y >= 0 ? s[nb][3] * scale : repro::NEG_INF;
+      mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float alpha0 = expf(m[0] - mn0);
+    const float alpha1 = two_rows ? expf(m[1] - mn1) : 1.f;
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pa[4];  // P as the A operand of O += P V (this warp's 16 slots)
+#pragma unroll
+    for (int nb = 0; nb < 2; ++nb) {
+      const float p0 = expf(s[nb][0] - mn0), p1 = expf(s[nb][1] - mn0);
+      float p2 = 0.f, p3 = 0.f;
+      if (two_rows) p2 = expf(s[nb][2] - mn1), p3 = expf(s[nb][3] - mn1);
+      sum0 += p0 + p1;
+      sum1 += p2 + p3;
+      pa[2 * nb] = repro::sm90::pack_bf16(p0, p1);  // p in bf16
+      pa[2 * nb + 1] = repro::sm90::pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    l[0] = l[0] * alpha0 + sum0;
+    l[1] = l[1] * alpha1 + sum1;
+    m[0] = mn0;
+    m[1] = mn1;
+    // O = alpha O + P V: V rows are slots, hd contiguous; ldmatrix.trans gives B
+#pragma unroll
+    for (int dp = 0; dp < KC; ++dp) {
+      uint32_t b[4];
+      repro::sm90::ldmatrix_x4_trans(b, vb + (8 * (mi & 1) + ri) * S::ROW + (16 * dp + 8 * (mi >> 1)) * 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* od = o[2 * dp + h];
+        od[0] *= alpha0, od[1] *= alpha0, od[2] *= alpha1, od[3] *= alpha1;
+        repro::sm90::mma_m16n8k16_bf16(o[2 * dp + h], pa, b[2 * h], b[2 * h + 1]);
+      }
+    }
+  }
+
+  // Merge the four warps' partials of each head (in slot-block order) into
+  // the CTA's (ACC, Ms, Ls). The warps' partials go to ``scratch`` (the K/V
+  // ring, free once every copy has landed: 16 G HD bytes fit there).
+  __device__ void partial(char* scratch, float* ACC, float* Ms, float* Ls, int G) const {
+    float* WACC = reinterpret_cast<float*>(scratch);  // [4][G][HD]
+    float* WM = WACC + 4 * G * HD;                     // [4][G]
+    float* WL = WM + 4 * G;                            // [4][G]
+    const int c = 2 * (lane & 3);
+    __syncthreads();  // every warp is done reading the ring
+#pragma unroll
+    for (int b = 0; b < 2 * KC; ++b) {
+      float* a0 = WACC + (cb * G + r0) * HD + 8 * b + c;
+      float* a1 = WACC + (cb * G + r1) * HD + 8 * b + c;
+      if (r0 < G) a0[0] = o[b][0], a0[1] = o[b][1];
+      if (r1 < G) a1[0] = o[b][2], a1[1] = o[b][3];
+    }
+    if ((lane & 3) == 0) {
+      if (r0 < G) WM[cb * G + r0] = m[0], WL[cb * G + r0] = l[0];
+      if (r1 < G) WM[cb * G + r1] = m[1], WL[cb * G + r1] = l[1];
+    }
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < G * HD; idx += blockDim.x) {
+      const int h = idx / HD;
+      float M = repro::NEG_INF;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) M = fmaxf(M, WM[k * G + h]);
+      float acc = 0.f, lsum = 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float wk = expf(WM[k * G + h] - M);
+        acc = fmaf(wk, WACC[k * G * HD + idx], acc);
+        lsum = fmaf(wk, WL[k * G + h], lsum);
+      }
+      ACC[idx] = acc;
+      if (idx % HD == 0) Ms[h] = M, Ls[h] = lsum;
+    }
+  }
+};
+
+// Decode attention of the G query heads at ``q_grp`` (G x HD, contiguous)
+// over the slots that ``src`` names, into ``out_grp`` (G x HD). Called by
+// every thread of every CTA of the cluster (Route<T>::threads(G) threads),
+// with dynamic shared memory of Smem<T, HD>::bytes(G).
+template <typename T, int HD, typename Source>
+__device__ __forceinline__ void attend(const Source& src, int G, const T* __restrict__ q_grp,
+                                       const T* __restrict__ k_base,
+                                       const T* __restrict__ v_base, size_t row_stride,
+                                       T* __restrict__ out_grp, float scale) {
+  namespace cg = cooperative_groups;
+  using S = Smem<T, HD>;
+  using Heads = std::conditional_t<Route<T>::MMA, MmaHeads<HD>, WarpPerHead<HD>>;
+  constexpr int CPR = S::CPR;
+  constexpr int VEC = 16 / (int)sizeof(T);
+  static_assert(HD % 32 == 0 && (HD * (int)sizeof(T)) % 16 == 0, "HD must be 32, 64, 128");
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+
+  extern __shared__ float4 smem4[];
+  char* sm = reinterpret_cast<char*>(smem4);
+  int* ROWS = reinterpret_cast<int*>(sm + S::ROWS_OFF);
+  float* Qs = reinterpret_cast<float*>(sm + S::Q_OFF);
+  float* ACC = Qs + G * HD;
+  float* Ms = ACC + G * HD;
+  float* Ls = Ms + G;
+
+  // this rank's tiles: rank, rank + SPLIT, ... below ntiles
+  const int ntiles = (src.n_slots + BL - 1) / BL;
+  const int mine = ntiles > rank ? (ntiles - 1 - rank) / SPLIT + 1 : 0;
+
+  // The rows of tile i's slots: thread tid resolves slots tid and
+  // tid + nthreads (nthreads >= 32), into registers.
+  auto fetch = [&](int i, int (&pre)[2]) {
+    const int slot0 = (rank + i * SPLIT) * BL;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int j = tid + k * nthreads;
+      pre[k] = i < mine && j < BL ? src.row(slot0 + j) : -1;
+    }
+  };
+  // Store fetched rows as stage s's; true when the tile has a valid slot.
+  auto publish = [&](int s, const int (&pre)[2]) {
+    int any = 0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int j = tid + k * nthreads;
+      if (j < BL) {
+        ROWS[s * BL + j] = pre[k];
+        any |= pre[k] >= 0;
+      }
+    }
+    return __syncthreads_or(any) != 0;
+  };
+  // Copy stage s's K and V rows (zeros for invalid ones) into the ring.
+  auto issue = [&](int s) {
+    const uint32_t kb = repro::sm90::smem_u32(sm + S::K_OFF + s * BL * S::ROW);
+    const uint32_t vb = repro::sm90::smem_u32(sm + S::V_OFF + s * BL * S::ROW);
+    for (int i = tid; i < 2 * BL * CPR; i += nthreads) {
+      const bool is_v = i >= BL * CPR;
+      const int ii = is_v ? i - BL * CPR : i;
+      const int r = ii / CPR, c = ii % CPR;
+      const int row = ROWS[s * BL + r];
+      const T* base = is_v ? v_base : k_base;
+      repro::sm90::cp_async16((is_v ? vb : kb) + r * S::ROW + c * 16,
+                              base + (row >= 0 ? (size_t)row * row_stride + c * VEC : 0),
+                              row >= 0 ? 16 : 0);
+    }
+  };
+
+  int pre0[2], pre1[2];
+  fetch(0, pre0);
+  fetch(1, pre1);
+  repro::load_rows<T, HD>(Qs, HD, q_grp, HD, 0, G, G, tid, nthreads);
+  bool any0 = publish(0, pre0);  // its barrier also publishes q
+  if (any0) issue(0);
+  repro::sm90::cp_async_commit();
+  bool any1 = publish(1, pre1);
+  if (any1) issue(1);
+  repro::sm90::cp_async_commit();
+
+  Heads heads;
+  heads.init(Qs, G);
+
+  for (int i = 0; i < mine; ++i) {
+    const int s = i & 1;
+    int pre[2];
+    fetch(i + 2, pre);  // in flight while tile i computes
+    repro::sm90::cp_async_wait<1>();  // tile i has landed (only i + 1's group may be pending)
+    __syncthreads();
+    if (s ? any1 : any0)
+      heads.tile(sm + S::K_OFF + s * BL * S::ROW, sm + S::V_OFF + s * BL * S::ROW,
+                 ROWS + s * BL, Qs, scale);
+    bool more = false;
+    if (i + 2 < mine) {  // tile i + 2 takes stage s
+      __syncthreads();   // every thread is done with stage s
+      more = publish(s, pre);
+      if (more) issue(s);
+    }
+    repro::sm90::cp_async_commit();  // possibly empty: keeps one group per tile
+    if (s) any1 = more; else any0 = more;
+  }
+  repro::sm90::cp_async_wait<0>();
+
+  // this rank's partial, then the combine: rank r takes the r-th eighth of
+  // the G x HD outputs (G * HD is a multiple of 32)
+  heads.partial(sm + S::K_OFF, ACC, Ms, Ls, G);
+  cluster.sync();
+  const int chunk = G * HD / SPLIT;
+  for (int i = tid; i < chunk; i += nthreads) {
+    const int idx = rank * chunk + i, h = idx / HD;
+    float mr[SPLIT];
+    float M = repro::NEG_INF;
+#pragma unroll
+    for (int r = 0; r < SPLIT; ++r) {
+      mr[r] = cluster.map_shared_rank(Ms, r)[h];
+      M = fmaxf(M, mr[r]);
+    }
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int r = 0; r < SPLIT; ++r) {
+      const float w = expf(mr[r] - M);
+      lsum = fmaf(w, cluster.map_shared_rank(Ls, r)[h], lsum);
+      o = fmaf(w, cluster.map_shared_rank(ACC, r)[idx], o);
+    }
+    out_grp[idx] = repro::from_f<T>(o / fmaxf(lsum, 1e-30f));  // lsum = 0 (no valid slot): 0
+  }
+  cluster.sync();  // every rank has read the partials before any CTA exits
+}
+
+}  // namespace repro::decode

@@ -1,5 +1,4 @@
-// One-token GQA decode attention over the paged KV pool, for Hopper (sm_90a),
-// written for clarity first.
+// One-token GQA decode attention over the paged KV pool, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_paged_kernel`
 // (src/repro/kernels/paged_attention.py). Layouts are the reference's:
@@ -11,19 +10,20 @@
 // never comes from page contents: recycled pages are not zeroed, and rows
 // of invalid slots are neither read nor scored.
 //
-// Same structure as K2 (decode_attention.cu): one CTA per (KV head, batch
-// row), one warp per query head of the group, so every K/V row is read once
-// for all G heads that use it; 64-slot tiles with the online softmax
-// (m, l, acc) in f32 registers, masked scores -1e30, p rounded to the value
-// dtype before the PV product, output acc / max(l, 1e-30). Each tile first
-// resolves its 64 slots to pool rows through the block table, read on the
-// device (64 / ps table entries per tile; any ps >= 1 works), then fetches
-// the valid rows with 16-byte loads (common.cuh::load_rows_gather). This
-// gather is what the reference's model path materializes as a
-// (B, MP*ps, KVH, hd) copy (`_pool_read`); here it never leaves the CTA.
+// The kernel is decode_core.cuh's flash-decoding core over a paged source,
+// the same core as K2 (decode_attention.cu): a cluster of SPLIT CTAs per
+// (KV head, batch row), logical tile t of 64 slots on rank t % SPLIT, the
+// partials combined through distributed shared memory in the same launch. A tile's slots resolve to pool rows through the block table, read
+// on the device (64 / ps table entries per tile; any ps >= 1 works), and
+// only valid rows are copied. This gather is what the reference's model
+// path materializes as a (B, MP*ps, KVH, hd) copy (`_pool_read`); here it
+// never leaves the CTA. Because K2 and K3 share the core, the split, the
+// tile arithmetic and the combine order, a paged pool and a dense ring that
+// has not wrapped, holding the same K/V at the same positions, give the
+// same output bit for bit.
 //
-// The loop ends at the tile that holds pos, and a tile with no valid slot
-// is skipped. For a row with at least one valid slot this changes nothing:
+// Only tiles below pos + 1 are visited, and a tile with no valid slot is
+// skipped. For a row with at least one valid slot this changes nothing:
 // the TPU kernel's all-masked steps before the first valid one are rescaled
 // away by exp(-1e30 - m) = 0, and those after it add exp(-1e30 - m) = 0.
 // A row with NO valid slot (an inactive engine row has an all -1 table)
@@ -32,127 +32,41 @@
 // rows, and the checks compare only rows with a valid slot.
 //
 // What bounds it: bytes. One step reads the valid pages' K/V once (B 16,
-// pos 128-1023, KVH 8, hd 64 in bf16: ~19 MB, ~6 us at 3.35 TB/s) for a
-// few MFLOP. As in K2 a tile is computed only after it has arrived (no
-// double buffering), and the grid is (KVH, B).
-#include "common.cuh"
+// pos 128-1023, KVH 8, hd 64 in bf16: ~16 MB, ~5 us at 3.35 TB/s) for a
+// few MFLOP; decode_core.cuh says what the design does about that.
+#include "decode_core.cuh"
 
 namespace {
 
-using repro::from_f;
-using repro::load_rows;
-using repro::load_rows_gather;
-using repro::NEG_INF;
-using repro::to_f;
-using repro::warp_max;
-using repro::warp_sum;
+namespace dc = repro::decode;
 
-constexpr int BL = 64;  // logical slots per tile: two per lane
-
-template <int HD>
-size_t smem_bytes(int G) {
-  return sizeof(float) * ((size_t)G * HD + (size_t)BL * (HD + 1) + (size_t)BL * HD) +
-         sizeof(int) * BL;
-}
+// Logical slots below n_slots, resolved to pool rows through the table.
+struct PagedSlots {
+  const int* bt;  // this batch row's block table (MP,)
+  int n_slots;    // min(pos + 1, MP * ps): slots past pos or the table are invalid
+  int N, ps;
+  __device__ int row(int slot) const {
+    if (slot >= n_slots) return -1;
+    const int page = __ldg(bt + slot / ps);
+    return page >= 0 && page < N ? page * ps + slot % ps : -1;
+  }
+};
 
 template <typename T, int HD>
-__global__ void paged_decode_attention_kernel(const T* __restrict__ q,
-                                              const T* __restrict__ k_pages,
-                                              const T* __restrict__ v_pages,
-                                              const int* __restrict__ block_tables,
-                                              const int* __restrict__ pos,
-                                              T* __restrict__ out, int H, int KVH, int N,
-                                              int ps, int MP, float scale) {
-  constexpr int KS = HD + 1;   // odd stride: lanes reading different slots hit different banks
-  constexpr int PER = HD / 32; // output dims per lane
-  const int G = blockDim.x >> 5;
+__global__ void __cluster_dims__(1, 1, dc::SPLIT)
+__launch_bounds__(dc::Route<T>::MAX_THREADS)
+paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
+                              const T* __restrict__ v_pages,
+                              const int* __restrict__ block_tables,
+                              const int* __restrict__ pos, T* __restrict__ out, int H,
+                              int KVH, int N, int ps, int MP, float scale) {
+  const int G = H / KVH;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
-  const int g = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // (G, HD)
-  float* Ks = Qs + G * HD;                      // (BL, KS)
-  float* Vs = Ks + BL * KS;                     // (BL, HD)
-  int* ROWS = reinterpret_cast<int*>(Vs + BL * HD);  // pool row of each tile slot, -1 invalid
-
-  const size_t row_stride = (size_t)KVH * HD;   // between pool rows (page rows)
-  const T* q_grp = q + ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
-  const T* k_base = k_pages + (size_t)kvh * HD;
-  const T* v_base = v_pages + (size_t)kvh * HD;
-  const int* bt = block_tables + (size_t)b * MP;
-  // slots past pos or past the table are invalid: the loop stops there
-  const int n_slots = min(pos[b] + 1, MP * ps);
-
-  load_rows<T, HD>(Qs, HD, q_grp, HD, 0, G, G, tid, nthreads);
-
-  float m = NEG_INF, l = 0.f;
-  float acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  const float* qrow = Qs + g * HD;
-
-  for (int l0 = 0; l0 < n_slots; l0 += BL) {
-    __syncthreads();  // the previous tile's reads (and the q load) are done
-    int any = 0;
-    for (int j = tid; j < BL; j += nthreads) {
-      const int slot = l0 + j;
-      int r = -1;
-      if (slot < n_slots) {
-        const int page = bt[slot / ps];
-        if (page >= 0 && page < N) r = page * ps + slot % ps;
-      }
-      ROWS[j] = r;
-      any |= r >= 0;
-    }
-    if (!__syncthreads_or(any)) continue;  // no valid slot: the tile adds nothing
-    load_rows_gather<T, HD>(Ks, KS, k_base, row_stride, ROWS, BL, tid, nthreads);
-    load_rows_gather<T, HD>(Vs, HD, v_base, row_stride, ROWS, BL, tid, nthreads);
-    __syncthreads();
-
-    float s0 = 0.f, s1 = 0.f;
-    const float* k0r = Ks + lane * KS;
-    const float* k1r = Ks + (lane + 32) * KS;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float qd = qrow[d];
-      s0 = fmaf(qd, k0r[d], s0);
-      s1 = fmaf(qd, k1r[d], s1);
-    }
-    s0 = ROWS[lane] >= 0 ? s0 * scale : NEG_INF;
-    s1 = ROWS[lane + 32] >= 0 ? s1 * scale : NEG_INF;
-
-    const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
-    const float alpha = expf(m - m_new);
-    const float p0 = expf(s0 - m_new);
-    const float p1 = expf(s1 - m_new);
-    l = l * alpha + warp_sum(p0 + p1);
-    m = m_new;
-    const float p0r = to_f(from_f<T>(p0));  // p in the value dtype, as the TPU kernel
-    const float p1r = to_f(from_f<T>(p1));
-
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] *= alpha;
-    for (int j = 0; j < 32; ++j) {
-      const float pa = __shfl_sync(0xffffffffu, p0r, j);
-      const float pb = __shfl_sync(0xffffffffu, p1r, j);
-      const float* va = Vs + j * HD + lane;
-      const float* vb = Vs + (j + 32) * HD + lane;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        acc[i] = fmaf(pa, va[32 * i], acc[i]);
-        acc[i] = fmaf(pb, vb[32 * i], acc[i]);
-      }
-    }
-  }
-
-  const float denom = fmaxf(l, 1e-30f);  // l = 0 (no valid slot): zeros
-  T* orow = out + ((size_t)b * H + (size_t)kvh * G + g) * HD;
-#pragma unroll
-  for (int i = 0; i < PER; ++i) orow[lane + 32 * i] = from_f<T>(acc[i] / denom);
+  const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
+  const PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), N, ps};
+  dc::attend<T, HD>(src, G, q + grp, k_pages + (size_t)kvh * HD, v_pages + (size_t)kvh * HD,
+                    (size_t)KVH * HD, out + grp, scale);
 }
 
 template <typename T, int HD>
@@ -161,12 +75,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* block
                    float scale, cudaStream_t stream) {
   const int G = H / KVH;
   auto kern = paged_decode_attention_kernel<T, HD>;
-  const size_t smem = smem_bytes<HD>(G);
+  const size_t smem = dc::Smem<T, HD>::bytes(G);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B);
-  kern<<<grid, 32 * G, smem, stream>>>(
+  const dim3 grid(KVH, B, dc::SPLIT);
+  kern<<<grid, dc::Route<T>::threads(G), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       block_tables, pos, static_cast<T*>(out), H, KVH, N, ps, MP, scale);
   return cudaGetLastError();
@@ -184,10 +98,20 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+template <typename T>
+size_t smem_for(int hd, int G) {
+  switch (hd) {
+    case 32: return dc::Smem<T, 32>::bytes(G);
+    case 64: return dc::Smem<T, 64>::bytes(G);
+    case 128: return dc::Smem<T, 128>::bytes(G);
+    default: return 0;
+  }
+}
+
 }  // namespace
 
 // is_bf16: 1 for bfloat16 tensors, 0 for float32. The group size G = H / KVH
-// must be at most 32 (one warp per query head), and N * ps must fit an int
+// must be at most 32, and N * ps must fit an int
 // (pool rows are indexed as page * ps + row).
 extern "C" cudaError_t paged_decode_attention_fwd(const void* q, const void* k_pages,
                                                   const void* v_pages,
@@ -206,13 +130,8 @@ extern "C" cudaError_t paged_decode_attention_fwd(const void* q, const void* k_p
                             ps, MP, scale, s);
 }
 
-// Dynamic shared memory one CTA takes for head dim hd and group size G
-// (0 if hd is unsupported).
-extern "C" int paged_decode_attention_smem_bytes(int hd, int G) {
-  switch (hd) {
-    case 32: return (int)smem_bytes<32>(G);
-    case 64: return (int)smem_bytes<64>(G);
-    case 128: return (int)smem_bytes<128>(G);
-    default: return 0;
-  }
+// Dynamic shared memory one CTA takes for head dim hd, group size G and
+// dtype (is_bf16 as above); 0 if hd is unsupported.
+extern "C" int paged_decode_attention_smem_bytes(int hd, int G, int is_bf16) {
+  return (int)(is_bf16 ? smem_for<__nv_bfloat16>(hd, G) : smem_for<float>(hd, G));
 }

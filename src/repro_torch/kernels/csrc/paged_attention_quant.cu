@@ -16,12 +16,13 @@
 // A slot is valid when its page is allocated (0 <= id < N_n + N_q) and
 // j <= pos[b]; invalid slots are neither read nor scored.
 //
-// K3's structure (paged_attention.cu) unchanged: one CTA per (KV head,
+// The single-pass structure K3 had before it moved onto decode_core.cuh:
+// one CTA per (KV head,
 // row), one warp per query head of the group, 64-slot tiles with the online
 // softmax in f32 registers, masked scores -1e30, p rounded to q's dtype
 // before the PV product, output acc / max(l, 1e-30), zeros for a row with
 // no valid slot. What is new is the tile load: each slot is resolved to a
-// native or a quantized pool row, native rows are fetched as in K3, and
+// native or a quantized pool row, native rows are fetched as they are, and
 // quantized rows are fetched as codes (an int8 row at hd 64 is 64 bytes:
 // four 16-byte loads) with their scale, then dequantized right after the
 // load exactly as `dequantize_kv` and the Pallas kernel do:
@@ -30,7 +31,7 @@
 //
 // What bounds it: bytes. A step reads each valid row's codes once (1 byte
 // per element instead of 2 in bf16) plus 4 bytes of scale per row per KV
-// head, for a few MFLOP. As in K3 a tile is computed only after it has
+// head, for a few MFLOP. A tile is computed only after it has
 // arrived, and the grid is (KVH, B).
 #include "dequant.cuh"
 

@@ -2,7 +2,9 @@
 // run their products on the tensor cores: cp.async copies into shared
 // memory, the async-proxy fence, the shared-memory matrix descriptors and
 // swizzled tile layout that wgmma reads, and the bf16 and TF32 wgmma
-// products with f32 accumulators that those kernels issue.
+// products with f32 accumulators that those kernels issue; and the
+// warp-level bf16 mma.sync product with its ldmatrix loads, for products
+// too narrow for wgmma's 64 rows (the decode core's query heads).
 //
 // Tile layout. A tile is R rows of HD bf16 values (R a multiple of 8),
 // stored as column blocks of SW bytes per row (SW = 128 when a row has 128
@@ -202,6 +204,35 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_ss(float (&d)[32], uint64_t 
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+
+// ------------------------------------------------------- mma.sync (one warp)
+// Four 8 x 8 b16 matrices from shared memory: lane i gives the address of
+// row i % 8 of matrix i / 8 (16 bytes); register j receives matrix j, lane
+// t holding (row t / 4, columns 2 (t % 4), +1), or with .trans (rows
+// 2 (t % 4), +1, column t / 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// D += A B, m16n8k16 bf16 with f32 accumulators. Lane t holds A at rows
+// t / 4 (a[0], a[2]) and t / 4 + 8 (a[1], a[3]), columns 2 (t % 4), +1
+// (a[0], a[1]) and those + 8 (a[2], a[3]); B at rows (k) 2 (t % 4), +1
+// (b0) and those + 8 (b1), column (n) t / 4; D at rows t / 4 (d[0], d[1])
+// and t / 4 + 8 (d[2], d[3]), columns 2 (t % 4), +1.
+__device__ __forceinline__ void mma_m16n8k16_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace repro::sm90

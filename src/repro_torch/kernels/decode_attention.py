@@ -6,12 +6,17 @@ of ``src/repro/kernels/decode_attention.py``; ``decode_attention_quant``
 (K2q) is K2 over a quantized ring (int8 or fp8 codes with per-token-per-head
 scales), which has no Pallas kernel: the reference's ``attn_decode``
 dequantizes the whole ring in XLA first. Decode attention is byte-bound
-on the H100: each step reads the whole ring cache (B 8, L 1024, KVH 8,
-hd 64 in bf16: 16.8 MB, ~5 us at 3.35 TB/s) for a few MFLOP. The kernel
-reads each K/V tile once for all G query heads of its KV head (one warp
-per query head), as the TPU kernel's group packing does. Its grid (KVH, B)
-is 64 CTAs at B = 8, which leaves most of the 132 SMs idle; splitting L
-across CTAs (flash-decoding) is the first redesign.
+on the H100: each step reads the ring's valid slots (B 8, L 1024, KVH 8,
+hd 64 in bf16: up to 16.8 MB, ~5 us at 3.35 TB/s) for a few MFLOP. K2 is
+flash-decoding in one launch (``csrc/decode_core.cuh``, shared with K3): a
+cluster of 8 CTAs per (KV head, batch row) splits the ring's 64-slot tiles
+between them, skips tiles with no valid slot before loading them, reads
+each K/V tile once for all G query heads of its KV head (bf16 products on
+the tensor cores by mma.sync, f32 on the CUDA cores), and combines the 8
+partial softmax states through distributed shared memory. A row with no
+valid slot comes back as zeros (the plain version averages its V there);
+the engine discards such rows. K2q keeps the single-pass design, one CTA
+per (KV head, batch row).
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -53,9 +58,11 @@ def _quant_fn():
     return fn
 
 
-def smem_bytes(hd: int, G: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``."""
-    return int(build.library("decode_attention").decode_attention_smem_bytes(hd, G))
+def smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``
+    and ``dtype`` (float32 or bfloat16)."""
+    lib = build.library("decode_attention")
+    return int(lib.decode_attention_smem_bytes(hd, G, int(dtype == torch.bfloat16)))
 
 
 def quant_smem_bytes(hd: int, G: int) -> int:

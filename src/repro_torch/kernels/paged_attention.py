@@ -6,7 +6,13 @@ Replaces the Pallas TPU kernel ``_paged_kernel`` (K3) of
 gather the reference's model path runs before its einsum softmax: the
 kernel reads each valid K/V row straight from its page through the block
 table. Byte-bound on the H100: a step reads the valid pages' K/V once
-(B 16, pos up to 1023, KVH 8, hd 64 in bf16: ~19 MB, ~6 us at 3.35 TB/s).
+(B 16, pos up to 1023, KVH 8, hd 64 in bf16: ~16 MB, ~5 us at 3.35 TB/s).
+
+The kernel is K2's flash-decoding core (``csrc/decode_core.cuh``): a cluster
+of 8 CTAs per (KV head, batch row) splits the row's 64-slot tiles between
+them and combines their partial softmax states through distributed shared
+memory in the same launch. Sharing the core with K2 keeps a paged pool bit
+for bit equal to a dense ring that holds the same K/V at the same slots.
 
 Rows with no valid slot come back as zeros (the plain version averages
 page 0's V there); the engine discards them. This wrapper takes CUDA
@@ -39,9 +45,11 @@ def _fn():
     return fn
 
 
-def smem_bytes(hd: int, G: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``."""
-    return int(build.library("paged_attention").paged_decode_attention_smem_bytes(hd, G))
+def smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``
+    and ``dtype`` (float32 or bfloat16)."""
+    lib = build.library("paged_attention")
+    return int(lib.paged_decode_attention_smem_bytes(hd, G, int(dtype == torch.bfloat16)))
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,

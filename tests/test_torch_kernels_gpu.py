@@ -25,14 +25,17 @@ from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models.attention import PagedKVPool, fork_pages
 
 
-def _ring(B, L, pos):
+def _ring(B, L, pos, empty_row0=True):
     """slot_pos of a ring cache at positions ``pos``: slot i holds the
-    latest position p <= pos with p % L == i; row 0 has empty slots."""
+    latest position p <= pos with p % L == i (-1: none yet, so a row with
+    pos < L has not wrapped); ``empty_row0`` also empties row 0's upper
+    half."""
     i = np.arange(L)[None, :]
     p = pos[:, None]
     sp = np.where(i <= p % L, p - p % L + i, p - p % L - L + i)
     sp = np.where(sp < 0, -1, sp).astype(np.int32)
-    sp[0, L // 2:] = -1
+    if empty_row0:
+        sp[0, L // 2:] = -1
     return sp
 
 
@@ -108,22 +111,110 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
     assert torch.equal(first, k_flash.flash_attention(q, k, v, sl, window=w))
 
 
+# (B, L, H, KVH, hd): one tile (seven ranks of the cluster idle), the
+# serving shape, a ragged tail, eight tiles a rank (the two-stage ring
+# turns), a group of 32 at hd 128 and a group of one at hd 32
+GPU_DECODE = [(3, 64, 8, 2, 32), (8, 1024, 32, 8, 64), (2, 100, 8, 1, 128),
+              (6, 4096, 8, 2, 64), (3, 1024, 32, 1, 128), (6, 1024, 4, 4, 32)]
+
+# positions where the split across the cluster has an edge: the first and
+# second tile, rank 7's last tile and rank 0's second, the last slot of a
+# ring of 1024, and of 4096
+DECODE_EDGES = (63, 64, 511, 512, 1023, 4095)
+
+
+def _junk_where_empty(rng, x, sp):
+    """``x`` (B, L, KVH, hd) with +-1e30 in the slots that hold no position."""
+    junk = np.where(rng.random(x.shape) < 0.5, -1e30, 1e30).astype(np.float32)
+    return np.where((sp < 0)[..., None, None], junk, x)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,H,KVH,hd", [(3, 64, 8, 2, 32), (8, 1024, 32, 8, 64),
-                                          (2, 100, 8, 1, 128)])
+@pytest.mark.parametrize("B,L,H,KVH,hd", GPU_DECODE)
 def test_decode_kernel_matches_plain_on_card(cuda, dtype, B, L, H, KVH, hd):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
-               for s in ((B, H, hd), (B, L, KVH, hd), (B, L, KVH, hd)))
-    pos_np = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
-    sp = torch.from_numpy(_ring(B, L, pos_np)).to(cuda)
-    pos = torch.from_numpy(pos_np).to(cuda)
-    for window in (None, 50):
+    """K2 against its plain version over wrapped rows (row 0 half empty)
+    and over unwrapped rows at the split's edge positions (empty slots hold
+    +-1e30), each without a window, with one inside a tile and with one
+    that crosses the ranks' tiles; two launches equal bit for bit."""
+    rng = np.random.default_rng(L + hd + H)
+    wrapped = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    edges = np.asarray([min(DECODE_EDGES[b % len(DECODE_EDGES)], L - 1) for b in range(B)],
+                       np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    for pos_np, sp_np in ((wrapped, _ring(B, L, wrapped)),
+                          (edges, _ring(B, L, edges, empty_row0=False))):
+        k, v = (torch.from_numpy(_junk_where_empty(
+            rng, rng.standard_normal((B, L, KVH, hd)).astype(np.float32), sp_np)).to(cuda, dtype)
+            for _ in range(2))
+        sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+        for window in (None, 50, 200):
+            got = k_decode.decode_attention(q, k, v, sp, pos, window=window)
+            want = ref.decode_attention_ref(q, k, v, sp, pos, window=window)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert _err_ok(got, want, dtype), (pos_np, window)
+        assert torch.equal(got, k_decode.decode_attention(q, k, v, sp, pos, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_writes_zeros_where_no_slot_is_valid_on_card(cuda, dtype):
+    """A row with no valid slot gets zeros from K2, as from K3 (the plain
+    version averages its V there): an empty ring, a ring of later
+    positions only, and, under a window of 50, a row whose positions all
+    lie before the window."""
+    rng = np.random.default_rng(5)
+    B, L, H, KVH, hd = 4, 1024, 32, 8, 64
+    i = np.arange(L)
+    sp_np = np.stack([np.full(L, -1), i + 10, np.where(i <= 300, i, -1), i]).astype(np.int32)
+    pos_np = np.asarray([700, 5, 700, 700], np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((B, L, KVH, hd)).astype(np.float32))
+            .to(cuda, dtype) for _ in range(2))
+    sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+    for window, empty in ((None, 2), (50, 3)):
         got = k_decode.decode_attention(q, k, v, sp, pos, window=window)
         want = ref.decode_attention_ref(q, k, v, sp, pos, window=window)
         torch.cuda.synchronize()
-        assert _err_ok(got, want, dtype)
+        assert not got[:empty].any()
+        assert _err_ok(got[empty:], want[empty:], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_equals_dense_decode_on_card(cuda, dtype, ps):
+    """The same K/V in a ring that has not wrapped (slot j holds position j,
+    later slots empty with +-1e30) and scattered into shuffled pages (pages
+    past pos unallocated): K2 and K3 give the same output bit for bit, at
+    the split's edge positions and on a row with no valid slot (zeros)."""
+    rng = np.random.default_rng(ps)
+    B, L, H, KVH, hd = 8, 1024, 32, 8, 64
+    MP = L // ps
+    pos_np = np.asarray([-1, 0, 63, 64, 511, 512, 700, 1023], np.int32)
+    sp_np = np.where(np.arange(L)[None, :] <= pos_np[:, None], np.arange(L)[None, :],
+                     -1).astype(np.int32)
+    k, v = (torch.from_numpy(_junk_where_empty(
+        rng, rng.standard_normal((B, L, KVH, hd)).astype(np.float32), sp_np)).to(cuda, dtype)
+        for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    bt = rng.permutation(B * MP).astype(np.int32).reshape(B, MP)
+    pages = torch.from_numpy(bt.reshape(-1)).long().to(cuda)
+    kp, vp = (torch.empty((B * MP, ps, KVH, hd), dtype=dtype, device=cuda) for _ in range(2))
+    kp[pages] = k.reshape(B * MP, ps, KVH, hd)
+    vp[pages] = v.reshape(B * MP, ps, KVH, hd)
+    bt[np.arange(MP)[None, :] * ps > pos_np[:, None]] = -1   # pages past pos unallocated
+    sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+    bt = torch.from_numpy(bt).to(cuda)
+    dense = k_decode.decode_attention(q, k, v, sp, pos)
+    paged = k_paged.paged_decode_attention(q, kp, vp, bt, pos)
+    want = ref.decode_attention_ref(q, k, v, sp, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(dense, paged)
+    assert not dense[0].any()
+    assert _err_ok(dense[1:], want[1:], dtype)
+    assert torch.equal(paged, k_paged.paged_decode_attention(q, kp, vp, bt, pos))
 
 
 def paged_case(rng, B, MP, ps, KVH, hd, pos, holes=False):
@@ -155,17 +246,24 @@ def paged_case(rng, B, MP, ps, KVH, hd, pos, holes=False):
 
 # (B, MP, ps, H, KVH, hd): the serving shape at three page sizes, a page
 # larger than the kernel's 64-slot tile, a page size that is no power of
-# two, and a group of one
+# two, a group of one, tables of 4,096 slots (eight tiles a rank) and a
+# group of 32 at hd 128
 GPU_PAGED = [(16, 64, 16, 32, 8, 64), (16, 128, 8, 32, 8, 64), (16, 32, 32, 32, 8, 64),
-             (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128), (3, 8, 16, 4, 4, 64)]
+             (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128), (3, 8, 16, 4, 4, 64),
+             (6, 256, 16, 8, 2, 64), (3, 64, 16, 32, 1, 128)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,MP,ps,H,KVH,hd", GPU_PAGED)
 def test_paged_kernel_matches_plain_on_card(cuda, dtype, B, MP, ps, H, KVH, hd):
+    """K3 against its plain version: random positions, the split's edge
+    positions from row 2 on, a hole in row 1, an inactive row 0 (zeros);
+    two launches equal bit for bit."""
     rng = np.random.default_rng(MP * ps + B)
     pos = rng.integers(min(128, MP * ps // 2), MP * ps, B).astype(np.int32)
+    edges = [p for p in DECODE_EDGES if p < MP * ps][:max(B - 2, 0)]
+    pos[2:2 + len(edges)] = edges
     pos[0] = -1                       # an inactive row: all -1, no valid slot
     k, v, bt, pos = paged_case(rng, B, MP, ps, KVH, hd, pos, holes=True)
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
@@ -177,6 +275,7 @@ def test_paged_kernel_matches_plain_on_card(cuda, dtype, B, MP, ps, H, KVH, hd):
     assert torch.isfinite(got).all()
     assert not got[0].any()           # no valid slot: the kernel writes zeros
     assert _err_ok(got[1:], want[1:], dtype)
+    assert torch.equal(got, k_paged.paged_decode_attention(q, k, v, bt, pos_t))
 
 
 def chunk_case(rng, B, C, L, H, KVH, hd, variant="mix"):
