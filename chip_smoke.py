@@ -681,8 +681,12 @@ def check_quant_kernel(rng, record) -> None:
     at page-boundary positions, an inactive row 0 (all -1: the kernel
     writes zeros, checked apart), unallocated table tails, +-1e30 garbage
     (quantized to +-qmax codes) in every row no table reaches. The mixed
-    bf16 case is the quantized serve's and goes into the ``kernels`` line."""
+    bf16 case is the quantized serve's and goes into the ``kernels`` line.
+    Each case also holds K3q to K3 over the same pool with its code pages
+    dequantized (``dequantize_kv``) after the native ones, under the same
+    table ids: equal bit for bit, as both run decode_core.cuh."""
     from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels import paged_attention as kp
     from repro_torch.kernels import paged_attention_quant as kq
     from repro_torch.kernels import ref
     from repro_torch.kernels.quant import dequantize_kv, quantize_kv
@@ -719,9 +723,15 @@ def check_quant_kernel(rng, record) -> None:
                                                                          pos)
                 env = ref.paged_decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, bt, pos)
             got = fn()
+            kk, vv = dequantize_kv(qk, ks, dtype), dequantize_kv(qv, vs, dtype)
+            if k is not None:
+                kk, vv = torch.cat((k, kk)), torch.cat((v, vv))
+            native = kp.paged_decode_attention(q, kk, vv, bt, pos)
             torch.cuda.synchronize()
             if got[~has].any():
                 raise AssertionError(f"{case}: a row with no valid slot is not zeros")
+            if not torch.equal(got, native):
+                raise AssertionError(f"{case}: not K3 over the dequantized pool bit for bit")
             flat = bt.clamp(0, k_np.shape[0] - 1).flatten()
             valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
                      & (torch.arange(MP * ps, device="cuda")[None, :] <= pos[:, None]))
@@ -740,7 +750,7 @@ def check_quant_kernel(rng, record) -> None:
                    _quant_work(H, KVH, hd, q.element_size(), ps, Nn, bt_np, pos_np),
                    pool == "mixed" and dtype == torch.bfloat16,
                    library="dequantize + index_select of the K and V pages + "
-                           "scaled_dot_product_attention")
+                           "scaled_dot_product_attention", equal_to_k3_dequantized=True)
 
 
 def _prefill_quant_work(B, S, H, KVH, hd, esize, lens, window):
@@ -788,9 +798,12 @@ def check_quant_attention_kernels(rng, record) -> None:
     heads' values spread over 1e-3..1e3, so their scales do) held to the
     same f32 rule; K2q over a ring of 1,024 slots (rows 0 and 1 partly
     empty, the rest wrapped) with and without a window of 300, and at the
-    smoke shapes in f32. The library route, timed for the record only, is
-    dequantize + one scaled_dot_product_attention. The int8 bf16 cases
-    without a window go into the ``kernels`` line."""
+    smoke shapes in f32, each also held to K2 over the dequantized ring
+    (``dequantize_kv``): equal bit for bit, as both run decode_core.cuh;
+    and K2q at the dense int8 serve's own geometry (unwrapped rows, pos
+    128-540), as K2's row in check_kernels. The library route, timed for the
+    record only, is dequantize + one scaled_dot_product_attention. The int8
+    bf16 cases without a window go into the ``kernels`` line."""
     from repro_torch.cache import parse_kv_precision
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
@@ -881,10 +894,52 @@ def check_quant_attention_kernels(rng, record) -> None:
                 vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
                 return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
                                                       enable_gqa=True)
-            record(case, "decode_attention_quant", dtype, fn(), plain(), env, fn, plain, lib,
+            got = fn()
+            native = kd.decode_attention(q, dequantize_kv(qk, ks, dtype),
+                                         dequantize_kv(qv, vs, dtype), sp, pos, window=win)
+            torch.cuda.synchronize()
+            if not torch.equal(got, native):
+                raise AssertionError(f"{case}: not K2 over the dequantized ring bit for bit")
+            record(case, "decode_attention_quant", dtype, got, plain(), env, fn, plain, lib,
                    _decode_quant_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, win),
                    prec == "int8" and dtype == torch.bfloat16 and win is None and L == 1024,
-                   library=lib_name)
+                   library=lib_name, equal_to_k2_dequantized=True)
+
+    # K2q at the dense int8 serve's own geometry: rows that have not wrapped
+    # (prompts of 128-512 plus decode steps in a ring of 1024), so about half
+    # of the ring's tiles hold no valid slot and are skipped unread (its own
+    # generator, so the phases after it see the data they saw before)
+    B, L, H, KVH, hd, dtype = 8, 1024, 32, 8, 64, torch.bfloat16
+    srng = np.random.default_rng(22)
+    pos_np = np.random.default_rng(21).integers(128, 541, B).astype(np.int32)
+    sp_np = _ring_slot_pos(B, L, pos_np)
+    int8 = parse_kv_precision("int8")
+    (qk, ks), (qv, vs) = (quantize_kv(torch.from_numpy(
+        srng.standard_normal((B, L, KVH, hd)).astype(np.float32)).cuda(), int8) for _ in range(2))
+    q = torch.from_numpy(srng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(dtype)
+    sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kd.decode_attention_quant(q, qk, qv, ks, vs, sp, pos)
+    plain = lambda: ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos)
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+
+    def lib():
+        kk = dequantize_kv(qk, ks, q.dtype).transpose(1, 2)
+        vv = dequantize_kv(qv, vs, q.dtype).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+    got = fn()
+    native = kd.decode_attention(q, dequantize_kv(qk, ks, dtype), dequantize_kv(qv, vs, dtype),
+                                 sp, pos)
+    torch.cuda.synchronize()
+    case = f"decode_attention_quant int8 B{B} L{L} H{H}/{KVH} hd{hd} bf16 unwrapped pos 128-540"
+    if not torch.equal(got, native):
+        raise AssertionError(f"{case}: not K2 over the dequantized ring bit for bit")
+    record(case, "decode_attention_quant", dtype, got, plain(),
+           ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos), fn, plain, lib,
+           _decode_quant_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, None), False,
+           library=lib_name, device=True, equal_to_k2_dequantized=True,
+           valid_tiles=int(((sp_np >= 0).reshape(B, L // 64, 64)).any(-1).sum()),
+           tiles=B * L // 64)
 
 
 def _chunk_quant_work(H, KVH, hd, esize, C, sp, pos0, valid):
@@ -2697,30 +2752,51 @@ def ssd_instantiations(ptxas: list) -> list:
     return sorted(out, key=lambda r: (r["kernel"], r.get("chunk_tiles", 0)))
 
 
-_DECODE_SYMBOL = re.compile(r"(paged_)?decode_attention_kernelI(f|13__nv_bfloat16)Li(\d+)E")
+_DECODE_SYMBOL = re.compile(r"(paged_)?decode_attention(_quant)?_kernelI(f|13__nv_bfloat16)"
+                            r"(a|13__nv_fp8_e4m3)?Li(\d+)E")
+
+
+def resident_ctas(threads: int, registers: int, smem: int) -> int:
+    """CTAs of ``threads`` threads that one H100 SM holds at once, by its
+    65,536 registers (allocated to a warp in units of 256), its 233,472
+    bytes of shared memory (1,024 reserved a CTA), its 2,048 threads and
+    its 32 CTAs."""
+    warps = -(-threads // 32)
+    per_warp = -(-registers * 32 // 256) * 256
+    return min(65536 // (warps * per_warp), 233472 // (smem + 1024), 2048 // threads, 32)
 
 
 def decode_instantiations(ptxas: list) -> list:
-    """Each instantiation of K2 (csrc/decode_attention.cu) and K3
-    (csrc/paged_attention.cu), both csrc/decode_core.cuh, from ``-Xptxas
-    -v``: kernel, dtype, hd, the dynamic shared memory of one CTA at G 4,
-    registers and spill bytes."""
+    """Each instantiation of K2 (csrc/decode_attention.cu), K3
+    (csrc/paged_attention.cu), K2q (csrc/decode_attention_quant.cu) and K3q
+    (csrc/paged_attention_quant.cu), all csrc/decode_core.cuh, from
+    ``-Xptxas -v``: kernel, dtype, code type, hd, the dynamic shared memory
+    of one CTA at G 4 (128 threads), registers, spill bytes and the CTAs an
+    SM holds at once (``resident_ctas``)."""
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import paged_attention_quant as kpq
 
+    smem = {("K2", False): kd.smem_bytes, ("K3", False): kp.smem_bytes,
+            ("K2q", True): kd.quant_smem_bytes, ("K3q", True): kpq.smem_bytes}
     out = []
     for f in ptxas:
         m = _DECODE_SYMBOL.search(f["function"])
         if m is None:
             continue
-        dtype = torch.float32 if m.group(2) == "f" else torch.bfloat16
-        hd = int(m.group(3))
-        paged = m.group(1) is not None
-        out.append({"kernel": "K3" if paged else "K2", "dtype": str(dtype).removeprefix("torch."),
-                    "hd": hd, "smem_bytes_G4": (kp if paged else kd).smem_bytes(hd, 4, dtype),
-                    "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
-                    "spill_loads": f.get("spill_loads")})
-    return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r["hd"]))
+        dtype = torch.float32 if m.group(3) == "f" else torch.bfloat16
+        hd, quant = int(m.group(5)), m.group(2) is not None
+        kernel = ("K3" if m.group(1) else "K2") + ("q" if quant else "")
+        row = {"kernel": kernel, "dtype": str(dtype).removeprefix("torch."), "hd": hd,
+               "smem_bytes_G4": smem[kernel, quant](hd, 4, dtype),
+               "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
+               "spill_loads": f.get("spill_loads")}
+        if quant:
+            row["codes"] = _CXX_TYPE[m.group(4)]
+        row["resident_ctas_per_sm_G4"] = resident_ctas(128, row["registers"],
+                                                       row["smem_bytes_G4"])
+        out.append(row)
+    return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r.get("codes", ""), r["hd"]))
 
 
 def main() -> int:
@@ -2753,9 +2829,9 @@ def main() -> int:
                              "flash_attention_quant_hd64_bf16_wgmma":
                                  kf.smem_bytes(64, torch.bfloat16, quantized=True),
                              "decode_attention_hd64_G4_bf16": kd.smem_bytes(64, 4),
-                             "decode_attention_quant_hd64_G4": kd.quant_smem_bytes(64, 4),
+                             "decode_attention_quant_hd64_G4_bf16": kd.quant_smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4_bf16": kp.smem_bytes(64, 4),
-                             "paged_decode_attention_quant_hd64_G4": kpq.smem_bytes(64, 4),
+                             "paged_decode_attention_quant_hd64_G4_bf16": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64_f32_cuda_cores":
                                  kc.smem_bytes(64, torch.float32),
                              "chunk_attention_hd64_bf16_wgmma": kc.smem_bytes(64, torch.bfloat16),
@@ -2774,7 +2850,8 @@ def main() -> int:
              info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]),
          ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]),
          decode_instantiations=decode_instantiations(
-             info["decode_attention"]["ptxas"] + info["paged_attention"]["ptxas"]))
+             [f for n in ("decode_attention", "paged_attention", "decode_attention_quant",
+                          "paged_attention_quant") for f in info[n]["ptxas"]]))
 
     timer = Timer()
     rows = check_kernels(timer)

@@ -28,19 +28,6 @@ namespace {
 
 namespace dc = repro::decode;
 
-// Ring slots: a slot reads its own row when its position is visible to pos.
-struct RingSlots {
-  const int* sp;  // this batch row's slot_pos (L,)
-  int n_slots;    // L
-  int pos, window;
-  __device__ int row(int slot) const {
-    if (slot >= n_slots) return -1;
-    const int p = __ldg(sp + slot);
-    const bool ok = p >= 0 && p <= pos && (window <= 0 || p > pos - window);
-    return ok ? slot : -1;
-  }
-};
-
 template <typename T, int HD>
 __global__ void __cluster_dims__(1, 1, dc::SPLIT)
 __launch_bounds__(dc::Route<T>::MAX_THREADS)
@@ -53,7 +40,7 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y;
   const size_t kv_stride = (size_t)KVH * HD;
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
-  const RingSlots src{slot_pos + (size_t)b * L, L, pos[b], window};
+  const dc::RingSlots<false> src{slot_pos + (size_t)b * L, L, pos[b], window};
   dc::attend<T, HD>(src, G, q + grp, k + (size_t)b * L * kv_stride + (size_t)kvh * HD,
                     v + (size_t)b * L * kv_stride + (size_t)kvh * HD, kv_stride, out + grp,
                     scale);
@@ -88,16 +75,6 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
-size_t smem_for(int hd, int G) {
-  switch (hd) {
-    case 32: return dc::Smem<T, 32>::bytes(G);
-    case 64: return dc::Smem<T, 64>::bytes(G);
-    case 128: return dc::Smem<T, 128>::bytes(G);
-    default: return 0;
-  }
-}
-
 }  // namespace
 
 // window <= 0 means no window. is_bf16: 1 for bfloat16 tensors, 0 for float32.
@@ -118,5 +95,5 @@ extern "C" cudaError_t decode_attention_fwd(const void* q, const void* k, const 
 // Dynamic shared memory one CTA takes for head dim hd, group size G and
 // dtype (is_bf16 as above); 0 if hd is unsupported.
 extern "C" int decode_attention_smem_bytes(int hd, int G, int is_bf16) {
-  return (int)(is_bf16 ? smem_for<__nv_bfloat16>(hd, G) : smem_for<float>(hd, G));
+  return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
 }

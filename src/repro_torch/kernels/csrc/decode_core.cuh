@@ -1,29 +1,47 @@
 // The core of one-token GQA decode attention for Hopper (sm_90a), shared by
-// K2 (decode_attention.cu, over the ring cache) and K3 (paged_attention.cu,
-// through block tables): flash-decoding inside one launch.
+// K2 (decode_attention.cu, over the ring cache), K3 (paged_attention.cu,
+// through block tables), K2q (decode_attention_quant.cu, over a ring of
+// int8/fp8 codes) and K3q (paged_attention_quant.cu, over a quantized or
+// mixed page pool): flash-decoding inside one launch.
 //
 // A launch's grid is (KVH, B, SPLIT); the SPLIT CTAs of one (KV head, batch
 // row) pair form a thread-block cluster, and each takes every SPLIT-th tile
 // of 64 slots: tile t (slots 64t .. 64t+63) goes to cluster rank t % SPLIT.
 // The partition is a function of the slot index alone, never of L, the
-// number of valid slots or the page size, so a dense ring and a paged pool
-// that hold the same positions in the same slots run the same arithmetic
-// bit for bit (paged equals dense).
+// number of valid slots, the page size or the storage of a row, so a dense
+// ring and a paged pool that hold the same positions in the same slots run
+// the same arithmetic bit for bit (paged equals dense, native or int8), and
+// a row of codes gives the bits of its dequantized row stored natively.
 //
-// A source says which row of the K/V arrays a slot reads: `row(slot)` is
-// the row index (rows `row_stride` elements apart from `k_base`/`v_base`)
-// or -1 for an invalid slot, and `n_slots` bounds the slots. K2's source
-// reads slot_pos (a ring slot is its own row), K3's the block table (a
-// slot's pool row). A CTA first resolves its tiles' 64 slots to rows; a
-// tile with no valid slot is skipped before any K/V load (its scores would
-// all be -1e30: before the first valid tile exp(-1e30 - m) = 0 scales it
-// away, after it it adds 0). The rows of valid slots are copied into shared
-// memory in their stored type by 16-byte cp.async copies, invalid rows land
-// as zeros, into a ring of two stages, so a CTA's first two tiles are in
-// flight before it computes the first; the rows of tile i + 2 are fetched
-// into registers while tile i computes. K and V rows lie an odd number of
-// 16-byte chunks apart, so eight rows' chunks at one column fall into eight
-// different bank groups (for ldmatrix and for the lanes' 16-byte reads).
+// A source says where a slot's K/V rows are: `row(slot)` is
+//   >= 0   a native row (in T, rows `row_stride` elements apart from
+//          `k_base`/`v_base`);
+//   -1     an invalid slot: never read, its rows land as zeros;
+//   <= -2  code row -2 - row of the `codes` (CodeRows: HD one-byte codes a
+//          row, one f32 scale per row and KV head).
+// `n_slots` bounds the slots. RingSlots reads slot_pos (a ring slot is its
+// own row), PagedSlots the block table (a slot's pool row, by page id). A
+// CTA first resolves its tiles' 64 slots to rows; a tile with no valid slot
+// is skipped before any K/V load (its scores would all be -1e30: before the
+// first valid tile exp(-1e30 - m) = 0 scales it away, after it it adds 0).
+// Native rows are copied into shared memory in T by 16-byte cp.async
+// copies, invalid rows land as zeros, into a ring of two stages, so a CTA's
+// first two tiles are in flight before it computes the first; the rows of
+// tile i + 2 are resolved into registers while tile i computes. K and V
+// rows lie an odd number of 16-byte chunks apart, so eight rows' chunks at
+// one column fall into eight different bank groups (for ldmatrix and for
+// the lanes' 16-byte reads).
+//
+// A code row is copied by cp.async too, into its own row of the T ring:
+// chunk c (codes 16c .. 16c + 15) lands where its 16 dequantized values
+// will lie (byte 16c * sizeof(T)), and the row's scale in the 4 bytes after
+// it, both by one thread. After its wait for the tile, that thread reads
+// them back, dequantizes exactly as `dequantize_kv` does ((float(code) *
+// scale) rounded to T, dequant.cuh) and writes the 16 values over them:
+// each thread touches only what it copied itself, so the dequantization
+// needs no barrier of its own and no shared memory beyond K2's, and the
+// copies stay coalesced (four lanes a 64-byte row at hd 64). From there on
+// a code row is a native row.
 //
 // A tile's products, by dtype. Both keep the numeric rules of the Pallas
 // kernel: masked scores -1e30, the online softmax (m, l, acc) in f32, p
@@ -56,10 +74,11 @@
 // run, and each call is one kernel launch.
 //
 // What bounds it: bytes. A step reads each valid K/V row once for all G
-// query heads that use it, at 4 * hd FLOPs per (head, slot), two orders of
-// magnitude below the card's ratio of FLOPs to bytes; the design spends its
-// effort on having many copies in flight on many SMs (B * KVH * SPLIT
-// CTAs) and on keeping each tile's instructions few.
+// query heads that use it (a code row as hd bytes and a 4-byte scale), at
+// 4 * hd FLOPs per (head, slot), two orders of magnitude below the card's
+// ratio of FLOPs to bytes; the design spends its effort on having many
+// copies in flight on many SMs (B * KVH * SPLIT CTAs) and on keeping each
+// tile's instructions few.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -67,6 +86,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "dequant.cuh"
 #include "sm90.cuh"
 
 namespace repro::decode {
@@ -74,6 +94,53 @@ namespace repro::decode {
 constexpr int BL = 64;      // slots per tile
 constexpr int SPLIT = 8;    // CTAs per cluster (the portable limit); tile t -> rank t % SPLIT
 constexpr int STAGES = 2;   // the ring of K/V tiles
+constexpr int INVALID = -1; // a source's row for a slot that is not read
+
+// Ring slots (K2, K2q): a slot reads its own row when its position is
+// visible to pos; with CODES that row is a code row.
+template <bool CODES> struct RingSlots {
+  const int* sp;  // this batch row's slot_pos (L,)
+  int n_slots;    // L
+  int pos, window;
+  __device__ int row(int slot) const {
+    if (slot >= n_slots) return INVALID;
+    const int p = __ldg(sp + slot);
+    const bool ok = p >= 0 && p <= pos && (window <= 0 || p > pos - window);
+    return ok ? (CODES ? -2 - slot : slot) : INVALID;
+  }
+};
+
+// Logical slots through a block table (K3, K3q): an id below Nn names a
+// native page, one in [Nn, Nn + Nq) code page id - Nn, anything else is
+// unallocated. Slot j lies at page row j % ps.
+struct PagedSlots {
+  const int* bt;  // this batch row's block table (MP,)
+  int n_slots;    // min(pos + 1, MP * ps): slots past pos or the table are invalid
+  int Nn, Nq, ps;
+  __device__ int row(int slot) const {
+    if (slot >= n_slots) return INVALID;
+    const int page = __ldg(bt + slot / ps);
+    if (page >= 0 && page < Nn) return page * ps + slot % ps;
+    if (page >= Nn && page - Nn < Nq) return -2 - ((page - Nn) * ps + slot % ps);
+    return INVALID;
+  }
+};
+
+// The code rows a source's rows <= -2 name (K2q, K3q): row r's HD codes at
+// k/v + r * row_stride, its scales at ks/vs[r * scale_stride].
+template <typename C> struct CodeRows {
+  static constexpr bool ON = true;
+  using Code = C;
+  const C* k;
+  const C* v;
+  const float* ks;
+  const float* vs;
+  size_t row_stride, scale_stride;
+};
+// No code rows (K2, K3).
+struct NoCodes {
+  static constexpr bool ON = false;
+};
 
 // Which products a dtype runs on, and its CTA: bf16 four warps per 16
 // query heads, f32 one warp per query head.
@@ -81,6 +148,14 @@ template <typename T> struct Route {
   static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int MAX_THREADS = MMA ? 256 : 1024;
   static int threads(int G) { return MMA ? 128 * ((G + 15) / 16) : 32 * G; }
+  // The register cap of a kernel whose source names code rows
+  // (__maxnreg__, in place of K2's __launch_bounds__(MAX_THREADS)): as many
+  // CTAs of 128 threads a SM as their shared memory allows, five at hd <=
+  // 64 (96 registers) and three at hd 128 (168); f32 CTAs of up to 1,024
+  // threads 64. Left free, the dequantization's registers take a bf16
+  // thread to 120 (four CTAs a SM), and the 64 clusters of K2q at B 8 no
+  // longer run in one wave.
+  static constexpr int code_regs(int hd) { return !MMA ? 64 : hd > 64 ? 168 : 96; }
 };
 
 // Shared memory in bytes: the K and V rings, the rows of each stage's
@@ -95,6 +170,16 @@ template <typename T, int HD> struct Smem {
   // then acc f32 [G][HD], m f32 [G], l f32 [G]
   static size_t bytes(int G) { return Q_OFF + (size_t)G * HD * 4 * 2 + (size_t)G * 8; }
 };
+
+// Smem<T, hd>::bytes(G) for a runtime hd (0 if hd is unsupported).
+template <typename T> size_t smem_bytes(int hd, int G) {
+  switch (hd) {
+    case 32: return Smem<T, 32>::bytes(G);
+    case 64: return Smem<T, 64>::bytes(G);
+    case 128: return Smem<T, 128>::bytes(G);
+    default: return 0;
+  }
+}
 
 // The CUDA-core route (float32): warp g is query head g, lane `lane` scores
 // slots lane and lane + 32 and owns output dims [lane * PER, lane * PER +
@@ -130,8 +215,8 @@ template <int HD> struct WarpPerHead {
       s0 = fmaf(q.z, a.z, s0), s1 = fmaf(q.z, b.z, s1);
       s0 = fmaf(q.w, a.w, s0), s1 = fmaf(q.w, b.w, s1);
     }
-    s0 = R[lane] >= 0 ? s0 * scale : repro::NEG_INF;
-    s1 = R[lane + 32] >= 0 ? s1 * scale : repro::NEG_INF;
+    s0 = R[lane] != INVALID ? s0 * scale : repro::NEG_INF;
+    s1 = R[lane + 32] != INVALID ? s1 * scale : repro::NEG_INF;
 
     const float m_new = fmaxf(m, repro::warp_max(fmaxf(s0, s1)));
     const float alpha = expf(m - m_new);
@@ -230,10 +315,10 @@ template <int HD> struct MmaHeads {
 #pragma unroll
     for (int nb = 0; nb < 2; ++nb) {
       const int2 ok = *reinterpret_cast<const int2*>(R + 16 * cb + 8 * nb + c);
-      s[nb][0] = ok.x >= 0 ? s[nb][0] * scale : repro::NEG_INF;
-      s[nb][1] = ok.y >= 0 ? s[nb][1] * scale : repro::NEG_INF;
-      s[nb][2] = ok.x >= 0 ? s[nb][2] * scale : repro::NEG_INF;
-      s[nb][3] = ok.y >= 0 ? s[nb][3] * scale : repro::NEG_INF;
+      s[nb][0] = ok.x != INVALID ? s[nb][0] * scale : repro::NEG_INF;
+      s[nb][1] = ok.y != INVALID ? s[nb][1] * scale : repro::NEG_INF;
+      s[nb][2] = ok.x != INVALID ? s[nb][2] * scale : repro::NEG_INF;
+      s[nb][3] = ok.y != INVALID ? s[nb][3] * scale : repro::NEG_INF;
       mx0 = fmaxf(mx0, fmaxf(s[nb][0], s[nb][1]));
       mx1 = fmaxf(mx1, fmaxf(s[nb][2], s[nb][3]));
     }
@@ -320,19 +405,24 @@ template <int HD> struct MmaHeads {
 };
 
 // Decode attention of the G query heads at ``q_grp`` (G x HD, contiguous)
-// over the slots that ``src`` names, into ``out_grp`` (G x HD). Called by
-// every thread of every CTA of the cluster (Route<T>::threads(G) threads),
-// with dynamic shared memory of Smem<T, HD>::bytes(G).
-template <typename T, int HD, typename Source>
+// over the slots that ``src`` names, into ``out_grp`` (G x HD); ``codes``
+// holds the code rows a source names (NoCodes: it names none, and k_base
+// and v_base may be null when it names no native row). Called by every
+// thread of every CTA of the cluster (Route<T>::threads(G) threads), with
+// dynamic shared memory of Smem<T, HD>::bytes(G).
+template <typename T, int HD, typename Source, typename Codes = NoCodes>
 __device__ __forceinline__ void attend(const Source& src, int G, const T* __restrict__ q_grp,
                                        const T* __restrict__ k_base,
                                        const T* __restrict__ v_base, size_t row_stride,
-                                       T* __restrict__ out_grp, float scale) {
+                                       T* __restrict__ out_grp, float scale,
+                                       const Codes& codes = Codes{}) {
   namespace cg = cooperative_groups;
   using S = Smem<T, HD>;
   using Heads = std::conditional_t<Route<T>::MMA, MmaHeads<HD>, WarpPerHead<HD>>;
   constexpr int CPR = S::CPR;
   constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int CCH = HD / 16;                     // 16-byte chunks of a code row
+  constexpr int CODE_STEP = 16 * (int)sizeof(T);  // bytes of a code chunk's 16 values
   static_assert(HD % 32 == 0 && (HD * (int)sizeof(T)) % 16 == 0, "HD must be 32, 64, 128");
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -359,7 +449,7 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int j = tid + k * nthreads;
-      pre[k] = i < mine && j < BL ? src.row(slot0 + j) : -1;
+      pre[k] = i < mine && j < BL ? src.row(slot0 + j) : INVALID;
     }
   };
   // Store fetched rows as stage s's; true when the tile has a valid slot.
@@ -370,12 +460,14 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
       const int j = tid + k * nthreads;
       if (j < BL) {
         ROWS[s * BL + j] = pre[k];
-        any |= pre[k] >= 0;
+        any |= pre[k] != INVALID;
       }
     }
     return __syncthreads_or(any) != 0;
   };
-  // Copy stage s's K and V rows (zeros for invalid ones) into the ring.
+  // Copy stage s's K and V rows into the ring: native rows as they are,
+  // zeros for invalid ones (cp.async of 0 bytes from a valid address), code
+  // rows as code chunks, each with the row's scale beside it.
   auto issue = [&](int s) {
     const uint32_t kb = repro::sm90::smem_u32(sm + S::K_OFF + s * BL * S::ROW);
     const uint32_t vb = repro::sm90::smem_u32(sm + S::V_OFF + s * BL * S::ROW);
@@ -385,9 +477,54 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
       const int r = ii / CPR, c = ii % CPR;
       const int row = ROWS[s * BL + r];
       const T* base = is_v ? v_base : k_base;
-      repro::sm90::cp_async16((is_v ? vb : kb) + r * S::ROW + c * 16,
-                              base + (row >= 0 ? (size_t)row * row_stride + c * VEC : 0),
-                              row >= 0 ? 16 : 0);
+      const void* from = base + (row >= 0 ? (size_t)row * row_stride + c * VEC : 0);
+      if constexpr (Codes::ON) {
+        if (row < INVALID) continue;  // a code row: below
+        if (row < 0) from = codes.k;  // k_base may be null: any valid address
+      }
+      repro::sm90::cp_async16((is_v ? vb : kb) + r * S::ROW + c * 16, from, row >= 0 ? 16 : 0);
+    }
+    if constexpr (Codes::ON) {
+      for (int i = tid; i < 2 * BL * CCH; i += nthreads) {
+        const bool is_v = i >= BL * CCH;
+        const int ii = is_v ? i - BL * CCH : i;
+        const int r = ii / CCH, c = ii % CCH;
+        const int row = ROWS[s * BL + r];
+        if (row >= INVALID) continue;
+        const size_t qr = (size_t)(-2 - row);
+        const uint32_t dst = (is_v ? vb : kb) + r * S::ROW + c * CODE_STEP;
+        repro::sm90::cp_async16(dst, (is_v ? codes.v : codes.k) + qr * codes.row_stride + c * 16,
+                                16);
+        repro::sm90::cp_async4(dst + 16, (is_v ? codes.vs : codes.ks) + qr * codes.scale_stride,
+                               4);
+      }
+    }
+  };
+  // Dequantize this thread's code chunks of stage s in place (the chunks
+  // and scales its own issue(s) copied, landed for it after its wait).
+  auto dequant = [&](int s) {
+    if constexpr (Codes::ON) {
+      using C = typename Codes::Code;
+      for (int i = tid; i < 2 * BL * CCH; i += nthreads) {
+        const bool is_v = i >= BL * CCH;
+        const int ii = is_v ? i - BL * CCH : i;
+        const int r = ii / CCH, c = ii % CCH;
+        if (ROWS[s * BL + r] >= INVALID) continue;
+        char* at = sm + (is_v ? S::V_OFF : S::K_OFF) + (s * BL + r) * S::ROW + c * CODE_STEP;
+        const uint4 u = *reinterpret_cast<const uint4*>(at);
+        const float sc = *reinterpret_cast<const float*>(at + 16);
+        if constexpr (Route<T>::MMA) {  // the upper 8 values first: they cover the scale
+          reinterpret_cast<uint4*>(at)[1] = repro::dequant8_bf16<C>(make_uint2(u.z, u.w), sc);
+          reinterpret_cast<uint4*>(at)[0] = repro::dequant8_bf16<C>(make_uint2(u.x, u.y), sc);
+        } else {
+          float d[16];
+          repro::store_dequant16<C, T>(d, u, sc);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            reinterpret_cast<float4*>(at)[e] = make_float4(d[4 * e], d[4 * e + 1], d[4 * e + 2],
+                                                           d[4 * e + 3]);
+        }
+      }
     }
   };
 
@@ -410,8 +547,10 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
     int pre[2];
     fetch(i + 2, pre);  // in flight while tile i computes
     repro::sm90::cp_async_wait<1>();  // tile i has landed (only i + 1's group may be pending)
+    const bool any = s ? any1 : any0;
+    if (any) dequant(s);
     __syncthreads();
-    if (s ? any1 : any0)
+    if (any)
       heads.tile(sm + S::K_OFF + s * BL * S::ROW, sm + S::V_OFF + s * BL * S::ROW,
                  ROWS + s * BL, Qs, scale);
     bool more = false;

@@ -1,6 +1,7 @@
 // Dequantizing tile loads shared by the kernels that read int8 or
 // float8_e4m3fn KV codes with one float32 scale per row and KV head (K1q,
-// K2q, K3q, K4q, K4p): each code converts to float exactly, is multiplied by
+// K4q, K4p; K2q and K3q through decode_core.cuh, which dequantizes codes
+// already in shared memory): each code converts to float exactly, is multiplied by
 // its scale in f32, and the product is rounded to the compute dtype T, as the
 // reference's `dequantize_kv` and the Pallas kernels do.
 #pragma once
@@ -11,50 +12,70 @@
 
 namespace repro {
 
-// A one-byte code (the low 8 bits of ``byte``) as a float, exactly.
-template <typename C> __device__ __forceinline__ float code_to_f(uint32_t byte);
-template <> __device__ __forceinline__ float code_to_f<int8_t>(uint32_t byte) {
-  return (float)(int)(signed char)(byte & 0xffu);
+// The 8 one-byte codes of ``u`` as floats, exactly, into f[0..7] (code e
+// is byte e % 4 of word e / 4, little-endian):
+// - int8 with no conversion instruction (those issue at a quarter of the
+//   FP32 rate): byte ^ 0x80 is code + 128 in [0, 255]; set as the low byte
+//   of the float 2^23 (0x4B000000) it gives 2^23 + code + 128 exactly, and
+//   taking 2^23 + 128 away is exact.
+// - e4m3 two codes a conversion, to f16 (exact: every e4m3 value is an f16
+//   value), then to f32.
+template <typename C> __device__ __forceinline__ void codes8_to_f(uint2 u, float (&f)[8]);
+template <> __device__ __forceinline__ void codes8_to_f<int8_t>(uint2 u, float (&f)[8]) {
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e)  // bytes (code + 128, 0, 0, 0x4B)
+    f[e] = __uint_as_float(__byte_perm(w[e / 4], 0x4B000000u, 0x7540u | (e % 4))) - 8388736.f;
 }
-template <> __device__ __forceinline__ float code_to_f<__nv_fp8_e4m3>(uint32_t byte) {
-  __nv_fp8_e4m3 c;
-  c.__x = (__nv_fp8_storage_t)(byte & 0xffu);
-  return static_cast<float>(c);
+template <> __device__ __forceinline__ void codes8_to_f<__nv_fp8_e4m3>(uint2 u, float (&f)[8]) {
+  const uint32_t w[2] = {u.x, u.y};
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)(w[p / 2] >> (16 * (p % 2))), __NV_E4M3));
+    const float2 x = __half22float2(h);
+    f[2 * p] = x.x;
+    f[2 * p + 1] = x.y;
+  }
 }
 
-// The code in the low 8 bits of ``byte`` dequantized with ``scale`` and
-// rounded to T: the one conversion every dequantizing load shares.
-template <typename C, typename T>
-__device__ __forceinline__ T dequant_code(uint32_t byte, float scale) {
-  return from_f<T>(code_to_f<C>(byte) * scale);
+// The 8 codes of ``u`` dequantized with ``scale`` and rounded to bf16, as
+// the bytes of 8 values of a bf16 row (code 2i in the low half of word i):
+// (float(code) * scale) in f32, rounded to bf16, as store_dequant16; two
+// values a rounding instruction.
+template <typename C>
+__device__ __forceinline__ uint4 dequant8_bf16(uint2 u, float scale) {
+  float f[8];
+  codes8_to_f<C>(u, f);
+  uint32_t o[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * p] * scale, f[2 * p + 1] * scale);
+    o[p] = reinterpret_cast<const uint32_t&>(h);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // The 16 one-byte codes of ``u`` dequantized with ``scale`` and rounded to
-// T, as floats into d[0..15].
+// T, as floats into d[0..15]: (float(code) * scale) in f32, rounded to T,
+// the one rule every dequantizing load shares.
 template <typename C, typename T>
 __device__ __forceinline__ void store_dequant16(float* d, uint4 u, float scale) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-  for (int e = 0; e < 16; ++e)  // little-endian: code e is byte e % 4 of word e / 4
-    d[e] = to_f(dequant_code<C, T>(w[e / 4] >> (8 * (e % 4)), scale));
+  for (int h = 0; h < 2; ++h) {
+    float f[8];
+    codes8_to_f<C>(h ? make_uint2(u.z, u.w) : make_uint2(u.x, u.y), f);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d[8 * h + e] = to_f(from_f<T>(f[e] * scale));
+  }
 }
 
 // The 16 codes of ``u`` dequantized and rounded as store_dequant16 does,
-// kept as bf16: codes 0-7 in ``lo`` and 8-15 in ``hi``, code 2i in the low
-// half of word i (the bytes of a row of a bf16 tile).
+// kept as bf16: codes 0-7 in ``lo`` and 8-15 in ``hi`` (dequant8_bf16).
 template <typename C>
 __device__ __forceinline__ void dequant16_bf16(uint4 u, float scale, uint4& lo, uint4& hi) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  uint32_t o[8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {  // codes 2p and 2p + 1: bytes 2(p % 2) and up of word p / 2
-    const uint32_t pair = w[p / 2] >> (16 * (p % 2));
-    o[p] = (uint32_t)__bfloat16_as_ushort(dequant_code<C, __nv_bfloat16>(pair, scale)) |
-           ((uint32_t)__bfloat16_as_ushort(dequant_code<C, __nv_bfloat16>(pair >> 8, scale))
-            << 16);
-  }
-  lo = make_uint4(o[0], o[1], o[2], o[3]);
-  hi = make_uint4(o[4], o[5], o[6], o[7]);
+  lo = dequant8_bf16<C>(make_uint2(u.x, u.y), scale);
+  hi = dequant8_bf16<C>(make_uint2(u.z, u.w), scale);
 }
 
 // The tile rows named by ``qrows`` (``nrows`` entries; >= 0: a row of the

@@ -40,18 +40,6 @@ namespace {
 
 namespace dc = repro::decode;
 
-// Logical slots below n_slots, resolved to pool rows through the table.
-struct PagedSlots {
-  const int* bt;  // this batch row's block table (MP,)
-  int n_slots;    // min(pos + 1, MP * ps): slots past pos or the table are invalid
-  int N, ps;
-  __device__ int row(int slot) const {
-    if (slot >= n_slots) return -1;
-    const int page = __ldg(bt + slot / ps);
-    return page >= 0 && page < N ? page * ps + slot % ps : -1;
-  }
-};
-
 template <typename T, int HD>
 __global__ void __cluster_dims__(1, 1, dc::SPLIT)
 __launch_bounds__(dc::Route<T>::MAX_THREADS)
@@ -64,7 +52,8 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
-  const PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), N, ps};
+  const dc::PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), N, 0,
+                          ps};
   dc::attend<T, HD>(src, G, q + grp, k_pages + (size_t)kvh * HD, v_pages + (size_t)kvh * HD,
                     (size_t)KVH * HD, out + grp, scale);
 }
@@ -98,16 +87,6 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-template <typename T>
-size_t smem_for(int hd, int G) {
-  switch (hd) {
-    case 32: return dc::Smem<T, 32>::bytes(G);
-    case 64: return dc::Smem<T, 64>::bytes(G);
-    case 128: return dc::Smem<T, 128>::bytes(G);
-    default: return 0;
-  }
-}
-
 }  // namespace
 
 // is_bf16: 1 for bfloat16 tensors, 0 for float32. The group size G = H / KVH
@@ -133,5 +112,5 @@ extern "C" cudaError_t paged_decode_attention_fwd(const void* q, const void* k_p
 // Dynamic shared memory one CTA takes for head dim hd, group size G and
 // dtype (is_bf16 as above); 0 if hd is unsupported.
 extern "C" int paged_decode_attention_smem_bytes(int hd, int G, int is_bf16) {
-  return (int)(is_bf16 ? smem_for<__nv_bfloat16>(hd, G) : smem_for<float>(hd, G));
+  return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
 }

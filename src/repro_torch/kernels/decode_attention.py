@@ -7,16 +7,18 @@ of ``src/repro/kernels/decode_attention.py``; ``decode_attention_quant``
 scales), which has no Pallas kernel: the reference's ``attn_decode``
 dequantizes the whole ring in XLA first. Decode attention is byte-bound
 on the H100: each step reads the ring's valid slots (B 8, L 1024, KVH 8,
-hd 64 in bf16: up to 16.8 MB, ~5 us at 3.35 TB/s) for a few MFLOP. K2 is
-flash-decoding in one launch (``csrc/decode_core.cuh``, shared with K3): a
-cluster of 8 CTAs per (KV head, batch row) splits the ring's 64-slot tiles
-between them, skips tiles with no valid slot before loading them, reads
-each K/V tile once for all G query heads of its KV head (bf16 products on
-the tensor cores by mma.sync, f32 on the CUDA cores), and combines the 8
-partial softmax states through distributed shared memory. A row with no
-valid slot comes back as zeros (the plain version averages its V there);
-the engine discards such rows. K2q keeps the single-pass design, one CTA
-per (KV head, batch row).
+hd 64 in bf16: up to 16.8 MB, ~5 us at 3.35 TB/s; as int8 codes with their
+scales 7.4 MB) for a few MFLOP. Both are flash-decoding in one launch on
+one core (``csrc/decode_core.cuh``, shared with K3 and K3q): a cluster of 8
+CTAs per (KV head, batch row) splits the ring's 64-slot tiles between
+them, skips tiles with no valid slot before loading them, reads each K/V
+tile once for all G query heads of its KV head (K2q's codes dequantized in
+shared memory as ``dequantize_kv`` does; then bf16 products on the tensor
+cores by mma.sync, f32 on the CUDA cores), and combines the 8 partial
+softmax states through distributed shared memory. So K2q over codes equals
+K2 over the dequantized ring bit for bit. A row with no valid slot comes
+back as zeros (the plain version averages its V there); the engine
+discards such rows.
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -65,9 +67,11 @@ def smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
     return int(lib.decode_attention_smem_bytes(hd, G, int(dtype == torch.bfloat16)))
 
 
-def quant_smem_bytes(hd: int, G: int) -> int:
-    """``smem_bytes`` of the quantized kernel (K2q)."""
-    return int(build.library("decode_attention_quant").decode_attention_quant_smem_bytes(hd, G))
+def quant_smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """``smem_bytes`` of the quantized kernel (K2q), whose codes land in
+    the rows of ``dtype``'s tiles: K2's shared memory."""
+    lib = build.library("decode_attention_quant")
+    return int(lib.decode_attention_quant_smem_bytes(hd, G, int(dtype == torch.bfloat16)))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Tensor,

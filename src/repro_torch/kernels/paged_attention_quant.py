@@ -6,9 +6,16 @@ Replaces the quantized variant of the Pallas TPU kernel ``_paged_kernel``
 reference model path's ``_pool_read``, which gathers and dequantizes a
 mixed two-region pool before its einsum softmax: the kernel reads each
 valid row through the block table from its region, int8 or fp8 codes with
-their float32 scale dequantized right after the load. Byte-bound on the
-H100: at the paged serve's shapes (B 16, pos up to 1023, KVH 8, hd 64) an
-all-int8 step reads ~10 MB of codes and scales, ~3 us at 3.35 TB/s.
+their float32 scale dequantized in shared memory as ``dequantize_kv`` does.
+It is K3 (``paged_attention``) on the same flash-decoding core
+(``csrc/decode_core.cuh``): a cluster of 8 CTAs per (KV head, batch row)
+splits the 64-slot tiles, and the partials are combined in the same
+launch. So over an all-quantized pool it equals K3 over the dequantized
+pool, and over a mixed pool K3 over the native pages followed by the
+dequantized ones, bit for bit. A row with no valid slot comes back as
+zeros. Byte-bound on the H100: at the paged serve's shapes (B 16, pos up
+to 1023, KVH 8, hd 64) an all-int8 step reads ~10 MB of codes and scales,
+~3 us at 3.35 TB/s.
 
 This wrapper takes CUDA tensors only and raises on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -42,10 +49,12 @@ def _fn():
     return fn
 
 
-def smem_bytes(hd: int, G: int) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``."""
+def smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Dynamic shared memory of one CTA at head dim ``hd``, group size ``G``
+    and ``dtype`` (float32 or bfloat16) of q and the native pages."""
     lib = build.library("paged_attention_quant")
-    return int(lib.paged_decode_attention_quant_smem_bytes(hd, G))
+    return int(lib.paged_decode_attention_quant_smem_bytes(hd, G,
+                                                           int(dtype == torch.bfloat16)))
 
 
 def paged_decode_attention_quant(q: torch.Tensor, k_pages: Optional[torch.Tensor],

@@ -21,7 +21,7 @@ from repro_torch.kernels import paged_attention_quant as k_paged_quant
 from repro_torch.kernels import paged_chunk_attention as k_pchunk
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as k_ssd
-from repro_torch.kernels.quant import quantize_kv
+from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.models.attention import PagedKVPool, fork_pages
 
 
@@ -369,18 +369,22 @@ def test_chunk_kernel_matches_plain_on_card(cuda, dtype, B, C, L, H, KVH, hd):
             assert torch.equal(got, k_chunk.chunk_attention(q, k, v, sp, pos0, valid))
 
 
-def quant_case(rng, B, MP, ps, KVH, hd, pool):
+def quant_case(rng, B, MP, ps, KVH, hd, pool, edges=False):
     """``paged_case`` with page-boundary positions (rows 1-3 at ps - 1, ps
     and 2 ps - 1 where the table allows), an inactive row 0, and the pool
     split into regions: ``pool`` "int8" or "fp8" quantizes every page,
     "mixed" keeps the lower half native and quantizes the rest to int8.
-    Garbage rows quantize to codes of +-qmax with scales near 1e30 / qmax,
-    so a read of one would show. Returns numpy (native k, v or None; codes
-    k, v; scales k, v; block tables; pos) and the code precision."""
+    ``edges`` puts rows 4 on at the split's edge positions. Garbage rows
+    quantize to codes of +-qmax with scales near 1e30 / qmax, so a read of
+    one would show. Returns numpy (native k, v or None; codes k, v; scales
+    k, v; block tables; pos) and the code precision."""
     pos = rng.integers(min(128, MP * ps // 2), MP * ps, B).astype(np.int32)
     for b, p in zip(range(1, min(B, 4)), (ps - 1, ps, 2 * ps - 1)):
         if p < MP * ps:
             pos[b] = p
+    if edges:
+        tail = [p for p in DECODE_EDGES if p < MP * ps][:max(B - 4, 0)]
+        pos[4:4 + len(tail)] = tail
     pos[0] = -1
     k, v, bt, pos = paged_case(rng, B, MP, ps, KVH, hd, pos, holes=True)
     prec = parse_kv_precision("fp8" if pool == "fp8" else "int8")
@@ -392,8 +396,10 @@ def quant_case(rng, B, MP, ps, KVH, hd, pool):
 
 
 # (B, MP, ps, H, KVH, hd): the paged serve's shape, a page larger than the
-# kernel's 64-slot tile, a page size that is no power of two with hd 128
-GPU_QUANT = [(16, 64, 16, 32, 8, 64), (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128)]
+# kernel's 64-slot tile, a page size that is no power of two with hd 128, a
+# group of 32 at hd 128 and a group of one at hd 32
+GPU_QUANT = [(16, 64, 16, 32, 8, 64), (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 128),
+             (3, 64, 16, 32, 1, 128), (4, 16, 16, 4, 4, 32)]
 
 
 @pytest.mark.gpu
@@ -401,6 +407,8 @@ GPU_QUANT = [(16, 64, 16, 32, 8, 64), (4, 3, 128, 8, 2, 32), (5, 9, 12, 8, 2, 12
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,MP,ps,H,KVH,hd", GPU_QUANT)
 def test_paged_quant_kernel_matches_plain_on_card(cuda, pool, dtype, B, MP, ps, H, KVH, hd):
+    """K3q against its plain version over all-int8, all-fp8 and mixed
+    pools (``quant_case``); two launches equal bit for bit."""
     rng = np.random.default_rng(MP * ps + B + len(pool))
     k, v, qk, qv, ks, vs, bt, pos = quant_case(rng, B, MP, ps, KVH, hd, pool)
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
@@ -417,6 +425,37 @@ def test_paged_quant_kernel_matches_plain_on_card(cuda, pool, dtype, B, MP, ps, 
     assert torch.isfinite(got).all()
     assert not got[0].any()           # no valid slot: the kernel writes zeros
     assert _err_ok(got[1:], want[1:], dtype)
+    assert torch.equal(got, k_paged_quant.paged_decode_attention_quant(q, k, v, qk, qv, ks, vs,
+                                                                       bt, pos_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool", ["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_quant_kernel_equals_paged_kernel_on_dequantized_pool_on_card(cuda, dtype, ps,
+                                                                            pool):
+    """K3q over codes gives K3 over the same pool with its code pages
+    dequantized (``dequantize_kv``) and placed after the native ones, read
+    through the same table ids, bit for bit: random positions, page
+    boundaries, the split's edge positions, a hole and an inactive row
+    (zeros from both)."""
+    rng = np.random.default_rng(ps + len(pool))
+    B, H, KVH, hd = 10, 32, 8, 64
+    MP = 1024 // ps
+    k, v, qk, qv, ks, vs, bt, pos = quant_case(rng, B, MP, ps, KVH, hd, pool, edges=True)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    qk, qv, ks, vs = (t.to(cuda) for t in (qk, qv, ks, vs))
+    kk, vv = dequantize_kv(qk, ks, dtype), dequantize_kv(qv, vs, dtype)
+    if k is not None:
+        k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (k, v))
+        kk, vv = torch.cat((k, kk)), torch.cat((v, vv))
+    bt, pos_t = torch.from_numpy(bt).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = k_paged_quant.paged_decode_attention_quant(q, k, v, qk, qv, ks, vs, bt, pos_t)
+    want = k_paged.paged_decode_attention(q, kk, vv, bt, pos_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[0].any()
 
 
 # K6 against its plain version, element by element, per unit of (env +
@@ -811,10 +850,12 @@ def test_flash_quant_kernel_matches_plain_on_card(cuda, dtype, prec, extreme, B,
 @pytest.mark.parametrize("prec", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,L,H,KVH,hd", [(3, 64, 8, 2, 32), (8, 1024, 32, 8, 64),
-                                          (2, 100, 8, 1, 128)])
+                                          (2, 100, 8, 1, 128), (3, 256, 32, 1, 128),
+                                          (4, 128, 4, 4, 32)])
 def test_decode_quant_kernel_matches_plain_on_card(cuda, dtype, prec, B, L, H, KVH, hd):
     """K2q against ``decode_attention_quant_ref`` over a ring with empty
-    slots (row 0), wrapped rows, and a window."""
+    slots (row 0), wrapped rows, and a window; groups of 1 to 32, hd 32 to
+    128; two launches equal bit for bit."""
     rng = np.random.default_rng(L + hd)
     qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), prec)
     q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
@@ -826,6 +867,65 @@ def test_decode_quant_kernel_matches_plain_on_card(cuda, dtype, prec, B, L, H, K
         want = ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=window)
         torch.cuda.synchronize()
         assert _err_ok(got, want, dtype)
+    assert torch.equal(got, k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos,
+                                                            window=window))
+
+
+# (B, L, H, KVH, hd): rings of 64, 100 (a tile cut short), 1,024 and 4,096
+# slots (eight tiles a rank), groups of 4, 1, 4 and 32, hd 32 to 128
+GPU_DECODE_QUANT = [(3, 64, 8, 2, 32), (6, 100, 8, 8, 64), (8, 1024, 32, 8, 64),
+                    (6, 4096, 32, 1, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KVH,hd", GPU_DECODE_QUANT)
+def test_decode_quant_kernel_equals_decode_kernel_on_dequantized_ring_on_card(
+        cuda, dtype, prec, B, L, H, KVH, hd):
+    """K2q over codes gives K2 over the dequantized ring (``dequantize_kv``)
+    bit for bit: wrapped rows (row 0 half empty) and unwrapped rows at the
+    split's edge positions, each without a window and with windows of 50
+    and 200."""
+    rng = np.random.default_rng(L + hd + H + len(prec))
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), prec)
+    k, v = dequantize_kv(qk, ks, dtype), dequantize_kv(qv, vs, dtype)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    wrapped = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    edges = np.asarray([min(DECODE_EDGES[b % len(DECODE_EDGES)], L - 1) for b in range(B)],
+                       np.int32)
+    for pos_np, sp_np in ((wrapped, _ring(B, L, wrapped)),
+                          (edges, _ring(B, L, edges, empty_row0=False))):
+        sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+        for window in (None, 50, 200):
+            got = k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=window)
+            want = k_decode.decode_attention(q, k, v, sp, pos, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pos_np, window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_quant_kernel_writes_zeros_where_no_slot_is_valid_on_card(cuda, dtype, prec):
+    """A row with no valid slot gets zeros from K2q, as from K2 and K3q
+    (the plain version averages its V there): an empty ring, a ring of
+    later positions only, and, under a window of 50, a row whose positions
+    all lie before the window."""
+    rng = np.random.default_rng(5)
+    B, L, H, KVH, hd = 4, 1024, 32, 8, 64
+    i = np.arange(L)
+    sp_np = np.stack([np.full(L, -1), i + 10, np.where(i <= 300, i, -1), i]).astype(np.int32)
+    pos_np = np.asarray([700, 5, 700, 700], np.int32)
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), prec)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+    for window, empty in ((None, 2), (50, 3)):
+        got = k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=window)
+        want = ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=window)
+        torch.cuda.synchronize()
+        assert not got[:empty].any()
+        assert _err_ok(got[empty:], want[empty:], dtype)
 
 
 @pytest.mark.gpu
