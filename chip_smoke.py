@@ -61,7 +61,20 @@ dense_quant_serve and dense_quant_profile (``--kv-precision int8`` on the
 main path) and dense_quant_chunked_serve (``--chunked --kv-precision fp8``,
 under the sync debug mode), their traces held to the CPU run's. Each serve
 phase zeroes the launch counts just before it and reads them just after.
-Then the ``kernels`` summary line, the card's name and power limit from
+On the fused and sync-free loops, dense and paged, the decode is warmed up
+and captured before the first slot and every slot's decode is one CUDA
+graph replay (``runtime/graph.py``): the serve phases check one replay per
+decode dispatch and print each graph's kernel nodes, which the capture read
+from libcuda and which every replay adds to the launch counts; the
+profile phases count the host's kernel and graph launch calls slot by slot
+and hold the profiled decode kernels to the wrappers' counts. graph_ab
+serves each captured path (dense fused, sync-free, paged, paged sync-free,
+Mamba-2) eagerly and graphed in this call: ms per slot, host launches per
+slot over a window of slots, and equal traces, token streams and launch
+counts. fig2 replays the paper's Fig. 2 fixture (tests/fixtures/
+fig2_golden.npz) through the port's rollouts on the card, bit for bit, and
+holds the port's own Fig. 2 to the reference's claims. Then the
+``kernels`` summary line, the card's name and power limit from
 nvidia-smi, and the result line.
 """
 from __future__ import annotations
@@ -1877,6 +1890,7 @@ def check_preemption() -> dict:
                                                  max_pages_per_req=13))
     dense = Engine(model, EngineConfig(batch_slots=2, prompt_len=160, cache_len=256))
     for eng in (paged, dense):
+        eng.warm_decode(2)
         eng.submit([copy.deepcopy(r) for r in reqs])
         for t in range(80):
             eng.step_slot(t, n_steps=2)
@@ -2337,23 +2351,33 @@ def _count_mixed(engine) -> list:
 
 
 def _paged_decode_sync_checked():
-    """Run the paged fused loop's decode dispatch (``_decode_n_paged``)
-    under ``set_sync_debug_mode("error")``: its write targets come from the
-    device, so nothing inside it reads back to the host (fault F1). The
-    slot's one counted readback, the tokens, comes after it. Returns the
-    function that puts the original back."""
+    """Run the paged fused loop's decode dispatch under
+    ``set_sync_debug_mode("error")``: the eager body (``_decode_n_paged``,
+    which also runs at the warm-up and inside the capture) and every graph
+    replay with its static fills. The write targets come from the device,
+    so nothing in the dispatch reads back to the host (fault F1); the slot's
+    one counted readback, the tokens, comes after it. Returns the function
+    that puts the originals back."""
     from repro_torch.runtime import engine as E
+    from repro_torch.runtime import graph as G
 
-    decode = E._decode_n_paged
+    decode, replay = E._decode_n_paged, G.DecodeGraph._replay
 
-    def checked(*a, **kw):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return decode(*a, **kw)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    E._decode_n_paged = checked
-    return lambda: setattr(E, "_decode_n_paged", decode)
+    def checked(fn):
+        def run(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+    E._decode_n_paged = checked(decode)
+    G.DecodeGraph._replay = checked(replay)
+
+    def restore():
+        E._decode_n_paged = decode
+        G.DecodeGraph._replay = replay
+    return restore
 
 
 def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
@@ -2392,10 +2416,17 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
             restore()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
+    captured = not (args.chunked or args.legacy_loop)
     res = {"summary": launcher.summary(args, tr, sched), "build_s": t1 - t0,
            "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / args.horizon * 1e3,
            "launches": counts, "served": int(tr["served"].sum()),
            "dispatches_per_slot": float(tr["dispatches"].mean()),
+           "decode_dispatches": engine.decode_dispatches,
+           "warmup_dispatches": engine.warmup_dispatches,
+           "graph_replays": engine.graph_replays,
+           # each graph's kernel nodes per counter, read from libcuda at
+           # its capture: what every replay adds to the counts
+           "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
@@ -2417,6 +2448,12 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
+    # the fused and sync-free decodes: warmed up and captured before the
+    # first slot (warm_decode), every dispatch a replay; the chunked loops eager
+    want_replays = engine.decode_dispatches if captured else 0
+    if engine.graph_replays != want_replays or engine.warmup_dispatches != int(captured):
+        raise AssertionError(f"{phase}: {engine.graph_replays} graph replays for "
+                             f"{engine.decode_dispatches} decode dispatches")
     n_layers = engine.cfg.n_layers
     ssm = engine.cfg.is_ssm
     quant = args.kv_precision in ("int8", "fp8")
@@ -2429,13 +2466,13 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         quant = args.kv_precision in ("int8", "fp8")
         decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                decode: n_layers * engine.decode_dispatches * 2}
+                decode: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2}
         if args.chunked:
             chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
             want[chunk] = n_layers * mixed[0]
     elif asynchronous or quant:
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                ring: n_layers * engine.decode_dispatches * 2,
+                ring: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2,
                 "chunk_attention": n_layers * mixed[0]}
         if quant:   # a quantized ring never reaches the native decode
             want["decode_attention"] = 0
@@ -2617,14 +2654,79 @@ def kernel_kind(name: str) -> str:
     return "other"
 
 
+# the host-side runtime calls that put work on the card: a kernel or a graph
+_LAUNCH_CALL = re.compile(r"cu(da)?(LaunchKernel(Ex(C)?)?|GraphLaunch)(_v\d+)?$")
+SLOT_MARK = "chip_smoke.slot"
+
+
+def _slot_marks(sched, on_slot=None) -> None:
+    """Wrap the scheduler's control calls, the first thing every slot of
+    the serve loop does, in a ``SLOT_MARK`` profiler range, so a profile can
+    be cut at slot starts; ``on_slot(t)`` runs before slot t's control."""
+    from torch.profiler import record_function
+
+    for name in ("control", "control_async"):
+        control, calls = getattr(sched, name), [0]
+
+        def marked(*a, _control=control, _calls=calls, **kw):
+            if on_slot is not None:
+                on_slot(_calls[0])
+            _calls[0] += 1
+            with record_function(SLOT_MARK):
+                return _control(*a, **kw)
+        setattr(sched, name, marked)
+
+
+def _host_launches(prof) -> list:
+    """Host launches (kernel and graph launch calls) per slot of a profile
+    taken with ``_slot_marks``: each call goes to the last slot that
+    started before it; calls before the first slot (the decode's warm-up
+    and capture) go to none."""
+    import bisect
+
+    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    # (the profiler also shows each mark on the device's timeline: CPU only)
+    starts = sorted(e.time_range.start for e in cpu if e.name == SLOT_MARK)
+    per_slot = [0] * max(len(starts), 1)
+    for e in cpu:
+        slot = bisect.bisect_right(starts, e.time_range.start) - 1
+        if _LAUNCH_CALL.match(e.name) and slot >= 0:
+            per_slot[slot] += 1
+    return per_slot
+
+
+def _time_replays():
+    """Time every decode-graph replay with CUDA events on the stream:
+    (the (start, end) pairs, the function that puts the original back)."""
+    from repro_torch.runtime import graph as G
+
+    replay, pairs = G.DecodeGraph._replay, []
+
+    def timed(self, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = replay(self, *a, **kw)
+        end.record()
+        pairs.append((start, end))
+        return out
+    G.DecodeGraph._replay = timed
+    return pairs, lambda: setattr(G.DecodeGraph, "_replay", replay)
+
+
 def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
                       prefix: bool = False) -> None:
     """Device time by kernel over a second, identical serve run (same seeds,
     same work): the launcher's with ``argv``, or prefix_serve's. The
     profiler slows the host, so the device's idle share is taken against
-    the unprofiled run's serve time."""
+    the unprofiled run's serve time. Host launches per slot count the
+    runtime's kernel and graph launch calls, slot by slot: a captured path
+    warms up and captures its decode before the first slot, and every
+    slot's decode is a replay. Each replay is also timed with CUDA events,
+    and the profile must hold the graphs' kernels: their launch counts must
+    equal the kernels' own counters."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.launch import serve as launcher
 
     if prefix:
@@ -2637,9 +2739,16 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
         horizon = args.horizon
         run = lambda: launcher.run(args, engine, sched, src)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    _slot_marks(sched)
+    pairs, restore = _time_replays()
+    kernels.reset_launch_counts()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        restore()
+    counts = kernels.launch_counts()
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -2655,12 +2764,219 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     by_kind = {}
     for r in rows:
         by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["device_ms"] / horizon
-    emit(phase, slots=horizon, device_busy_ms=busy,
-         device_busy_ms_per_slot=busy / horizon, device_ms_per_slot_by_kind=by_kind,
+    host = _host_launches(prof)
+    replay_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    # every decode kernel the wrappers counted, inside a graph or not, is in
+    # the profile
+    decode = {"K2": "decode_attention", "K3": "paged_decode_attention",
+              "K2q": "decode_attention_quant", "K3q": "paged_decode_attention_quant"}
+    profiled = {k: sum(r["count"] for r in rows if r["kind"] == k) for k in decode}
+    counted = {k: counts[n] for k, n in decode.items()}
+    emit(phase, slots=horizon,
+         device_busy_ms=busy if rows else "not measured",
+         device_busy_ms_per_slot=busy / horizon if rows else "not measured",
+         device_ms_per_slot_by_kind=by_kind,
          kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
+         host_launches_per_slot=sum(host) / horizon,
+         host_launches_by_slot=host, graph_replays=len(pairs),
+         graph_replay_event_ms_per_slot=replay_ms / horizon,
+         graph_kernels_in_profile=profiled == counted,
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
          top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
+    if pairs and profiled != counted:
+        raise AssertionError(f"{phase}: the profile holds {profiled} decode kernels, the "
+                             f"wrappers counted {counted}: the graphs' kernels are missing, "
+                             "so read graph_replay_event_ms_per_slot")
+
+
+# the paths whose decode is one CUDA graph replay per slot, served eager and
+# graphed side by side (graph_ab)
+GRAPH_AB = (("serve", SERVE_ARGS), ("sync", SYNC_ARGS), ("paged", PAGED_ARGS),
+            ("paged_sync", PAGED_SYNC_ARGS), ("ssm", SSM_ARGS))
+# the slots whose host launches graph_ab counts under the profiler: the
+# first three, which admit (the decode was warmed up and captured before)
+AB_WINDOW = (0, 2)
+
+
+def _graphs_on(graph: bool):
+    """Switch the decode graphs on or off (``DecodeGraph.enabled``); returns
+    the function that switches them back on."""
+    from repro_torch.runtime.graph import DecodeGraph
+
+    DecodeGraph.enabled = graph
+    return lambda: setattr(DecodeGraph, "enabled", True)
+
+
+def _ab_serve(argv: list, graph: bool) -> dict:
+    """One unprofiled launcher serve with the decode graphs on or off: ms
+    per slot, the decode's warm-up and capture done before the clock
+    starts; the trace columns, the finished requests' token streams and the
+    launch counts (the warm-up's included)."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+
+    args = launcher.build_parser().parse_args(argv)
+    kernels.reset_launch_counts()
+    engine, sched, src = launcher.build(args)
+    restore = _graphs_on(graph)
+    try:
+        engine.warm_decode(2, sync=args.sync_free)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = launcher.run(args, engine, sched, src)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        restore()
+    return {"ms_per_slot": (t2 - t0) / args.horizon * 1e3,
+            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches",
+                                                  "occupancy", "syncs", "active")},
+            "streams": {r.rid: list(r.generated) for r in engine.finished},
+            "launches": kernels.launch_counts(), "graph_replays": engine.graph_replays,
+            "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
+            "decode_dispatches": engine.decode_dispatches}
+
+
+def _ab_host_launches(argv: list, graph: bool) -> list:
+    """Host launches of each slot in ``AB_WINDOW``, from a profile of that
+    window of another identical serve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve as launcher
+
+    args = launcher.build_parser().parse_args(argv)
+    engine, sched, src = launcher.build(args)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_slot(t):
+        if t == AB_WINDOW[0]:
+            prof.start()
+        elif t == AB_WINDOW[1] + 1:
+            torch.cuda.synchronize()
+            prof.stop()
+    _slot_marks(sched, on_slot)
+    restore = _graphs_on(graph)
+    try:
+        torch.cuda.synchronize()
+        launcher.run(args, engine, sched, src)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return _host_launches(prof)
+
+
+def graph_ab() -> dict:
+    """Each captured path served eagerly and graphed in this one call: ms
+    per slot, host launches per slot over ``AB_WINDOW``, and the two serves'
+    trace columns, token streams and launch counts, which must be equal.
+    The graphed serve replays once per decode dispatch and issues fewer
+    host launches in every slot of the window."""
+    out = {}
+    for name, argv in GRAPH_AB:
+        eager, graph = _ab_serve(argv, False), _ab_serve(argv, True)
+        host = {"eager": _ab_host_launches(argv, False), "graph": _ab_host_launches(argv, True)}
+        res = {"path": name,
+               "eager_ms_per_slot": eager["ms_per_slot"],
+               "graph_ms_per_slot": graph["ms_per_slot"],
+               "window": list(AB_WINDOW),
+               "eager_host_launches_by_slot": host["eager"],
+               "graph_host_launches_by_slot": host["graph"],
+               "eager_host_launches_per_slot": sum(host["eager"]) / len(host["eager"]),
+               "graph_host_launches_per_slot": sum(host["graph"]) / len(host["graph"]),
+               "traces_equal": eager["trace"] == graph["trace"],
+               "streams_equal": eager["streams"] == graph["streams"],
+               "streams": len(graph["streams"]),
+               "launches_equal": eager["launches"] == graph["launches"],
+               "graph_replays": graph["graph_replays"], "graph_nodes": graph["graph_nodes"],
+               "decode_dispatches": graph["decode_dispatches"], "trace": graph["trace"]}
+        emit("graph_ab", **res)
+        out[name] = res
+        if not (res["traces_equal"] and res["streams_equal"] and res["launches_equal"]
+                and res["streams"] > 0):
+            raise AssertionError(f"graph_ab {name}: the graphed serve left the eager one's "
+                                 "trace, streams or launch counts")
+        if eager["graph_replays"] or graph["graph_replays"] != graph["decode_dispatches"]:
+            raise AssertionError(f"graph_ab {name}: {graph['graph_replays']} replays for "
+                                 f"{graph['decode_dispatches']} decode dispatches")
+        if len(host["eager"]) != len(host["graph"]) or any(
+                g >= e for g, e in zip(host["graph"], host["eager"])):
+            raise AssertionError(f"graph_ab {name}: host launches {host['graph']} are not "
+                                 f"below the eager serve's {host['eager']}")
+    return out
+
+
+FIG2_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "fig2_golden.npz"
+
+
+def check_fig2() -> dict:
+    """The paper's Fig. 2 on the card (``repro_torch.core.trace``): the
+    fixture's shared service trace replayed through all four curves must
+    give its backlog and rate bit for bit on every slot; the port's own
+    ``fig2_experiment`` (its own seeded trace, drawn on the CPU and moved)
+    must meet the reference's claims (tests/test_fig2.py), with a bounded
+    queue that drops under fixed f = 10 and never under the controller.
+    Rollouts run eagerly, slot by slot: ms per curve."""
+    from repro_torch.core.trace import (CURVES, Fig2Config, fig2_experiment,
+                                        make_service_trace, rollout_controller, rollout_fixed,
+                                        summarize)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    golden = dict(np.load(FIG2_FIXTURE))
+    cfg = Fig2Config()
+    mus = torch.from_numpy(golden["service"]).cuda()
+    run = {"fixed_10": lambda: rollout_fixed(mus, cfg.f_max, cfg.capacity),
+           "V_high": lambda: rollout_controller(mus, cfg.V_high, cfg),
+           "V_low": lambda: rollout_controller(mus, cfg.V_low, cfg),
+           "fixed_1": lambda: rollout_fixed(mus, 1.0, cfg.capacity)}
+    ms, departed = {}, {}
+    for name in CURVES:
+        tr, ms[name] = timed(run[name])
+        for col in ("backlog", "rate"):
+            got = tr[col].cpu().numpy()
+            departed[f"{name}.{col}"] = int((got != golden[f"{name}.{col}"]).sum())
+    own, own_ms = timed(lambda: fig2_experiment(cfg))
+    s = summarize(own)
+    bounded = Fig2Config(capacity=150.0)
+    capped, capped_ms = timed(lambda: fig2_experiment(bounded))
+    b = {k: own[k]["backlog"] for k in CURVES}
+    third, half = cfg.horizon // 3, cfg.horizon // 2
+    claims = {
+        "service_mean_below_threshold": 9.0 < float(own["service"].mean()) < 10.0,
+        "fixed_10_overflows": float(b["fixed_10"][-1]) > 500.0 and float(
+            b["fixed_10"][-third:].mean()) > 1.3 * float(b["fixed_10"][third:2 * third].mean()),
+        "controller_stabilizes_both_V": all(
+            float(b[k].max()) < 200.0 and float(b[k][-500:].mean())
+            < 3.0 * float(b[k][half:half + 500].mean()) + 5.0 for k in ("V_high", "V_low")),
+        "backlog_ordering_O_of_V":
+            s["V_high"]["tail_mean_backlog"] > s["V_low"]["tail_mean_backlog"],
+        "utility_ordering_O_of_1_over_V": s["V_high"]["mean_rate"] > s["V_low"]["mean_rate"]
+            > s["fixed_1"]["mean_rate"],
+        "fixed_1_stable_lowest_utility": s["fixed_1"]["tail_mean_backlog"] <= 1.5 and all(
+            s[k]["mean_rate"] > s["fixed_1"]["mean_rate"] for k in ("V_high", "V_low",
+                                                                    "fixed_10")),
+        "bounded_queue_drops_only_fixed_10":
+            float(capped["fixed_10"]["final"].dropped) > 0.0
+            and float(rollout_controller(capped["service"], bounded.V_high, bounded,
+                                         capacity=150.0)["final"].dropped) == 0.0
+            and float(rollout_controller(capped["service"], bounded.V_low, bounded,
+                                         capacity=150.0)["final"].dropped) == 0.0,
+        "same_trace_as_the_cpu": torch.equal(own["service"].cpu(),
+                                             make_service_trace(cfg, device="cpu")),
+    }
+    res = {"fixture_slots": cfg.horizon, "departed_slots": departed, "ms_per_curve": ms,
+           "fig2_experiment_ms": own_ms, "bounded_fig2_experiment_ms": capped_ms,
+           "summary": s, "claims": claims}
+    emit("fig2", **res)
+    if any(departed.values()) or not all(claims.values()):
+        raise AssertionError(f"fig2: departed {departed}, claims {claims}")
+    return res
 
 
 _FLASH_SYMBOL = re.compile(r"flash_attention_kernel(_wgmma)?I(f|13__nv_bfloat16)?"
@@ -2889,6 +3205,8 @@ def main() -> int:
     profile_main_path(DENSE_QUANT_ARGS, dense_quant["serve_s"], "dense_quant_profile")
     drive_main_path(DENSE_QUANT_CHUNKED_ARGS, "dense_quant_chunked_serve",
                     DENSE_QUANT_CHUNKED_KERNELS)
+    graph_ab()
+    check_fig2()
 
     # launches: each kernel's count from the run of the path it serves
     counts = {**main_path["launches"],

@@ -16,8 +16,14 @@ So one control slot costs <= 1 prefill + 1 decode dispatch
 (``prefill_dispatches`` / ``decode_dispatches``); the legacy per-step path
 (``step``) costs k prefills + one decode per call. ``blocking_syncs``
 counts the synchronous device-to-host readbacks that gate the next
-dispatch, exactly where the reference counts them. The fused decode is one
-dispatch in the count; a CUDA-graph capture of it is later work.
+dispatch, exactly where the reference counts them. On the card the fused
+decode of ``step_slot`` and ``step_slot_sync`` (dense and paged) is one
+CUDA graph, replayed once per slot (``runtime/graph.py``), as the
+reference's is one jitted scan. ``warm_decode``, which the serve loop calls
+before its first slot, runs the decode once over the free rows and
+captures it there; a decode never warmed is captured at its first
+dispatch, whose blocking syncs then count the capture's device
+synchronize. The chunked loops' mixed dispatch still runs eagerly.
 
 Admission on a dense attention stack buckets prompts into power-of-two
 sub-buckets (P/4, P/2, P) of ``prompt_len`` and passes per-row real lengths
@@ -76,6 +82,7 @@ from repro_torch.device import host_to_device
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.runtime.graph import DecodeGraph
 from repro_torch.runtime.request import Request
 
 # Sentinel for short-prompt padding (identical across requests).
@@ -328,6 +335,12 @@ def _decode_n_paged(model, state, toks, n):
     return torch.stack(outs), state
 
 
+def _leaves(caches: list) -> list:
+    """The tensors of a list of caches or pools (NamedTuples of tensors,
+    None where a leaf is absent)."""
+    return [t for c in caches for t in c if isinstance(t, torch.Tensor)]
+
+
 def _splice_one(state: M.DecodeState, one: M.DecodeState, slot: int) -> M.DecodeState:
     """Insert batch-1 prefill state into the batch state at ``slot``, in
     place. Every cache leaf (KVCache or SSMState) has the layer axis first
@@ -416,6 +429,9 @@ class Engine:
         self._chunk_ok = T.chunked_prefill_supported(self.cfg) and ecfg.shape_window is None
 
     def _init_sync_free(self, rows: int) -> None:
+        self._graphs: dict = {}       # decode mode -> its DecodeGraph
+        self.warmup_dispatches = 0    # decodes warm_decode ran before serving
+        self._warming = False
         self._pending_read = None     # the last slot's readback packet
         # admission epoch per row: a packet retires a row only if the row
         # still hosts the request the packet observed
@@ -663,10 +679,8 @@ class Engine:
         n_active = sum(r is not None for r in self.active)
         per_step = [0] * n_steps
         if n_active:
-            toks = torch.tensor([r.generated[-1] if r else 0 for r in self.active],
-                                dtype=torch.int32, device=self.device)
-            all_toks, self.state = _decode_n(self.model, self.state, toks, n_steps,
-                                             self.ecfg.shape_window)
+            toks = np.asarray([r.generated[-1] if r else 0 for r in self.active], np.int32)
+            all_toks = self._decode_fused(toks, n_steps)
             self.decode_dispatches += 1
             self.blocking_syncs += 1
             all_toks = all_toks.cpu().numpy()  # (n_steps, B)
@@ -685,6 +699,83 @@ class Engine:
         self.steps += n_steps
         return self._slot_stats(n_active, served, served_per_step=per_step,
                                 admitted=admitted)
+
+    # ------------------------------------------------- graphed decodes
+    def _graphed(self, mode: str, n_steps: int, body, inputs: tuple, fixed: list) -> tuple:
+        """One fused decode dispatch of ``mode`` through its DecodeGraph:
+        captured at its first call and replayed after it on the card, eager
+        on the CPU or with ``DecodeGraph.enabled`` off."""
+        g = self._graphs.get(mode)
+        if g is None:
+            g = self._graphs[mode] = DecodeGraph(mode, self.device)
+        if g.capture and g.graph is None and not self._warming:
+            self.blocking_syncs += 1   # a capture mid-serve synchronizes the device
+        return g(body, inputs, fixed=fixed, key=n_steps)
+
+    def warm_decode(self, n_steps: int, sync: bool = False) -> None:
+        """Before serving, on the card: run the fused (with ``sync``, the
+        sync-free) decode of ``n_steps`` steps once over the free rows and,
+        with graphs on, capture it, so no slot pays the first use's builds
+        or the capture's device synchronize. Positions, tokens and the sync
+        state are put back; the caches and recurrent states it wrote belong
+        to free rows, which admission overwrites, as every decode does to
+        the rows it runs free. A no-op on the CPU and once the mode has run;
+        raises while a row is active."""
+        mode = "sync" if sync else "fused"
+        if self.device.type != "cuda" or mode in self._graphs:
+            return
+        if any(r is not None for r in self.active):
+            raise RuntimeError("warm_decode runs before any row is admitted")
+        saved = self.__dict__.get("state"), self.sync
+        self._warming = True
+        try:
+            if sync:
+                self._decode_sync(n_steps)
+            else:
+                self._decode_fused(np.zeros(len(self.active), np.int32), n_steps)
+        finally:
+            self._warming = False
+            if saved[0] is not None:
+                self.state = saved[0]
+            self.sync = saved[1]
+        self.warmup_dispatches += 1
+
+    @property
+    def graph_replays(self) -> int:
+        """Decode dispatches that ran as a replay of a captured graph."""
+        return sum(g.replays for g in self._graphs.values())
+
+    def _decode_fused(self, toks: np.ndarray, n: int) -> torch.Tensor:
+        """The fused path's n greedy steps from the host's last tokens;
+        per-step tokens (n, B) on the device."""
+        sw = self.ecfg.shape_window
+
+        def body(pos, last_tok, toks):
+            out, st = _decode_n(self.model, self.state._replace(pos=pos, last_tok=last_tok),
+                                toks, n, sw)
+            return (st.pos, st.last_tok, toks), (out,)
+        (pos, last, _), (all_toks,) = self._graphed(
+            "fused", n, body, (self.state.pos, self.state.last_tok, toks),
+            _leaves(self.state.caches))
+        self.state = self.state._replace(pos=pos, last_tok=last)
+        return all_toks
+
+    def _decode_sync(self, n: int) -> torch.Tensor:
+        """The sync-free path's n steps from the device-resident state;
+        served per step (n,) int32 on the device."""
+        eos = self.ecfg.eos_id
+
+        def body(pos, last_tok, *sync):
+            st, sy, served = _decode_n_sync(
+                self._decode_step, self.state._replace(pos=pos, last_tok=last_tok),
+                SyncState(*sync), n, eos)
+            return (st.pos, st.last_tok, *sy), (served,)
+        (pos, last, *sync), (served,) = self._graphed(
+            "sync", n, body, (self.state.pos, self.state.last_tok, *self.sync),
+            _leaves(self.state.caches))
+        self.state = self.state._replace(pos=pos, last_tok=last)
+        self.sync = SyncState(*sync)
+        return served
 
     # ------------------------------------------------- sync-free protocol
     def _decode_step(self, state, tokens: torch.Tensor):
@@ -794,8 +885,7 @@ class Engine:
         admitted = self.admit_pending(now, sync=True)
         n_active = sum(r is not None for r in self.active)
         if n_active:
-            self.state, self.sync, served_steps = _decode_n_sync(
-                self._decode_step, self.state, self.sync, n_steps, self.ecfg.eos_id)
+            served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
@@ -1296,6 +1386,33 @@ class PagedEngine(Engine):
             pos=host_to_device(self.pos, self.device),
             last_tok=torch.zeros(R, dtype=torch.int32, device=self.device))
 
+    def _decode_fused(self, toks: np.ndarray, n: int) -> torch.Tensor:
+        """The fused path's n greedy steps over the pools, from the host's
+        block tables, positions and last tokens; per-step tokens (n, R)."""
+        def body(block_tables, pos, toks):
+            state = M.PagedDecodeState(self.pools, block_tables, pos, toks)
+            out, state = _decode_n_paged(self.model, state, toks, n)
+            return (block_tables, state.pos, toks), (out,)
+        _, (all_toks,) = self._graphed("fused", n, body, (self.block_tables, self.pos, toks),
+                                       _leaves(self.pools))
+        return all_toks
+
+    def _decode_sync(self, n: int) -> torch.Tensor:
+        """The sync-free path's n steps over the pools, from the host's
+        block tables and positions and the device-resident sync state;
+        served per step (n,) int32."""
+        eos = self.ecfg.eos_id
+
+        def body(block_tables, pos, *sync):
+            last = torch.zeros_like(pos)   # unused: the decode reads the sync state's tokens
+            state = M.PagedDecodeState(self.pools, block_tables, pos, last)
+            state, sy, served = _decode_n_sync(self._decode_step, state, SyncState(*sync), n, eos)
+            return (block_tables, state.pos, *sy), (served,)
+        (_, _, *sync), (served,) = self._graphed(
+            "sync", n, body, (self.block_tables, self.pos, *self.sync), _leaves(self.pools))
+        self.sync = SyncState(*sync)
+        return served
+
     def admit_pending(self, now: int, lookahead: int = 1, sync: bool = False) -> int:
         """Fill free rows from the pending queue with ONE bucketed prefill.
 
@@ -1425,13 +1542,8 @@ class PagedEngine(Engine):
         n_active = sum(r is not None for r in self.active)
         per_step = [0] * n_steps
         if n_active:
-            toks = host_to_device(np.asarray([r.generated[-1] if r else 0 for r in self.active],
-                                             np.int32), self.device)
-            state = M.PagedDecodeState(
-                pools=self.pools, block_tables=host_to_device(self.block_tables, self.device),
-                pos=host_to_device(self.pos, self.device), last_tok=toks)
-            all_toks, state = _decode_n_paged(self.model, state, toks, n_steps)
-            self.pools = state.pools
+            toks = np.asarray([r.generated[-1] if r else 0 for r in self.active], np.int32)
+            all_toks = self._decode_fused(toks, n_steps)
             self.decode_dispatches += 1
             self.blocking_syncs += 1
             all_toks = all_toks.cpu().numpy()  # (n_steps, R)
@@ -1466,9 +1578,7 @@ class PagedEngine(Engine):
         self.occupancy_hwm = self.occupancy()
         n_active = sum(r is not None for r in self.active)
         if n_active:
-            state, self.sync, served_steps = _decode_n_sync(
-                self._decode_step, self._device_state(), self.sync, n_steps, self.ecfg.eos_id)
-            self.pools = state.pools
+            served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
             for row, req in enumerate(self.active):
                 if req is not None:

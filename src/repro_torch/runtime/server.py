@@ -17,7 +17,9 @@ high-water mark (0.0 for the dense engine).
 scheduler's decision pipelines through ``control_async`` (one-slot-lagged
 control) and the engine's ``step_slot_sync`` dispatches every slot from
 device-resident state, consuming the previous slot's counter copy after
-it. ``chunked=True`` runs continuous batching (``step_slot_chunked``)
+it. Before its first slot the loop has the engine warm up (and, on the
+card, capture) the decode it runs (``Engine.warm_decode``).
+``chunked=True`` runs continuous batching (``step_slot_chunked``)
 under the same protocol. The trace's ``served`` counts then lag the device
 by one slot; ``serve`` flushes the tail with ``engine.drain()`` and folds
 it into the last slot. Every slot the scheduler also observes the engine's
@@ -42,6 +44,9 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
     trace = {"backlog": [], "rate": [], "served": [], "active": [],
              "dropped": [], "dispatches": [], "occupancy": [], "syncs": []}
     paged = hasattr(engine, "occupancy")
+    if (fused or sync_free) and not chunked:
+        # on the card: the decode's first run and graph capture, before any slot
+        engine.warm_decode(steps_per_slot, sync=sync_free)
     for t in range(horizon):
         d0 = engine.prefill_dispatches + engine.decode_dispatches
         s0 = engine.blocking_syncs

@@ -978,3 +978,244 @@ def test_quant_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="bad shapes"):
         k_decode.decode_attention_quant(torch.zeros((2, 4, 48), device=cuda), qk[..., :48],
                                         qv[..., :48], ks, vs, sp, pos)
+
+
+# ------------------------------------------------------------ CUDA graphs
+# The fused and sync-free decodes run as one CUDA graph replay per slot
+# (runtime/graph.py), warmed up and captured before the first slot. At the
+# smoke width, each captured mode must serve the same trace and token
+# streams as the same engine run eagerly (``DecodeGraph.enabled = False``),
+# with the same kernel launch counts.
+GRAPH_SERVE = ["--arch", "granite-3-2b", "--smoke", "--horizon", "10"]
+GRAPH_PAGED = ["--paged", "--policy", "memory-aware"]
+GRAPH_MIXED = ["--slots", "8", "--prompt-len", "512", "--min-prompt-len", "128",
+               "--cache-len", "1024", "--paged", "--max-active", "16", "--num-pages", "192",
+               "--kv-precision", "int8", "--quant-pages", "64", "--policy", "precision-aware",
+               "--downgrade-at", "0.5", "--upgrade-at", "0.3"]
+GRAPH_PATHS = {
+    "dense": [],
+    "dense_int8": ["--kv-precision", "int8"],
+    "mamba2": ["--arch", "mamba2-130m"],
+    "paged": GRAPH_PAGED,
+    "mixed_pool": GRAPH_MIXED,
+    "sync": ["--sync-free"],
+    "mamba2_sync": ["--arch", "mamba2-130m", "--sync-free"],
+    "paged_sync": GRAPH_PAGED + ["--sync-free"],
+}
+
+
+def _graph_serve(argv, graph: bool, idle_first_slot: bool = False):
+    """One launcher serve with the decode graphs on or off; the sync-free
+    loops run every slot after the first under the sync debug mode. With
+    ``idle_first_slot`` no request arrives in slot 0."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+    from repro_torch.runtime.graph import DecodeGraph
+
+    args = launcher.build_parser().parse_args(argv)
+    kernels.reset_launch_counts()
+    engine, sched, src = launcher.build(args)
+    if idle_first_slot:
+        poll = src.poll
+        src.poll = lambda t, rate: [] if t == 0 else poll(t, rate)
+    if args.sync_free:
+        control, calls = sched.control_async, [0]
+
+        def checked(*a, **kw):
+            calls[0] += 1
+            if calls[0] == 2:
+                torch.cuda.set_sync_debug_mode("error")
+            return control(*a, **kw)
+        sched.control_async = checked
+    DecodeGraph.enabled = graph
+    try:
+        tr = launcher.run(args, engine, sched, src)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        DecodeGraph.enabled = True
+    torch.cuda.synchronize()
+    streams = {r.rid: list(r.generated) for r in engine.finished}
+    return engine, {k: v.tolist() for k, v in tr.items()}, streams, kernels.launch_counts()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_graph_serve_equals_eager_serve_on_card(cuda, path):
+    argv = GRAPH_SERVE + GRAPH_PATHS[path]
+    eager, tr_e, st_e, n_e = _graph_serve(argv, graph=False)
+    graph, tr_g, st_g, n_g = _graph_serve(argv, graph=True)
+    assert tr_g == tr_e
+    assert st_g == st_e and len(st_g) > 0
+    assert n_g == n_e
+    assert eager.graph_replays == 0
+    # warmed up and captured before the first slot: every dispatch replays
+    assert eager.warmup_dispatches == graph.warmup_dispatches == 1
+    assert graph.graph_replays == graph.decode_dispatches > 0
+    # rows admitted after the capture decoded through the replays
+    assert any(r.admit_slot >= 2 for r in graph.finished)
+    if "sync" in path:
+        assert graph.blocking_syncs == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["dense", "sync", "paged_sync"])
+def test_graph_serve_with_an_idle_first_slot_on_card(cuda, path):
+    """No arrival in slot 0, so the first decode dispatch comes later, under
+    the sync debug mode on the sync-free loops: the capture was made before
+    serving, so no slot synchronizes, and the serve equals the eager one."""
+    argv = GRAPH_SERVE + GRAPH_PATHS[path]
+    eager, tr_e, st_e, n_e = _graph_serve(argv, graph=False, idle_first_slot=True)
+    graph, tr_g, st_g, n_g = _graph_serve(argv, graph=True, idle_first_slot=True)
+    assert tr_g["served"][0] == tr_g["active"][0] == 0
+    assert (tr_g, st_g, n_g) == (tr_e, st_e, n_e) and len(st_g) > 0
+    assert graph.graph_replays == graph.decode_dispatches > 0
+    if "sync" in path:
+        assert graph.blocking_syncs == 0
+
+
+@pytest.mark.gpu
+def test_decode_captured_mid_serve_counts_its_sync_on_card(cuda):
+    """An engine stepped without ``warm_decode`` captures at its first
+    dispatch, and that dispatch counts the capture's device synchronize;
+    ``warm_decode`` refuses an engine with an active row."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Engine, EngineConfig, RequestSource
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    eng = Engine(init_params(cfg, seed=0, device=cuda),
+                 EngineConfig(batch_slots=2, prompt_len=16, cache_len=64))
+    eng.submit(RequestSource(vocab_size=cfg.vocab_size, prompt_len=16, raw_rate=2,
+                             max_new_tokens=20, seed=1).poll(0, 2.0))
+    eng.step_slot_sync(0, n_steps=2)
+    eng.step_slot_sync(1, n_steps=2)
+    assert eng.blocking_syncs == 1 and eng.graph_replays == 1
+    with pytest.raises(RuntimeError, match="before any row is admitted"):
+        eng.warm_decode(2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sync", [False, True])
+def test_graph_decode_after_preemption_equals_eager_on_card(cuda, sync):
+    """A pool too small for both rows to grow: a row is preempted between
+    replays and recomputed, and the streams equal the eager engine's."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import PagedEngine, PagedEngineConfig, RequestSource
+    from repro_torch.runtime.graph import DecodeGraph
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    model = init_params(cfg, seed=0, device=cuda)
+    reqs = RequestSource(vocab_size=cfg.vocab_size, prompt_len=64, raw_rate=2,
+                         max_new_tokens=40, seed=5).poll(0, 2.0)
+    out = {}
+    for graph in (False, True):
+        eng = PagedEngine(model, PagedEngineConfig(prompt_len=64, cache_len=128, page_size=16,
+                                                   num_pages=12, max_active=2,
+                                                   max_pages_per_req=7))
+        DecodeGraph.enabled = graph
+        try:
+            eng.warm_decode(2, sync=sync)
+            eng.submit([copy.deepcopy(r) for r in reqs])
+            step = eng.step_slot_sync if sync else eng.step_slot
+            for t in range(80):
+                step(t, n_steps=2)
+                if len(eng.finished) == len(reqs):
+                    break
+        finally:
+            DecodeGraph.enabled = True
+        if sync:
+            eng.drain()
+        torch.cuda.synchronize()
+        out[graph] = ({r.rid: r.generated for r in eng.finished}, eng.preemptions,
+                      eng.graph_replays)
+    assert out[True][0] == out[False][0] and len(out[True][0]) == len(reqs)
+    assert out[True][1] == out[False][1] > 0
+    assert out[True][2] > 0
+
+
+@pytest.mark.gpu
+def test_decode_graph_replays_and_counts_on_card(cuda):
+    """DecodeGraph: the first call runs the body, later calls replay it over
+    their inputs (a host array through pinned memory, a device tensor by a
+    copy), the carry comes back in place, and the launches recorded at the
+    capture are added once per replay."""
+    from repro_torch import kernels
+    from repro_torch.runtime.graph import DecodeGraph
+
+    q = torch.randn(2, 8, 32, device=cuda)
+    k = torch.randn(2, 64, 2, 32, device=cuda)
+    v = torch.randn(2, 64, 2, 32, device=cuda)
+    sp = torch.from_numpy(_ring(2, 64, np.array([40, 63]), empty_row0=False)).to(cuda)
+
+    def body(pos, bias):
+        o = k_decode.decode_attention(q + bias[:, None, None], k, v, sp, pos)
+        return (pos, bias + 1.0), (o,)
+
+    g = DecodeGraph("test", cuda)
+    kernels.reset_launch_counts()
+    pos = np.array([40, 63], np.int32)
+    bias = torch.zeros(2, device=cuda)
+    outs = []
+    for _ in range(4):
+        (p, bias), (o,) = g(body, (pos, bias), fixed=(k, v), key=1)
+        outs.append(o.clone())
+    torch.cuda.synchronize()
+    p_t = torch.from_numpy(pos).to(cuda)
+    for i, o in enumerate(outs):
+        want = ref.decode_attention_ref(q + float(i), k, v, sp, p_t)
+        assert _err_ok(o, want, torch.float32)
+    assert g.replays == 3 and torch.equal(bias, torch.full((2,), 4.0, device=cuda))
+    assert kernels.launch_counts()["decode_attention"] == 4
+    assert g.launches == {"decode_attention": 1}
+
+
+@pytest.mark.gpu
+def test_decode_graph_refuses_what_it_was_not_captured_for_on_card(cuda):
+    from repro_torch.runtime.graph import DecodeGraph
+
+    g = DecodeGraph("test", cuda)
+    body = lambda x: ((x + 1,), (x * 2,))
+    x = torch.zeros(4, device=cuda)
+    g(body, (x,), key=2)
+    with pytest.raises(ValueError, match="captured for"):
+        g(body, (torch.zeros(5, device=cuda),), key=2)
+    with pytest.raises(ValueError, match="captured for"):
+        g(body, (torch.zeros(4, dtype=torch.int32, device=cuda),), key=2)
+    with pytest.raises(ValueError, match="captured for 2"):
+        g(body, (x,), key=3)
+    with pytest.raises(RuntimeError, match="other cache tensors"):
+        g(body, (x,), fixed=(x,), key=2)
+
+
+@pytest.mark.gpu
+def test_engine_refuses_another_step_count_after_capture_on_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Engine, EngineConfig, RequestSource
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    eng = Engine(init_params(cfg, seed=0, device=cuda),
+                 EngineConfig(batch_slots=2, prompt_len=16, cache_len=64))
+    eng.submit(RequestSource(vocab_size=cfg.vocab_size, prompt_len=16, raw_rate=2,
+                             max_new_tokens=20, seed=1).poll(0, 2.0))
+    eng.step_slot(0, n_steps=2)
+    eng.step_slot(1, n_steps=2)
+    with pytest.raises(ValueError, match="captured for 2"):
+        eng.step_slot(2, n_steps=3)
+
+
+@pytest.mark.gpu
+def test_decode_graph_capture_failure_raises_on_card(cuda):
+    """A body that reads back to the host cannot be captured: the capture
+    raises (the eager warm-up ran), and nothing falls back."""
+    from repro_torch.runtime.graph import DecodeGraph
+
+    g = DecodeGraph("test", cuda)
+    body = lambda x: ((x + float(x.sum().item()),), (x,))
+    with pytest.raises(RuntimeError, match="capture of the test decode failed"):
+        g(body, (torch.ones(3, device=cuda),))
+    assert g.graph is None
+    assert torch.ones(3, device=cuda).sum().item() == 3.0
