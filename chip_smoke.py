@@ -39,9 +39,10 @@ at full width, with the kernels' launch counts), profile (device time by
 kernel over an identical second serve run), then serve and profile again
 for the paged path (``--paged --policy memory-aware``), the sync-free
 path (``--sync-free``) and the chunked path (``--chunked --policy
-token-aware``); every slot of the last two after the first runs under
-``torch.cuda.set_sync_debug_mode("error")``, and the chunked trace is held
-to the same launcher's on the CPU with the smoke model. The Mamba-2 path
+token-aware``); every slot of the last two runs its engine work under
+``torch.cuda.set_sync_debug_mode("error")`` (only the scheduler's first
+decision, which seeds its pipeline, before it), and the chunked trace is
+held to the same launcher's on the CPU with the smoke model. The Mamba-2 path
 (mamba2-130m at full width): the SSD scan kernel among the kernels (against
 its plain version and, in f32, its sequential oracle), ssd_anatomy (the
 bf16 scan's three kernels each against its plain phase, two launches bit
@@ -61,17 +62,23 @@ dense_quant_serve and dense_quant_profile (``--kv-precision int8`` on the
 main path) and dense_quant_chunked_serve (``--chunked --kv-precision fp8``,
 under the sync debug mode), their traces held to the CPU run's. Each serve
 phase zeroes the launch counts just before it and reads them just after.
-On the fused and sync-free loops, dense and paged, the decode is warmed up
-and captured before the first slot and every slot's decode is one CUDA
-graph replay (``runtime/graph.py``): the serve phases check one replay per
-decode dispatch and print each graph's kernel nodes, which the capture read
-from libcuda and which every replay adds to the launch counts; the
-profile phases count the host's kernel and graph launch calls slot by slot
-and hold the profiled decode kernels to the wrappers' counts. graph_ab
-serves each captured path (dense fused, sync-free, paged, paged sync-free,
-Mamba-2) eagerly and graphed in this call: ms per slot, host launches per
-slot over a window of slots, and equal traces, token streams and launch
-counts. fig2 replays the paper's Fig. 2 fixture (tests/fixtures/
+On the fused, sync-free and chunked loops, dense and paged, every dispatch
+the loop replays is warmed up and captured before the first slot, and
+every slot's decode or mixed (chunk + decode) dispatch is one CUDA graph
+replay (``runtime/graph.py``): the serve phases check one replay per
+dispatch (and one chunk-graph replay per mixed dispatch) and print each
+graph's kernel nodes, which the capture read from libcuda and which every
+replay adds to the launch counts; the profile phases count the host's
+kernel and graph launch calls slot by slot and hold the profiled decode
+kernels to the wrappers' counts. sampling holds per-request sampling on the
+card to the CPU (the threefry keys and random bits over the vocabulary bit
+for bit, ``sample_rows``' tokens but at near-ties), and sampled_serve and
+sampled_chunked_serve serve the main and chunked paths with temperature,
+top-k, top-p and a repetition penalty. graph_ab serves each captured path
+(dense fused, sync-free, paged, paged sync-free, Mamba-2, chunked, paged
+chunked and the two sampled ones) eagerly and graphed in this call: ms per
+slot, host launches per slot over a window of slots, and equal traces,
+token streams and launch counts. fig2 replays the paper's Fig. 2 fixture (tests/fixtures/
 fig2_golden.npz) through the port's rollouts on the card, bit for bit, and
 holds the port's own Fig. 2 to the reference's claims. Then the
 ``kernels`` summary line, the card's name and power limit from
@@ -79,6 +86,7 @@ nvidia-smi, and the result line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import re
 import subprocess
@@ -143,6 +151,13 @@ DENSE_QUANT_ARGS = SERVE_ARGS + ["--kv-precision", "int8"]
 DENSE_QUANT_CHUNKED_ARGS = CHUNKED_ARGS + ["--kv-precision", "fp8"]
 PAGED_CHUNKED_ARGS = SERVE_ARGS + PAGED_POOL + ["--chunked", "--policy", "token-aware",
                                                 "--token-budget", "1024"]
+# per-request sampling (the engine-default SamplingParams) on the main path
+# and the chunked one: temperature, top-k, top-p and a repetition penalty,
+# every token drawn with the reference's request-keyed threefry keys
+SAMPLING = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.95", "--rep-penalty",
+            "1.1", "--sampling-seed", "7"]
+SAMPLED_ARGS = SERVE_ARGS + SAMPLING
+SAMPLED_CHUNKED_ARGS = CHUNKED_ARGS + SAMPLING
 # prefix_serve: the paged chunked loop with prefix sharing on an all-int8
 # pool of PAGED_POOL's geometry, fed by tenants' system prompts (the
 # shape of tests/test_differential.py::make_shared_workload and
@@ -1944,8 +1959,7 @@ def _chunked_logits(model, toks, lens, C, L, feed, impl):
         tok = toks[:, pos0:pos0 + C].contiguous()
         logits, state = chunk_step(model, state, tok, torch.from_numpy(p0_np).cuda(),
                                    torch.from_numpy(valid_np).cuda(),
-                                   torch.from_numpy(p0_np == 0).cuda(),
-                                   A.chunk_write_targets(p0_np, valid_np, L, "cuda"))
+                                   torch.from_numpy(p0_np == 0).cuda())
         fin = torch.from_numpy(pos0 + valid_np == lens_np).cuda() & torch.from_numpy(
             valid_np > 0).cuda()
         first = torch.where(fin[:, None], logits.float(), first)
@@ -2301,18 +2315,20 @@ DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
 
 
 def _sync_checked(sched) -> None:
-    """Run every control slot after the first under
+    """Run every control slot's engine work, from slot 0's, under
     ``set_sync_debug_mode("error")``: any call that synchronizes the
-    stream raises. The first slot is exempt (``control_async`` seeds its
-    pipeline there); the mode is switched on as the second slot's control
-    starts and stays on through the serve's ``drain``."""
+    stream raises. Only the scheduler's first decision is exempt
+    (``control_async`` waits for it to seed its pipeline); the mode is
+    switched on as that call returns, after the warm-up and the captures,
+    and stays on through the serve's ``drain``."""
     control, calls = sched.control_async, [0]
 
     def checked(*a, **kw):
         calls[0] += 1
-        if calls[0] == 2:
+        out = control(*a, **kw)
+        if calls[0] == 1:
             torch.cuda.set_sync_debug_mode("error")
-        return control(*a, **kw)
+        return out
     sched.control_async = checked
 
 
@@ -2337,17 +2353,51 @@ def _watch_precision(sched, engine) -> list:
 
 
 def _count_mixed(engine) -> list:
-    """Count the engine's mixed (chunk + decode) dispatches, and those with
-    a row whose prompt starts past a prefix-cache hit (base > 0: its chunk
-    attention reads the hit's pool pages)."""
-    mixed, run = [0, 0], engine._chunk_decode_sync
+    """Count the engine's mixed (chunk + decode) dispatches, those with a
+    row whose prompt starts past a prefix-cache hit (base > 0: its chunk
+    attention reads the hit's pool pages), and the warm-up's idle ones
+    (``warm_decode``, before the first slot)."""
+    mixed, run = [0, 0, 0], engine._chunk_decode_sync
 
-    def counted(plan, n_steps):
-        mixed[0] += 1
-        mixed[1] += bool((plan["ints"][3] > 0).any())
-        return run(plan, n_steps)
+    def counted(plan, n_steps, **kw):
+        if engine._warming:
+            mixed[2] += 1
+        else:
+            mixed[0] += 1
+            mixed[1] += bool((plan["ints"][3] > 0).any())
+        return run(plan, n_steps, **kw)
     engine._chunk_decode_sync = counted
     return mixed
+
+
+def _warm(engine, sync: bool = False, chunked: bool = False) -> float:
+    """Warm up and capture the dispatches a serve replays
+    (``Engine.warm_decode``, which ``serve`` calls before its first slot)
+    ahead of a timed serve, the garbage of earlier phases collected first:
+    an earlier engine's graphs freed mid-serve would synchronize the device.
+    Returns the seconds it took."""
+    gc.collect()
+    t = time.perf_counter()
+    engine.warm_decode(2, sync=sync, chunked=chunked)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def _chunk_replays(engine) -> int:
+    """Replays of the engine's mixed-dispatch graphs ("chunk", "chunk+s")."""
+    return sum(g.replays for m, g in engine._graphs.items() if m.startswith("chunk"))
+
+
+def _warmups(args) -> int:
+    """The dispatches ``warm_decode`` runs before a launcher serve's first
+    slot: each mode the loop replays (the chunked loop's mixed dispatch and
+    its decode-only one), twice with an engine-default sampler (the greedy
+    and the sampled graph)."""
+    if args.legacy_loop:
+        return 0
+    sampled = any(getattr(args, f) is not None for f in
+                  ("temperature", "top_k", "top_p", "rep_penalty", "sampling_seed"))
+    return (2 if args.chunked else 1) * (2 if sampled else 1)
 
 
 def _paged_decode_sync_checked():
@@ -2401,9 +2451,10 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     if asynchronous:
         _sync_checked(sched)
     restore = _paged_decode_sync_checked() if args.paged and not asynchronous else None
-    mixed = _count_mixed(engine) if args.chunked else [0, 0]
+    mixed = _count_mixed(engine) if args.chunked else [0, 0, 0]
     watch = args.policy == "precision-aware"
     precision = _watch_precision(sched, engine) if watch else []
+    warm_s = 0.0 if args.legacy_loop else _warm(engine, args.sync_free, args.chunked)
     t1 = time.perf_counter()
     try:
         tr = launcher.run(args, engine, sched, src)
@@ -2416,17 +2467,19 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
             restore()
     t2 = time.perf_counter()
     counts = kernels.launch_counts()
-    captured = not (args.chunked or args.legacy_loop)
-    res = {"summary": launcher.summary(args, tr, sched), "build_s": t1 - t0,
-           "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / args.horizon * 1e3,
+    captured = not args.legacy_loop
+    res = {"summary": launcher.summary(args, tr, sched), "build_s": t1 - t0 - warm_s,
+           "warmup_s": warm_s, "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / args.horizon * 1e3,
            "launches": counts, "served": int(tr["served"].sum()),
            "dispatches_per_slot": float(tr["dispatches"].mean()),
            "decode_dispatches": engine.decode_dispatches,
            "warmup_dispatches": engine.warmup_dispatches,
            "graph_replays": engine.graph_replays,
-           # each graph's kernel nodes per counter, read from libcuda at
-           # its capture: what every replay adds to the counts
+           # each graph's launches per counter and kernel nodes per kernel
+           # function, read from libcuda at its capture (equal summed per
+           # function): what every replay adds to the counts
            "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
+           "graph_kernel_nodes": {m: g.nodes for m, g in engine._graphs.items() if g.graph},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
@@ -2435,7 +2488,10 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
                    peak_occupancy=float(tr["occupancy"].max()),
                    occupancy=tr["occupancy"].tolist())
     if args.chunked:
-        res["mixed_dispatches"] = mixed[0]
+        res.update(mixed_dispatches=mixed[0], mixed_warmups=mixed[2],
+                   chunk_graph_replays=_chunk_replays(engine))
+    if engine.ecfg.sampling is not None:
+        res["sampling"] = launcher.sampling_summary(engine)
     if watch:
         chosen = [p["chosen"] for p in precision]
         res.update(quant=launcher.quant_summary(args, engine), admit_precision=chosen,
@@ -2448,12 +2504,17 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
-    # the fused and sync-free decodes: warmed up and captured before the
-    # first slot (warm_decode), every dispatch a replay; the chunked loops eager
+    # every decode and mixed dispatch: warmed up and captured before the
+    # first slot (warm_decode), then one replay each
     want_replays = engine.decode_dispatches if captured else 0
-    if engine.graph_replays != want_replays or engine.warmup_dispatches != int(captured):
+    if engine.graph_replays != want_replays or engine.warmup_dispatches != _warmups(args):
         raise AssertionError(f"{phase}: {engine.graph_replays} graph replays for "
-                             f"{engine.decode_dispatches} decode dispatches")
+                             f"{engine.decode_dispatches} decode dispatches "
+                             f"({engine.warmup_dispatches} warm-ups)")
+    if args.chunked and (_chunk_replays(engine) != mixed[0]
+                         or mixed[2] != _warmups(args) // 2):
+        raise AssertionError(f"{phase}: {_chunk_replays(engine)} chunk graph replays for "
+                             f"{mixed[0]} mixed dispatches ({mixed[2]} warm-ups)")
     n_layers = engine.cfg.n_layers
     ssm = engine.cfg.is_ssm
     quant = args.kv_precision in ("int8", "fp8")
@@ -2469,11 +2530,11 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
                 decode: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2}
         if args.chunked:
             chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
-            want[chunk] = n_layers * mixed[0]
+            want[chunk] = n_layers * (mixed[0] + mixed[2])
     elif asynchronous or quant:
         want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
                 ring: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2,
-                "chunk_attention": n_layers * mixed[0]}
+                "chunk_attention": n_layers * (mixed[0] + mixed[2])}
         if quant:   # a quantized ring never reaches the native decode
             want["decode_attention"] = 0
     if any(counts[k] != n for k, n in want.items()):
@@ -2489,7 +2550,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         if not max(res["quant_used_pages"]) or not res["slots_with_both_regions"]:
             raise AssertionError(f"{phase}: the quantized region was not used beside the "
                                  "native one")
-    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant:
+    sampled = engine.ecfg.sampling is not None
+    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled:
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -2576,6 +2638,7 @@ def drive_prefix_serve() -> dict:
     torch.cuda.synchronize()
     _sync_checked(sched)
     mixed = _count_mixed(engine)
+    warm_s = _warm(engine, chunked=True)
     t1 = time.perf_counter()
     try:
         tr = _prefix_run(engine, sched, src)
@@ -2588,21 +2651,32 @@ def drive_prefix_serve() -> dict:
     n_layers = engine.cfg.n_layers
     line = prefix_summary(engine)
     print(line, flush=True)
-    res = {"prefix": line, "paged": paged_summary(tr, engine), "build_s": t1 - t0,
-           "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / PREFIX_HORIZON * 1e3,
+    res = {"prefix": line, "paged": paged_summary(tr, engine), "build_s": t1 - t0 - warm_s,
+           "warmup_s": warm_s, "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / PREFIX_HORIZON * 1e3,
            "launches": counts, "served": int(tr["served"].sum()),
            "mixed_dispatches": mixed[0], "mixed_dispatches_with_a_hit": mixed[1],
-           "quantized_hit_launches": n_layers * mixed[1],
+           "mixed_warmups": mixed[2], "quantized_hit_launches": n_layers * mixed[1],
+           "decode_dispatches": engine.decode_dispatches,
+           "warmup_dispatches": engine.warmup_dispatches,
+           "graph_replays": engine.graph_replays, "chunk_graph_replays": _chunk_replays(engine),
+           "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
+           "graph_kernel_nodes": {m: g.nodes for m, g in engine._graphs.items() if g.graph},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches",
                                                  "occupancy")}}
     emit("prefix_serve", **res)
     c = res["counters"]
-    want = {"paged_chunk_attention_quant": n_layers * mixed[0],
-            "paged_decode_attention_quant": n_layers * engine.decode_dispatches * 2}
+    want = {"paged_chunk_attention_quant": n_layers * (mixed[0] + mixed[2]),
+            "paged_decode_attention_quant":
+                n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2}
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"prefix_serve: launches {counts} are not {want}")
+    if (engine.graph_replays != engine.decode_dispatches or engine.warmup_dispatches != 2
+            or _chunk_replays(engine) != mixed[0] or mixed[2] != 1):
+        raise AssertionError(f"prefix_serve: {engine.graph_replays} graph replays "
+                             f"({_chunk_replays(engine)} mixed) for "
+                             f"{engine.decode_dispatches} dispatches ({mixed[0]} mixed)")
     if res["served"] <= 0 or engine.prefill_dispatches or max(res["trace"]["dispatches"]) > 1:
         raise AssertionError("prefix_serve: served nothing, ran a prefill or over-dispatched")
     if engine.blocking_syncs or max(res["syncs"]):
@@ -2733,12 +2807,13 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
         engine, sched, src = _prefix_build()
         horizon = PREFIX_HORIZON
         run = lambda: _prefix_run(engine, sched, src)
+        _warm(engine, chunked=True)
     else:
         args = launcher.build_parser().parse_args(argv)
         engine, sched, src = launcher.build(args)
         horizon = args.horizon
         run = lambda: launcher.run(args, engine, sched, src)
-    torch.cuda.synchronize()
+        _warm(engine, args.sync_free, args.chunked)
     _slot_marks(sched)
     pairs, restore = _time_replays()
     kernels.reset_launch_counts()
@@ -2790,10 +2865,15 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
                              "so read graph_replay_event_ms_per_slot")
 
 
-# the paths whose decode is one CUDA graph replay per slot, served eager and
+# the paths whose dispatches are one CUDA graph replay each, served eager and
 # graphed side by side (graph_ab)
 GRAPH_AB = (("serve", SERVE_ARGS), ("sync", SYNC_ARGS), ("paged", PAGED_ARGS),
-            ("paged_sync", PAGED_SYNC_ARGS), ("ssm", SSM_ARGS))
+            ("paged_sync", PAGED_SYNC_ARGS), ("ssm", SSM_ARGS), ("chunked", CHUNKED_ARGS),
+            ("paged_chunked", PAGED_CHUNKED_ARGS), ("sampled", SAMPLED_ARGS),
+            ("sampled_chunked", SAMPLED_CHUNKED_ARGS))
+# the chunked rows' graphed host launches must stay below this share of
+# eager's: the mixed dispatch is one replay where eager issues thousands
+CHUNKED_HOST_SHARE = 0.1
 # the slots whose host launches graph_ab counts under the profiler: the
 # first three, which admit (the decode was warmed up and captured before)
 AB_WINDOW = (0, 2)
@@ -2821,8 +2901,7 @@ def _ab_serve(argv: list, graph: bool) -> dict:
     engine, sched, src = launcher.build(args)
     restore = _graphs_on(graph)
     try:
-        engine.warm_decode(2, sync=args.sync_free)
-        torch.cuda.synchronize()
+        _warm(engine, args.sync_free, args.chunked)
         t0 = time.perf_counter()
         tr = launcher.run(args, engine, sched, src)
         torch.cuda.synchronize()
@@ -2835,7 +2914,7 @@ def _ab_serve(argv: list, graph: bool) -> dict:
             "streams": {r.rid: list(r.generated) for r in engine.finished},
             "launches": kernels.launch_counts(), "graph_replays": engine.graph_replays,
             "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
-            "decode_dispatches": engine.decode_dispatches}
+            "decode_dispatches": engine.decode_dispatches, "chunked": args.chunked}
 
 
 def _ab_host_launches(argv: list, graph: bool) -> list:
@@ -2869,9 +2948,10 @@ def _ab_host_launches(argv: list, graph: bool) -> list:
 def graph_ab() -> dict:
     """Each captured path served eagerly and graphed in this one call: ms
     per slot, host launches per slot over ``AB_WINDOW``, and the two serves'
-    trace columns, token streams and launch counts, which must be equal.
-    The graphed serve replays once per decode dispatch and issues fewer
-    host launches in every slot of the window."""
+    trace columns, token streams (sampled ones too, bit for bit) and launch
+    counts, which must be equal. The graphed serve replays once per
+    dispatch and issues fewer host launches in every slot of the window; a
+    chunked one fewer than ``CHUNKED_HOST_SHARE`` of eager's."""
     out = {}
     for name, argv in GRAPH_AB:
         eager, graph = _ab_serve(argv, False), _ab_serve(argv, True)
@@ -2899,11 +2979,119 @@ def graph_ab() -> dict:
         if eager["graph_replays"] or graph["graph_replays"] != graph["decode_dispatches"]:
             raise AssertionError(f"graph_ab {name}: {graph['graph_replays']} replays for "
                                  f"{graph['decode_dispatches']} decode dispatches")
+        share = CHUNKED_HOST_SHARE if graph["chunked"] else 1.0
         if len(host["eager"]) != len(host["graph"]) or any(
-                g >= e for g, e in zip(host["graph"], host["eager"])):
+                g >= share * e for g, e in zip(host["graph"], host["eager"])):
             raise AssertionError(f"graph_ab {name}: host launches {host['graph']} are not "
-                                 f"below the eager serve's {host['eager']}")
+                                 f"below {share} of the eager serve's {host['eager']}")
     return out
+
+
+# the sampling phase: keys and bits over granite-3-2b's vocabulary for a
+# spread of (seed, rid, age), and the sampler over a batch of rows
+SAMPLING_V = 49155
+SAMPLING_SEEDS = (0, 7, 2**31 + 5, 2**32 - 1)
+SAMPLING_RIDS = (0, 1, 977, 2**31 - 1)
+SAMPLING_AGES = (0, 1, 63, 4095)
+# where two draws may part: the top-2 perturbed scores within SCORE_TIE, or
+# the top-p boundary's cum - probs within BOUNDARY_TIE of top_p
+SCORE_TIE, BOUNDARY_TIE = 1e-5, 1e-6
+
+
+def _sampling_tables(rng, B, V):
+    """A batch of B rows mixing the sampler's knobs: greedy rows (one with
+    penalties), temperatures, top-k (beyond V too), top-p and the three
+    penalties, over a random history; (tables, ages, gen)."""
+    from repro_torch.runtime.sampling import SamplingParams, row_tables
+
+    resolved = []
+    for i in range(B):
+        if i % 8 == 0:
+            resolved.append(None)
+            continue
+        resolved.append((SamplingParams(
+            temperature=float(rng.choice([0.0, 0.5, 0.8, 1.0, 1.3])),
+            top_k=int(rng.choice([0, 1, 50, 1000, V + 7])),
+            top_p=float(rng.choice([1.0, 0.95, 0.8, 0.5])),
+            repetition_penalty=float(rng.choice([1.0, 1.1, 2.0])),
+            presence_penalty=float(rng.choice([0.0, 0.4])),
+            frequency_penalty=float(rng.choice([0.0, 0.2])),
+            seed=int(rng.choice([7, 2**32 - 3]))), int(rng.integers(0, 2**31 - 1))))
+    ages = rng.integers(0, 48, B).astype(np.int32)
+    gen = rng.integers(0, V, (B, 64)).astype(np.int32)
+    return row_tables(resolved, 7), ages, gen
+
+
+def _sampling_ties(logits, samp, ages, gen) -> np.ndarray:
+    """The rows (B,) bool where a token may rightly differ between two
+    devices: the sampler's own steps on the CPU in float64 where a draw is
+    decided, a row marked when its top-2 perturbed scores (penalized logits
+    for a greedy row) lie within SCORE_TIE or its top-p boundary within
+    BOUNDARY_TIE."""
+    from repro_torch.runtime import sampling as S
+
+    lg = S._penalize(logits.float(), samp, gen, torch.from_numpy(ages))
+    greedy = samp.greedy.numpy()
+    t = (lg / torch.clamp(samp.temp, min=S.GREEDY_TEMP)[:, None]).double()
+    srt = torch.sort(t, dim=-1, descending=True, stable=True).values
+    probs = torch.softmax(srt, dim=-1)
+    below = (torch.cumsum(probs, dim=-1) - probs - samp.top_p.double()[:, None]).abs()
+    boundary = (below.min(dim=-1).values < BOUNDARY_TIE).numpy() & (samp.top_p < 1).numpy()
+    noise = S.threefry.gumbel(S.draw_keys(samp, torch.from_numpy(ages)), lg.shape[1])
+    scores = torch.where(torch.from_numpy(greedy)[:, None], lg, noise + t.float())
+    top2 = torch.topk(scores.double(), 2, dim=-1).values
+    return boundary | ((top2[:, 0] - top2[:, 1]) < SCORE_TIE).numpy()
+
+
+def check_sampling() -> dict:
+    """Per-request sampling on the card against the same functions on the
+    CPU: the threefry keys fold_in(fold_in(PRNGKey(seed), rid), age) and
+    their random bits over the full vocabulary bit for bit, the Gumbel
+    noise within 2 ulps of max(|g|, 1) (each log within an ulp), and
+    ``sample_rows`` over logits of the full width: equal tokens but at the
+    near-ties ``_sampling_ties`` marks. Device times of one draw at the
+    serve's batch."""
+    from repro_torch.runtime import sampling as S
+    from repro_torch.runtime import threefry as tf
+
+    grid = np.array([(s, r, a) for s in SAMPLING_SEEDS for r in SAMPLING_RIDS
+                     for a in SAMPLING_AGES], np.int64).T
+    out = {}
+    for dev in ("cuda", "cpu"):
+        seed, rid, age = (torch.from_numpy(x).to(dev) for x in grid)
+        key = tf.fold_in(tf.fold_in(tf.seed(seed), rid), age)
+        out[dev] = (key, tf.random_bits(key, SAMPLING_V), tf.gumbel(key, SAMPLING_V))
+    keys_equal = all(torch.equal(a.cpu(), b) for a, b in zip(out["cuda"][0], out["cpu"][0]))
+    bits_equal = torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    g_dev, g_cpu = out["cuda"][2].cpu().numpy(), out["cpu"][2].numpy()
+    noise_ulps = float((np.abs(g_dev - g_cpu)
+                        / np.spacing(np.maximum(np.abs(g_cpu), np.float32(1)))).max())
+
+    rng = np.random.default_rng(11)
+    B = 64
+    samp, ages, gen = _sampling_tables(rng, B, SAMPLING_V)
+    logits = torch.from_numpy((rng.standard_normal((B, SAMPLING_V)) * 4).astype(np.float32))
+    cpu = S.sample_rows(logits, samp.to("cpu"), torch.from_numpy(ages), torch.from_numpy(gen),
+                        torch.from_numpy(ages))
+    dsamp = samp.to("cuda")
+    dargs = (logits.cuda(), dsamp, torch.from_numpy(ages).cuda(), torch.from_numpy(gen).cuda(),
+             torch.from_numpy(ages).cuda())
+    card = S.sample_rows(*dargs).cpu()
+    ties = _sampling_ties(logits, samp.to("cpu"), ages, torch.from_numpy(gen))
+    differ = (card != cpu).numpy()
+    b8 = tuple(a[:8] if isinstance(a, torch.Tensor) else S.RowSampling(*(t[:8] for t in a))
+               for a in dargs)
+    res = {"V": SAMPLING_V, "keys": int(grid.shape[1]), "keys_equal": keys_equal,
+           "bits_equal": bits_equal, "noise_max_ulps_of_max_abs_1": noise_ulps,
+           "rows": B, "tokens_equal": int((~differ).sum()), "near_ties": int(ties.sum()),
+           "differ_off_ties": int((differ & ~ties).sum()),
+           "sample_rows_device_ms_B8": _device_ms(lambda: S.sample_rows(*b8)),
+           "random_bits_device_ms_B8": _device_ms(
+               lambda: tf.gumbel(S.draw_keys(b8[1], b8[2]), SAMPLING_V))}
+    emit("sampling", **res)
+    if not (keys_equal and bits_equal) or noise_ulps > 2.0 or res["differ_off_ties"]:
+        raise AssertionError(f"sampling: the card's draws left the CPU's: {res}")
+    return res
 
 
 FIG2_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "fig2_golden.npz"
@@ -3205,6 +3393,13 @@ def main() -> int:
     profile_main_path(DENSE_QUANT_ARGS, dense_quant["serve_s"], "dense_quant_profile")
     drive_main_path(DENSE_QUANT_CHUNKED_ARGS, "dense_quant_chunked_serve",
                     DENSE_QUANT_CHUNKED_KERNELS)
+    check_sampling()
+    sampled = drive_main_path(SAMPLED_ARGS, "sampled_serve", DENSE_KERNELS)
+    profile_main_path(SAMPLED_ARGS, sampled["serve_s"], "sampled_profile")
+    sampled_chunked = drive_main_path(SAMPLED_CHUNKED_ARGS, "sampled_chunked_serve",
+                                      CHUNKED_KERNELS)
+    profile_main_path(SAMPLED_CHUNKED_ARGS, sampled_chunked["serve_s"],
+                      "sampled_chunked_profile")
     graph_ab()
     check_fig2()
 

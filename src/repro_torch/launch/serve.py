@@ -57,6 +57,16 @@ token by token with copy-on-write forks on the chunked one, and prints a
       --smoke --paged --chunked --prefix-sharing --kv-precision int8 \
       --policy token-aware --horizon 12 [--device cpu]
 
+``--temperature``/``--top-k``/``--top-p``/``--rep-penalty``/
+``--sampling-seed`` switch generation from greedy to per-request sampling
+on every loop of both engines (the engine-default ``SamplingParams``),
+drawn with the reference's request-keyed threefry keys, and print a
+``sampling:`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --temperature 0.8 --top-k 20 --sampling-seed 7 --horizon 12 \
+      [--chunked --policy token-aware] [--device cpu]
+
 ``--arch mamba2-130m`` serves the Mamba-2 stack on the dense engine (the
 fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
 ``--paged`` refuse it with ValueError, as the reference does.
@@ -67,6 +77,7 @@ the ROADMAP.md queue item that brings them.
 from __future__ import annotations
 
 import argparse
+from typing import Optional
 
 import numpy as np
 
@@ -78,17 +89,12 @@ from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
                                  MemoryAwareScheduler, PagedEngine,
                                  PagedEngineConfig, PolicyScheduler,
                                  PrecisionAwareScheduler, RequestSource,
-                                 StaticScheduler, TokenAwareScheduler,
+                                 SamplingParams, StaticScheduler, TokenAwareScheduler,
                                  latency_stats, serve)
 
 # flag -> the ROADMAP.md queue-1 item that will bring its path
 _UNPORTED = {
     "replicas": "item 8 (the fleet)",
-    "temperature": "item 7 (per-request sampling)",
-    "top_k": "item 7 (per-request sampling)",
-    "top_p": "item 7 (per-request sampling)",
-    "rep_penalty": "item 7 (per-request sampling)",
-    "sampling_seed": "item 7 (per-request sampling)",
     "tenants": "item 10 (observability and reliability)",
     "metrics": "item 10 (observability and reliability)",
     "trace_out": "item 10 (observability and reliability)",
@@ -169,11 +175,55 @@ def build_parser() -> argparse.ArgumentParser:
                          "(copy-on-write forks on the chunked path)")
     ap.add_argument("--metrics", action="store_true",
                     help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED['metrics']}")
-    for flag in ("replicas", "temperature", "top_k", "top_p", "rep_penalty",
-                 "sampling_seed", "tenants", "trace_out", "decisions_out"):
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="softmax temperature, >= 0 (0 = greedy argmax; default: pure "
+                         "greedy engine, no sampling layer)")
+    ap.add_argument("--top-k", type=int, default=None,
+                    help="sample from the k highest logits, >= 0 (0 = full vocabulary)")
+    ap.add_argument("--top-p", type=float, default=None,
+                    help="nucleus sampling mass in (0, 1] (1.0 = off)")
+    ap.add_argument("--rep-penalty", type=float, default=None,
+                    help="CTRL-style repetition penalty over generated tokens, > 0 "
+                         "(1.0 = off)")
+    ap.add_argument("--sampling-seed", type=int, default=None,
+                    help="base RNG seed; the per-token key is "
+                         "fold_in(fold_in(PRNGKey(seed), rid), token_index)")
+    for flag in ("replicas", "tenants", "trace_out", "decisions_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
     return ap
+
+
+def sampling_params(args) -> Optional[SamplingParams]:
+    """The engine-default SamplingParams the sampling flags ask for (None:
+    the pure greedy engine), each flag checked as the reference's launcher
+    checks it (ValueError naming the valid range)."""
+    if args.temperature is not None and not args.temperature >= 0.0:
+        raise ValueError(f"--temperature must be >= 0 (0 = greedy), got {args.temperature}")
+    if args.top_k is not None and args.top_k < 0:
+        raise ValueError(f"--top-k must be >= 0 (0 = full vocabulary), got {args.top_k}")
+    if args.top_p is not None and not 0.0 < args.top_p <= 1.0:
+        raise ValueError(f"--top-p must be in (0, 1], got {args.top_p}")
+    if args.rep_penalty is not None and not args.rep_penalty > 0.0:
+        raise ValueError(f"--rep-penalty must be > 0 (1.0 = off), got {args.rep_penalty}")
+    if all(v is None for v in (args.temperature, args.top_k, args.top_p, args.rep_penalty,
+                               args.sampling_seed)):
+        return None
+    return SamplingParams(
+        temperature=args.temperature if args.temperature is not None else 1.0,
+        top_k=args.top_k or 0,
+        top_p=args.top_p if args.top_p is not None else 1.0,
+        repetition_penalty=args.rep_penalty if args.rep_penalty is not None else 1.0,
+        seed=args.sampling_seed)
+
+
+def sampling_summary(engine: Engine) -> str:
+    """The reference launcher's ``sampling:`` line."""
+    p = engine.ecfg.sampling
+    return (f"sampling: temperature={p.temperature} top_k={p.top_k} top_p={p.top_p} "
+            f"rep_penalty={p.repetition_penalty} "
+            f"seed={p.seed if p.seed is not None else 0} "
+            f"requests_sampled={engine.requests_sampled}")
 
 
 def build(args):
@@ -223,6 +273,7 @@ def build(args):
         raise NotImplementedError(
             f"--policy {args.policy} is not ported yet; see ROADMAP.md queue 1 "
             f"{_UNPORTED_POLICIES[args.policy]}")
+    sampling = sampling_params(args)
     for name in ("chunk_size", "chunk_budget"):
         if getattr(args, name) < 0:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 0, "
@@ -242,13 +293,13 @@ def build(args):
             max_active=args.max_active, eos_id=args.eos_id,
             prefix_sharing=args.prefix_sharing, chunk_size=args.chunk_size,
             chunk_budget=args.chunk_budget, kv_precision=args.kv_precision,
-            quant_pages=args.quant_pages))
+            quant_pages=args.quant_pages, sampling=sampling))
     else:
         engine = Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
             cache_len=args.cache_len, eos_id=args.eos_id,
             chunk_size=args.chunk_size, chunk_budget=args.chunk_budget,
-            kv_precision=args.kv_precision))
+            kv_precision=args.kv_precision, sampling=sampling))
     rates = tuple(float(f) for f in range(1, args.raw_rate + 1))
     if args.policy == "adaptive":
         sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity)
@@ -329,6 +380,8 @@ def main(argv=None):
     engine, sched, src = build(args)
     tr = run(args, engine, sched, src)
     print(summary(args, tr, sched))
+    if engine.ecfg.sampling is not None:
+        print(sampling_summary(engine))
     if args.paged:
         print(paged_summary(tr, engine))
         if args.kv_precision in ("int8", "fp8"):

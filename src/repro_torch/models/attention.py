@@ -251,36 +251,69 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
 
 
 class ChunkWrites(NamedTuple):
-    """Where one chunk dispatch writes K/V: the valid (row, chunk column)
-    pairs, the ring slot and the absolute position of each. Built on the
-    host, which knows every row's pos0 and valid, and shared by all layers."""
+    """Where one chunk dispatch writes K/V: W = min(C, cache_len) targets
+    per row at a fixed shape (B, W), the chunk column each takes, its ring
+    slot and absolute position, and whether it is written. Computed on the
+    device from pos0 and valid, and shared by all layers."""
 
-    rows: torch.Tensor    # (n,) int64 batch rows
-    cols: torch.Tensor    # (n,) int64 chunk columns
-    slots: torch.Tensor   # (n,) int64 ring slots, pos % cache_len
-    pos: torch.Tensor     # (n,) int32 absolute positions
+    slots: torch.Tensor   # (B, W) int64 ring slots, (pos0 + c) % cache_len
+    pos: torch.Tensor     # (B, W) int32 absolute positions pos0 + c
+    keep: torch.Tensor    # (B, W) bool, w < valid
+    cols: Optional[torch.Tensor] = None   # (B, W) int64 column c; None: c = w
 
 
-def chunk_write_targets(pos0: np.ndarray, valid: np.ndarray, cache_len: int,
-                        device) -> ChunkWrites:
-    """The (row, column) pairs a chunk writes: column c of row b for c <
-    valid[b], at position pos0[b] + c. The reference scatters every pair
-    and drops the rest (``mode="drop"``); PyTorch has no dropping scatter,
-    so the host lists the valid pairs, and one pinned copy takes them to
-    the device (a mask selection there would read a count back)."""
-    valid = np.asarray(valid, np.int64)
-    rows = np.repeat(np.arange(len(valid)), valid)
-    cols = np.arange(len(rows)) - np.repeat(np.cumsum(valid) - valid, valid)
-    pos = np.asarray(pos0, np.int64)[rows] + cols
-    idx = host_to_device(np.stack([rows, cols, pos % cache_len, pos]), torch.device(device))
-    return ChunkWrites(idx[0], idx[1], idx[2], idx[3].to(torch.int32))
+def chunk_write_targets(pos0: torch.Tensor, valid: torch.Tensor, C: int,
+                        cache_len: int) -> ChunkWrites:
+    """The targets of a chunk of C columns: column c of row b lands at
+    position pos0[b] + c and is valid for c < valid[b]. The reference
+    scatters every pair and drops the invalid ones (``mode="drop"``);
+    PyTorch has no dropping scatter, so each write gathers the old values
+    at all targets, selects the new ones where valid and scatters the
+    whole block back (``_masked_put``). Nothing is read back, so the write
+    fits a CUDA graph.
+
+    No scatter index may repeat (its order is not defined), so a row has
+    one target per ring slot it can reach: W = min(C, cache_len) targets,
+    whose slots are distinct modulo cache_len, and rows differ. For C <=
+    cache_len target w takes column w. A chunk wider than the ring sends
+    target w the last valid column c = w (mod cache_len), what writing the
+    columns one by one would leave in that slot; columns at or past
+    cache_len are valid only when valid > cache_len."""
+    W = min(C, cache_len)
+    w = torch.arange(W, device=pos0.device)[None, :]
+    c = w
+    if C > cache_len:
+        c = w + cache_len * torch.div((valid[:, None] - 1 - w).clamp(min=0), cache_len,
+                                      rounding_mode="floor")
+    pos = pos0[:, None] + c
+    return ChunkWrites((pos % cache_len).long(), pos.to(torch.int32), w < valid[:, None],
+                       None if C <= cache_len else c.long())
+
+
+def _columns(t: torch.Tensor, writes: ChunkWrites) -> torch.Tensor:
+    """A chunk tensor t (B, C, ...) at the write targets' columns (B, W, ...)."""
+    if writes.cols is None:
+        return t
+    return t[torch.arange(t.shape[0], device=t.device)[:, None], writes.cols]
+
+
+def _masked_put(t: torch.Tensor, index: tuple, new: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """``t[index] = new`` where ``keep`` is True and the old value
+    elsewhere, in place: a gather, a select and one scatter, each of a
+    fixed shape. ``index`` must not repeat (the scatter's order is not
+    defined), and ``keep`` has the leading shape of ``new``."""
+    t, new = as_bytes(t), as_bytes(new)
+    keep = keep.reshape(keep.shape + (1,) * (new.dim() - keep.dim()))
+    t[index] = torch.where(keep, new.to(t.dtype), t[index])
 
 
 def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor,
                valid: torch.Tensor, cfg: ModelConfig, writes: ChunkWrites, *,
                reset: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked-prefill attention: rope the chunk at pos0 + arange(C), write
-    its valid K/V and slot_pos into the ring in place (``writes``), then
+    its valid K/V and slot_pos into the ring in place (``writes``, from
+    ``chunk_write_targets``: a fixed-shape masked write), then
     attend the chunk's queries over the row's whole cache, earlier chunks
     and the chunk itself. x (B, C, D); pos0 and valid (B,) int32.
 
@@ -303,18 +336,21 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
     k = apply_rope(k, pos, cfg.rope_theta)
     if reset is not None:
         cache.slot_pos.masked_fill_(reset[:, None], -1)
-    kc, vc = k[writes.rows, writes.cols], v[writes.rows, writes.cols]
+    at = (torch.arange(B, device=x.device)[:, None], writes.slots)
+    kc, vc = _columns(k, writes), _columns(v, writes)
     if cache.k_scale is not None:
-        _quant_write(_ring_codes(cache), (writes.rows, writes.slots), kc, vc)
+        codes, scale = quantize_kv(torch.stack((kc, vc)), _code_precision(cache.k))
+        for t, new in zip(_ring_codes(cache), (codes[0], codes[1], scale[0], scale[1])):
+            _masked_put(t, at, new, writes.keep)
     else:
-        cache.k[writes.rows, writes.slots] = kc.to(cache.k.dtype)
-        cache.v[writes.rows, writes.slots] = vc.to(cache.v.dtype)
-    cache.slot_pos[writes.rows, writes.slots] = writes.pos
+        _masked_put(cache.k, at, kc, writes.keep)
+        _masked_put(cache.v, at, vc, writes.keep)
+    _masked_put(cache.slot_pos, at, writes.pos, writes.keep)
     if cache.stage_k is None:
         o = ops.chunk_attention(q, cache.k, cache.v, cache.slot_pos, pos0, valid)
         return p.out(o)
-    cache.stage_k[writes.rows, writes.slots] = kc.to(cache.stage_k.dtype)
-    cache.stage_v[writes.rows, writes.slots] = vc.to(cache.stage_v.dtype)
+    _masked_put(cache.stage_k, at, kc, writes.keep)
+    _masked_put(cache.stage_v, at, vc, writes.keep)
     # K4 over staging with slot_pos = arange(L) on every row: its mask
     # 0 <= slot_pos <= qpos is then exactly the reference's arange(L) <= qpos
     # (no window on this branch), so no kernel of its own is needed

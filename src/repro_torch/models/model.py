@@ -4,7 +4,7 @@
   prefill(model, tokens, cache_len, ...)          -> (last_logits, DecodeState)
   decode_step(model, state, tokens, ...)          -> (logits, DecodeState)
   decode_step_paged(model, state, tokens)         -> (logits, PagedDecodeState)
-  chunk_step(model, state, tokens, pos0, valid, reset, writes)
+  chunk_step(model, state, tokens, pos0, valid, reset)
                                                   -> (logits, DecodeState)
   chunk_step_paged(model, state, tokens, pos0, valid, base)
                                                   -> (logits, PagedDecodeState)
@@ -176,16 +176,15 @@ def decode_step(model: Model, state: DecodeState, tokens: torch.Tensor, *,
 
 @torch.no_grad()
 def chunk_step(model: Model, state: DecodeState, tokens: torch.Tensor,
-               pos0: torch.Tensor, valid: torch.Tensor, reset: torch.Tensor,
-               writes: A.ChunkWrites) -> tuple[torch.Tensor, DecodeState]:
+               pos0: torch.Tensor, valid: torch.Tensor,
+               reset: torch.Tensor) -> tuple[torch.Tensor, DecodeState]:
     """Process one prompt chunk per row against the decode caches, in place.
 
     tokens (B, C) int32: up to C prompt tokens per row, written at
     positions [pos0, pos0 + valid); a row with valid 0 does no chunk work
     (its logits are garbage the caller masks). ``reset`` (B,) bool marks
-    rows whose cache still holds a previous tenant; ``writes`` (from
-    ``attention.chunk_write_targets``) lists the valid (row, column)
-    pairs. Returns the logits at each row's *last valid* chunk position —
+    rows whose cache still holds a previous tenant. Every shape is fixed
+    and nothing is read back, so the step fits a CUDA graph. Returns the logits at each row's *last valid* chunk position —
     for a row finishing its prompt, the length-aware prefill's last-token
     logits — and a state whose ``pos`` is pos0 + valid and ``last_tok``
     the chunk's last token for chunk rows, unchanged elsewhere.
@@ -193,7 +192,7 @@ def chunk_step(model: Model, state: DecodeState, tokens: torch.Tensor,
     cfg = model.cfg
     B, C = tokens.shape
     h = _embed(model, tokens)
-    h = T.chunk_hidden(model.stack, h, state.caches, pos0, valid, reset, cfg, writes)
+    h = T.chunk_hidden(model.stack, h, state.caches, pos0, valid, reset, cfg)
     last = torch.clamp(valid - 1, 0, C - 1).long()
     rows = torch.arange(B, device=tokens.device)
     logits = unembed(model.tok, rmsnorm(model.ln_f, h[rows, last], cfg.norm_eps))

@@ -184,10 +184,12 @@ def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
 
 def chunk_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
                  pos0: torch.Tensor, valid: torch.Tensor, reset: torch.Tensor,
-                 cfg: ModelConfig, writes: A.ChunkWrites) -> torch.Tensor:
+                 cfg: ModelConfig) -> torch.Tensor:
     """One prompt-chunk pass over h (B, C, D) with ``prefill_hidden``'s
     per-layer order (attention -> residual -> MLP); ``attn_chunk`` writes
-    each layer's cache in place at the per-row offsets."""
+    each layer's cache in place at the per-row offsets, every layer at the
+    same fixed-shape targets."""
+    writes = A.chunk_write_targets(pos0, valid, h.shape[1], caches[0].cache_len)
     for seg, cache in zip(stack, caches, strict=True):
         for i, p in enumerate(seg):
             a = A.attn_chunk(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cache.layer(i),

@@ -23,7 +23,18 @@ reference's is one jitted scan. ``warm_decode``, which the serve loop calls
 before its first slot, runs the decode once over the free rows and
 captures it there; a decode never warmed is captured at its first
 dispatch, whose blocking syncs then count the capture's device
-synchronize. The chunked loops' mixed dispatch still runs eagerly.
+synchronize. The chunked loops' mixed dispatch (prompt chunks, activation
+and decode) is one graph too, its write targets computed on the device at
+a fixed shape; a chunked slot with no chunk to run replays the sync-free
+decode's graph.
+
+Per-request sampling (``runtime/sampling.py``) runs inside the same
+dispatches: a request's ``SamplingParams`` (or the engine's default) enter
+as per-row tables, the first token at admission or activation and every
+decode step draw with the reference's request-keyed threefry keys. An
+all-greedy batch runs today's argmax graphs bit for bit; a batch with a
+sampled row runs a second graph per mode ("fused+s", "sync+s",
+"chunk+s").
 
 Admission on a dense attention stack buckets prompts into power-of-two
 sub-buckets (P/4, P/2, P) of ``prompt_len`` and passes per-row real lengths
@@ -84,6 +95,7 @@ from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.runtime.graph import DecodeGraph
 from repro_torch.runtime.request import Request
+from repro_torch.runtime.sampling import RowSampling, SamplingParams, row_tables, sample_rows
 
 # Sentinel for short-prompt padding (identical across requests).
 PAD_ID = 0
@@ -110,7 +122,10 @@ class EngineConfig:
     batch_slots: int = 8
     prompt_len: int = 32
     cache_len: int = 128
-    greedy: bool = True           # the port serves greedy only
+    seed: int = 0                 # the sampling seed of params that set none
+    # the engine-wide default SamplingParams of requests that carry none
+    # (request.sampling always wins); None serves them greedily
+    sampling: Optional[SamplingParams] = None
     shape_window: Optional[int] = None
     eos_id: Optional[int] = None  # stop token (None = length-only stopping)
     gen_buf_len: int = 0          # sync-free token ring capacity; 0 => cache_len
@@ -203,10 +218,25 @@ def _sync_step(sync: SyncState, nxt: torch.Tensor, eos_id: Optional[int]):
     return SyncState(tok, age, sync.budget, done, gen_buf), served
 
 
-def _first_tokens(logits: torch.Tensor, budgets: torch.Tensor, eos_id: Optional[int]):
-    """Greedy first tokens of newly activated rows and whether each
-    finished with it (a budget of 1, or EOS)."""
-    first = torch.argmax(logits, dim=-1).to(torch.int32)
+def _next_tokens(logits: torch.Tensor, samp: Optional[RowSampling],
+                 ages: Optional[torch.Tensor] = None, gen: Optional[torch.Tensor] = None,
+                 gen_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One token per row: the argmax, or with ``samp`` each row's sampler
+    at ``ages`` over the history ``gen[:, :gen_len]`` (a first token: age
+    0, no history)."""
+    if samp is None:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if ages is None:
+        ages = torch.zeros(logits.shape[0], dtype=torch.int32, device=logits.device)
+    return sample_rows(logits, samp, ages, gen, gen_len)
+
+
+def _first_tokens(logits: torch.Tensor, budgets: torch.Tensor, eos_id: Optional[int],
+                  samp: Optional[RowSampling] = None):
+    """First tokens of newly activated rows (argmax, or each row's sampler
+    at age 0 with no history) and whether each finished with it (a budget
+    of 1, or EOS)."""
+    first = _next_tokens(logits, samp)
     fin = budgets <= 1
     if eos_id is not None:
         fin = fin | (first == eos_id)
@@ -214,11 +244,12 @@ def _first_tokens(logits: torch.Tensor, budgets: torch.Tensor, eos_id: Optional[
 
 
 def _sync_admit(sync: SyncState, logits: torch.Tensor, rows: torch.Tensor,
-                budgets: torch.Tensor, eos_id: Optional[int]) -> SyncState:
+                budgets: torch.Tensor, eos_id: Optional[int],
+                samp: Optional[RowSampling] = None) -> SyncState:
     """Device-side admission: the first token of each admitted row (prefill
-    row j -> engine row rows[j]) and its sync-state reset, with no logits
-    readback."""
-    first, fin = _first_tokens(logits, budgets, eos_id)
+    row j -> engine row rows[j]; ``samp`` aligned with the prefill rows)
+    and its sync-state reset, with no logits readback."""
+    first, fin = _first_tokens(logits, budgets, eos_id, samp)
     return SyncState(
         cur_tok=sync.cur_tok.index_put((rows,), first),
         age=sync.age.index_put((rows,), torch.ones_like(first)),
@@ -228,11 +259,12 @@ def _sync_admit(sync: SyncState, logits: torch.Tensor, rows: torch.Tensor,
 
 
 def _sync_activate(sync: SyncState, logits: torch.Tensor, final: torch.Tensor,
-                   budgets: torch.Tensor, eos_id: Optional[int]) -> SyncState:
+                   budgets: torch.Tensor, eos_id: Optional[int],
+                   samp: Optional[RowSampling] = None) -> SyncState:
     """Device-side activation of the rows whose final prompt chunk ran in
     this dispatch: their first token comes from the chunk's last-token
     logits, masked into the sync state, with no logits readback."""
-    first, fin = _first_tokens(logits, budgets, eos_id)
+    first, fin = _first_tokens(logits, budgets, eos_id, samp)
     zero = torch.zeros_like(sync.age)
     return SyncState(
         cur_tok=torch.where(final, first, sync.cur_tok),
@@ -242,18 +274,20 @@ def _sync_activate(sync: SyncState, logits: torch.Tensor, final: torch.Tensor,
         gen_buf=_ring_write(sync.gen_buf, zero, final, first))
 
 
-def _decode_n_sync(step, state, sync: SyncState, n: int, eos_id: Optional[int]):
+def _decode_n_sync(step, state, sync: SyncState, n: int, eos_id: Optional[int],
+                   samp: Optional[RowSampling] = None):
     """Sync-free fused decode: selection, EOS and the ring buffer stay on
     the device; ``step(state, tokens) -> (logits, state)`` is one decode
-    step of the engine (dense or paged). Rows whose stop mask latched keep
-    computing (masked) but stop advancing: their pos freezes, so a
-    finished row rewrites its own last cache slot (a paged row's write
-    targets follow that pos on the device). Returns (state, sync, served
-    per step (n,) int32)."""
+    step of the engine (dense or paged). With ``samp`` each row samples at
+    its age, its penalties reading the ring (``age`` tokens are live
+    there). Rows whose stop mask latched keep computing (masked) but stop
+    advancing: their pos freezes, so a finished row rewrites its own last
+    cache slot (a paged row's write targets follow that pos on the
+    device). Returns (state, sync, served per step (n,) int32)."""
     served = []
     for _ in range(n):
         logits, nstate = step(state, sync.cur_tok)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = _next_tokens(logits, samp, sync.age, sync.gen_buf, sync.age)
         state = nstate._replace(pos=torch.where(sync.done, state.pos, nstate.pos))
         sync, s = _sync_step(sync, nxt, eos_id)
         served.append(s)
@@ -311,28 +345,52 @@ def _prompt_buckets(P: int, quantum: int = 1) -> list:
     return sorted(out) or [P]
 
 
-def _decode_one(model, state, toks, shape_window):
+def _decode_one(model, state, toks, shape_window, samp: Optional[RowSampling] = None,
+                ages=None, hist=None):
     logits, state = M.decode_step(model, state, toks, shape_window=shape_window)
-    return torch.argmax(logits, dim=-1).to(torch.int32), state
+    return _next_tokens(logits, samp, ages, hist, ages), state
 
 
-def _decode_n(model, state, toks, n, shape_window):
-    """n fused greedy decode steps; returns per-step tokens (n, B)."""
+def _decode_scan(step, state, toks, n, samp: Optional[RowSampling] = None,
+                 ages=None, hist=None):
+    """n fused decode steps, ``step(state, tokens) -> (logits, state)``;
+    per-step tokens (n, B). With ``samp`` each step samples at ``ages``
+    over the host-built history ``hist`` (B, cap), and writes its token
+    into ``hist`` at ``ages % cap``, so a later step's penalties see the
+    tokens drawn earlier in the dispatch."""
     outs = []
     for _ in range(n):
-        toks, state = _decode_one(model, state, toks, shape_window)
+        logits, state = step(state, toks)
+        toks = _next_tokens(logits, samp, ages, hist, ages)
+        if samp is not None:
+            hist = hist.scatter(1, (ages % hist.shape[1]).long()[:, None], toks[:, None])
+            ages = ages + 1
         outs.append(toks)
     return torch.stack(outs), state
 
 
-def _decode_n_paged(model, state, toks, n):
-    """n fused greedy decode steps over the paged pools; per-step tokens (n, B)."""
-    outs = []
-    for _ in range(n):
-        logits, state = M.decode_step_paged(model, state, toks)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)
-        outs.append(toks)
-    return torch.stack(outs), state
+def _decode_n(model, state, toks, n, shape_window, samp=None, ages=None, hist=None):
+    """n fused decode steps over the dense caches; per-step tokens (n, B)."""
+    step = lambda st, tk: M.decode_step(model, st, tk, shape_window=shape_window)
+    return _decode_scan(step, state, toks, n, samp, ages, hist)
+
+
+def _decode_n_paged(model, state, toks, n, samp=None, ages=None, hist=None):
+    """n fused decode steps over the paged pools; per-step tokens (n, B)."""
+    step = lambda st, tk: M.decode_step_paged(model, st, tk)
+    return _decode_scan(step, state, toks, n, samp, ages, hist)
+
+
+def _tables(extra: tuple) -> Optional[RowSampling]:
+    """A graph body's sampling tables from its trailing inputs (none: the
+    greedy graph)."""
+    return RowSampling(*extra) if extra else None
+
+
+def _scan_samp(extra: tuple) -> tuple:
+    """The fused scan's sampling arguments (samp, ages, hist) from its
+    extra inputs (ages, hist, *tables); () for the greedy scan."""
+    return (_tables(extra[2:]), *extra[:2]) if extra else ()
 
 
 def _leaves(caches: list) -> list:
@@ -394,11 +452,8 @@ class Engine:
         cfg = model.cfg
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
-        if not ecfg.greedy:
-            raise NotImplementedError(
-                "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
-                "(per-request sampling)")
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self._init_sampling(ecfg)
         # every prefill builds the dense ring at the engine's precision (a
         # quantized one holds codes and scales, which the decode reads)
         self._prefill_kv = cfg.kv_precision
@@ -458,23 +513,96 @@ class Engine:
         return t + sum(c.remaining for c in self._cursors.values())
 
     def submit(self, reqs: list) -> None:
-        for r in reqs:
-            if r.sampling is not None:
-                raise NotImplementedError(
-                    f"request {r.rid} asks for sampling, which is not ported "
-                    "yet; see ROADMAP.md queue 1 item 7 (per-request sampling)")
         self.pending.extend(reqs)
 
+    # ------------------------------------------------ per-request sampling
+    def _init_sampling(self, ecfg: EngineConfig) -> None:
+        """Resolve the engine-default SamplingParams once."""
+        default = ecfg.sampling
+        if default is not None and default.is_pure_greedy:
+            default = None
+        self._default_samp = default
+        self.requests_sampled = 0   # admissions of requests that sample
+
+    def _effective(self, req: Request) -> Optional[SamplingParams]:
+        """The params governing a request: its own, else the engine's
+        default; None is the argmax path, so greedy traffic never pays for
+        the sampler."""
+        p = req.sampling if req.sampling is not None else self._default_samp
+        if p is None or p.is_pure_greedy:
+            return None
+        return p
+
+    def _resolve_rows(self, reqs) -> list:
+        """Per-row ``(params, rid)`` entries (None: a greedy or empty row)."""
+        out = []
+        for r in reqs:
+            e = self._effective(r) if r is not None else None
+            out.append((e, r.rid) if e is not None else None)
+        return out
+
+    def _samp_args(self, force: Optional[bool] = None) -> tuple:
+        """The sampled graphs' extra inputs over the active rows: the host
+        tables, or () when no row samples (the greedy graph, bit for bit
+        today's). ``force`` picks the variant regardless (the warm-up)."""
+        resolved = self._resolve_rows(self.active)
+        sampled = any(e is not None for e in resolved) if force is None else force
+        return tuple(row_tables(resolved, self.ecfg.seed)) if sampled else ()
+
+    def _samp_decode_args(self, force: Optional[bool] = None) -> tuple:
+        """The fused path's extra inputs: (ages, hist, *tables), ages each
+        row's generated-token count and hist its generated tokens (the
+        penalties' history; admission keeps max_new_tokens within its
+        capacity), or () when no row samples."""
+        tables = self._samp_args(force)
+        if not tables:
+            return ()
+        B, cap = len(self.active), self._gen_cap
+        ages = np.zeros(B, np.int32)
+        hist = np.zeros((B, cap), np.int32)
+        for row, r in enumerate(self.active):
+            if r is None or not r.generated:
+                continue
+            g = r.generated[-cap:]
+            hist[row, : len(g)] = g
+            ages[row] = len(r.generated)
+        return (ages, hist, *tables)
+
+    def _admit_samp_args(self, reqs) -> Optional[RowSampling]:
+        """The device tables of an admission's first tokens, one row per
+        admitted request, or None when none samples."""
+        resolved = self._resolve_rows(reqs)
+        if not any(e is not None for e in resolved):
+            return None
+        return row_tables(resolved, self.ecfg.seed).to(self.device)
+
+    def _validate_sampled(self, req: Request) -> None:
+        """A sampled request must fit the generated-token history on every
+        path: its penalties read it, so overflowing it would change the
+        stream."""
+        if self._effective(req) is not None and req.max_new_tokens > self._gen_cap:
+            raise ValueError(
+                f"request {req.rid}: max_new_tokens {req.max_new_tokens} "
+                f"exceeds the sampled-request history capacity {self._gen_cap} "
+                "(gen_buf_len)")
+
+    def _emit_admission(self, req: Request, now: int) -> None:
+        """Stamp the engine claim (preemption clears it; the re-claim
+        stamps it again) and count a request that samples."""
+        req.admit_slot = now
+        if self._effective(req) is not None:
+            self.requests_sampled += 1
+
     def counters(self) -> dict:
-        """The reference engine's counter/gauge surface. The paged, prefix
-        and sampling keys stay 0 on this engine."""
+        """The reference engine's counter/gauge surface. The paged and
+        prefix keys stay 0 on this engine."""
         return {
             "steps": self.steps,
             "requests_finished": len(self.finished),
             "requests_active": sum(r is not None for r in self.active),
             "requests_pending": len(self.pending),
             "requests_prefilling": len(self._cursors),
-            "requests_sampled": 0,
+            "requests_sampled": self.requests_sampled,
             "prefill_dispatches": self.prefill_dispatches,
             "decode_dispatches": self.decode_dispatches,
             "fork_dispatches": 0,
@@ -552,6 +680,7 @@ class Engine:
 
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
         """Legacy batch-1 admission (the fused path's equivalence oracle)."""
+        self._validate_sampled(req)
         P = self.ecfg.prompt_len
         L = max(1, min(len(req.tokens), P))
         bucket = self._pick_bucket(L)
@@ -562,10 +691,10 @@ class Engine:
         self.blocking_syncs += 1
         req.start_slot = now
         req.first_token_slot = now   # first token came from this prefill
-        req.generated = [int(torch.argmax(logits[0]))]
+        req.generated = [int(_next_tokens(logits[:1], self._admit_samp_args([req]))[0])]
         self.active[slot] = req
         self.slot_age[slot] = 1
-        req.admit_slot = now
+        self._emit_admission(req, now)
 
     def admit_pending(self, now: int, sync: bool = False) -> int:
         """Fill all free slots from the pending queue with ONE prefill.
@@ -581,9 +710,10 @@ class Engine:
         slots = self.free_slots()[: len(self.pending)]
         if not slots:
             return 0
-        if sync:
-            for r in self.pending[: len(slots)]:
-                self._validate_gen_cap(r)   # before popping: a raise drops nothing
+        for r in self.pending[: len(slots)]:   # before popping: a raise drops nothing
+            if sync:
+                self._validate_gen_cap(r)
+            self._validate_sampled(r)
         reqs = [self.pending.pop(0) for _ in slots]
         k = len(reqs)
         lens = np.full(B, P, np.int32)
@@ -603,7 +733,7 @@ class Engine:
             adm = host_to_device(np.asarray(
                 [slots, [r.max_new_tokens for r in reqs]], np.int64), self.device)
             self.sync = _sync_admit(self.sync, logits[:k], adm[0], adm[1].to(torch.int32),
-                                    self.ecfg.eos_id)
+                                    self.ecfg.eos_id, self._admit_samp_args(reqs))
             for req, slot in zip(reqs, slots, strict=True):
                 req.start_slot = now
                 req.first_token_slot = now
@@ -611,17 +741,17 @@ class Engine:
                 self.active[slot] = req
                 self.slot_age[slot] = 1
                 self._row_epoch[slot] += 1
-                req.admit_slot = now
+                self._emit_admission(req, now)
             return k
         self.blocking_syncs += 1
-        first = torch.argmax(logits[:k], dim=-1).cpu().numpy()
+        first = _next_tokens(logits[:k], self._admit_samp_args(reqs)).cpu().numpy()
         for j, (req, slot) in enumerate(zip(reqs, slots, strict=True)):
             req.start_slot = now
             req.first_token_slot = now
             req.generated = [int(first[j])]
             self.active[slot] = req
             self.slot_age[slot] = 1  # first token came from prefill
-            req.admit_slot = now
+            self._emit_admission(req, now)
         return k
 
     def _retire(self, i: int, r: Request, now: int) -> None:
@@ -647,8 +777,9 @@ class Engine:
         if n_active:
             toks = torch.tensor([r.generated[-1] if r else 0 for r in self.active],
                                 dtype=torch.int32, device=self.device)
+            extra = [host_to_device(a, self.device) for a in self._samp_decode_args()]
             nxt, self.state = _decode_one(self.model, self.state, toks,
-                                          self.ecfg.shape_window)
+                                          self.ecfg.shape_window, *_scan_samp(extra))
             self.decode_dispatches += 1
             self.blocking_syncs += 1
             nxt = nxt.cpu().numpy()
@@ -702,9 +833,10 @@ class Engine:
 
     # ------------------------------------------------- graphed decodes
     def _graphed(self, mode: str, n_steps: int, body, inputs: tuple, fixed: list) -> tuple:
-        """One fused decode dispatch of ``mode`` through its DecodeGraph:
-        captured at its first call and replayed after it on the card, eager
-        on the CPU or with ``DecodeGraph.enabled`` off."""
+        """One dispatch of ``mode`` through its DecodeGraph: captured at its
+        first call and replayed after it on the card, eager on the CPU or
+        with ``DecodeGraph.enabled`` off. A sampled variant is a mode of
+        its own ("+s")."""
         g = self._graphs.get(mode)
         if g is None:
             g = self._graphs[mode] = DecodeGraph(mode, self.device)
@@ -712,69 +844,89 @@ class Engine:
             self.blocking_syncs += 1   # a capture mid-serve synchronizes the device
         return g(body, inputs, fixed=fixed, key=n_steps)
 
-    def warm_decode(self, n_steps: int, sync: bool = False) -> None:
-        """Before serving, on the card: run the fused (with ``sync``, the
-        sync-free) decode of ``n_steps`` steps once over the free rows and,
-        with graphs on, capture it, so no slot pays the first use's builds
-        or the capture's device synchronize. Positions, tokens and the sync
-        state are put back; the caches and recurrent states it wrote belong
-        to free rows, which admission overwrites, as every decode does to
-        the rows it runs free. A no-op on the CPU and once the mode has run;
-        raises while a row is active."""
-        mode = "sync" if sync else "fused"
-        if self.device.type != "cuda" or mode in self._graphs:
+    def warm_decode(self, n_steps: int, sync: bool = False, chunked: bool = False) -> None:
+        """Before serving, on the card: run each dispatch the loop will
+        replay once over the free rows and, with graphs on, capture it, so
+        no slot pays the first use's builds or the capture's device
+        synchronize. The fused loop has its "fused" decode, the sync-free
+        one its "sync" decode, the chunked one its "chunk" dispatch (an
+        all-idle plan: every row's valid 0) and the "sync" decode its slots
+        without a chunk run. With an engine-default SamplingParams the
+        sampled variants ("+s") are warmed too. Positions, tokens and the
+        sync state are put back; the caches and recurrent states it wrote
+        belong to free rows, which admission overwrites (or, chunked, a
+        first chunk resets), as every decode does to the rows it runs free.
+        A no-op on the CPU and for a mode that has run; raises while a row
+        is active."""
+        if self.device.type != "cuda":
+            return
+        if chunked:
+            self._require_chunked()   # the reference's ValueError, before any capture
+        modes = ("chunk", "sync") if chunked else ("sync",) if sync else ("fused",)
+        variants = (False, True) if self._default_samp is not None else (False,)
+        todo = [(m, s) for m in modes for s in variants
+                if m + ("+s" if s else "") not in self._graphs]
+        if not todo:
             return
         if any(r is not None for r in self.active):
             raise RuntimeError("warm_decode runs before any row is admitted")
         saved = self.__dict__.get("state"), self.sync
         self._warming = True
         try:
-            if sync:
-                self._decode_sync(n_steps)
-            else:
-                self._decode_fused(np.zeros(len(self.active), np.int32), n_steps)
+            for mode, sampled in todo:
+                if mode == "chunk":
+                    self._chunk_decode_sync(self._idle_plan(), n_steps, sampled=sampled)
+                elif mode == "sync":
+                    self._decode_sync(n_steps, sampled=sampled)
+                else:
+                    self._decode_fused(np.zeros(len(self.active), np.int32), n_steps,
+                                       sampled=sampled)
+                self.warmup_dispatches += 1
         finally:
             self._warming = False
             if saved[0] is not None:
                 self.state = saved[0]
             self.sync = saved[1]
-        self.warmup_dispatches += 1
 
     @property
     def graph_replays(self) -> int:
-        """Decode dispatches that ran as a replay of a captured graph."""
+        """Dispatches that ran as a replay of a captured graph."""
         return sum(g.replays for g in self._graphs.values())
 
-    def _decode_fused(self, toks: np.ndarray, n: int) -> torch.Tensor:
-        """The fused path's n greedy steps from the host's last tokens;
-        per-step tokens (n, B) on the device."""
+    def _decode_fused(self, toks: np.ndarray, n: int,
+                      sampled: Optional[bool] = None) -> torch.Tensor:
+        """The fused path's n steps from the host's last tokens; per-step
+        tokens (n, B) on the device. ``sampled`` forces the variant."""
         sw = self.ecfg.shape_window
+        extra = self._samp_decode_args(sampled)
 
-        def body(pos, last_tok, toks):
+        def body(pos, last_tok, toks, *extra):
             out, st = _decode_n(self.model, self.state._replace(pos=pos, last_tok=last_tok),
-                                toks, n, sw)
-            return (st.pos, st.last_tok, toks), (out,)
-        (pos, last, _), (all_toks,) = self._graphed(
-            "fused", n, body, (self.state.pos, self.state.last_tok, toks),
-            _leaves(self.state.caches))
+                                toks, n, sw, *_scan_samp(extra))
+            return (st.pos, st.last_tok, toks, *extra), (out,)
+        (pos, last, *_), (all_toks,) = self._graphed(
+            "fused+s" if extra else "fused", n, body,
+            (self.state.pos, self.state.last_tok, toks, *extra), _leaves(self.state.caches))
         self.state = self.state._replace(pos=pos, last_tok=last)
         return all_toks
 
-    def _decode_sync(self, n: int) -> torch.Tensor:
+    def _decode_sync(self, n: int, sampled: Optional[bool] = None) -> torch.Tensor:
         """The sync-free path's n steps from the device-resident state;
-        served per step (n,) int32 on the device."""
+        served per step (n,) int32 on the device. ``sampled`` forces the
+        variant."""
         eos = self.ecfg.eos_id
+        extra = self._samp_args(sampled)
 
-        def body(pos, last_tok, *sync):
+        def body(pos, last_tok, *rest):
             st, sy, served = _decode_n_sync(
                 self._decode_step, self.state._replace(pos=pos, last_tok=last_tok),
-                SyncState(*sync), n, eos)
-            return (st.pos, st.last_tok, *sy), (served,)
-        (pos, last, *sync), (served,) = self._graphed(
-            "sync", n, body, (self.state.pos, self.state.last_tok, *self.sync),
-            _leaves(self.state.caches))
+                SyncState(*rest[:5]), n, eos, _tables(rest[5:]))
+            return (st.pos, st.last_tok, *sy, *rest[5:]), (served,)
+        (pos, last, *rest), (served,) = self._graphed(
+            "sync+s" if extra else "sync", n, body,
+            (self.state.pos, self.state.last_tok, *self.sync, *extra), _leaves(self.state.caches))
         self.state = self.state._replace(pos=pos, last_tok=last)
-        self.sync = SyncState(*sync)
+        self.sync = SyncState(*rest[:5])
         return served
 
     # ------------------------------------------------- sync-free protocol
@@ -931,7 +1083,7 @@ class Engine:
             self.slot_age[row] = 0
             cached = self._claim_row(row, toks)
             self._cursors[row] = PrefillCursor(req=req, row=row, toks=toks, cached=cached)
-            req.admit_slot = now
+            self._emit_admission(req, now)
             k += 1
         return k
 
@@ -1008,24 +1160,42 @@ class Engine:
                 self.slot_age[row] = 1
                 self._on_activate(row, cur, now)
 
-    def _chunk_decode_sync(self, plan: dict, n_steps: int):
-        """ONE mixed dispatch: the rows' prompt chunks (K/V written at
-        [pos0, pos0 + valid)), device-side activation of the rows finishing
+    def _idle_plan(self) -> dict:
+        """A chunk plan that runs no chunk (every row's valid 0): the
+        mixed dispatch's warm-up and capture."""
+        B = len(self.active)
+        return {"toks": np.zeros((B, self._chunk), np.int32), "ints": np.zeros((4, B), np.int32),
+                "flags": np.zeros((2, B), bool), "plan": []}
+
+    def _chunk_decode_sync(self, plan: dict, n_steps: int,
+                           sampled: Optional[bool] = None) -> torch.Tensor:
+        """ONE mixed dispatch, one "chunk" graph replay on the card: the
+        rows' prompt chunks (K/V written at [pos0, pos0 + valid) through
+        fixed-shape targets), device-side activation of the rows finishing
         their prompt, then the n-step sync-free decode. Rows mid-prompt
         carry done, so the decode freezes their pos; their one masked write
         (a dummy token's K/V at the next chunk offset) is overwritten by
-        that chunk before anything attends it."""
-        dev = self.device
-        toks = host_to_device(plan["toks"], dev)
-        ints = host_to_device(plan["ints"], dev)
-        flags = host_to_device(plan["flags"], dev)
-        pos0, valid, budgets = ints[0], ints[1], ints[2]
-        writes = A.chunk_write_targets(plan["ints"][0], plan["ints"][1],
-                                       self.ecfg.cache_len, dev)
-        logits, state = M.chunk_step(self.model, self.state, toks, pos0, valid,
-                                     flags[0], writes)
-        sync = _sync_activate(self.sync, logits, flags[1], budgets, self.ecfg.eos_id)
-        return _decode_n_sync(self._decode_step, state, sync, n_steps, self.ecfg.eos_id)
+        that chunk before anything attends it. Its inputs are the plan's
+        host arrays (toks (B, C), ints (4, B): pos0, valid, budgets, base;
+        flags (2, B): reset, final), the positions, the last tokens and the
+        sync state. Returns the served counts per step (n,)."""
+        eos = self.ecfg.eos_id
+        extra = self._samp_args(sampled)
+
+        def body(toks, ints, flags, pos, last_tok, *rest):
+            samp = _tables(rest[5:])
+            logits, st = M.chunk_step(self.model, self.state._replace(pos=pos, last_tok=last_tok),
+                                      toks, ints[0], ints[1], flags[0])
+            sy = _sync_activate(SyncState(*rest[:5]), logits, flags[1], ints[2], eos, samp)
+            st, sy, served = _decode_n_sync(self._decode_step, st, sy, n_steps, eos, samp)
+            return (toks, ints, flags, st.pos, st.last_tok, *sy, *rest[5:]), (served,)
+        (_, _, _, pos, last, *rest), (served,) = self._graphed(
+            "chunk+s" if extra else "chunk", n_steps, body,
+            (plan["toks"], plan["ints"], plan["flags"], self.state.pos, self.state.last_tok,
+             *self.sync, *extra), _leaves(self.state.caches))
+        self.state = self.state._replace(pos=pos, last_tok=last)
+        self.sync = SyncState(*rest[:5])
+        return served
 
     def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
         """One continuous-batching control slot: admission (host bookkeeping
@@ -1043,13 +1213,12 @@ class Engine:
         plan = self._chunk_plan(n_steps)
         n_active = sum(r is not None for r in self.active)
         if plan is not None:
-            self.state, self.sync, served_steps = self._chunk_decode_sync(plan, n_steps)
+            served_steps = self._chunk_decode_sync(plan, n_steps)
             self.decode_dispatches += 1
             self._finish_chunk_plan(plan, now)
             self._post_readback(now, served_steps)
         elif n_active:
-            self.state, self.sync, served_steps = _decode_n_sync(
-                self._decode_step, self.state, self.sync, n_steps, self.ecfg.eos_id)
+            served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
@@ -1154,11 +1323,8 @@ class PagedEngine(Engine):
         if qp and not kvp.is_quantized:
             raise ValueError(f"quant_pages={qp} needs a quantized kv_precision, "
                              f"got {kvp.tag!r}")
-        if not ecfg.greedy:
-            raise NotImplementedError(
-                "sampling is not ported yet; see ROADMAP.md queue 1 item 7 "
-                "(per-request sampling)")
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self._init_sampling(ecfg)
         # prefill at native storage: the page copy quantizes what lands in
         # the quantized region
         self._prefill_kv = "native"
@@ -1375,42 +1541,38 @@ class PagedEngine(Engine):
     def _decode_step(self, state, tokens: torch.Tensor):
         return M.decode_step_paged(self.model, state, tokens)
 
-    def _device_state(self) -> M.PagedDecodeState:
-        """The decode state of a sync-free dispatch: host block tables and
-        positions through pinned memory (copies, so the host may change
-        them before the dispatch runs); ``last_tok`` is unused there (the
-        decode reads the sync state's tokens)."""
-        R = self.ecfg.max_active
-        return M.PagedDecodeState(
-            pools=self.pools, block_tables=host_to_device(self.block_tables, self.device),
-            pos=host_to_device(self.pos, self.device),
-            last_tok=torch.zeros(R, dtype=torch.int32, device=self.device))
+    def _decode_fused(self, toks: np.ndarray, n: int,
+                      sampled: Optional[bool] = None) -> torch.Tensor:
+        """The fused path's n steps over the pools, from the host's block
+        tables, positions and last tokens; per-step tokens (n, R)."""
+        extra = self._samp_decode_args(sampled)
 
-    def _decode_fused(self, toks: np.ndarray, n: int) -> torch.Tensor:
-        """The fused path's n greedy steps over the pools, from the host's
-        block tables, positions and last tokens; per-step tokens (n, R)."""
-        def body(block_tables, pos, toks):
+        def body(block_tables, pos, toks, *extra):
             state = M.PagedDecodeState(self.pools, block_tables, pos, toks)
-            out, state = _decode_n_paged(self.model, state, toks, n)
-            return (block_tables, state.pos, toks), (out,)
-        _, (all_toks,) = self._graphed("fused", n, body, (self.block_tables, self.pos, toks),
+            out, state = _decode_n_paged(self.model, state, toks, n, *_scan_samp(extra))
+            return (block_tables, state.pos, toks, *extra), (out,)
+        _, (all_toks,) = self._graphed("fused+s" if extra else "fused", n, body,
+                                       (self.block_tables, self.pos, toks, *extra),
                                        _leaves(self.pools))
         return all_toks
 
-    def _decode_sync(self, n: int) -> torch.Tensor:
+    def _decode_sync(self, n: int, sampled: Optional[bool] = None) -> torch.Tensor:
         """The sync-free path's n steps over the pools, from the host's
         block tables and positions and the device-resident sync state;
         served per step (n,) int32."""
         eos = self.ecfg.eos_id
+        extra = self._samp_args(sampled)
 
-        def body(block_tables, pos, *sync):
+        def body(block_tables, pos, *rest):
             last = torch.zeros_like(pos)   # unused: the decode reads the sync state's tokens
             state = M.PagedDecodeState(self.pools, block_tables, pos, last)
-            state, sy, served = _decode_n_sync(self._decode_step, state, SyncState(*sync), n, eos)
-            return (block_tables, state.pos, *sy), (served,)
-        (_, _, *sync), (served,) = self._graphed(
-            "sync", n, body, (self.block_tables, self.pos, *self.sync), _leaves(self.pools))
-        self.sync = SyncState(*sync)
+            state, sy, served = _decode_n_sync(self._decode_step, state, SyncState(*rest[:5]),
+                                               n, eos, _tables(rest[5:]))
+            return (block_tables, state.pos, *sy, *rest[5:]), (served,)
+        (_, _, *rest), (served,) = self._graphed(
+            "sync+s" if extra else "sync", n, body,
+            (self.block_tables, self.pos, *self.sync, *extra), _leaves(self.pools))
+        self.sync = SyncState(*rest[:5])
         return served
 
     def admit_pending(self, now: int, lookahead: int = 1, sync: bool = False) -> int:
@@ -1440,6 +1602,7 @@ class PagedEngine(Engine):
                     f"exceeds the block table ({self.MP} pages x {ps})")
             if sync:
                 self._validate_gen_cap(req)
+            self._validate_sampled(req)
             L = max(1, min(len(req.tokens), P))
             shared: list = []
             if self._prefix is not None:
@@ -1478,20 +1641,21 @@ class PagedEngine(Engine):
         self.prefill_dispatches += 1
         self.pools = M.paged_splice_prompt(self.pools, state.caches, page_idx)
         del state
+        samp = self._admit_samp_args([t[1] for t in take])
         if sync:
             adm = host_to_device(np.asarray([[t[0] for t in take],
                                              [t[1].max_new_tokens for t in take]], np.int64),
                                  self.device)
             self.sync = _sync_admit(self.sync, logits[:k], adm[0], adm[1].to(torch.int32),
-                                    self.ecfg.eos_id)
+                                    self.ecfg.eos_id, samp)
         else:
             self.blocking_syncs += 1
-            first = torch.argmax(logits[:k], dim=-1).cpu().numpy()
+            first = _next_tokens(logits[:k], samp).cpu().numpy()
         for j, (row, req, pages, L, _ns) in enumerate(take):
             req.start_slot = now
             req.first_token_slot = now
             req.generated = None if sync else [int(first[j])]
-            req.admit_slot = now
+            self._emit_admission(req, now)
             self.active[row] = req
             self.block_tables[row, : len(pages)] = pages
             self.pos[row] = L
@@ -1678,23 +1842,35 @@ class PagedEngine(Engine):
         self.block_tables[row, : len(pages)] = pages
         return True
 
-    def _chunk_decode_sync(self, plan: dict, n_steps: int):
-        """ONE mixed dispatch over the pool: the rows' prompt chunks,
-        written through the block tables (and into staging over a lossy
-        pool), device-side activation of the rows finishing their prompt,
-        then the n-step sync-free decode. Rows mid-prompt carry done, so the
-        decode freezes their pos; their one masked write (a dummy token's
-        K/V at the next chunk offset) is overwritten by that chunk before
-        anything attends it. Returns (state, sync, served per step)."""
-        dev = self.device
-        toks = host_to_device(plan["toks"], dev)
-        ints = host_to_device(plan["ints"], dev)
-        flags = host_to_device(plan["flags"], dev)
-        pos0, valid, budgets, base = ints[0], ints[1], ints[2], ints[3]
-        logits, state = M.chunk_step_paged(self.model, self._device_state(), toks, pos0, valid,
-                                           base)
-        sync = _sync_activate(self.sync, logits, flags[1], budgets, self.ecfg.eos_id)
-        return _decode_n_sync(self._decode_step, state, sync, n_steps, self.ecfg.eos_id)
+    def _chunk_decode_sync(self, plan: dict, n_steps: int,
+                           sampled: Optional[bool] = None) -> torch.Tensor:
+        """ONE mixed dispatch over the pool, one "chunk" graph replay on the
+        card: the rows' prompt chunks, written through the block tables
+        (and into staging over a lossy pool), device-side activation of the
+        rows finishing their prompt, then the n-step sync-free decode. Rows
+        mid-prompt carry done, so the decode freezes their pos; their one
+        masked write (a dummy token's K/V at the next chunk offset) is
+        overwritten by that chunk before anything attends it. Beside the
+        dense dispatch's inputs it takes the block tables; the chunk's
+        pool-resident prefix (``base``) is ints[3]. Returns the served
+        counts per step (n,)."""
+        eos = self.ecfg.eos_id
+        extra = self._samp_args(sampled)
+
+        def body(toks, ints, flags, block_tables, pos, *rest):
+            samp = _tables(rest[5:])
+            state = M.PagedDecodeState(self.pools, block_tables, pos, torch.zeros_like(pos))
+            logits, state = M.chunk_step_paged(self.model, state, toks, ints[0], ints[1],
+                                               ints[3])
+            sy = _sync_activate(SyncState(*rest[:5]), logits, flags[1], ints[2], eos, samp)
+            state, sy, served = _decode_n_sync(self._decode_step, state, sy, n_steps, eos, samp)
+            return (toks, ints, flags, block_tables, state.pos, *sy, *rest[5:]), (served,)
+        (_, _, _, _, _, *rest), (served,) = self._graphed(
+            "chunk+s" if extra else "chunk", n_steps, body,
+            (plan["toks"], plan["ints"], plan["flags"], self.block_tables, self.pos,
+             *self.sync, *extra), _leaves(self.pools))
+        self.sync = SyncState(*rest[:5])
+        return served
 
     def step_slot_chunked(self, now: int, n_steps: int = 1) -> dict:
         """Continuous batching over the pool: admission (host bookkeeping
@@ -1723,12 +1899,9 @@ class PagedEngine(Engine):
                        for row, r in enumerate(self.active))
         if plan is not None or decoding:
             if plan is not None:
-                state, self.sync, served_steps = self._chunk_decode_sync(plan, n_steps)
+                served_steps = self._chunk_decode_sync(plan, n_steps)
             else:
-                state, self.sync, served_steps = _decode_n_sync(
-                    self._decode_step, self._device_state(), self.sync, n_steps,
-                    self.ecfg.eos_id)
-            self.pools = state.pools
+                served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
             for row, req in enumerate(self.active):
                 if req is not None and row not in self._cursors:

@@ -1,14 +1,18 @@
-"""One fused decode dispatch as one CUDA graph.
+"""One engine dispatch as one CUDA graph.
 
 The reference's fused decode is one jitted ``lax.scan`` over a slot's
-decode steps: one XLA executable per slot. Its counterpart here is a
-``torch.cuda.CUDAGraph`` per engine and decode mode, captured at the first
-dispatch and replayed once per slot, so a slot's decode costs the host one
-graph launch in place of some hundred kernel launches per layer and step.
+decode steps, and its chunked loop's mixed dispatch (prompt chunks,
+activation, decode) one jitted function: one XLA executable per slot. Their
+counterpart here is a ``torch.cuda.CUDAGraph`` per engine and dispatch mode
+("fused", "sync", "chunk", and "+s" for each one's sampled variant),
+captured at the first dispatch and replayed once per slot, so a slot's
+dispatch costs the host one graph launch in place of some hundred kernel
+launches per layer and step.
 
 A body is ``body(*inputs) -> (carry, outs)``. ``inputs`` are the
 dispatch's per-slot tensors (positions, tokens, block tables, the
-sync-free state); ``carry`` holds their values after the dispatch, one per
+sync-free state, a chunk plan, the sampling tables); ``carry`` holds their
+values after the dispatch, one per
 input (the input itself where the body leaves it alone); ``outs`` is what
 the host reads afterwards (tokens, served counts). Everything else the
 body touches (weights, KV rings, page pools, recurrent states) is written
@@ -30,8 +34,13 @@ The kernels' launch counters count Python calls, and a wrapper called
 inside the capture launches nothing. So the capture reads its graph's
 kernel nodes from libcuda and counts them by kernel function
 (``kernels.graph_launch_counts``). The wrappers' counts made during the
-capture are taken back and must equal the graph's; every replay then adds
-the graph's node counts.
+capture are taken back, and summed per kernel function they must equal the
+graph's nodes; every replay then adds those counts. The nodes confirm the
+count of each kernel function, not how it splits among the counters that
+share one function: K4p's kernel counts as K4q, K4p or K4p over quantized
+pages, and K1's as K1, K1r, K1q or K1rq, by the wrapper that launched it,
+and that split is taken from the wrappers' calls during the capture
+alone.
 
 On the CPU, or with ``DecodeGraph.enabled`` off (the eager side of an A/B
 run), the body runs eagerly at every call. A capture that fails, or a call
@@ -41,6 +50,7 @@ loop.
 from __future__ import annotations
 
 import ctypes
+import gc
 import re
 from typing import Callable, Optional, Sequence
 
@@ -138,8 +148,9 @@ def captured_kernels(stream: torch.cuda.Stream) -> dict:
 
 
 class DecodeGraph:
-    """One engine's fused decode of one mode: captured once, replayed per
-    slot (see the module docstring)."""
+    """One engine's dispatch of one mode (a fused or sync-free decode, or
+    a chunked loop's mixed dispatch): captured once, replayed per slot (see
+    the module docstring)."""
 
     # False runs every dispatch eagerly, launch by launch: the eager side of
     # an A/B run beside the graphs
@@ -153,7 +164,8 @@ class DecodeGraph:
         self.outs: tuple = ()
         self.key = None
         self.fixed: list = []
-        self.launches: dict = {}   # the graph's kernel nodes per counter, per replay
+        self.launches: dict = {}   # the graph's launches per counter, per replay
+        self.nodes: dict = {}      # its kernel nodes per kernel function
         self.replays = 0
 
     def __call__(self, body: Callable, inputs: Sequence, *, fixed: Sequence = (),
@@ -182,6 +194,12 @@ class DecodeGraph:
             o.record_stream(cur)
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: a collected object's CUDA
+        # event or graph destroyed then (an earlier engine's, freed with its
+        # reference cycles) invalidates the capture
+        collecting = gc.isenabled()
+        gc.collect()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, stream=side):
                 carry, graph_outs = body(*self.static)
@@ -190,13 +208,15 @@ class DecodeGraph:
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of the {self.name} decode failed") from e
         finally:
+            if collecting:
+                gc.enable()
             after = kernels.launch_counts()
             called = {k: after[k] - before[k] for k in after if after[k] != before[k]}
             kernels.add_launch_counts({k: -n for k, n in called.items()})
-        if nodes != called:
+        if nodes != kernels.function_counts(called):
             raise RuntimeError(f"the {self.name} decode graph holds the kernel nodes {nodes}, "
                                f"the wrappers were called {called} times")
-        self.launches = nodes
+        self.launches, self.nodes = called, nodes
         self.graph, self.outs, self.key = graph, tuple(graph_outs), key
         self.fixed = [(t.data_ptr(), tuple(t.shape)) for t in fixed]
         return self.static, outs

@@ -15,6 +15,8 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.runtime.sampling import SamplingParams
+
 
 @dataclasses.dataclass
 class Request:
@@ -22,9 +24,9 @@ class Request:
     arrival_slot: int
     tokens: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int = 16
-    # per-request sampling knobs: the port serves greedy only, so this stays
-    # None (the engine refuses anything else)
-    sampling: Optional[object] = None
+    # per-request sampling knobs (runtime/sampling.py); None = the engine's
+    # default (greedy unless its config says otherwise)
+    sampling: Optional[SamplingParams] = None
     # filled by the engine:
     admit_slot: Optional[int] = None
     start_slot: Optional[int] = None

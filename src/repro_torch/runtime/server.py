@@ -18,7 +18,7 @@ scheduler's decision pipelines through ``control_async`` (one-slot-lagged
 control) and the engine's ``step_slot_sync`` dispatches every slot from
 device-resident state, consuming the previous slot's counter copy after
 it. Before its first slot the loop has the engine warm up (and, on the
-card, capture) the decode it runs (``Engine.warm_decode``).
+card, capture) the dispatches it runs (``Engine.warm_decode``).
 ``chunked=True`` runs continuous batching (``step_slot_chunked``)
 under the same protocol. The trace's ``served`` counts then lag the device
 by one slot; ``serve`` flushes the tail with ``engine.drain()`` and folds
@@ -44,9 +44,10 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
     trace = {"backlog": [], "rate": [], "served": [], "active": [],
              "dropped": [], "dispatches": [], "occupancy": [], "syncs": []}
     paged = hasattr(engine, "occupancy")
-    if (fused or sync_free) and not chunked:
-        # on the card: the decode's first run and graph capture, before any slot
-        engine.warm_decode(steps_per_slot, sync=sync_free)
+    if fused or sync_free or chunked:
+        # on the card: each dispatch's first run and graph capture, before any
+        # slot (the chunked loop's mixed dispatch and its decode-only one)
+        engine.warm_decode(steps_per_slot, sync=sync_free, chunked=chunked)
     for t in range(horizon):
         d0 = engine.prefill_dispatches + engine.decode_dispatches
         s0 = engine.blocking_syncs

@@ -95,12 +95,35 @@ def test_chunk_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_chunk_write_targets_list_the_valid_pairs():
-    w = A.chunk_write_targets(np.asarray([0, 5, 30, 2]), np.asarray([3, 0, 4, 1]), 32, "cpu")
-    assert w.rows.tolist() == [0, 0, 0, 2, 2, 2, 2, 3]
-    assert w.cols.tolist() == [0, 1, 2, 0, 1, 2, 3, 0]
-    assert w.pos.tolist() == [0, 1, 2, 30, 31, 32, 33, 2]
-    assert w.slots.tolist() == [0, 1, 2, 30, 31, 0, 1, 2]   # the ring wraps
-    assert w.pos.dtype == torch.int32
+    pos0 = torch.tensor([0, 5, 30, 2], dtype=torch.int32)
+    w = A.chunk_write_targets(pos0, torch.tensor([3, 0, 4, 1], dtype=torch.int32), 4, 32)
+    assert w.keep.nonzero().tolist() == [[0, 0], [0, 1], [0, 2], [2, 0], [2, 1], [2, 2],
+                                         [2, 3], [3, 0]]
+    assert w.pos[w.keep].tolist() == [0, 1, 2, 30, 31, 32, 33, 2]
+    assert w.slots[w.keep].tolist() == [0, 1, 2, 30, 31, 0, 1, 2]   # the ring wraps
+    assert w.pos.dtype == torch.int32 and w.pos.shape == w.slots.shape == (4, 4)
+    for row in w.slots:   # every row's C targets distinct: no scatter index repeats
+        assert len(set(row.tolist())) == 4
+    assert w.cols is None
+
+
+def test_a_chunk_wider_than_the_ring_keeps_each_slots_last_column():
+    """C > cache_len: one target per ring slot (no scatter index repeats),
+    each taking the last valid column that lands there, what writing the
+    chunk's columns one by one into the ring leaves."""
+    C, L = 11, 4
+    pos0 = torch.tensor([0, 6, 3, 2, 9], dtype=torch.int32)
+    valid = torch.tensor([11, 6, 0, 3, 4], dtype=torch.int32)
+    w = A.chunk_write_targets(pos0, valid, C, L)
+    assert w.slots.shape == w.pos.shape == w.keep.shape == w.cols.shape == (5, L)
+    for b in range(5):
+        ring = {}
+        for c in range(int(valid[b])):
+            ring[(int(pos0[b]) + c) % L] = (c, int(pos0[b]) + c)
+        assert len(set(w.slots[b].tolist())) == L
+        got = {int(s): (int(c), int(p)) for s, c, p, k
+               in zip(w.slots[b], w.cols[b], w.pos[b], w.keep[b]) if k}
+        assert got == ring, b
 
 
 # ------------------------------------------------------------- chunk_step
@@ -127,8 +150,7 @@ def test_chunk_step_matches_reference():
                                         jnp.asarray(valid), jnp.asarray(reset), cfg)
         logits, state = M.chunk_step(port, state, torch.from_numpy(toks),
                                      torch.from_numpy(pos0), torch.from_numpy(valid),
-                                     torch.from_numpy(reset),
-                                     A.chunk_write_targets(pos0, valid, L, "cpu"))
+                                     torch.from_numpy(reset))
         live = valid > 0
         np.testing.assert_allclose(logits.numpy()[live], np.asarray(rlogits)[live], **TOL)
         np.testing.assert_array_equal(state.pos.numpy(), np.asarray(rstate.pos))
@@ -225,11 +247,13 @@ def test_chunked_engine_matches_reference(case):
 
 
 @pytest.mark.parametrize("seed,chunk_size,chunk_budget,n_steps",
-                         [(5, 3, 0, 1), (17, 4, 5, 2), (29, 8, 12, 3), (41, 16, 5, 2)])
+                         [(5, 3, 0, 1), (17, 4, 5, 2), (29, 8, 12, 3), (41, 16, 5, 2),
+                          (53, 80, 0, 2)])
 def test_chunked_engine_fuzz(seed, chunk_size, chunk_budget, n_steps):
     """A small sweep over chunk geometry and decode depth (the reference's
     ``test_differential_fuzz``): the chunk schedule never leaks into the
-    tokens, retirement or conservation."""
+    tokens, retirement or conservation. Chunks of 80 are wider than the
+    64-slot ring, which the reference serves too."""
     w = _weights()
     reqs, schedule = make_workload(seed=seed, n_reqs=8)
     ours, ref = _engines(w, chunk_size=chunk_size, chunk_budget=chunk_budget)
@@ -263,7 +287,8 @@ def test_chunked_engine_refuses_a_window():
 
 
 # ---------------------------------------------------------------- launcher
-@pytest.mark.parametrize("extra", [(), ("--chunk-size", "4", "--chunk-budget", "6")])
+@pytest.mark.parametrize("extra", [(), ("--chunk-size", "4", "--chunk-budget", "6"),
+                                   ("--chunk-size", "80")])   # wider than the 64-slot ring
 def test_launcher_chunked_line_matches_reference(extra):
     args = ("--chunked", "--policy", "token-aware", *extra)
     ours = _launch("repro_torch.launch.serve", "--device", "cpu", *args)

@@ -60,9 +60,17 @@ def test_function_name_of_a_kernel_symbol(symbol, name):
 def test_graph_launch_counts_count_the_wrappers_kernels_only():
     nodes = {"decode_attention_kernel": 80, "paged_decode_attention_quant_kernel": 3,
              "decode_attention_quant_kernel": 2, "sm90_xmma_gemm_bf16bf16_bf16f32": 160,
-             "vectorized_elementwise_kernel": 400}
-    assert kernels.graph_launch_counts(nodes) == {
-        "decode_attention": 80, "paged_decode_attention_quant": 3, "decode_attention_quant": 2}
+             "vectorized_elementwise_kernel": 400, "chunk_attention_kernel_wgmma": 40,
+             "paged_chunk_attention_kernel_wgmma": 38, "paged_chunk_attention_kernel": 2}
+    want = {"decode_attention_kernel": 80, "paged_decode_attention_quant_kernel": 3,
+            "decode_attention_quant_kernel": 2, "chunk_attention_kernel": 40,
+            "paged_chunk_attention_kernel": 40}
+    assert kernels.graph_launch_counts(nodes) == want
+    # the wrappers' counts summed per function: K4p's kernel serves two counters
+    assert kernels.function_counts({
+        "decode_attention": 80, "paged_decode_attention_quant": 3, "decode_attention_quant": 2,
+        "chunk_attention": 40, "paged_chunk_attention": 30, "paged_chunk_attention_quant": 10,
+        "flash_attention": 0}) == want
 
 
 def test_add_launch_counts():

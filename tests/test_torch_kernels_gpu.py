@@ -981,17 +981,21 @@ def test_quant_kernels_refuse_what_they_do_not_take(cuda):
 
 
 # ------------------------------------------------------------ CUDA graphs
-# The fused and sync-free decodes run as one CUDA graph replay per slot
-# (runtime/graph.py), warmed up and captured before the first slot. At the
-# smoke width, each captured mode must serve the same trace and token
-# streams as the same engine run eagerly (``DecodeGraph.enabled = False``),
-# with the same kernel launch counts.
+# The fused, sync-free and chunked dispatches run as one CUDA graph replay
+# each (runtime/graph.py), warmed up and captured before the first slot. At
+# the smoke width, each captured mode must serve the same trace and token
+# streams (sampled ones too) as the same engine run eagerly
+# (``DecodeGraph.enabled = False``), with the same kernel launch counts.
 GRAPH_SERVE = ["--arch", "granite-3-2b", "--smoke", "--horizon", "10"]
 GRAPH_PAGED = ["--paged", "--policy", "memory-aware"]
 GRAPH_MIXED = ["--slots", "8", "--prompt-len", "512", "--min-prompt-len", "128",
                "--cache-len", "1024", "--paged", "--max-active", "16", "--num-pages", "192",
                "--kv-precision", "int8", "--quant-pages", "64", "--policy", "precision-aware",
                "--downgrade-at", "0.5", "--upgrade-at", "0.3"]
+GRAPH_CHUNKED = ["--chunked", "--policy", "token-aware", "--chunk-size", "4",
+                 "--chunk-budget", "6"]
+GRAPH_SAMPLING = ["--temperature", "0.8", "--top-k", "20", "--top-p", "0.9",
+                  "--rep-penalty", "1.1", "--sampling-seed", "7"]
 GRAPH_PATHS = {
     "dense": [],
     "dense_int8": ["--kv-precision", "int8"],
@@ -1001,13 +1005,23 @@ GRAPH_PATHS = {
     "sync": ["--sync-free"],
     "mamba2_sync": ["--arch", "mamba2-130m", "--sync-free"],
     "paged_sync": GRAPH_PAGED + ["--sync-free"],
+    "chunked": GRAPH_CHUNKED,
+    # chunks of 80 over the smoke's 64-slot ring: one write target per slot
+    "chunked_wide": ["--chunked", "--policy", "token-aware", "--chunk-size", "80"],
+    "paged_chunked": ["--paged"] + GRAPH_CHUNKED,
+    "dense_fp8_chunked": GRAPH_CHUNKED + ["--kv-precision", "fp8"],
+    "sampled": GRAPH_SAMPLING,
+    "sampled_sync": GRAPH_SAMPLING + ["--sync-free"],
+    "sampled_chunked": GRAPH_CHUNKED + GRAPH_SAMPLING,
+    "sampled_paged_chunked": ["--paged"] + GRAPH_CHUNKED + GRAPH_SAMPLING,
 }
 
 
 def _graph_serve(argv, graph: bool, idle_first_slot: bool = False):
-    """One launcher serve with the decode graphs on or off; the sync-free
-    loops run every slot after the first under the sync debug mode. With
-    ``idle_first_slot`` no request arrives in slot 0."""
+    """One launcher serve with the graphs on or off; the sync-free and
+    chunked loops run every slot's engine work under the sync debug mode
+    (the scheduler's first decision, which seeds its pipeline, before it).
+    With ``idle_first_slot`` no request arrives in slot 0."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
     from repro_torch.runtime.graph import DecodeGraph
@@ -1018,14 +1032,15 @@ def _graph_serve(argv, graph: bool, idle_first_slot: bool = False):
     if idle_first_slot:
         poll = src.poll
         src.poll = lambda t, rate: [] if t == 0 else poll(t, rate)
-    if args.sync_free:
+    if args.sync_free or args.chunked:
         control, calls = sched.control_async, [0]
 
         def checked(*a, **kw):
             calls[0] += 1
-            if calls[0] == 2:
+            out = control(*a, **kw)
+            if calls[0] == 1:
                 torch.cuda.set_sync_debug_mode("error")
-            return control(*a, **kw)
+            return out
         sched.control_async = checked
     DecodeGraph.enabled = graph
     try:
@@ -1049,16 +1064,23 @@ def test_graph_serve_equals_eager_serve_on_card(cuda, path):
     assert n_g == n_e
     assert eager.graph_replays == 0
     # warmed up and captured before the first slot: every dispatch replays
-    assert eager.warmup_dispatches == graph.warmup_dispatches == 1
+    # (the chunked loop's mixed and decode-only dispatches, each greedy and,
+    # with a default sampler, sampled)
+    warm = (2 if "chunked" in path else 1) * (2 if "sampled" in path else 1)
+    assert eager.warmup_dispatches == graph.warmup_dispatches == warm
     assert graph.graph_replays == graph.decode_dispatches > 0
-    # rows admitted after the capture decoded through the replays
-    assert any(r.admit_slot >= 2 for r in graph.finished)
-    if "sync" in path:
+    if "chunked" in path:
+        assert graph._graphs["chunk+s" if "sampled" in path else "chunk"].replays > 0
+    # rows admitted after the capture decoded through the replays (on the
+    # chunked loops every row: their capture precedes slot 0 too, and their
+    # long prompts finish too late in the serve to look further)
+    assert any(r.admit_slot >= (0 if "chunked" in path else 2) for r in graph.finished)
+    if "sync" in path or "chunked" in path:
         assert graph.blocking_syncs == 0
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("path", ["dense", "sync", "paged_sync"])
+@pytest.mark.parametrize("path", ["dense", "sync", "paged_sync", "chunked", "paged_chunked"])
 def test_graph_serve_with_an_idle_first_slot_on_card(cuda, path):
     """No arrival in slot 0, so the first decode dispatch comes later, under
     the sync debug mode on the sync-free loops: the capture was made before
@@ -1069,7 +1091,7 @@ def test_graph_serve_with_an_idle_first_slot_on_card(cuda, path):
     assert tr_g["served"][0] == tr_g["active"][0] == 0
     assert (tr_g, st_g, n_g) == (tr_e, st_e, n_e) and len(st_g) > 0
     assert graph.graph_replays == graph.decode_dispatches > 0
-    if "sync" in path:
+    if "sync" in path or "chunked" in path:
         assert graph.blocking_syncs == 0
 
 
@@ -1095,8 +1117,8 @@ def test_decode_captured_mid_serve_counts_its_sync_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sync", [False, True])
-def test_graph_decode_after_preemption_equals_eager_on_card(cuda, sync):
+@pytest.mark.parametrize("mode", ["fused", "sync", "chunked"])
+def test_graph_decode_after_preemption_equals_eager_on_card(cuda, mode):
     """A pool too small for both rows to grow: a row is preempted between
     replays and recomputed, and the streams equal the eager engine's."""
     import copy
@@ -1117,16 +1139,17 @@ def test_graph_decode_after_preemption_equals_eager_on_card(cuda, sync):
                                                    max_pages_per_req=7))
         DecodeGraph.enabled = graph
         try:
-            eng.warm_decode(2, sync=sync)
+            eng.warm_decode(2, sync=mode == "sync", chunked=mode == "chunked")
             eng.submit([copy.deepcopy(r) for r in reqs])
-            step = eng.step_slot_sync if sync else eng.step_slot
+            step = {"fused": eng.step_slot, "sync": eng.step_slot_sync,
+                    "chunked": eng.step_slot_chunked}[mode]
             for t in range(80):
                 step(t, n_steps=2)
                 if len(eng.finished) == len(reqs):
                     break
         finally:
             DecodeGraph.enabled = True
-        if sync:
+        if mode != "fused":
             eng.drain()
         torch.cuda.synchronize()
         out[graph] = ({r.rid: r.generated for r in eng.finished}, eng.preemptions,
@@ -1205,6 +1228,36 @@ def test_engine_refuses_another_step_count_after_capture_on_card(cuda):
     eng.step_slot(1, n_steps=2)
     with pytest.raises(ValueError, match="captured for 2"):
         eng.step_slot(2, n_steps=3)
+
+
+@pytest.mark.gpu
+def test_sampled_graph_refuses_other_tables_on_card(cuda):
+    """The sampled sync-free graph was captured over tables of the engine's
+    rows: a replay over tables of another shape raises, and so does the
+    chunk graph under another chunk width."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime import Engine, EngineConfig, RequestSource, SamplingParams
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    eng = Engine(init_params(cfg, seed=0, device=cuda),
+                 EngineConfig(batch_slots=2, prompt_len=16, cache_len=64,
+                              sampling=SamplingParams(temperature=0.8, seed=3)))
+    eng.warm_decode(2, chunked=True)
+    assert set(eng._graphs) == {"chunk", "chunk+s", "sync", "sync+s"}
+    eng.submit(RequestSource(vocab_size=cfg.vocab_size, prompt_len=16, raw_rate=2,
+                             max_new_tokens=20, seed=1).poll(0, 2.0))
+    for t in range(6):
+        eng.step_slot_chunked(t, n_steps=2)
+    assert eng._graphs["sync+s"].replays > 0 and eng._graphs["chunk+s"].replays > 0
+    tables = eng._samp_args
+    eng._samp_args = lambda force=None: tuple(a[:1] for a in tables(force))
+    with pytest.raises(ValueError, match="captured for"):
+        eng._decode_sync(2)
+    eng._samp_args = tables
+    eng._chunk = 8
+    with pytest.raises(ValueError, match="captured for"):
+        eng._chunk_decode_sync(eng._idle_plan(), 2)
 
 
 @pytest.mark.gpu
