@@ -64,17 +64,27 @@ under the sync debug mode), their traces held to the CPU run's. Each serve
 phase zeroes the launch counts just before it and reads them just after.
 On the fused, sync-free and chunked loops, dense and paged, every dispatch
 the loop replays is warmed up and captured before the first slot, and
-every slot's decode or mixed (chunk + decode) dispatch is one CUDA graph
-replay (``runtime/graph.py``): the serve phases check one replay per
-dispatch (and one chunk-graph replay per mixed dispatch) and print each
-graph's kernel nodes, which the capture read from libcuda and which every
-replay adds to the launch counts; the profile phases count the host's
-kernel and graph launch calls slot by slot and hold the profiled decode
-kernels to the wrappers' counts. sampling holds per-request sampling on the
-card to the CPU (the threefry keys and random bits over the vocabulary bit
-for bit, ``sample_rows``' tokens but at near-ties), and sampled_serve and
-sampled_chunked_serve serve the main and chunked paths with temperature,
-top-k, top-p and a repetition penalty. graph_ab serves each captured path
+every slot's admission (one graph per prompt bucket), decode or mixed
+(chunk + decode) dispatch is one CUDA graph replay (``runtime/graph.py``):
+the serve phases check one replay per dispatch (one admission-graph replay
+per admission, each admission graph holding K1r once per layer, or K6's
+kernels on Mamba-2, and one chunk-graph replay per mixed dispatch) and
+print each graph's kernel nodes, which the capture read from libcuda and
+which every replay adds to the launch counts; the profile phases count the
+host's kernel and graph launch calls slot by slot, admitting slots beside
+the others, and hold the profiled decode kernels to the wrappers' counts.
+fleet_serve serves four sync-free granite-3-2b replicas on the card
+(``--replicas 4 --router drift``) and paged_fleet_serve two paged chunked
+ones, replica 1 failing at slot 6: each prints its phase line first, then
+checks that requests are conserved, every dispatch of every replica is a
+replay, no slot synchronizes, the merged streams equal one engine's over
+the same requests but at its near-ties, and, after the failure, that the
+survivor finishes the requeued work with no page left held. sampling holds
+per-request sampling on the card to the CPU (the threefry keys and random
+bits over the vocabulary bit for bit, ``sample_rows``' tokens but at
+near-ties), and sampled_serve and sampled_chunked_serve serve the main and
+chunked paths with temperature, top-k, top-p and a repetition penalty.
+graph_ab serves each captured path
 (dense fused, sync-free, paged, paged sync-free, Mamba-2, chunked, paged
 chunked and the two sampled ones) eagerly and graphed in this call: ms per
 slot, host launches per slot over a window of slots, and equal traces,
@@ -405,6 +415,8 @@ def check_kernels(timer) -> dict:
         emit("kernels", **row)
         if not worst <= 1.0:
             raise AssertionError(f"{case}: an element is {worst:.3g}x its tolerance")
+        if "device_ms" in row:
+            _hold_to_bound(case, row["device_ms"], bms)
 
     def sdpa_prefill(q, k, v, lens, window, causal_only):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -608,33 +620,49 @@ def _device_ms(fn, n: int = 20, sessions: int = 3) -> float:
     out). ``Timer`` reads event to event, which takes in the host's issue
     time where a call's kernels are shorter than it.
 
-    Now and then a profiler session records no kernel at all. Such a
-    session is run again, up to ``sessions`` in all; if none of them saw
-    device time, the calls are timed with CUDA events around each call
+    The calls run ``PROFILE_MARGIN_S`` after the profile starts and it
+    stops that long after they end. A session counts only if its profile
+    holds a device record of every kernel launch its host side shows
+    (``_launches_unrecorded``), ``n`` flushes, and each port kernel as
+    many times as its wrappers launched it; one that does not is run
+    again, up to ``sessions`` in all. If none of them was
+    complete, the calls are timed with CUDA events around each call
     instead, and a ``device_ms_by_events`` line says so."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
 
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     seen = []
     for _ in range(sessions):
+        kernels.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             for _ in range(n):
                 flush.bitwise_not_()
                 fn()
             torch.cuda.synchronize()
-        us, events = 0.0, {"cpu": 0, "cuda": 0}
+            time.sleep(PROFILE_MARGIN_S)
+        us, records = 0.0, {}
         for e in prof.key_averages():
-            cuda = e.device_type == torch.autograd.DeviceType.CUDA
-            events["cuda" if cuda else "cpu"] += e.count
-            if not cuda or "bitwise_not" in e.key:
+            if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            dev = getattr(e, "self_device_time_total", None)
-            us += e.self_cuda_time_total if dev is None else dev
-        if us > 0:
+            records[e.key] = records.get(e.key, 0) + e.count
+            if "bitwise_not" not in e.key:
+                dev = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if dev is None else dev
+        issued, unrecorded = _launches_unrecorded(prof)
+        flushes = sum(c for k, c in records.items() if "bitwise_not" in k)
+        ours = _function_records(records)
+        launched = kernels.function_counts(kernels.launch_counts())
+        if (issued and not unrecorded and flushes == n
+                and all(ours.get(f, 0) == c for f, c in launched.items())):
             return us / n / 1e3
-        seen.append(events)
+        seen.append({"launches": issued, "without_a_device_record": unrecorded,
+                     "flushes": flushes,
+                     "port_kernels": {f: [ours.get(f, 0), c] for f, c in launched.items()}})
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(n)]
     for start, end in pairs:
@@ -648,6 +676,46 @@ def _device_ms(fn, n: int = 20, sessions: int = 3) -> float:
     if not ms > 0:
         raise AssertionError("neither the profiler nor CUDA events saw device time")
     return ms
+
+
+# torch.profiler (kineto) keeps only the device records whose timestamps,
+# converted to the host's clock, fall inside its window, and on the H100 it
+# dropped records of kernels run right at the window's edges (its log counts
+# them "Out-of-range"): whole calls of some _device_ms sessions, 44 of 960 K3
+# in one serve profile. So every profile opens this long before its work and
+# closes this long after it.
+PROFILE_MARGIN_S = 0.05
+
+
+def _function_records(records: dict) -> dict:
+    """Profiled records (kernel name -> count) per kernel function, keyed as
+    ``kernels.function_counts``: the unqualified name, ``_wgmma`` dropped."""
+    out: dict = {}
+    for k, c in records.items():
+        m = re.search(r"::(\w+)[<(]", k)
+        if m:
+            f = m.group(1).removesuffix("_wgmma")
+            out[f] = out.get(f, 0) + c
+    return out
+
+
+def _launches_unrecorded(prof) -> tuple:
+    """(kernel and graph launches a profile's host side issued, how many of
+    them have no device record), matched by CUPTI correlation id."""
+    events = prof.profiler.kineto_results.events()
+    ran = {e.correlation_id() for e in events
+           if e.device_type() == torch.autograd.DeviceType.CUDA}
+    issued = [e.correlation_id() for e in events
+              if e.device_type() == torch.autograd.DeviceType.CPU and _LAUNCH_CALL.match(e.name())]
+    return len(issued), sum(c not in ran for c in issued)
+
+
+def _hold_to_bound(name: str, device_ms: float, bound_ms: float) -> None:
+    """No kernel beats the card's bound for its work: a device time below
+    it is a measurement that lost kernels, or a bound that overcounts."""
+    if not device_ms >= bound_ms:
+        raise AssertionError(f"{name}: device time {device_ms:.5g} ms is below the bound "
+                             f"{bound_ms:.5g} ms")
 
 
 # the main bf16 cases of the kernels phase that chunk_anatomy reads
@@ -1335,6 +1403,7 @@ def check_ssd_anatomy(timer) -> dict:
         if not worst <= 1.0:
             emit("ssd_anatomy", phases=phases)
             raise AssertionError(f"{name}: an element is {worst:.3g}x its tolerance")
+        _hold_to_bound(name, dev, bms)
 
     f32 = SSD_RTOL[torch.float32]
     contrib, decay = kssd.chunk_states(x, dt, A, Bm, chunk=Q)
@@ -1376,6 +1445,7 @@ def check_ssd_anatomy(timer) -> dict:
         dev = _device_ms(fn)
         calls[label] = {"device_ms": dev, "ms": timer(fn), "bound_ms": bms, "bound_by": by,
                         "flops": flops, "tflops": flops / dev / 1e9, "over_bound": dev / bms}
+        _hold_to_bound(f"ssd_scan {label}", dev, bms)
     bf, f3 = calls.values()
     emit("ssd_anatomy", shape={"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q},
          calls=calls, phases=phases, phase_device_ms_sum=sum(r["device_ms"] for r in phases),
@@ -2388,16 +2458,44 @@ def _chunk_replays(engine) -> int:
     return sum(g.replays for m, g in engine._graphs.items() if m.startswith("chunk"))
 
 
-def _warmups(args) -> int:
+def _warmups(args, engine) -> tuple:
     """The dispatches ``warm_decode`` runs before a launcher serve's first
-    slot: each mode the loop replays (the chunked loop's mixed dispatch and
-    its decode-only one), twice with an engine-default sampler (the greedy
-    and the sampled graph)."""
+    slot, and of them the admissions: each mode the loop replays (the
+    chunked loop's mixed dispatch and its decode-only one; the fused and
+    sync-free loops' decode and their admission of each prompt bucket),
+    twice with an engine-default sampler (the greedy and the sampled
+    graph)."""
     if args.legacy_loop:
-        return 0
+        return 0, 0
     sampled = any(getattr(args, f) is not None for f in
                   ("temperature", "top_k", "top_p", "rep_penalty", "sampling_seed"))
-    return (2 if args.chunked else 1) * (2 if sampled else 1)
+    variants = 2 if sampled else 1
+    if args.chunked:
+        return 2 * variants, 0
+    buckets = len(engine._warm_buckets())
+    return (1 + buckets) * variants, buckets * variants
+
+
+def _prefill_graph_launches(engine) -> dict:
+    """The kernels one admission graph must hold: K1r once per layer on an
+    attention stack, the SSD scan's (K6) on a Mamba-2 one."""
+    n = engine.cfg.n_layers
+    if engine.cfg.is_ssm:
+        return {k: n for k in ("ssd_scan", *SSD_PHASES)}
+    return {"flash_attention_ragged": n}
+
+
+def _check_prefill_graphs(phase: str, engine) -> None:
+    """Every admission graph the engine captured holds its kernels (their
+    nodes read from libcuda at the capture) and every admission dispatch
+    was a replay of one."""
+    want = _prefill_graph_launches(engine)
+    for mode, g in engine._graphs.items():
+        if "prefill" in mode and g.graph is not None and g.launches != want:
+            raise AssertionError(f"{phase}: the {mode} graph holds {g.launches}, not {want}")
+    if engine.prefill_replays != engine.prefill_dispatches:
+        raise AssertionError(f"{phase}: {engine.prefill_replays} admission graph replays for "
+                             f"{engine.prefill_dispatches} admission dispatches")
 
 
 def _paged_decode_sync_checked():
@@ -2430,6 +2528,24 @@ def _paged_decode_sync_checked():
     return restore
 
 
+def _memory_start() -> int:
+    """Collect garbage (an earlier phase's engine, freed before this one's
+    peak), reset the peak and return the memory allocated now, which the
+    peak counts too."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _memory(held: int) -> dict:
+    """A phase's peak: all memory allocated at its highest, what was
+    allocated at its start (``_memory_start``), and the phase's own, their
+    difference."""
+    peak = torch.cuda.max_memory_allocated()
+    return {"max_memory_allocated": peak, "allocated_at_start": held,
+            "own_peak_gb": (peak - held) / 1e9}
+
+
 def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
     """One of the launcher's paths: build (the dense engine's boot prefill
     runs K1, or K6 on a Mamba-2 stack) and serve. The launch counts are
@@ -2442,7 +2558,7 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     from repro_torch.launch import serve as launcher
 
     args = launcher.build_parser().parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
+    held = _memory_start()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     engine, sched, src = launcher.build(args)
@@ -2473,15 +2589,17 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
            "launches": counts, "served": int(tr["served"].sum()),
            "dispatches_per_slot": float(tr["dispatches"].mean()),
            "decode_dispatches": engine.decode_dispatches,
+           "prefill_dispatches": engine.prefill_dispatches,
            "warmup_dispatches": engine.warmup_dispatches,
+           "prefill_warmups": engine.prefill_warmups,
            "graph_replays": engine.graph_replays,
+           "prefill_replays": engine.prefill_replays,
            # each graph's launches per counter and kernel nodes per kernel
            # function, read from libcuda at its capture (equal summed per
            # function): what every replay adds to the counts
            "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
            "graph_kernel_nodes": {m: g.nodes for m, g in engine._graphs.items() if g.graph},
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
+           **_memory(held), "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
     if args.paged:
         res.update(paged=launcher.paged_summary(tr, engine),
@@ -2504,15 +2622,21 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     missing = [k for k in path_kernels if counts[k] <= 0]
     if missing:
         raise AssertionError(f"{phase}: kernels never launched on the path: {missing}")
-    # every decode and mixed dispatch: warmed up and captured before the
-    # first slot (warm_decode), then one replay each
-    want_replays = engine.decode_dispatches if captured else 0
-    if engine.graph_replays != want_replays or engine.warmup_dispatches != _warmups(args):
+    # every decode, mixed and admission dispatch: warmed up and captured
+    # before the first slot (warm_decode), then one replay each
+    warm, warm_prefill = _warmups(args, engine)
+    want_replays = engine.decode_dispatches + engine.prefill_dispatches if captured else 0
+    if (engine.graph_replays != want_replays or engine.warmup_dispatches != warm
+            or engine.prefill_warmups != warm_prefill):
         raise AssertionError(f"{phase}: {engine.graph_replays} graph replays for "
-                             f"{engine.decode_dispatches} decode dispatches "
-                             f"({engine.warmup_dispatches} warm-ups)")
+                             f"{engine.decode_dispatches} decode and "
+                             f"{engine.prefill_dispatches} admission dispatches "
+                             f"({engine.warmup_dispatches} warm-ups, "
+                             f"{engine.prefill_warmups} of admissions)")
+    if captured:
+        _check_prefill_graphs(phase, engine)
     if args.chunked and (_chunk_replays(engine) != mixed[0]
-                         or mixed[2] != _warmups(args) // 2):
+                         or mixed[2] != warm // 2):
         raise AssertionError(f"{phase}: {_chunk_replays(engine)} chunk graph replays for "
                              f"{mixed[0]} mixed dispatches ({mixed[2]} warm-ups)")
     n_layers = engine.cfg.n_layers
@@ -2520,20 +2644,22 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     quant = args.kv_precision in ("int8", "fp8")
     ring = "decode_attention_quant" if quant else "decode_attention"   # the dense decode
     want = {}
+    # the admissions (their warm-ups too) and the decodes (theirs too)
+    prefills = engine.prefill_dispatches + engine.prefill_warmups
+    decodes = engine.decode_dispatches + engine.warmup_dispatches - engine.prefill_warmups
     if ssm:   # every prefill (the boot's too) runs the scan once per layer, bf16: three kernels
-        want = {k: n_layers * (engine.prefill_dispatches + 1)
-                for k in ("ssd_scan", *SSD_PHASES)}
+        want = {k: n_layers * (prefills + 1) for k in ("ssd_scan", *SSD_PHASES)}
     elif args.paged:
         quant = args.kv_precision in ("int8", "fp8")
         decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
-        want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                decode: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2}
+        want = {"flash_attention_ragged": n_layers * prefills,
+                decode: n_layers * decodes * 2}
         if args.chunked:
             chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
             want[chunk] = n_layers * (mixed[0] + mixed[2])
-    elif asynchronous or quant:
-        want = {"flash_attention_ragged": n_layers * engine.prefill_dispatches,
-                ring: n_layers * (engine.decode_dispatches + engine.warmup_dispatches) * 2,
+    else:
+        want = {"flash_attention_ragged": n_layers * prefills,
+                ring: n_layers * decodes * 2,
                 "chunk_attention": n_layers * (mixed[0] + mixed[2])}
         if quant:   # a quantized ring never reaches the native decode
             want["decode_attention"] = 0
@@ -2631,7 +2757,7 @@ def drive_prefix_serve() -> dict:
     from repro_torch import kernels
     from repro_torch.launch.serve import paged_summary, prefix_summary
 
-    torch.cuda.reset_peak_memory_stats()
+    held = _memory_start()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     engine, sched, src = _prefix_build()
@@ -2657,12 +2783,14 @@ def drive_prefix_serve() -> dict:
            "mixed_dispatches": mixed[0], "mixed_dispatches_with_a_hit": mixed[1],
            "mixed_warmups": mixed[2], "quantized_hit_launches": n_layers * mixed[1],
            "decode_dispatches": engine.decode_dispatches,
+           "prefill_dispatches": engine.prefill_dispatches,
            "warmup_dispatches": engine.warmup_dispatches,
-           "graph_replays": engine.graph_replays, "chunk_graph_replays": _chunk_replays(engine),
+           "prefill_warmups": engine.prefill_warmups,
+           "graph_replays": engine.graph_replays,
+           "prefill_replays": engine.prefill_replays, "chunk_graph_replays": _chunk_replays(engine),
            "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
            "graph_kernel_nodes": {m: g.nodes for m, g in engine._graphs.items() if g.graph},
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
+           **_memory(held), "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
            "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches",
                                                  "occupancy")}}
     emit("prefix_serve", **res)
@@ -2690,6 +2818,179 @@ def drive_prefix_serve() -> dict:
     cpu = {k: cpu[k].tolist() for k in res["trace"]}
     if cpu != res["trace"] or cpu_engine.prefix_hits != engine.prefix_hits:
         raise AssertionError(f"prefix_serve: the trace {res['trace']} is not the CPU run's {cpu}")
+    return res
+
+
+# the fleet phases: granite-3-2b at published widths behind the drift router,
+# four sync-free replicas on the one card, and two paged chunked ones of
+# which replica 1 fails at slot PAGED_FLEET_FAIL_AT
+FLEET_ARGS = SYNC_ARGS + ["--replicas", "4", "--router", "drift"]
+PAGED_FLEET_ARGS = PAGED_CHUNKED_ARGS + ["--replicas", "2"]
+PAGED_FLEET_FAIL_AT = 6
+# a merged stream may leave the one engine's only at a token where that
+# engine's own top-2 logit gap is below this: a replica admits other batches,
+# so it prefills through other buckets, whose bf16 rounding differs (the
+# model phases' rule, MODEL_TOL, on the same weights)
+FLEET_TIE = MODEL_TOL
+
+
+def _one_engine_streams(fleet, reqs: list, mode: str) -> dict:
+    """The fleet's requests served again, from scratch, by one engine of the
+    replicas' geometry over the same model, stepped until each finishes."""
+    import copy
+
+    proto = fleet.replicas[0]
+    eng = type(proto)(proto.model, proto.ecfg)
+    fresh = []
+    for r in reqs:
+        r = copy.copy(r)
+        r.generated = r.admit_slot = r.start_slot = r.first_token_slot = r.finish_slot = None
+        fresh.append(r)
+    eng.submit(fresh)
+    step = eng.step_slot_chunked if mode == "chunked" else eng.step_slot_sync
+    t = 0
+    while len(eng.finished) < len(fresh) and t < 400:
+        step(t, n_steps=2)
+        t += 1
+    eng.drain()
+    if len(eng.finished) != len(fresh):
+        raise AssertionError(f"the one-engine serve finished {len(eng.finished)} of {len(fresh)}")
+    return {r.rid: list(r.generated) for r in eng.finished}
+
+
+def _near_ties(model, got: dict, want: dict, prompts: dict, cache_len: int) -> list:
+    """The streams compared with the near-tie rule (``FLEET_TIE``): each
+    entry (rid, first differing token, the one engine's top-2 gap there).
+    Raises where a stream parts at a gap at or above the rule."""
+    from repro_torch.models import model as M
+
+    if got.keys() != want.keys():
+        raise AssertionError(f"the fleet finished {sorted(got)}, one engine {sorted(want)}")
+    parts = []
+    for rid, w in want.items():
+        h = got[rid]
+        d = next((i for i, (a, b) in enumerate(zip(h, w)) if a != b), None)
+        if d is None:
+            if len(h) != len(w):
+                raise AssertionError(f"request {rid}: {len(h)} tokens, one engine {len(w)}")
+            continue
+        seq = np.concatenate([prompts[rid], np.asarray(w[:d], np.int32)])[None]
+        logits, _ = M.prefill(model, torch.from_numpy(seq).cuda(), cache_len)
+        top = torch.topk(logits[0].float(), 2).values
+        gap = float(top[0] - top[1])
+        parts.append((rid, d, gap))
+        if gap >= FLEET_TIE:
+            raise AssertionError(f"request {rid} parts from the one engine at token {d}, where "
+                                 f"its top-2 gap is {gap} (rule {FLEET_TIE})")
+    return parts
+
+
+def drive_fleet(argv: list, phase: str, fail_at=None) -> dict:
+    """A ``ReplicaFleet`` through the launcher (``--replicas``), every
+    replica warmed up and captured before slot 0 (``ReplicaFleet.warm_decode``)
+    and every slot's engine work under the sync debug mode. With
+    ``fail_at`` replica 1 fails at that slot (before its arrivals), and
+    after the serve the fleet runs until every admitted request finishes.
+    Checks: requests conserved (arrivals = served + dropped + backlog +
+    active); every dispatch of every replica a graph replay; 0 blocking
+    syncs; the merged streams equal one engine's serving the same requests
+    but at its near-ties; after a failure, requeues and no page leaked."""
+    from repro_torch import kernels
+    from repro_torch.launch import serve as launcher
+
+    args = launcher.build_parser().parse_args(argv)
+    emit(phase, stage="start", replicas=args.replicas, router=args.router, fail_at=fail_at)
+    held = _memory_start()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fleet, sched, src = launcher.build(args)
+    torch.cuda.synchronize()
+    mode = "chunked" if args.chunked else "sync"
+    arrivals, poll = [], src.poll
+
+    def polled(t, rate):
+        if t == fail_at:
+            requeued = fleet.fail_replica(1)
+            emit(phase, stage="fail_replica", slot=t, requeued=len(requeued))
+        reqs = poll(t, rate)
+        arrivals.extend(reqs)
+        return reqs
+    src.poll = polled
+    _sync_checked(sched)
+    warm_s = _warm(fleet, args.sync_free, args.chunked)
+    t1 = time.perf_counter()
+    try:
+        tr = launcher.run(args, fleet, sched, src)
+        torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t2 = time.perf_counter()
+    active = sum(r is not None for r in fleet.active)
+    served, backlog = int(tr["served"].sum()), fleet.queue_len()
+    conserved = len(arrivals) == served + sched.dropped + backlog + active
+    res = {"summary": launcher.summary(args, tr, sched),
+           "fleet": launcher.fleet_summary(args, fleet), "build_s": t1 - t0 - warm_s,
+           "warmup_s": warm_s, "serve_s": t2 - t1, "ms_per_slot": (t2 - t1) / args.horizon * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **_memory(held),
+           "served_per_replica": [len(e.finished) for e in fleet.replicas],
+           "arrivals": len(arrivals), "served": served, "dropped": sched.dropped,
+           "backlog": backlog, "active": active, "conserved": conserved,
+           "requeues": fleet.requeues, "alive": list(fleet.alive),
+           "routed_per_replica": np.bincount(fleet.router.routed,
+                                             minlength=args.replicas).tolist(),
+           "prefill_dispatches": [e.prefill_dispatches for e in fleet.replicas],
+           "decode_dispatches": [e.decode_dispatches for e in fleet.replicas],
+           "warmup_dispatches": [e.warmup_dispatches for e in fleet.replicas],
+           "graph_replays": [e.graph_replays for e in fleet.replicas],
+           "prefill_replays": [e.prefill_replays for e in fleet.replicas],
+           "blocking_syncs": fleet.blocking_syncs, "syncs": tr["syncs"].tolist(),
+           "launches": kernels.launch_counts(),
+           "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
+    if args.paged:
+        res["paged"] = launcher.paged_summary(tr, fleet)
+    emit(phase, **res)
+    if not conserved or served <= 0:
+        raise AssertionError(f"{phase}: {len(arrivals)} arrivals, {served} served, "
+                             f"{sched.dropped} dropped, {backlog} queued, {active} active")
+    for i, e in enumerate(fleet.replicas):
+        warm, warm_prefill = _warmups(args, e)
+        if (e.graph_replays != e.decode_dispatches + e.prefill_dispatches
+                or e.warmup_dispatches != warm or e.prefill_warmups != warm_prefill):
+            raise AssertionError(f"{phase}: replica {i} replayed {e.graph_replays} graphs for "
+                                 f"{e.decode_dispatches} decode and {e.prefill_dispatches} "
+                                 f"admission dispatches ({e.warmup_dispatches} warm-ups)")
+        _check_prefill_graphs(f"{phase} replica {i}", e)
+    if fleet.blocking_syncs or max(res["syncs"]):
+        raise AssertionError(f"{phase}: blocking syncs {res['syncs']}")
+    if min(res["served_per_replica"]) <= 0:
+        raise AssertionError(f"{phase}: a replica served nothing: {res['served_per_replica']}")
+    if fail_at is not None:
+        t = args.horizon   # every admitted request finishes on the survivor
+        while fleet.pending or any(r is not None for r in fleet.active):
+            fleet.step_slot_chunked(t, n_steps=2) if mode == "chunked" else \
+                fleet.step_slot_sync(t, n_steps=2)
+            t += 1
+            if t > args.horizon + 400:
+                raise AssertionError(f"{phase}: the survivors did not finish the work")
+        fleet.drain()
+        torch.cuda.synchronize()
+        leaks = [e.allocator.stats().used_pages for e in fleet.replicas]
+        for e in fleet.replicas:
+            e.allocator.check()
+        emit(phase, stage="after_failure", finished=len(fleet.finished), slots=t,
+             requeues=fleet.requeues, used_pages=leaks)
+        if fleet.requeues <= 0 or fleet.alive[1] or any(leaks):
+            raise AssertionError(f"{phase}: requeues {fleet.requeues}, alive {fleet.alive}, "
+                                 f"pages still held {leaks}")
+        if len(fleet.finished) != len(arrivals) - sched.dropped:
+            raise AssertionError(f"{phase}: {len(fleet.finished)} finished of "
+                                 f"{len(arrivals) - sched.dropped} admitted")
+    got = {r.rid: list(r.generated) for r in fleet.finished}
+    prompts = {r.rid: np.asarray(r.tokens[:args.prompt_len], np.int32) for r in fleet.finished}
+    want = _one_engine_streams(fleet, fleet.finished, mode)
+    parts = _near_ties(fleet.replicas[0].model, got, want, prompts, args.cache_len)
+    emit(phase, stage="streams", compared=len(want), near_tie_parts=parts)
     return res
 
 
@@ -2769,6 +3070,14 @@ def _host_launches(prof) -> list:
     return per_slot
 
 
+def _admissions(engine) -> int:
+    """Requests admitted so far, less those preempted back to the queue:
+    the finished and the active ones (a chunked claim counts, its prompt
+    prefills inside the mixed dispatch). It grows in exactly the slots
+    that admit."""
+    return len(engine.finished) + sum(r is not None for r in engine.active)
+
+
 def _time_replays():
     """Time every decode-graph replay with CUDA events on the stream:
     (the (start, end) pairs, the function that puts the original back)."""
@@ -2796,8 +3105,9 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     runtime's kernel and graph launch calls, slot by slot: a captured path
     warms up and captures its decode before the first slot, and every
     slot's decode is a replay. Each replay is also timed with CUDA events,
-    and the profile must hold the graphs' kernels: their launch counts must
-    equal the kernels' own counters."""
+    and the profile, which opens and closes ``PROFILE_MARGIN_S`` around the
+    serve, must hold every port kernel as many times as its wrappers
+    counted, inside the graphs or not."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
@@ -2814,20 +3124,26 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
         horizon = args.horizon
         run = lambda: launcher.run(args, engine, sched, src)
         _warm(engine, args.sync_free, args.chunked)
-    _slot_marks(sched)
+    # each slot's admission count (an admission dispatch or a chunked claim)
+    # at its start, to split the host launches by admitting slots
+    admitted = []
+    _slot_marks(sched, lambda t: admitted.append(_admissions(engine)))
     pairs, restore = _time_replays()
     kernels.reset_launch_counts()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             run()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
     finally:
         restore()
     counts = kernels.launch_counts()
-    rows = []
+    rows, records = [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue   # kernels only: an op's device time is its kernels'
+        records[e.key] = records.get(e.key, 0) + e.count
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = e.self_cuda_time_total
@@ -2840,29 +3156,40 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     for r in rows:
         by_kind[r["kind"]] = by_kind.get(r["kind"], 0.0) + r["device_ms"] / horizon
     host = _host_launches(prof)
+    admitted.append(_admissions(engine))
+    admits = [b > a for a, b in zip(admitted, admitted[1:])]
+    by_admission = {k: [n for n, a in zip(host, admits) if a == want]
+                    for k, want in (("admitting", True), ("not_admitting", False))}
     replay_ms = sum(a.elapsed_time(b) for a, b in pairs)
-    # every decode kernel the wrappers counted, inside a graph or not, is in
-    # the profile
-    decode = {"K2": "decode_attention", "K3": "paged_decode_attention",
-              "K2q": "decode_attention_quant", "K3q": "paged_decode_attention_quant"}
-    profiled = {k: sum(r["count"] for r in rows if r["kind"] == k) for k in decode}
-    counted = {k: counts[n] for k, n in decode.items()}
+    # every port kernel the wrappers counted, inside a graph or not, is in
+    # the profile, as many times as they launched it
+    ports = set(kernels.function_counts(dict.fromkeys(counts, 1)))
+    profiled = {f: n for f, n in _function_records(records).items() if f in ports}
+    counted = kernels.function_counts(counts)
     emit(phase, slots=horizon,
          device_busy_ms=busy if rows else "not measured",
          device_busy_ms_per_slot=busy / horizon if rows else "not measured",
          device_ms_per_slot_by_kind=by_kind,
          kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
          host_launches_per_slot=sum(host) / horizon,
-         host_launches_by_slot=host, graph_replays=len(pairs),
+         host_launches_by_slot=host,
+         host_launches_per_admitting_slot=(
+             sum(by_admission["admitting"]) / len(by_admission["admitting"])
+             if by_admission["admitting"] else None),
+         host_launches_per_other_slot=(
+             sum(by_admission["not_admitting"]) / len(by_admission["not_admitting"])
+             if by_admission["not_admitting"] else None),
+         admitting_slots=sum(admits), graph_replays=len(pairs),
          graph_replay_event_ms_per_slot=replay_ms / horizon,
-         graph_kernels_in_profile=profiled == counted,
+         kernel_records=profiled, kernel_records_missing={
+             f: counted.get(f, 0) - profiled.get(f, 0) for f in {*profiled, *counted}
+             if counted.get(f, 0) != profiled.get(f, 0)},
          unprofiled_serve_ms=serve_s * 1e3,
          idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
          top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
-    if pairs and profiled != counted:
-        raise AssertionError(f"{phase}: the profile holds {profiled} decode kernels, the "
-                             f"wrappers counted {counted}: the graphs' kernels are missing, "
-                             "so read graph_replay_event_ms_per_slot")
+    if profiled != counted:
+        raise AssertionError(f"{phase}: the profile holds {profiled} port kernels, the "
+                             f"wrappers counted {counted}")
 
 
 # the paths whose dispatches are one CUDA graph replay each, served eager and
@@ -2871,9 +3198,10 @@ GRAPH_AB = (("serve", SERVE_ARGS), ("sync", SYNC_ARGS), ("paged", PAGED_ARGS),
             ("paged_sync", PAGED_SYNC_ARGS), ("ssm", SSM_ARGS), ("chunked", CHUNKED_ARGS),
             ("paged_chunked", PAGED_CHUNKED_ARGS), ("sampled", SAMPLED_ARGS),
             ("sampled_chunked", SAMPLED_CHUNKED_ARGS))
-# the chunked rows' graphed host launches must stay below this share of
-# eager's: the mixed dispatch is one replay where eager issues thousands
-CHUNKED_HOST_SHARE = 0.1
+# every row's graphed host launches, in every slot of the window (each
+# admits), must stay below this share of eager's: the admission, the decode
+# and the mixed dispatch are one replay each where eager issues thousands
+GRAPH_HOST_SHARE = 0.05
 # the slots whose host launches graph_ab counts under the profiler: the
 # first three, which admit (the decode was warmed up and captured before)
 AB_WINDOW = (0, 2)
@@ -2913,8 +3241,10 @@ def _ab_serve(argv: list, graph: bool) -> dict:
                                                   "occupancy", "syncs", "active")},
             "streams": {r.rid: list(r.generated) for r in engine.finished},
             "launches": kernels.launch_counts(), "graph_replays": engine.graph_replays,
+            "prefill_replays": engine.prefill_replays,
             "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
-            "decode_dispatches": engine.decode_dispatches, "chunked": args.chunked}
+            "decode_dispatches": engine.decode_dispatches,
+            "prefill_dispatches": engine.prefill_dispatches, "chunked": args.chunked}
 
 
 def _ab_host_launches(argv: list, graph: bool) -> list:
@@ -2950,8 +3280,9 @@ def graph_ab() -> dict:
     per slot, host launches per slot over ``AB_WINDOW``, and the two serves'
     trace columns, token streams (sampled ones too, bit for bit) and launch
     counts, which must be equal. The graphed serve replays once per
-    dispatch and issues fewer host launches in every slot of the window; a
-    chunked one fewer than ``CHUNKED_HOST_SHARE`` of eager's."""
+    dispatch, the admissions included, and issues fewer than
+    ``GRAPH_HOST_SHARE`` of eager's host launches in every slot of the
+    window."""
     out = {}
     for name, argv in GRAPH_AB:
         eager, graph = _ab_serve(argv, False), _ab_serve(argv, True)
@@ -2968,22 +3299,28 @@ def graph_ab() -> dict:
                "streams_equal": eager["streams"] == graph["streams"],
                "streams": len(graph["streams"]),
                "launches_equal": eager["launches"] == graph["launches"],
-               "graph_replays": graph["graph_replays"], "graph_nodes": graph["graph_nodes"],
-               "decode_dispatches": graph["decode_dispatches"], "trace": graph["trace"]}
+               "graph_replays": graph["graph_replays"],
+               "prefill_replays": graph["prefill_replays"], "graph_nodes": graph["graph_nodes"],
+               "decode_dispatches": graph["decode_dispatches"],
+               "prefill_dispatches": graph["prefill_dispatches"], "trace": graph["trace"]}
         emit("graph_ab", **res)
         out[name] = res
         if not (res["traces_equal"] and res["streams_equal"] and res["launches_equal"]
                 and res["streams"] > 0):
             raise AssertionError(f"graph_ab {name}: the graphed serve left the eager one's "
                                  "trace, streams or launch counts")
-        if eager["graph_replays"] or graph["graph_replays"] != graph["decode_dispatches"]:
-            raise AssertionError(f"graph_ab {name}: {graph['graph_replays']} replays for "
-                                 f"{graph['decode_dispatches']} decode dispatches")
-        share = CHUNKED_HOST_SHARE if graph["chunked"] else 1.0
+        dispatches = graph["decode_dispatches"] + graph["prefill_dispatches"]
+        if (eager["graph_replays"] or graph["graph_replays"] != dispatches
+                or graph["prefill_replays"] != graph["prefill_dispatches"]):
+            raise AssertionError(f"graph_ab {name}: {graph['graph_replays']} replays "
+                                 f"({graph['prefill_replays']} of admissions) for "
+                                 f"{graph['decode_dispatches']} decode and "
+                                 f"{graph['prefill_dispatches']} admission dispatches")
         if len(host["eager"]) != len(host["graph"]) or any(
-                g >= share * e for g, e in zip(host["graph"], host["eager"])):
+                g >= GRAPH_HOST_SHARE * e for g, e in zip(host["graph"], host["eager"])):
             raise AssertionError(f"graph_ab {name}: host launches {host['graph']} are not "
-                                 f"below {share} of the eager serve's {host['eager']}")
+                                 f"below {GRAPH_HOST_SHARE} of the eager serve's "
+                                 f"{host['eager']}")
     return out
 
 
@@ -3400,6 +3737,8 @@ def main() -> int:
                                       CHUNKED_KERNELS)
     profile_main_path(SAMPLED_CHUNKED_ARGS, sampled_chunked["serve_s"],
                       "sampled_chunked_profile")
+    drive_fleet(FLEET_ARGS, "fleet_serve")
+    drive_fleet(PAGED_FLEET_ARGS, "paged_fleet_serve", fail_at=PAGED_FLEET_FAIL_AT)
     graph_ab()
     check_fig2()
 

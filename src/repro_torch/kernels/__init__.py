@@ -1,6 +1,8 @@
 """The attention kernels and the SSD scan: hand-written CUDA for Hopper,
 their plain versions, and the launch counts that show a run went through
 the kernels."""
+from typing import Optional
+
 from repro_torch.kernels import (chunk_attention, decode_attention, flash_attention,
                                  paged_attention, paged_attention_quant,
                                  paged_chunk_attention, ssd_scan)
@@ -26,17 +28,21 @@ def reset_launch_counts() -> None:
 
 # the kernel function a counter's wrapper launches, where it is not the
 # counter's own name + "_kernel": K1's kernel serves K1, K1r, K1q and K1rq,
-# and K4p's serves K4q, K4p and K4p over quantized pages
+# and K4p's serves K4q, K4p and K4p over quantized pages. ``ssd_scan``
+# counts K6's calls, which launch the kernels of the route they take, each
+# counted by that kernel's own counter: it maps to no function.
 _FUNCTION = {"flash_attention_ragged": "flash_attention_kernel",
              "flash_attention_quant": "flash_attention_kernel",
              "flash_attention_quant_ragged": "flash_attention_kernel",
              "chunk_attention_quant": "paged_chunk_attention_kernel",
-             "paged_chunk_attention_quant": "paged_chunk_attention_kernel"}
+             "paged_chunk_attention_quant": "paged_chunk_attention_kernel",
+             "ssd_scan": None, "ssd_scan_f32": "ssd_scan_kernel"}
 
 
-def kernel_function(counter: str) -> str:
+def kernel_function(counter: str) -> Optional[str]:
     """The kernel function (unqualified, its Hopper variant's ``_wgmma``
-    suffix dropped) that the wrapper of ``counter`` launches."""
+    suffix dropped) that the wrapper of ``counter`` launches, or None for a
+    counter of calls matched against no kernel."""
     return _FUNCTION.get(counter, f"{counter}_kernel")
 
 
@@ -45,7 +51,7 @@ def graph_launch_counts(functions: dict) -> dict:
     counted by function name (``runtime/graph.py``): a Hopper variant
     (``_wgmma``) counts with its kernel; nodes of other functions (matmuls,
     elementwise ops) count nowhere."""
-    ours = {kernel_function(k) for c in _COUNTERS for k in c}
+    ours = {kernel_function(k) for c in _COUNTERS for k in c} - {None}
     out: dict = {}
     for f, n in functions.items():
         f = f.removesuffix("_wgmma")
@@ -59,8 +65,9 @@ def function_counts(counts: dict) -> dict:
     kernel function, the keys of ``graph_launch_counts``."""
     out: dict = {}
     for k, n in counts.items():
-        if n:
-            out[kernel_function(k)] = out.get(kernel_function(k), 0) + n
+        f = kernel_function(k)
+        if n and f is not None:
+            out[f] = out.get(f, 0) + n
     return out
 
 

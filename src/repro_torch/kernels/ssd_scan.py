@@ -34,9 +34,11 @@ import torch
 from repro_torch.kernels import build
 
 # launches: each wrapper counts where it launches its kernel, nowhere else;
-# ``ssd_scan`` counts once per call, whichever kernels the call runs
-launches = {"ssd_scan": 0, "ssd_chunk_states": 0, "ssd_state_passing": 0,
-            "ssd_chunk_outputs": 0}
+# ``ssd_scan`` counts once per call, whichever kernels the call runs: an f32
+# call runs ``ssd_scan_kernel`` (also counted as ``ssd_scan_f32``), a bf16
+# call the three phase kernels (each counted by its own counter)
+launches = {"ssd_scan": 0, "ssd_scan_f32": 0, "ssd_chunk_states": 0,
+            "ssd_state_passing": 0, "ssd_chunk_outputs": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -198,5 +200,6 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
         _call("ssd_scan_f32_fwd", x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
               Cm.data_ptr(), init_state.data_ptr() if init_state is not None else None,
               y.data_ptr(), final.data_ptr(), B, S, H, P, N, chunk, _stream(x))
+        launches["ssd_scan_f32"] += 1
     launches["ssd_scan"] += 1
     return y, final

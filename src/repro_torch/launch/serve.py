@@ -71,6 +71,16 @@ drawn with the reference's request-keyed threefry keys, and print a
 fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
 ``--paged`` refuse it with ValueError, as the reference does.
 
+``--replicas N`` serves from a ``ReplicaFleet`` of N equal engines on the
+one card (one model, its weights shared; each replica its own cache and
+CUDA graphs), requests routed by ``--router``: ``drift`` joins the shortest
+drift-plus-penalty queue (request backlog + pending prompt tokens + paged
+occupancy, through the one Algorithm-1 argmax), ``round-robin`` and
+``least-loaded`` are the classical baselines. It prints a ``fleet:`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --sync-free --replicas 2 --router drift --horizon 12 [--device cpu]
+
 Flags of paths the port does not have yet raise NotImplementedError naming
 the ROADMAP.md queue item that brings them.
 """
@@ -83,18 +93,17 @@ import numpy as np
 
 from repro_torch.cache import parse_kv_precision
 from repro_torch.configs import get_config
-from repro_torch.control import LatencyAware
+from repro_torch.control import ROUTER_KINDS, FleetRouter, LatencyAware
 from repro_torch.models import init_params
 from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
                                  MemoryAwareScheduler, PagedEngine,
                                  PagedEngineConfig, PolicyScheduler,
-                                 PrecisionAwareScheduler, RequestSource,
+                                 PrecisionAwareScheduler, ReplicaFleet, RequestSource,
                                  SamplingParams, StaticScheduler, TokenAwareScheduler,
                                  latency_stats, serve)
 
 # flag -> the ROADMAP.md queue-1 item that will bring its path
 _UNPORTED = {
-    "replicas": "item 8 (the fleet)",
     "tenants": "item 10 (observability and reliability)",
     "metrics": "item 10 (observability and reliability)",
     "trace_out": "item 10 (observability and reliability)",
@@ -188,7 +197,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sampling-seed", type=int, default=None,
                     help="base RNG seed; the per-token key is "
                          "fold_in(fold_in(PRNGKey(seed), rid), token_index)")
-    for flag in ("replicas", "tenants", "trace_out", "decisions_out"):
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve from a ReplicaFleet of N equal engines on one card "
+                         "(1 = plain single engine)")
+    ap.add_argument("--router", choices=list(ROUTER_KINDS), default="drift",
+                    help="fleet request routing: drift = join the shortest "
+                         "drift-plus-penalty queue")
+    for flag in ("tenants", "trace_out", "decisions_out"):
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
     return ap
@@ -217,13 +232,26 @@ def sampling_params(args) -> Optional[SamplingParams]:
         seed=args.sampling_seed)
 
 
-def sampling_summary(engine: Engine) -> str:
-    """The reference launcher's ``sampling:`` line."""
-    p = engine.ecfg.sampling
+def replicas_of(engine) -> list:
+    """The engines behind ``engine``: a fleet's replicas, or itself."""
+    return engine.replicas if isinstance(engine, ReplicaFleet) else [engine]
+
+
+def sampling_summary(engine) -> str:
+    """The reference launcher's ``sampling:`` line (summed over replicas)."""
+    engines = replicas_of(engine)
+    p = engines[0].ecfg.sampling
     return (f"sampling: temperature={p.temperature} top_k={p.top_k} top_p={p.top_p} "
             f"rep_penalty={p.repetition_penalty} "
             f"seed={p.seed if p.seed is not None else 0} "
-            f"requests_sampled={engine.requests_sampled}")
+            f"requests_sampled={sum(e.requests_sampled for e in engines)}")
+
+
+def fleet_summary(args, fleet: ReplicaFleet) -> str:
+    """The reference launcher's ``fleet:`` line."""
+    per = [len(e.finished) for e in fleet.replicas]
+    return (f"fleet: replicas={args.replicas} router={args.router} "
+            f"served_per_replica={per} requeues={fleet.requeues}")
 
 
 def build(args):
@@ -263,9 +291,14 @@ def build(args):
     if not 0.0 <= args.upgrade_at <= args.downgrade_at:
         raise ValueError("hysteresis needs 0 <= --upgrade-at <= --downgrade-at, got "
                          f"{args.upgrade_at} / {args.downgrade_at}")
+    if args.replicas < 1:
+        raise ValueError("--replicas must be >= 1")
+    if args.replicas > 1 and args.legacy_loop:
+        raise ValueError("--legacy-loop is a single-engine comparison path; "
+                         "the fleet steps replicas through the fused protocols")
     for flag, item in _UNPORTED.items():
         val = getattr(args, flag)
-        if val not in (None, False) and not (flag == "replicas" and val == "1"):
+        if val not in (None, False):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
                 f"queue 1 {item}")
@@ -287,7 +320,7 @@ def build(args):
     cfg = get_config(args.arch, smoke=args.smoke)
     model = init_params(cfg, seed=0, device=args.device)
     if args.paged:
-        engine = PagedEngine(model, PagedEngineConfig(
+        mk_engine = lambda: PagedEngine(model, PagedEngineConfig(
             prompt_len=args.prompt_len, cache_len=args.cache_len,
             page_size=args.page_size, num_pages=args.num_pages,
             max_active=args.max_active, eos_id=args.eos_id,
@@ -295,11 +328,16 @@ def build(args):
             chunk_budget=args.chunk_budget, kv_precision=args.kv_precision,
             quant_pages=args.quant_pages, sampling=sampling))
     else:
-        engine = Engine(model, EngineConfig(
+        mk_engine = lambda: Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
             cache_len=args.cache_len, eos_id=args.eos_id,
             chunk_size=args.chunk_size, chunk_budget=args.chunk_budget,
             kv_precision=args.kv_precision, sampling=sampling))
+    if args.replicas > 1:   # the replicas share the one model's weights
+        engine = ReplicaFleet.build(mk_engine, args.replicas,
+                                    router=FleetRouter(kind=args.router))
+    else:
+        engine = mk_engine()
     rates = tuple(float(f) for f in range(1, args.raw_rate + 1))
     if args.policy == "adaptive":
         sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity)
@@ -348,31 +386,40 @@ def summary(args, tr: dict, sched) -> str:
             f"blocking_syncs_per_slot={float(tr['syncs'].mean()):.2f}")
 
 
-def paged_summary(tr: dict, engine: PagedEngine) -> str:
-    st = engine.allocator.stats()
+def paged_summary(tr: dict, engine) -> str:
+    """The reference launcher's ``paged:`` line: peaks by the worst
+    replica, failures and preemptions summed over replicas."""
+    engines = replicas_of(engine)
+    st = [e.allocator.stats() for e in engines]
     return (f"paged: peak_occupancy={float(tr['occupancy'].max()):.2f} "
-            f"peak_pages={st.peak_used_pages}/{st.num_pages} "
-            f"peak_active={engine.peak_active} "
-            f"alloc_failures={engine.alloc_failures} "
-            f"preemptions={engine.preemptions}")
+            f"peak_pages={max(s.peak_used_pages for s in st)}/{st[0].num_pages} "
+            f"peak_active={max(e.peak_active for e in engines)} "
+            f"alloc_failures={sum(e.alloc_failures for e in engines)} "
+            f"preemptions={sum(e.preemptions for e in engines)}")
 
 
-def quant_summary(args, engine: PagedEngine) -> str:
-    """The quantized pool's line. ``precision_flips`` counts the flips the
-    reference's decision log records; the port has no decision log yet
-    (ROADMAP.md queue 1 item 10), so it prints 0, as the reference does
-    with telemetry off."""
-    c = engine.counters()
-    line = (f"quant: precision={args.kv_precision} pages_quant={c['pages_quant']}"
-            f"/{engine.allocator.num_pages} quant_occupancy={c['quant_occupancy']:.2f}")
+def quant_summary(args, engine) -> str:
+    """The quantized pool's line, each replica's quantized occupancy
+    joined by commas. ``precision_flips`` counts the flips the reference's
+    decision log records; the port has no decision log yet (ROADMAP.md
+    queue 1 item 10), so it prints 0, as the reference does with telemetry
+    off."""
+    engines = replicas_of(engine)
+    c = [e.counters() for e in engines]
+    line = (f"quant: precision={args.kv_precision} pages_quant={c[0]['pages_quant']}"
+            f"/{engines[0].allocator.num_pages} quant_occupancy="
+            + ",".join(f"{x['quant_occupancy']:.2f}" for x in c))
     if args.policy == "precision-aware":
-        line += f" admit={engine.admit_precision} precision_flips=0"
+        line += f" admit={engines[0].admit_precision} precision_flips=0"
     return line
 
 
-def prefix_summary(engine: PagedEngine) -> str:
-    return (f"prefix: hit_tokens={engine.prefix_hits} forks={engine.prefix_forks} "
-            f"indexed_pages={len(engine._prefix)} evicted={engine._prefix.evicted_pages}")
+def prefix_summary(engine) -> str:
+    engines = replicas_of(engine)
+    return (f"prefix: hit_tokens={sum(e.prefix_hits for e in engines)} "
+            f"forks={sum(e.prefix_forks for e in engines)} "
+            f"indexed_pages={sum(len(e._prefix) for e in engines)} "
+            f"evicted={sum(e._prefix.evicted_pages for e in engines)}")
 
 
 def main(argv=None):
@@ -380,8 +427,10 @@ def main(argv=None):
     engine, sched, src = build(args)
     tr = run(args, engine, sched, src)
     print(summary(args, tr, sched))
-    if engine.ecfg.sampling is not None:
+    if replicas_of(engine)[0].ecfg.sampling is not None:
         print(sampling_summary(engine))
+    if args.replicas > 1:
+        print(fleet_summary(args, engine))
     if args.paged:
         print(paged_summary(tr, engine))
         if args.kv_precision in ("int8", "fp8"):

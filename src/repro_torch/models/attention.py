@@ -618,41 +618,49 @@ def attn_chunk_paged(p: Attention, x: torch.Tensor, pool: PagedKVPool,
     return p.out(o)
 
 
-def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx: np.ndarray) -> None:
-    """Copy a prefill-built dense cache into the page pool, in place.
+def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx) -> None:
+    """Copy a prefill-built dense cache into the page pool, in place, at a
+    fixed shape.
 
     cache k/v: (..., B, P, KVH, hd) with the prompt in slots 0..P-1
     (prefill with cache_len == P never wraps), at the compute dtype; pool
     leaves (..., N, ps, KVH, hd) with the same leading (layer) axes.
-    page_idx (B, P // ps), on the host: the physical page of each prompt
-    block; pad rows, blocks past a prompt's pages and blocks a shared
-    prefix page already holds carry an id outside [0, N). Those entries
-    are left out (the reference's scatter drops them), so only the listed
-    pages change. Blocks bound for the quantized region are quantized
-    there; the ids are on the host, so the split by region costs no
-    readback.
+    page_idx (B, P // ps), a tensor on the pool's device (a host array is
+    copied there): the physical page of each prompt block; pad rows,
+    blocks past a prompt's pages and blocks a shared prefix page already
+    holds carry an id outside [0, N). The reference's scatter drops those
+    entries; here every block is written, and each one the reference
+    drops, or one bound for the other region, lands on its region's
+    scratch page, so only the listed pages of ``regions()`` change and
+    nothing is read back to the host (the admission's CUDA graph). Blocks
+    bound for the quantized region are quantized there, each token and
+    head on its own, so a listed block's codes do not depend on the rest.
     """
     B, P = cache.k.shape[-4], cache.k.shape[-3]
-    npp = page_idx.shape[1]
-    ps = P // npp
-    nn = pool.native_pages
     dev = (pool.k if pool.k is not None else pool.qk).device
-    k_blocks = cache.k.unflatten(-3, (npp, ps))          # (..., B, npp, ps, KVH, hd)
-    v_blocks = cache.v.unflatten(-3, (npp, ps))
-    for quant, lo, hi in ((False, 0, nn), (True, nn, pool.num_pages)):
-        rows, cols = np.nonzero((page_idx >= lo) & (page_idx < hi))
-        if not len(rows):
-            continue
-        idx = host_to_device(np.stack([rows, cols, page_idx[rows, cols] - lo]).astype(np.int64),
-                             dev)
-        kb = k_blocks[..., idx[0], idx[1], :, :, :]
-        vb = v_blocks[..., idx[0], idx[1], :, :, :]
-        if not quant:
-            pool.k[..., idx[2], :, :, :] = kb.to(pool.k.dtype)
-            pool.v[..., idx[2], :, :, :] = vb.to(pool.v.dtype)
-        else:
-            _quant_write(_pool_codes(pool), (slice(None),) * (pool.qk.dim() - 4) + (idx[2],),
-                         kb, vb)
+    idx = (page_idx if isinstance(page_idx, torch.Tensor)
+           else host_to_device(np.asarray(page_idx), dev)).to(torch.int64).reshape(-1)
+    npp = idx.shape[0] // B
+    ps = P // npp
+    nn, nq = pool.native_pages, pool.quant_pages
+    # (..., B * npp, ps, KVH, hd): block j of row b at b * npp + j, as idx
+    k_blocks = cache.k.unflatten(-3, (npp, ps)).flatten(-5, -4)
+    v_blocks = cache.v.unflatten(-3, (npp, ps)).flatten(-5, -4)
+    if pool.k is not None:
+        dst = torch.where((idx >= 0) & (idx < nn), idx, nn)
+        pool.k[..., dst, :, :, :] = k_blocks.to(pool.k.dtype)
+        pool.v[..., dst, :, :, :] = v_blocks.to(pool.v.dtype)
+    if pool.qk is not None:
+        dst = torch.where((idx >= nn) & (idx < nn + nq), idx - nn, nq)
+        if pool.qk.dim() == 4:
+            _quant_write(_pool_codes(pool), (dst,), k_blocks, v_blocks)
+            return
+        # a layer at a time: every block is quantized, pads too, so the
+        # quantize's float32 temporaries of all layers at once would be
+        # several times the prefill's own caches
+        for i in range(pool.qk.shape[0]):
+            _quant_write(tuple(t[i] for t in _pool_codes(pool)), (dst,), k_blocks[i],
+                         v_blocks[i])
 
 
 def fork_pages(pool: PagedKVPool, src: torch.Tensor, dst: torch.Tensor) -> None:

@@ -247,9 +247,10 @@ def chunk_step_paged(model: Model, state: PagedDecodeState, tokens: torch.Tensor
 @torch.no_grad()
 def paged_splice_prompt(pools: list, caches: list, page_idx) -> list:
     """Copy prefill-built dense caches (cache_len == prompt bucket) into the
-    page pools, in place. page_idx (B, P // ps) on the host: each row's
-    physical pages; ids outside the pool (pad rows, shared pages) are left
-    out."""
+    page pools, in place, at a fixed shape. page_idx (B, P // ps), a tensor
+    on the pools' device (or a host array): each row's physical pages; ids
+    outside the pool (pad rows, shared pages) land on the scratch pages,
+    which no block table lists."""
     for pool, cache in zip(pools, caches, strict=True):
         A.paged_splice_prompt(pool, cache, page_idx)
     return pools

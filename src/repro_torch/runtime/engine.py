@@ -93,7 +93,7 @@ from repro_torch.device import host_to_device
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
-from repro_torch.runtime.graph import DecodeGraph
+from repro_torch.runtime.graph import DecodeGraph, _on_device
 from repro_torch.runtime.request import Request
 from repro_torch.runtime.sampling import RowSampling, SamplingParams, row_tables, sample_rows
 
@@ -244,18 +244,21 @@ def _first_tokens(logits: torch.Tensor, budgets: torch.Tensor, eos_id: Optional[
 
 
 def _sync_admit(sync: SyncState, logits: torch.Tensor, rows: torch.Tensor,
-                budgets: torch.Tensor, eos_id: Optional[int],
+                budgets: torch.Tensor, keep: torch.Tensor, eos_id: Optional[int],
                 samp: Optional[RowSampling] = None) -> SyncState:
-    """Device-side admission: the first token of each admitted row (prefill
-    row j -> engine row rows[j]; ``samp`` aligned with the prefill rows)
-    and its sync-state reset, with no logits readback."""
+    """Device-side admission at a fixed shape: the first token of every
+    prefill row j (``samp`` aligned with the prefill rows) and the sync
+    state of engine row rows[j] reset to it where ``keep[j]`` (an
+    admitted row), with no logits readback. ``rows`` (B,) never repeats:
+    a pad row targets a row not being admitted, which keeps its state
+    (gathered, selected and scattered back, ``attention._masked_put``)."""
     first, fin = _first_tokens(logits, budgets, eos_id, samp)
-    return SyncState(
-        cur_tok=sync.cur_tok.index_put((rows,), first),
-        age=sync.age.index_put((rows,), torch.ones_like(first)),
-        budget=sync.budget.index_put((rows,), budgets),
-        done=sync.done.index_put((rows,), fin),
-        gen_buf=sync.gen_buf.index_put((rows, torch.zeros_like(rows)), first))
+    at = (rows,)
+    for t, new in ((sync.cur_tok, first), (sync.age, torch.ones_like(first)),
+                   (sync.budget, budgets), (sync.done, fin)):
+        A._masked_put(t, at, new, keep)
+    A._masked_put(sync.gen_buf, (rows, torch.zeros_like(rows)), first, keep)
+    return sync
 
 
 def _sync_activate(sync: SyncState, logits: torch.Tensor, final: torch.Tensor,
@@ -381,6 +384,11 @@ def _decode_n_paged(model, state, toks, n, samp=None, ages=None, hist=None):
     return _decode_scan(step, state, toks, n, samp, ages, hist)
 
 
+def _admit_mode(sync: bool, sampled: bool, bucket: int) -> str:
+    """The admission graph's mode: its loop, variant and prompt bucket."""
+    return ("sync-prefill" if sync else "prefill") + ("+s" if sampled else "") + f"/{bucket}"
+
+
 def _tables(extra: tuple) -> Optional[RowSampling]:
     """A graph body's sampling tables from its trailing inputs (none: the
     greedy graph)."""
@@ -413,21 +421,23 @@ def _splice_one(state: M.DecodeState, one: M.DecodeState, slot: int) -> M.Decode
     return state
 
 
-def _splice_many(state: M.DecodeState, new: M.DecodeState,
-                 slots: np.ndarray) -> M.DecodeState:
-    """Insert prefill rows at the given slot indices (one scatter per leaf),
-    in place. Pad rows carry the out-of-range slot index B and are dropped,
-    so the bucketed batch-B prefill can splice any k <= B rows."""
-    B = state.pos.shape[0]
-    rows = np.nonzero(slots < B)[0]
-    idx = host_to_device(np.stack([rows, slots[rows]]).astype(np.int64), state.pos.device)
-    src, dst = idx[0], idx[1]
+def _splice_many(state: M.DecodeState, new: M.DecodeState, targets: torch.Tensor,
+                 keep: torch.Tensor) -> M.DecodeState:
+    """Insert the prefill rows into the batch state, in place, at a fixed
+    shape: prefill row j goes to engine row targets[j] where ``keep[j]``
+    (an admitted row). ``targets`` (B,) int64 is a permutation of the
+    engine rows: a pad row targets a row not being admitted, which is
+    gathered, selected and scattered back unchanged
+    (``attention._masked_put``), so no index repeats and nothing is read
+    back to the host. Covers every cache leaf (KVCache codes, scales and
+    staging buffers; SSMState), ``pos`` and ``last_tok``."""
+    lead = keep[None]   # every cache leaf has the layer axis first
     for big, nw in zip(state.caches, new.caches, strict=True):
         for a, b in zip(big, nw, strict=True):
             if a is not None:
-                A.as_bytes(a)[:, dst] = A.as_bytes(b)[:, src]
-    state.pos[dst] = new.pos[src]
-    state.last_tok[dst] = new.last_tok[src]
+                A._masked_put(a, (slice(None), targets), b, lead)
+    A._masked_put(state.pos, (targets,), new.pos, keep)
+    A._masked_put(state.last_tok, (targets,), new.last_tok, keep)
     return state
 
 
@@ -484,8 +494,10 @@ class Engine:
         self._chunk_ok = T.chunked_prefill_supported(self.cfg) and ecfg.shape_window is None
 
     def _init_sync_free(self, rows: int) -> None:
-        self._graphs: dict = {}       # decode mode -> its DecodeGraph
-        self.warmup_dispatches = 0    # decodes warm_decode ran before serving
+        self._graphs: dict = {}       # dispatch mode -> its DecodeGraph
+        self._prefill_pool = None     # the admission graphs' shared memory pool
+        self.warmup_dispatches = 0    # dispatches warm_decode ran before serving
+        self.prefill_warmups = 0      # of them, admissions
         self._warming = False
         self._pending_read = None     # the last slot's readback packet
         # admission epoch per row: a packet retires a row only if the row
@@ -541,11 +553,12 @@ class Engine:
             out.append((e, r.rid) if e is not None else None)
         return out
 
-    def _samp_args(self, force: Optional[bool] = None) -> tuple:
-        """The sampled graphs' extra inputs over the active rows: the host
-        tables, or () when no row samples (the greedy graph, bit for bit
-        today's). ``force`` picks the variant regardless (the warm-up)."""
-        resolved = self._resolve_rows(self.active)
+    def _samp_args(self, force: Optional[bool] = None, rows=None) -> tuple:
+        """The sampled graphs' extra inputs over ``rows`` (requests, None
+        for an empty or pad row; default the active rows): the host tables,
+        or () when no row samples (the greedy graph, bit for bit today's).
+        ``force`` picks the variant regardless (the warm-up)."""
+        resolved = self._resolve_rows(self.active if rows is None else rows)
         sampled = any(e is not None for e in resolved) if force is None else force
         return tuple(row_tables(resolved, self.ecfg.seed)) if sampled else ()
 
@@ -567,14 +580,6 @@ class Engine:
             hist[row, : len(g)] = g
             ages[row] = len(r.generated)
         return (ages, hist, *tables)
-
-    def _admit_samp_args(self, reqs) -> Optional[RowSampling]:
-        """The device tables of an admission's first tokens, one row per
-        admitted request, or None when none samples."""
-        resolved = self._resolve_rows(reqs)
-        if not any(e is not None for e in resolved):
-            return None
-        return row_tables(resolved, self.ecfg.seed).to(self.device)
 
     def _validate_sampled(self, req: Request) -> None:
         """A sampled request must fit the generated-token history on every
@@ -668,15 +673,15 @@ class Engine:
                 return b
         return self.ecfg.prompt_len
 
-    def _run_prefill(self, toks: np.ndarray, lens: np.ndarray,
-                     cache_len: Optional[int] = None):
-        """One bucketed prefill dispatch: length-aware on a dense attention
-        stack, padded otherwise (``lens`` unused)."""
-        return M.prefill(self.model, host_to_device(toks, self.device),
-                         cache_len or self.ecfg.cache_len,
+    def _prefill(self, toks, lens, cache_len: Optional[int] = None):
+        """One bucketed prefill over host arrays or device tensors:
+        length-aware on a dense attention stack, padded otherwise (``lens``
+        unused)."""
+        dev = self.device
+        return M.prefill(self.model, _on_device(toks, dev), cache_len or self.ecfg.cache_len,
                          shape_window=self.ecfg.shape_window,
-                         prompt_lens=host_to_device(lens, self.device) if self._ragged
-                         else None, kv_precision=self._prefill_kv)
+                         prompt_lens=_on_device(lens, dev) if self._ragged else None,
+                         kv_precision=self._prefill_kv)
 
     def _admit_one(self, req: Request, slot: int, now: int) -> None:
         """Legacy batch-1 admission (the fused path's equivalence oracle)."""
@@ -684,27 +689,31 @@ class Engine:
         P = self.ecfg.prompt_len
         L = max(1, min(len(req.tokens), P))
         bucket = self._pick_bucket(L)
-        logits, one = self._run_prefill(self._bucket(req.tokens, req, bucket)[None, :],
-                                        np.asarray([L], np.int32))
+        logits, one = self._prefill(self._bucket(req.tokens, req, bucket)[None, :],
+                                    np.asarray([L], np.int32))
         self.prefill_dispatches += 1
         self.state = _splice_one(self.state, one, slot)
         self.blocking_syncs += 1
         req.start_slot = now
         req.first_token_slot = now   # first token came from this prefill
-        req.generated = [int(_next_tokens(logits[:1], self._admit_samp_args([req]))[0])]
+        tables = self._samp_args(rows=[req])
+        samp = RowSampling(*tables).to(self.device) if tables else None
+        req.generated = [int(_next_tokens(logits[:1], samp)[0])]
         self.active[slot] = req
         self.slot_age[slot] = 1
         self._emit_admission(req, now)
 
     def admit_pending(self, now: int, sync: bool = False) -> int:
-        """Fill all free slots from the pending queue with ONE prefill.
+        """Fill all free slots from the pending queue with ONE prefill
+        dispatch (``_admit_graphed``: one CUDA graph replay per bucket on
+        the card).
 
         The prefill batch is padded to the full batch_slots rows (pad rows
-        are dropped by the splice's out-of-range slot index) and, on a dense
-        attention stack, to the smallest power-of-two prompt bucket covering
-        the admitted lengths (else to ``prompt_len``).
-        ``sync=True`` computes the first tokens on the device
-        (``_sync_admit``) instead of reading the logits back. Returns k.
+        write nothing: the splice keeps their target rows as they were)
+        and, on a dense attention stack, to the smallest power-of-two
+        prompt bucket covering the admitted lengths (else to
+        ``prompt_len``). ``sync=True`` computes the first tokens on the
+        device (``_sync_admit``) instead of reading them back. Returns k.
         """
         B, P = self.ecfg.batch_slots, self.ecfg.prompt_len
         slots = self.free_slots()[: len(self.pending)]
@@ -724,16 +733,13 @@ class Engine:
         toks = np.zeros((B, bucket), np.int32)
         for j, r in enumerate(reqs):
             toks[j] = self._bucket(r.tokens, r, bucket)
-        slot_idx = np.full(B, B, np.int32)  # B = out of range -> splice drops
-        slot_idx[:k] = slots
-        logits, new = self._run_prefill(toks, lens)
+        adm = self._admission_table(slots, [r.max_new_tokens for r in reqs])
+        (pos, last), first = self._admit_graphed(bucket, sync, toks, lens, adm,
+                                                 (self.state.pos, self.state.last_tok),
+                                                 self._samp_args(rows=reqs + [None] * (B - k)))
+        self.state = self.state._replace(pos=pos, last_tok=last)
         self.prefill_dispatches += 1
-        self.state = _splice_many(self.state, new, slot_idx)
         if sync:
-            adm = host_to_device(np.asarray(
-                [slots, [r.max_new_tokens for r in reqs]], np.int64), self.device)
-            self.sync = _sync_admit(self.sync, logits[:k], adm[0], adm[1].to(torch.int32),
-                                    self.ecfg.eos_id, self._admit_samp_args(reqs))
             for req, slot in zip(reqs, slots, strict=True):
                 req.start_slot = now
                 req.first_token_slot = now
@@ -744,7 +750,7 @@ class Engine:
                 self._emit_admission(req, now)
             return k
         self.blocking_syncs += 1
-        first = _next_tokens(logits[:k], self._admit_samp_args(reqs)).cpu().numpy()
+        first = first.cpu().numpy()[:k]
         for j, (req, slot) in enumerate(zip(reqs, slots, strict=True)):
             req.start_slot = now
             req.first_token_slot = now
@@ -754,10 +760,84 @@ class Engine:
             self._emit_admission(req, now)
         return k
 
+    # ------------------------------------------------- graphed admission
+    def _admission_table(self, rows: list, budgets: list) -> np.ndarray:
+        """The admission's (3, B) int64 table: each prefill row's target
+        engine row (the admitted rows' own, then, for the pad rows, the
+        rows not being admitted, so no target repeats), its budget and
+        whether it is admitted."""
+        n, k = len(self.active), len(rows)
+        adm = np.zeros((3, n), np.int64)
+        taken = set(rows)
+        adm[0] = list(rows) + [r for r in range(n) if r not in taken]
+        adm[1, :k] = budgets
+        adm[2, :k] = 1
+        return adm
+
+    def _prefill_splice(self, bucket: int, toks, lens, targets, keep, pos, last_tok):
+        """The dense admission's device work: the bucketed prefill, then its
+        rows spliced into the batch state where ``keep``. Returns (logits,
+        the new pos and last_tok)."""
+        logits, new = self._prefill(toks, lens)
+        st = _splice_many(self.state._replace(pos=pos, last_tok=last_tok), new, targets, keep)
+        return logits, (st.pos, st.last_tok)
+
+    def _admit_graphed(self, bucket: int, sync: bool, toks, lens, adm, spec: tuple,
+                       tables: tuple) -> tuple:
+        """ONE admission dispatch through the graph of its loop and bucket
+        ("prefill/<bucket>", "sync-prefill/<bucket>", "+s" with sampling
+        tables): the prefill, the splice (``_prefill_splice``; ``spec`` are
+        its engine's own inputs) and the first tokens, every shape fixed by
+        the bucket and the batch. Inputs: toks (B, bucket), lens (B,), the
+        admission table ``adm`` (``_admission_table``), ``spec``, the sync
+        state (``sync``) and the tables. Returns (spec's new values, the
+        first tokens (B,) on the device, or None when ``sync``: the
+        sync-free loop keeps them in the sync state)."""
+        eos, n_spec = self.ecfg.eos_id, len(spec)
+
+        def body(toks, lens, adm, *rest):
+            targets, keep = adm[0], adm[2] > 0
+            logits, new_spec = self._prefill_splice(bucket, toks, lens, targets, keep,
+                                                    *rest[:n_spec])
+            rest = rest[n_spec:]
+            if not sync:
+                first = _next_tokens(logits, _tables(rest))
+                return (toks, lens, adm, *new_spec, *rest), (first,)
+            sy = _sync_admit(SyncState(*rest[:5]), logits, targets, adm[1].to(torch.int32), keep,
+                             eos, _tables(rest[5:]))
+            return (toks, lens, adm, *new_spec, *sy, *rest[5:]), ()
+        (_, _, _, *rest), outs = self._graphed(
+            _admit_mode(sync, bool(tables), bucket), bucket, body,
+            (toks, lens, adm, *spec, *(self.sync if sync else ()), *tables), self._cache_leaves())
+        if sync:
+            self.sync = SyncState(*rest[n_spec:n_spec + 5])
+        return tuple(rest[:n_spec]), (outs[0] if outs else None)
+
+    def _cache_leaves(self) -> list:
+        """The cache tensors every dispatch writes in place (a graph's
+        ``fixed``)."""
+        return _leaves(self.state.caches)
+
+    def _idle_spec(self, bucket: int) -> tuple:
+        """``_prefill_splice``'s own inputs for an all-pad admission."""
+        return self.state.pos, self.state.last_tok
+
+    def _warm_prefill(self, bucket: int, sync: bool, sampled: bool) -> None:
+        """An all-pad admission of ``bucket``: it writes nothing into any
+        row (the warm-up and capture of its graph)."""
+        B = len(self.active)
+        self._admit_graphed(bucket, sync, np.zeros((B, bucket), np.int32),
+                            np.full(B, bucket, np.int32), self._admission_table([], []),
+                            self._idle_spec(bucket), self._samp_args(sampled, [None] * B))
+
     def _retire(self, i: int, r: Request, now: int) -> None:
         r.finish_slot = now
         self.finished.append(r)
         self.active[i] = None
+
+    def _release_row(self, row: int) -> None:
+        """Give up what a row holds beyond its request (a paged row's
+        pages; the fleet's failure path): nothing on the dense engine."""
 
     def step(self, now: int) -> dict:
         """Legacy engine slot: admit one-by-one -> one decode -> retire."""
@@ -832,40 +912,60 @@ class Engine:
                                 admitted=admitted)
 
     # ------------------------------------------------- graphed decodes
-    def _graphed(self, mode: str, n_steps: int, body, inputs: tuple, fixed: list) -> tuple:
+    def _graphed(self, mode: str, key: int, body, inputs: tuple, fixed: list) -> tuple:
         """One dispatch of ``mode`` through its DecodeGraph: captured at its
         first call and replayed after it on the card, eager on the CPU or
-        with ``DecodeGraph.enabled`` off. A sampled variant is a mode of
-        its own ("+s")."""
+        with ``DecodeGraph.enabled`` off. ``key`` is what the body was
+        built for: a decode's step count, an admission's bucket. A sampled
+        variant is a mode of its own ("+s"). The admission graphs of one
+        engine share one memory pool (``runtime/graph.py``)."""
         g = self._graphs.get(mode)
         if g is None:
-            g = self._graphs[mode] = DecodeGraph(mode, self.device)
+            pool = None
+            if "prefill" in mode and self.device.type == "cuda" and DecodeGraph.enabled:
+                if self._prefill_pool is None:
+                    self._prefill_pool = torch.cuda.graph_pool_handle()
+                pool = self._prefill_pool
+            g = self._graphs[mode] = DecodeGraph(mode, self.device, pool=pool)
         if g.capture and g.graph is None and not self._warming:
             self.blocking_syncs += 1   # a capture mid-serve synchronizes the device
-        return g(body, inputs, fixed=fixed, key=n_steps)
+        return g(body, inputs, fixed=fixed, key=key)
+
+    def _warm_buckets(self) -> list:
+        """The prompt buckets an admission can pick (``_pick_bucket``)."""
+        return list(self._buckets) if self._ragged else [self.ecfg.prompt_len]
 
     def warm_decode(self, n_steps: int, sync: bool = False, chunked: bool = False) -> None:
         """Before serving, on the card: run each dispatch the loop will
-        replay once over the free rows and, with graphs on, capture it, so
-        no slot pays the first use's builds or the capture's device
-        synchronize. The fused loop has its "fused" decode, the sync-free
-        one its "sync" decode, the chunked one its "chunk" dispatch (an
+        replay once and, with graphs on, capture it, so no slot pays the
+        first use's builds or the capture's device synchronize. The fused
+        loop has its "fused" decode and an admission graph per prompt
+        bucket ("prefill/<bucket>"), the sync-free one its "sync" decode and
+        "sync-prefill/<bucket>", the chunked one its "chunk" dispatch (an
         all-idle plan: every row's valid 0) and the "sync" decode its slots
         without a chunk run. With an engine-default SamplingParams the
-        sampled variants ("+s") are warmed too. Positions, tokens and the
-        sync state are put back; the caches and recurrent states it wrote
-        belong to free rows, which admission overwrites (or, chunked, a
-        first chunk resets), as every decode does to the rows it runs free.
-        A no-op on the CPU and for a mode that has run; raises while a row
-        is active."""
+        sampled variants ("+s") are warmed too. A decode warm-up runs over
+        the free rows, and positions, tokens and the sync state are put
+        back; the caches and recurrent states it wrote belong to free rows,
+        which admission overwrites (or, chunked, a first chunk resets), as
+        every decode does to the rows it runs free. An admission warm-up is
+        all pad rows and writes nothing into any row (the paged engine's
+        pad blocks land on the scratch pages). Each counts in
+        ``warmup_dispatches`` (admissions also in ``prefill_warmups``). A
+        no-op on the CPU and for a mode that has run; raises while a row is
+        active."""
         if self.device.type != "cuda":
             return
         if chunked:
             self._require_chunked()   # the reference's ValueError, before any capture
-        modes = ("chunk", "sync") if chunked else ("sync",) if sync else ("fused",)
+            decodes, buckets = ("chunk", "sync"), []
+        else:
+            decodes, buckets = ("sync" if sync else "fused",), self._warm_buckets()
         variants = (False, True) if self._default_samp is not None else (False,)
-        todo = [(m, s) for m in modes for s in variants
+        todo = [(m, None, s) for m in decodes for s in variants
                 if m + ("+s" if s else "") not in self._graphs]
+        todo += [(None, b, s) for b in buckets for s in variants
+                 if _admit_mode(sync, s, b) not in self._graphs]
         if not todo:
             return
         if any(r is not None for r in self.active):
@@ -873,8 +973,11 @@ class Engine:
         saved = self.__dict__.get("state"), self.sync
         self._warming = True
         try:
-            for mode, sampled in todo:
-                if mode == "chunk":
+            for mode, bucket, sampled in todo:
+                if bucket is not None:
+                    self._warm_prefill(bucket, sync, sampled)
+                    self.prefill_warmups += 1
+                elif mode == "chunk":
                     self._chunk_decode_sync(self._idle_plan(), n_steps, sampled=sampled)
                 elif mode == "sync":
                     self._decode_sync(n_steps, sampled=sampled)
@@ -892,6 +995,11 @@ class Engine:
     def graph_replays(self) -> int:
         """Dispatches that ran as a replay of a captured graph."""
         return sum(g.replays for g in self._graphs.values())
+
+    @property
+    def prefill_replays(self) -> int:
+        """Admission dispatches that ran as a graph replay."""
+        return sum(g.replays for m, g in self._graphs.items() if "prefill" in m)
 
     def _decode_fused(self, toks: np.ndarray, n: int,
                       sampled: Optional[bool] = None) -> torch.Tensor:
@@ -1583,7 +1691,8 @@ class PagedEngine(Engine):
         writes (so admission never immediately preempts; growth beyond the
         slot comes page by page). All k admissions share one batch-R
         prefill whose dense cache (cache_len = the bucket) is copied into
-        the pages; pad rows carry out-of-pool page ids and copy nothing.
+        the pages, in one admission dispatch (``_admit_graphed``); pad rows
+        carry out-of-pool page ids, whose blocks land on the scratch pages.
         With prefix sharing a request's resident full pages are shared
         (capped at (L - 1) // page_size) and the copy skips them: the whole
         prompt still prefills. ``sync=True`` computes the first tokens on
@@ -1626,7 +1735,7 @@ class PagedEngine(Engine):
         npp = bucket // ps
         toks = np.zeros((R, bucket), np.int32)
         lens = np.full(R, bucket, np.int32)
-        page_idx = np.full((R, npp), N, np.int32)   # N: outside the pool, not copied
+        page_idx = np.full((R, npp), N, np.int32)   # N: outside the pool (a scratch page)
         for j, (_row, req, pages, L, n_shared) in enumerate(take):
             toks[j] = self._bucket(req.tokens, req, bucket)
             lens[j] = L
@@ -1637,20 +1746,13 @@ class PagedEngine(Engine):
             page_idx[j, :n_shared] = N
         # cache_len == bucket: the dense prefill cache is exactly the prompt
         # rows, ready to copy into pages (no ring wraparound)
-        logits, state = self._run_prefill(toks, lens, bucket)
+        adm = self._admission_table([t[0] for t in take], [t[1].max_new_tokens for t in take])
+        _, first = self._admit_graphed(bucket, sync, toks, lens, adm, (page_idx,),
+                                       self._samp_args(rows=[t[1] for t in take] + [None] * (R - k)))
         self.prefill_dispatches += 1
-        self.pools = M.paged_splice_prompt(self.pools, state.caches, page_idx)
-        del state
-        samp = self._admit_samp_args([t[1] for t in take])
-        if sync:
-            adm = host_to_device(np.asarray([[t[0] for t in take],
-                                             [t[1].max_new_tokens for t in take]], np.int64),
-                                 self.device)
-            self.sync = _sync_admit(self.sync, logits[:k], adm[0], adm[1].to(torch.int32),
-                                    self.ecfg.eos_id, samp)
-        else:
+        if not sync:
             self.blocking_syncs += 1
-            first = _next_tokens(logits[:k], samp).cpu().numpy()
+            first = first.cpu().numpy()[:k]
         for j, (row, req, pages, L, _ns) in enumerate(take):
             req.start_slot = now
             req.first_token_slot = now
@@ -1670,6 +1772,23 @@ class PagedEngine(Engine):
                 self._row_epoch[row] += 1
         self.peak_active = max(self.peak_active, sum(r is not None for r in self.active))
         return k
+
+    def _prefill_splice(self, bucket: int, toks, lens, targets, keep, page_idx):
+        """The paged admission's device work: the bucketed prefill
+        (cache_len = the bucket, native storage), its blocks copied into
+        the pages ``page_idx`` (R, bucket // ps) names. Returns (logits,
+        (page_idx,))."""
+        logits, st = self._prefill(toks, lens, bucket)
+        M.paged_splice_prompt(self.pools, st.caches, page_idx)
+        return logits, (page_idx,)
+
+    def _cache_leaves(self) -> list:
+        return _leaves(self.pools)
+
+    def _idle_spec(self, bucket: int) -> tuple:
+        """Every block bound outside the pool: onto the scratch pages."""
+        R, N = len(self.active), self.ecfg.num_pages
+        return (np.full((R, bucket // self.ecfg.page_size), N, np.int32),)
 
     def _ensure_pages(self, n_steps: int, sync: bool = False) -> None:
         """Pre-extend every decoding row to cover this slot's decode writes.

@@ -1,13 +1,25 @@
 """One engine dispatch as one CUDA graph.
 
 The reference's fused decode is one jitted ``lax.scan`` over a slot's
-decode steps, and its chunked loop's mixed dispatch (prompt chunks,
-activation, decode) one jitted function: one XLA executable per slot. Their
+decode steps, its chunked loop's mixed dispatch (prompt chunks,
+activation, decode) one jitted function, and its admission prefill one
+jitted function per prompt bucket: one XLA executable per dispatch. Their
 counterpart here is a ``torch.cuda.CUDAGraph`` per engine and dispatch mode
-("fused", "sync", "chunk", and "+s" for each one's sampled variant),
-captured at the first dispatch and replayed once per slot, so a slot's
+("fused", "sync", "chunk"; "prefill/<bucket>" and "sync-prefill/<bucket>"
+for the fused and sync-free loops' admissions, whose key is the bucket as
+a decode's is its step count; and "+s" for each one's sampled variant),
+captured at the first dispatch and replayed once per dispatch, so a
 dispatch costs the host one graph launch in place of some hundred kernel
 launches per layer and step.
+
+Memory pools. A decode graph keeps a private pool. The admission graphs
+of one engine share one (``pool``): a capture may reuse the memory an
+earlier capture in the pool freed, so one graph's temporaries (the
+prefill's dense caches, ~0.67 GB for a granite-3-2b ring of 8 x 1024) and
+outputs may alias another's. That is safe because the graphs run one at a
+time on one stream, every input and carry lives in static tensors outside
+the pool, and the only output, the fused loop's first tokens, is read back
+right after its own replay, before any other admission graph replays.
 
 A body is ``body(*inputs) -> (carry, outs)``. ``inputs`` are the
 dispatch's per-slot tensors (positions, tokens, block tables, the
@@ -148,16 +160,16 @@ def captured_kernels(stream: torch.cuda.Stream) -> dict:
 
 
 class DecodeGraph:
-    """One engine's dispatch of one mode (a fused or sync-free decode, or
-    a chunked loop's mixed dispatch): captured once, replayed per slot (see
-    the module docstring)."""
+    """One engine's dispatch of one mode (a fused or sync-free decode, a
+    chunked loop's mixed dispatch, or an admission of one prompt bucket):
+    captured once, replayed per dispatch (see the module docstring)."""
 
     # False runs every dispatch eagerly, launch by launch: the eager side of
     # an A/B run beside the graphs
     enabled = True
 
-    def __init__(self, name: str, device: torch.device):
-        self.name, self.device = name, device
+    def __init__(self, name: str, device: torch.device, pool=None):
+        self.name, self.device, self.pool = name, device, pool
         self.capture = self.enabled and device.type == "cuda"
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.static: list = []
@@ -171,8 +183,8 @@ class DecodeGraph:
     def __call__(self, body: Callable, inputs: Sequence, *, fixed: Sequence = (),
                  key=None) -> tuple:
         """Run one dispatch: ``(carry, outs)``. ``key`` names what the
-        body was built for (the step count); a replay under another key
-        raises."""
+        body was built for (the step count, the prompt bucket); a replay
+        under another key raises."""
         if not self.capture:
             return body(*(_on_device(x, self.device) for x in inputs))
         if self.graph is None:
@@ -201,7 +213,7 @@ class DecodeGraph:
         gc.collect()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
                 carry, graph_outs = body(*self.static)
                 _write_back(self.static, carry)
                 nodes = kernels.graph_launch_counts(captured_kernels(side))
@@ -214,7 +226,7 @@ class DecodeGraph:
             called = {k: after[k] - before[k] for k in after if after[k] != before[k]}
             kernels.add_launch_counts({k: -n for k, n in called.items()})
         if nodes != kernels.function_counts(called):
-            raise RuntimeError(f"the {self.name} decode graph holds the kernel nodes {nodes}, "
+            raise RuntimeError(f"the {self.name} graph holds the kernel nodes {nodes}, "
                                f"the wrappers were called {called} times")
         self.launches, self.nodes = called, nodes
         self.graph, self.outs, self.key = graph, tuple(graph_outs), key
@@ -223,20 +235,20 @@ class DecodeGraph:
 
     def _replay(self, inputs, fixed, key) -> tuple:
         if key != self.key:
-            raise ValueError(f"the {self.name} decode graph was captured for {self.key!r}, "
+            raise ValueError(f"the {self.name} graph was captured for {self.key!r}, "
                              f"called with {key!r}")
         if [(t.data_ptr(), tuple(t.shape)) for t in fixed] != self.fixed:
-            raise RuntimeError(f"the {self.name} decode graph was captured over other cache "
+            raise RuntimeError(f"the {self.name} graph was captured over other cache "
                                "tensors than this call's")
         if len(inputs) != len(self.static):
-            raise ValueError(f"the {self.name} decode graph takes {len(self.static)} inputs, "
+            raise ValueError(f"the {self.name} graph takes {len(self.static)} inputs, "
                              f"got {len(inputs)}")
         for i, (s, x) in enumerate(zip(self.static, inputs)):
             if x is s:
                 continue
             src = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
             if src.shape != s.shape or src.dtype != s.dtype:
-                raise ValueError(f"the {self.name} decode graph was captured for input {i} "
+                raise ValueError(f"the {self.name} graph was captured for input {i} "
                                  f"{tuple(s.shape)} {s.dtype}, got {tuple(src.shape)} "
                                  f"{src.dtype}")
             if src.device.type == "cpu":

@@ -1,5 +1,8 @@
 """Slot-time serve loop: source -> scheduler (Policy) -> engine.
 
+The engine is an ``Engine``, a ``PagedEngine`` or a ``ReplicaFleet``
+(one engine surface over N replicas).
+
 ``serve`` runs T control slots. Each slot: the scheduler evaluates its
 Policy on the current backlog, the source yields that many requests, the
 engine runs ``steps_per_slot`` decode steps (its service capacity). With the
@@ -36,7 +39,7 @@ from repro_torch.runtime.engine import Engine
 from repro_torch.runtime.request import RequestSource
 
 
-def serve(engine: Engine, scheduler, source: RequestSource, *,
+def serve(engine, scheduler, source: RequestSource, *,
           horizon: int, steps_per_slot: int = 2, fused: bool = True,
           sync_free: bool = False, chunked: bool = False) -> dict:
     if getattr(scheduler, "device", "") is None:
@@ -56,7 +59,8 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         # controller must price
         occ = max(engine.occupancy(), engine.occupancy_hwm) if paged else None
         tok = engine.token_backlog()
-        qocc = engine.quant_occupancy() if paged else None
+        # a fleet reports no quantized occupancy and takes no precision lever
+        qocc = engine.quant_occupancy() if hasattr(engine, "quant_occupancy") else None
         if sync_free or chunked:
             rate = scheduler.control_async(engine.queue_len(), occupancy=occ,
                                            token_backlog=tok, quant_occupancy=qocc)
@@ -67,7 +71,7 @@ def serve(engine: Engine, scheduler, source: RequestSource, *,
         # region of this slot's admissions
         if occ is not None and hasattr(scheduler, "admit_precision"):
             chosen = scheduler.admit_precision(occ)
-            if chosen is not None:
+            if chosen is not None and hasattr(engine, "admit_precision"):
                 engine.admit_precision = chosen
         reqs = source.poll(t, rate)
         scheduler.admit(engine, reqs, t)

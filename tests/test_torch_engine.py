@@ -132,8 +132,7 @@ def test_launcher_summary_line_matches_reference():
 
 def test_launcher_refuses_unported_paths():
     from repro_torch.launch import serve as launcher
-    for argv in (["--replicas", "2"], ["--paged", "--prefix-sharing", "--replicas", "2"],
-                 ["--policy", "conformal-slo"],
+    for argv in (["--policy", "conformal-slo"],
                  ["--tenants", "gold:1:1:6"], ["--metrics"]):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
             launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *argv])

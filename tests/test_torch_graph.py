@@ -73,6 +73,21 @@ def test_graph_launch_counts_count_the_wrappers_kernels_only():
         "flash_attention": 0}) == want
 
 
+def test_k6_calls_count_its_f32_kernel_only():
+    """A bf16 K6 call runs the three phase kernels (counted by their own
+    counters) and no ``ssd_scan_kernel``; an f32 call runs that kernel,
+    counted as ``ssd_scan_f32``. ``ssd_scan`` counts calls, matched against
+    no kernel."""
+    phases = {"ssd_chunk_states": 24, "ssd_state_passing": 24, "ssd_chunk_outputs": 24}
+    nodes = {"ssd_chunk_states_kernel": 24, "ssd_state_passing_kernel": 24,
+             "ssd_chunk_outputs_kernel": 24}
+    assert kernels.function_counts({"ssd_scan": 24, **phases}) == \
+        kernels.graph_launch_counts(nodes) == nodes
+    assert kernels.function_counts({"ssd_scan": 2, "ssd_scan_f32": 2}) == \
+        kernels.graph_launch_counts({"ssd_scan_kernel": 2}) == {"ssd_scan_kernel": 2}
+    assert kernels.function_counts({"ssd_scan": 2}) == {}
+
+
 def test_add_launch_counts():
     kernels.reset_launch_counts()
     kernels.add_launch_counts({"decode_attention": 80, "flash_attention": 2})
@@ -106,7 +121,11 @@ def test_engines_decode_through_uncaptured_graphs_on_the_cpu():
             getattr(eng, step)(t, n_steps=2)
         if mode == "sync":
             eng.drain()
-        assert set(eng._graphs) == {mode} and not eng._graphs[mode].capture
+        # the decode's mode, and the admissions' one per prompt bucket
+        prefill = "sync-prefill" if mode == "sync" else "prefill"
+        assert {m.split("/")[0] for m in eng._graphs} == {mode, prefill}
+        assert not any(g.capture for g in eng._graphs.values())
         assert eng.graph_replays == 0 and eng.decode_dispatches > 1
+        assert eng.prefill_replays == 0 and eng.prefill_dispatches >= 1
         assert len(eng.finished) == len(reqs)
         assert all(len(r.generated) == r.max_new_tokens for r in eng.finished)

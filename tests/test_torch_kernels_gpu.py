@@ -506,13 +506,14 @@ def _ssd_ok(got, want, env, rtol):
 def test_ssd_kernel_matches_plain_on_card(cuda, dtype, B, S, H, P, N, chunk, init):
     x, dt, A, Bm, Cm, st = _ssd_case(cuda, S + N, B, S, H, P, N, init)
     x = x.to(dtype)
-    k_ssd.launches["ssd_scan"] = 0
+    k_ssd.launches["ssd_scan"] = k_ssd.launches["ssd_scan_f32"] = 0
     y, fin = k_ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st)
     ry, rfin = ref.ssd_chunked(x, dt, A, Bm, Cm, chunk, st)
     ey, efin = ref.ssd_chunked(x.abs(), dt, A, Bm.abs(), Cm.abs(), chunk,
                                None if st is None else st.abs())
     torch.cuda.synchronize()
     assert k_ssd.launches["ssd_scan"] == 1
+    assert k_ssd.launches["ssd_scan_f32"] == (dtype == torch.float32)
     assert y.dtype == dtype and fin.dtype == torch.float32
     assert torch.isfinite(y).all() and torch.isfinite(fin).all()
     assert _ssd_ok(y, ry, ey, SSD_RTOL[dtype])
@@ -593,7 +594,8 @@ def test_ssd_phase_kernels_match_plain_on_card(cuda, B, S, H, P, N, chunk, init)
     assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
     assert _ssd_ok(y, ry, ey, SSD_RTOL[torch.bfloat16])
     assert {k: k_ssd.launches[k] - before[k] for k in before} == {
-        "ssd_scan": 0, "ssd_chunk_states": 1, "ssd_state_passing": 1, "ssd_chunk_outputs": 1}
+        "ssd_scan": 0, "ssd_scan_f32": 0, "ssd_chunk_states": 1, "ssd_state_passing": 1,
+        "ssd_chunk_outputs": 1}
 
 
 @pytest.mark.gpu
@@ -1017,11 +1019,12 @@ GRAPH_PATHS = {
 }
 
 
-def _graph_serve(argv, graph: bool, idle_first_slot: bool = False):
+def _graph_serve(argv, graph: bool, idle_first_slot: bool = False, fail_at=None):
     """One launcher serve with the graphs on or off; the sync-free and
     chunked loops run every slot's engine work under the sync debug mode
     (the scheduler's first decision, which seeds its pipeline, before it).
-    With ``idle_first_slot`` no request arrives in slot 0."""
+    With ``idle_first_slot`` no request arrives in slot 0; with ``fail_at``
+    a fleet's replica 1 fails at that slot, before its arrivals."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
     from repro_torch.runtime.graph import DecodeGraph
@@ -1029,9 +1032,15 @@ def _graph_serve(argv, graph: bool, idle_first_slot: bool = False):
     args = launcher.build_parser().parse_args(argv)
     kernels.reset_launch_counts()
     engine, sched, src = launcher.build(args)
+    poll = src.poll
     if idle_first_slot:
-        poll = src.poll
         src.poll = lambda t, rate: [] if t == 0 else poll(t, rate)
+    if fail_at is not None:
+        def failing(t, rate):
+            if t == fail_at:
+                engine.fail_replica(1)
+            return poll(t, rate)
+        src.poll = failing
     if args.sync_free or args.chunked:
         control, calls = sched.control_async, [0]
 
@@ -1064,11 +1073,17 @@ def test_graph_serve_equals_eager_serve_on_card(cuda, path):
     assert n_g == n_e
     assert eager.graph_replays == 0
     # warmed up and captured before the first slot: every dispatch replays
-    # (the chunked loop's mixed and decode-only dispatches, each greedy and,
-    # with a default sampler, sampled)
-    warm = (2 if "chunked" in path else 1) * (2 if "sampled" in path else 1)
+    # (the chunked loop's mixed and decode-only dispatches; the fused and
+    # sync-free loops' decode and their admission of each prompt bucket;
+    # each greedy and, with a default sampler, sampled)
+    chunked = "chunked" in path
+    per = 2 if chunked else 1 + len(graph._warm_buckets())
+    warm = per * (2 if "sampled" in path else 1)
     assert eager.warmup_dispatches == graph.warmup_dispatches == warm
-    assert graph.graph_replays == graph.decode_dispatches > 0
+    assert graph.prefill_warmups == (0 if chunked else warm - warm // per)
+    assert graph.graph_replays == graph.decode_dispatches + graph.prefill_dispatches
+    assert graph.prefill_replays == graph.prefill_dispatches
+    assert graph.decode_dispatches > 0 and (graph.prefill_dispatches > 0) != chunked
     if "chunked" in path:
         assert graph._graphs["chunk+s" if "sampled" in path else "chunk"].replays > 0
     # rows admitted after the capture decoded through the replays (on the
@@ -1090,9 +1105,34 @@ def test_graph_serve_with_an_idle_first_slot_on_card(cuda, path):
     graph, tr_g, st_g, n_g = _graph_serve(argv, graph=True, idle_first_slot=True)
     assert tr_g["served"][0] == tr_g["active"][0] == 0
     assert (tr_g, st_g, n_g) == (tr_e, st_e, n_e) and len(st_g) > 0
-    assert graph.graph_replays == graph.decode_dispatches > 0
+    assert graph.graph_replays == graph.decode_dispatches + graph.prefill_dispatches
+    assert graph.decode_dispatches > 0
     if "sync" in path or "chunked" in path:
         assert graph.blocking_syncs == 0
+
+
+# two replicas on one card, each with its own graphs; replica 1 fails at slot 5
+FLEET_PATHS = {"sync": ["--sync-free", "--replicas", "2"],
+               "paged_chunked": ["--paged"] + GRAPH_CHUNKED + ["--replicas", "2"]}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(FLEET_PATHS))
+def test_fleet_graph_serve_equals_eager_with_a_failure_on_card(cuda, path):
+    """A 2-replica fleet (``--replicas 2``), graphed against eager, replica 1
+    failing mid-serve: the same trace, streams and launch counts; every
+    dispatch of every replica a replay (the failed one's before it failed,
+    none after), no blocking sync, its requests requeued to the survivor."""
+    argv = GRAPH_SERVE + FLEET_PATHS[path]
+    eager, tr_e, st_e, n_e = _graph_serve(argv, graph=False, fail_at=5)
+    graph, tr_g, st_g, n_g = _graph_serve(argv, graph=True, fail_at=5)
+    assert (tr_g, st_g, n_g) == (tr_e, st_e, n_e) and len(st_g) > 0
+    assert graph.requeues == eager.requeues > 0 and graph.alive == [True, False]
+    assert graph.replicas[0].model is graph.replicas[1].model
+    assert graph.graph_replays == graph.decode_dispatches + graph.prefill_dispatches > 0
+    dead = graph.replicas[1]
+    assert dead.graph_replays == dead.decode_dispatches + dead.prefill_dispatches
+    assert graph.blocking_syncs == 0
 
 
 @pytest.mark.gpu
@@ -1111,7 +1151,9 @@ def test_decode_captured_mid_serve_counts_its_sync_on_card(cuda):
                              max_new_tokens=20, seed=1).poll(0, 2.0))
     eng.step_slot_sync(0, n_steps=2)
     eng.step_slot_sync(1, n_steps=2)
-    assert eng.blocking_syncs == 1 and eng.graph_replays == 1
+    # slot 0 captured its admission's graph and its decode's, slot 1 replayed
+    # the decode (it admitted nobody)
+    assert eng.blocking_syncs == 2 and eng.graph_replays == 1
     with pytest.raises(RuntimeError, match="before any row is admitted"):
         eng.warm_decode(2)
 

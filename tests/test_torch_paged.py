@@ -251,8 +251,11 @@ def test_paged_splice_writes_only_listed_pages():
     cache.v.normal_()
     page_idx = np.asarray([[6, 2], [N, N], [1, N]], np.int32)   # row 1 is a pad row
     A.paged_splice_prompt(pool, cache, page_idx)
+    # the dropped blocks land on the scratch page N, past the pool's ids
     changed = sorted(set((pool.k != before).any(dim=(1, 2, 3)).nonzero()[:, 0].tolist()))
-    assert changed == [1, 2, 6]
+    assert changed == [1, 2, 6, N]
+    kn = pool.regions()[0]
+    assert sorted(set((kn != before[:N]).any(dim=(1, 2, 3)).nonzero()[:, 0].tolist())) == [1, 2, 6]
     assert torch.equal(pool.k[6], cache.k[0, :4]) and torch.equal(pool.k[2], cache.k[0, 4:])
     assert torch.equal(pool.v[1], cache.v[2, :4])
 
