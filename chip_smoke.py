@@ -79,7 +79,20 @@ ones, replica 1 failing at slot 6: each prints its phase line first, then
 checks that requests are conserved, every dispatch of every replica is a
 replay, no slot synchronizes, the merged streams equal one engine's over
 the same requests but at its near-ties, and, after the failure, that the
-survivor finishes the requeued work with no page left held. sampling holds
+survivor finishes the requeued work with no page left held. obs_serve
+serves the sync-free path with ``--metrics``, ``--trace-out`` and
+``--decisions-out``: streams, trace columns, replays and launch counts
+equal sync_serve's, 0 blocking syncs, the Prometheus text parses, the
+lifecycle events and one rate record per slot (each record's argmax the
+dispatched rate) check out, and ms per slot with telemetry off and on,
+interleaved. slo_serve serves it with two tenants under ``--policy
+conformal-slo`` in overload: trace, sheds, levels and the slo: line equal
+the CPU run's, requests are conserved and every shed is in the decision
+log. chaos_shared_x2 runs the reference's shared-x2 chaos cell at full
+width (two paged prefix-sharing replicas, ``reliability.harness.
+chaos_drive`` with replica failure, allocator shortfalls, readback delays
+and prefix evictions): streams equal one clean engine's but at near-ties,
+everything retires once, no page leaks. sampling holds
 per-request sampling on the card to the CPU (the threefry keys and random
 bits over the vocabulary bit for bit, ``sample_rows``' tokens but at
 near-ties), and sampled_serve and sampled_chunked_serve serve the main and
@@ -2546,14 +2559,18 @@ def _memory(held: int) -> dict:
             "own_peak_gb": (peak - held) / 1e9}
 
 
-def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS) -> dict:
+def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS,
+                    keep: bool = False) -> dict:
     """One of the launcher's paths: build (the dense engine's boot prefill
     runs K1, or K6 on a Mamba-2 stack) and serve. The launch counts are
     zeroed just before the build and read just after the serve; every
     kernel of the path must have launched. The sync-free and chunked paths
     run under the sync debug mode after their first slot
     (``_sync_checked``); the chunked, quantized and Mamba-2 traces are held
-    to the same launcher's on the CPU (``cpu_trace``)."""
+    to the same launcher's on the CPU (``cpu_trace``). The result also
+    holds the finished requests' streams (``streams``, not printed) and,
+    with ``keep``, the parsed arguments, engine, scheduler and trace
+    (``run``) for the caller's own checks."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
 
@@ -2682,6 +2699,9 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
             raise AssertionError(f"{phase}: the trace {res['trace']} is not the CPU run's {cpu}")
+    res["streams"] = {r.rid: list(r.generated) for r in engine.finished}
+    if keep:
+        res["run"] = (args, engine, sched, tr)
     return res
 
 
@@ -2991,6 +3011,283 @@ def drive_fleet(argv: list, phase: str, fail_at=None) -> dict:
     want = _one_engine_streams(fleet, fleet.finished, mode)
     parts = _near_ties(fleet.replicas[0].model, got, want, prompts, args.cache_len)
     emit(phase, stage="streams", compared=len(want), near_tie_parts=parts)
+    return res
+
+
+# the observability and reliability phases, granite-3-2b at published widths
+# (40 layers, bf16, seeded weights): obs_serve is the sync-free serve with
+# every collector on (the file paths are added at run time); slo_serve is
+# it with two tenants under ConformalSLO and its degradation ladder, the raw
+# rate raised from 5 to 32 (rates 1..32) so the load overruns 8 rows: the
+# CPU rehearsal at smoke widths reaches overload level 1 at slot 1 and 2 at
+# slots 2-3, and the ladder expires 8 queued requests and sheds 20 of the
+# lowest tier; chaos_shared_x2 is tests/test_reliability.py's shared-x2
+# matrix cell at full width (the injector's seed 40 + 3 x 2)
+OBS_AB_REPS = 2
+SLO_ARGS = SYNC_ARGS + ["--tenants", "gold:0.3:1:6,bulk:0.7:0:24", "--policy", "conformal-slo",
+                        "--raw-rate", "32"]
+CHAOS_CONFIG = dict(seed=46, start_slot=2, p_replica_fail=0.25, max_failures=1,
+                    p_alloc_shortfall=0.1, p_readback_delay=0.25, delay_polls=2,
+                    p_evict_prefix=0.25, evict_pages=2)
+CHAOS_SLOTS, CHAOS_RATE = 8, 2.5   # arrival slots of the tenant source, and its rate
+CHAOS_KERNELS = ("flash_attention_ragged", "paged_decode_attention")
+
+
+def _timed_serve(argv: list) -> float:
+    """ms per slot of one launcher serve of ``argv``, built and warmed (and
+    the graphs captured) off the clock, its last slot's work waited for."""
+    from repro_torch.launch import serve as launcher
+
+    args = launcher.build_parser().parse_args(argv)
+    engine, sched, src = launcher.build(args)
+    _warm(engine, args.sync_free, args.chunked)
+    t = time.perf_counter()
+    launcher.run(args, engine, sched, src)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / args.horizon * 1e3
+
+
+def drive_obs_serve(sync_path: dict) -> dict:
+    """obs_serve: ``SYNC_ARGS`` with ``--metrics``, ``--trace-out`` and
+    ``--decisions-out`` through the launcher, every slot after slot 0 under
+    the sync debug mode (``drive_main_path``). Held to sync_serve (the same
+    call, telemetry off): equal streams and trace columns, graph replays,
+    dispatches and kernel counts. The Prometheus text parses and counts the
+    finished requests; the lifecycle trace has an arrival per admission or
+    queued request and a retirement per finished one; the decision log has
+    one rate record per slot, each record's argmax the rate the scheduler
+    dispatched in its slot (read one slot later on this loop). Then ms per
+    slot with telemetry off and on, interleaved (off, on, on, off, ...)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve as launcher
+    from repro_torch.obs import parse_prometheus
+
+    tmp = tempfile.mkdtemp(prefix="obs_serve_")
+    try:
+        argv = SYNC_ARGS + ["--metrics", "--trace-out", f"{tmp}/trace.json",
+                            "--decisions-out", f"{tmp}/decisions.json"]
+        res = drive_main_path(argv, "obs_serve", SYNC_KERNELS, keep=True)
+        args, engine, sched, tr = res.pop("run")
+        lines = launcher.telemetry_lines(args, engine, sched)
+        metrics = parse_prometheus(lines[0])
+        with open(f"{tmp}/trace.json") as f:
+            events = [e for e in json.load(f)["traceEvents"] if e["ph"] != "M"]
+        decisions = engine.obs.decisions
+        records = list(decisions.rates)
+        dispatched = sched.rate_history[1:] + [float(sched._pending_rate["host"])]
+        kinds = {k: sum(e["cat"] == k for e in events) for k in
+                 ("arrival", "admission", "retirement", "dispatch", "readback")}
+        check = {"metric_lines": len(lines[0].splitlines()), "trace_line": lines[1],
+                 "decisions_line": lines[2], "events": kinds,
+                 "metrics_requests_finished": metrics["repro_requests_finished"],
+                 "finished": len(engine.finished), "pending": len(engine.pending),
+                 "rate_records": len(records), "slots": args.horizon,
+                 "record_argmax": [r["argmax"] for r in records], "dispatched": dispatched}
+        del engine, sched, tr
+        off, on = [], []
+        for i in range(2 * OBS_AB_REPS):   # interleaved: off, on, on, off, ...
+            telemetry = i % 4 in (1, 2)
+            (on if telemetry else off).append(_timed_serve(argv if telemetry else SYNC_ARGS))
+        timing = {"ms_per_slot_off": off, "ms_per_slot_on": on,
+                  "overhead": min(on) / min(off) - 1.0}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("obs_serve", stage="telemetry", **check, **timing,
+         sync_serve_ms_per_slot=sync_path["ms_per_slot"], ms_per_slot=res["ms_per_slot"],
+         peak_gb=res["max_memory_allocated"] / 1e9)
+    same = {k: (res[k], sync_path[k]) for k in ("trace", "streams", "launches", "graph_replays",
+                                                "prefill_replays", "decode_dispatches",
+                                                "prefill_dispatches", "syncs")}
+    differ = [k for k, (a, b) in same.items() if a != b]
+    if differ:
+        raise AssertionError(f"obs_serve: {differ} differ from sync_serve's with telemetry on")
+    if check["metrics_requests_finished"] != check["finished"]:
+        raise AssertionError("obs_serve: the exported repro_requests_finished is not the count")
+    if (kinds["arrival"] != kinds["admission"] + check["pending"]
+            or kinds["retirement"] != check["finished"]):
+        raise AssertionError(f"obs_serve: lifecycle events {kinds} for {check['finished']} "
+                             f"finished and {check['pending']} queued")
+    if check["rate_records"] != args.horizon or check["record_argmax"] != dispatched:
+        raise AssertionError(f"obs_serve: {check['rate_records']} rate records, argmax "
+                             f"{check['record_argmax']}, dispatched {dispatched}")
+    return {**res, **timing}
+
+
+def _watch_ladder(levels: list, arrivals: list):
+    """Record each slot's offered requests and overload level at the SLO
+    scheduler's admission; returns the function that puts it back."""
+    from repro_torch.reliability import SLOScheduler
+
+    admit = SLOScheduler.admit
+
+    def watched(self, engine, reqs, now):
+        arrivals.extend(reqs)
+        out = admit(self, engine, reqs, now)
+        levels.append(self.degrade_level)
+        return out
+    SLOScheduler.admit = watched
+    return lambda: setattr(SLOScheduler, "admit", admit)
+
+
+def drive_slo_serve() -> dict:
+    """slo_serve: ``SLO_ARGS`` through the launcher, every slot after slot 0
+    under the sync debug mode (``drive_main_path``), its decision log on
+    (``--decisions-out``). The trace columns, the drop count, the ladder's
+    sheds (slot, rid, tenant, rung), each slot's overload level and the slo:
+    line equal the same launcher's on the CPU with the smoke model; requests
+    are conserved (arrivals = served + dropped + shed + queued + active);
+    every shed is in the decision log; the ladder armed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import serve as launcher
+
+    def ladder(sched, tr, levels) -> dict:
+        return {"trace": {k: tr[k].tolist() for k in ("rate", "served", "backlog", "dispatches")},
+                "slo": launcher.slo_summary(sched), "dropped": sched.dropped,
+                "shed_log": [list(e) for e in sched.shed_log], "levels": list(levels)}
+
+    tmp = tempfile.mkdtemp(prefix="slo_serve_")
+    try:
+        argv = SLO_ARGS + ["--decisions-out", f"{tmp}/decisions.json"]
+        levels, arrivals = [], []
+        restore = _watch_ladder(levels, arrivals)
+        try:
+            res = drive_main_path(argv, "slo_serve", SYNC_KERNELS, keep=True)
+        finally:
+            restore()
+        args, engine, sched, tr = res.pop("run")
+        got = ladder(sched, tr, levels)
+        c = sched.counters()
+        shed = c["requests_shed_expired"] + c["requests_shed_priority"] + c["requests_shed_capped"]
+        logged = list(engine.obs.decisions.sheds)
+        check = {"arrivals": len(arrivals), "served": int(tr["served"].sum()),
+                 "dropped": sched.dropped, "shed": shed, "queued": engine.queue_len(),
+                 "active": sum(r is not None for r in engine.active),
+                 "shed_records": len(logged), "latency": launcher.latency_stats(engine)}
+        del engine, sched, tr
+        cpu_levels = []
+        restore = _watch_ladder(cpu_levels, [])
+        try:
+            cpu_args = launcher.build_parser().parse_args([*argv, "--smoke", "--device", "cpu"])
+            cpu_engine, cpu_sched, cpu_src = launcher.build(cpu_args)
+            cpu = ladder(cpu_sched, launcher.run(cpu_args, cpu_engine, cpu_sched, cpu_src),
+                         cpu_levels)
+        finally:
+            restore()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("slo_serve", stage="ladder", **got, **{k: v for k, v in check.items() if k not in got},
+         ms_per_slot=res["ms_per_slot"], peak_gb=res["max_memory_allocated"] / 1e9)
+    if got != cpu:
+        raise AssertionError(f"slo_serve: {got} is not the CPU run's {cpu}")
+    if check["arrivals"] != (check["served"] + check["dropped"] + shed + check["queued"]
+                             + check["active"]):
+        raise AssertionError(f"slo_serve: requests not conserved: {check}")
+    if len(logged) != shed or [(e["rid"], e["reason"]) for e in logged] != \
+            [(e[1], e[3]) for e in got["shed_log"]]:
+        raise AssertionError(f"slo_serve: {shed} sheds, {len(logged)} in the decision log")
+    if max(got["levels"]) < 1 or not shed:
+        raise AssertionError(f"slo_serve: the ladder never armed: levels {got['levels']}")
+    return res
+
+
+def _chaos_cell(device: str = "cuda", smoke: bool = False) -> tuple:
+    """chaos_shared_x2's model, fleet, injector and workload: two paged
+    granite-3-2b engines (prompt_len 512, cache_len 1024, 16 rows, 192 pages
+    of 16, native bf16, prefix sharing) behind the drift router, armed with
+    ``CHAOS_CONFIG``, and CHAOS_SLOTS slots of ``_prefix_source``'s tenant
+    workload at CHAOS_RATE. Returns (model, fleet, chaos, reqs, schedule)."""
+    from repro_torch.configs import get_config
+    from repro_torch.control import FleetRouter
+    from repro_torch.models import init_params
+    from repro_torch.reliability import ChaosConfig, ChaosInjector
+    from repro_torch.runtime import PagedEngine, PagedEngineConfig, ReplicaFleet
+
+    model = init_params(get_config("granite-3-2b", smoke=smoke), seed=0, device=device)
+    ecfg = PagedEngineConfig(prompt_len=512, cache_len=1024, page_size=16, num_pages=192,
+                             max_active=16, prefix_sharing=True)
+    chaos = ChaosInjector(ChaosConfig(**CHAOS_CONFIG))
+    fleet = ReplicaFleet.build(lambda: PagedEngine(model, ecfg), 2,
+                               router=FleetRouter(kind="drift"), chaos=chaos)
+    src = _prefix_source()
+    schedule = [(t, b) for t in range(CHAOS_SLOTS) if (b := src.poll(t, CHAOS_RATE))]
+    return model, fleet, chaos, [r for _, b in schedule for r in b], schedule
+
+
+def drive_chaos_shared_x2() -> dict:
+    """chaos_shared_x2: tests/test_reliability.py's shared-x2 matrix cell at
+    full width (``_chaos_cell``), the replicas' admissions and decodes
+    warmed and captured before slot 0, driven by
+    ``reliability.harness.chaos_drive(fleet, "sync")`` under the fault mix:
+    replica failure, allocator shortfalls, readback delays and prefix
+    evictions. Checks: the streams equal one clean engine's serving the
+    same requests but at its near-ties (``FLEET_TIE``, as drive_fleet), the
+    same set retires, served = finished = arrivals, no page leaks
+    (``assert_no_leaks``), every dispatch of every replica a graph replay,
+    both kernels launched, and the fault log, the served counts and the
+    retirement equal the same cell's on the CPU with the smoke model (the
+    schedule depends on no token)."""
+    from repro_torch import kernels
+    from repro_torch.reliability import assert_no_leaks, chaos_drive
+
+    held = _memory_start()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, fleet, chaos, reqs, schedule = _chaos_cell()
+    warm_s = _warm(fleet, sync=True)
+    t1 = time.perf_counter()
+    streams, retired, (served, finished) = chaos_drive(fleet, "sync", reqs, schedule,
+                                                       chaos=chaos)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    slots = fleet.steps // 2
+    counts = kernels.launch_counts()
+    assert_no_leaks(fleet)
+    res = {"requests": len(reqs), "served": served, "finished": finished, "slots": slots,
+           "ms_per_slot": (t2 - t1) / max(slots, 1) * 1e3, "build_s": t1 - t0 - warm_s,
+           "warmup_s": warm_s, "serve_s": t2 - t1, **_memory(held),
+           "chaos": chaos.counters(), "chaos_log_len": len(chaos.log),
+           "chaos_log": chaos.log, "alive": list(fleet.alive), "requeues": fleet.requeues,
+           "served_per_replica": [len(e.finished) for e in fleet.replicas],
+           "alloc_failures": [e.alloc_failures for e in fleet.replicas],
+           "preemptions": [e.preemptions for e in fleet.replicas],
+           "prefix_hit_tokens": [e.prefix_hits for e in fleet.replicas],
+           "readback_waits": [e.readback_waits for e in fleet.replicas],
+           "decode_dispatches": [e.decode_dispatches for e in fleet.replicas],
+           "prefill_dispatches": [e.prefill_dispatches for e in fleet.replicas],
+           "graph_replays": [e.graph_replays for e in fleet.replicas],
+           "blocking_syncs": fleet.blocking_syncs, "launches": counts}
+    emit("chaos_shared_x2", **res)
+    if not (served == finished == len(reqs)) or retired != frozenset(r.rid for r in reqs):
+        raise AssertionError(f"chaos_shared_x2: {served} served, {finished} finished of "
+                             f"{len(reqs)}")
+    for i, e in enumerate(fleet.replicas):
+        if e.graph_replays != e.decode_dispatches + e.prefill_dispatches:
+            raise AssertionError(f"chaos_shared_x2: replica {i} replayed {e.graph_replays} "
+                                 f"graphs for {e.decode_dispatches + e.prefill_dispatches} "
+                                 "dispatches")
+    missing = [k for k in CHAOS_KERNELS if counts[k] <= 0]
+    if missing or not chaos.delays_injected or not chaos.shortfalls_injected:
+        raise AssertionError(f"chaos_shared_x2: kernels never launched {missing}, or no "
+                             f"fault injected: {chaos.counters()}")
+    got = {rid: list(s) for rid, s in streams.items()}
+    prompts = {r.rid: np.asarray(r.tokens[:512], np.int32) for r in fleet.finished}
+    want = _one_engine_streams(fleet, fleet.finished, "sync")
+    parts = _near_ties(model, got, want, prompts, 1024)
+    _, cpu_fleet, cpu_chaos, cpu_reqs, cpu_schedule = _chaos_cell("cpu", smoke=True)
+    _, cpu_retired, cpu_served = chaos_drive(cpu_fleet, "sync", cpu_reqs, cpu_schedule,
+                                             chaos=cpu_chaos)
+    same_as_cpu = (cpu_chaos.log == chaos.log and cpu_retired == retired
+                   and cpu_served == (served, finished)
+                   and cpu_fleet.served_history == fleet.served_history)
+    emit("chaos_shared_x2", stage="streams", compared=len(want), near_tie_parts=parts,
+         same_as_cpu=same_as_cpu)
+    if not same_as_cpu:
+        raise AssertionError(f"chaos_shared_x2: the CPU run's fault log {cpu_chaos.log} or "
+                             "served counts differ from the card's")
     return res
 
 
@@ -3739,6 +4036,9 @@ def main() -> int:
                       "sampled_chunked_profile")
     drive_fleet(FLEET_ARGS, "fleet_serve")
     drive_fleet(PAGED_FLEET_ARGS, "paged_fleet_serve", fail_at=PAGED_FLEET_FAIL_AT)
+    drive_obs_serve(sync_path)
+    drive_slo_serve()
+    drive_chaos_shared_x2()
     graph_ab()
     check_fig2()
 

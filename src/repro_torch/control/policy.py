@@ -134,6 +134,12 @@ class Static:
     def arrivals(self, f_star: torch.Tensor) -> torch.Tensor:
         return f_star
 
+    def tables(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The one-action tables (F = {rate}, S = 1, lambda = F), as the
+        reference's ``Static`` has them (a trace replay records them)."""
+        f = torch.tensor([self.rate], dtype=torch.float32)
+        return f, torch.ones_like(f), f
+
     def to(self, device) -> "Static":
         return self
 
@@ -202,6 +208,12 @@ class LatencyAware(_TablePolicy):
     arrival_gain: float = 1.0
     cost_gain: float = 1.0
     cost_budget: float = 4.0
+
+    @property
+    def vq_cost_per_rate(self) -> float:
+        """The virtual queue's price per unit rate (what a decision log's
+        host recompute multiplies Z by)."""
+        return self.cost_gain
 
     def init(self) -> VirtualQueue:
         return VirtualQueue.make(self.cost_budget)

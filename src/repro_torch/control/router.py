@@ -34,6 +34,11 @@ answer back once per request.
 ``round-robin`` and ``least-loaded`` are the classical baselines;
 ``least-loaded`` is routed through the same argmax with V=0 and the raw
 request count as the load, ``round-robin`` never looks at load at all.
+
+With a decision log (``decisions``, a ``repro_torch.obs.DecisionLog``)
+every route is recorded with the per-replica scores the argmax saw,
+T_i = V * S_i - D_i (none for round-robin, which never scores), and the
+request's tenant, so a post-mortem joins routes to sheds.
 """
 from __future__ import annotations
 
@@ -46,7 +51,6 @@ import torch
 from repro_torch.control.policy import drift_plus_penalty_action
 
 ROUTER_KINDS = ("drift", "round-robin", "least-loaded")
-_ITEM10 = "ROADMAP.md queue 1 item 10 (observability and reliability)"
 
 
 def _route_action(loads: np.ndarray, prefs: np.ndarray, V: float) -> int:
@@ -87,15 +91,12 @@ class FleetRouter:
     # the request's prompt tokens in its prefix cache serves it m tokens
     # cheaper; the discount enters the same argmax as a load reduction
     affinity_price: float = 1.0 / 32.0
-    # the decision log is not ported yet; anything but None raises
+    # an optional DecisionLog: records every route with its score vector
     decisions: Optional[object] = None
 
     def __post_init__(self):
         if self.kind not in ROUTER_KINDS:
             raise ValueError(f"router kind {self.kind!r} not in {ROUTER_KINDS}")
-        if self.decisions is not None:
-            raise NotImplementedError(f"the router's decision log is not ported yet; see "
-                                      f"{_ITEM10}")
         self._rr = 0
         self.routed: list[int] = []  # every route, in order
 
@@ -134,8 +135,8 @@ class FleetRouter:
         ``affinity`` (optional, drift routing only) is the per-replica
         prefix-cache hit in prompt tokens; it enters the argmax as a load
         discount: i* = argmax_i { V*S_i - (D_i - affinity_price*hit_i) }.
-        ``rid``/``tenant`` name the request for the decision log, which is
-        not ported yet; they never affect the decision.
+        ``rid``/``tenant`` name the request in the decision log; they
+        never affect the decision.
         """
         routable = np.asarray(routable, bool)
         if not routable.any():
@@ -147,6 +148,9 @@ class FleetRouter:
                 self._rr += 1
                 if routable[i]:
                     self.routed.append(i)
+                    if self.decisions is not None and self.decisions.enabled:
+                        self.decisions.record_route(rid=rid, chosen=i, kind=self.kind,
+                                                    tenant=tenant)
                     return i
         # drift / least-loaded: the route target is an Algorithm-1 argmax
         # over the replica set with unroutable replicas priced out
@@ -160,4 +164,9 @@ class FleetRouter:
             v, s = self.V, np.asarray(prefs, np.float32)
         i = _route_action(q, s, v)
         self.routed.append(i)
+        if self.decisions is not None and self.decisions.enabled:
+            # the per-replica scores the argmax saw: T_i = V * S_i - D_i
+            self.decisions.record_route(rid=rid, chosen=i, kind=self.kind, V=float(v),
+                                        scores=np.float32(v) * s - q, loads=loads, prefs=s,
+                                        affinity=affinity, tenant=tenant)
         return i

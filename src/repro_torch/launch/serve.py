@@ -81,8 +81,23 @@ occupancy, through the one Algorithm-1 argmax), ``round-robin`` and
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --smoke --sync-free --replicas 2 --router drift --horizon 12 [--device cpu]
 
-Flags of paths the port does not have yet raise NotImplementedError naming
-the ROADMAP.md queue item that brings them.
+``--tenants name:frac:priority:deadline,...`` tags the workload with a
+multi-tenant mix (deadline in slots, ``-`` for none) and prints per-tenant
+TTFT and attainment in the latency line; ``--policy conformal-slo`` prices
+each tenant's conformal TTFT quantile (``--slo-quantile``, ``--slo-gain``)
+and sheds under overload in a fixed ladder, and prints an ``slo:`` line:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --smoke --tenants gold:0.3:1:6,bulk:0.7:0:24 --policy conformal-slo \
+      --horizon 12 [--device cpu]
+
+``--metrics`` prints the Prometheus text of every engine counter at
+shutdown, ``--trace-out PATH`` writes the request lifecycle as a Chrome
+trace (open it in Perfetto) and ``--decisions-out PATH`` saves the
+control plane's per-slot Algorithm-1 decompositions. The three share one
+``repro_torch.obs.Observability`` bundle through engine, fleet, scheduler
+and router, all of it on the host: no token, trace column or graph replay
+changes, and nothing synchronizes the card.
 """
 from __future__ import annotations
 
@@ -95,23 +110,44 @@ from repro_torch.cache import parse_kv_precision
 from repro_torch.configs import get_config
 from repro_torch.control import ROUTER_KINDS, FleetRouter, LatencyAware
 from repro_torch.models import init_params
+from repro_torch.obs import OBS_OFF, observability
+from repro_torch.reliability import ConformalScheduler, TenantSLO
 from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
                                  MemoryAwareScheduler, PagedEngine,
                                  PagedEngineConfig, PolicyScheduler,
                                  PrecisionAwareScheduler, ReplicaFleet, RequestSource,
-                                 SamplingParams, StaticScheduler, TokenAwareScheduler,
-                                 latency_stats, serve)
+                                 SamplingParams, StaticScheduler, TenantSpec,
+                                 TokenAwareScheduler, latency_stats, serve)
 
-# flag -> the ROADMAP.md queue-1 item that will bring its path
-_UNPORTED = {
-    "tenants": "item 10 (observability and reliability)",
-    "metrics": "item 10 (observability and reliability)",
-    "trace_out": "item 10 (observability and reliability)",
-    "decisions_out": "item 10 (observability and reliability)",
-}
-_UNPORTED_POLICIES = {
-    "conformal-slo": "item 10 (observability and reliability)",
-}
+
+def parse_tenants(spec: str, quantile: float) -> tuple:
+    """``name:frac:priority:deadline,...`` -> (TenantSpec..., TenantSLO...),
+    as the reference's launcher parses it (ValueError for its refusals).
+    Tenants with no deadline (empty or ``-``) join the traffic mix but carry
+    no SLO virtual queue."""
+    sources, slos = [], []
+    for part in spec.split(","):
+        fields = part.strip().split(":")
+        if not (1 <= len(fields) <= 4) or not fields[0]:
+            raise ValueError(f"--tenants: bad entry {part!r} "
+                             "(want name[:frac[:priority[:deadline]]])")
+        name = fields[0]
+        try:
+            frac = float(fields[1]) if len(fields) > 1 and fields[1] else 1.0
+            prio = int(fields[2]) if len(fields) > 2 and fields[2] else 0
+            dl = int(fields[3]) if len(fields) > 3 and fields[3] not in ("", "-") else None
+        except ValueError as e:
+            raise ValueError(f"--tenants: bad entry {part!r} "
+                             "(frac float, priority int, deadline int slots)") from e
+        if frac <= 0:
+            raise ValueError(f"--tenants: {name}: frac must be > 0, got {frac}")
+        if dl is not None and dl <= 0:
+            raise ValueError(f"--tenants: {name}: deadline must be > 0 slots, got {dl}")
+        sources.append(TenantSpec(name=name, frac=frac, priority=prio, deadline_slots=dl))
+        if dl is not None:
+            slos.append(TenantSLO(name=name, deadline_slots=dl, quantile=quantile,
+                                  priority=prio))
+    return tuple(sources), tuple(slos)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -122,7 +158,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cuda (default) or cpu; no card and no --device cpu fails")
     ap.add_argument("--policy", default="adaptive",
                     choices=["adaptive", "static", "latency-aware", "memory-aware",
-                             "token-aware", "precision-aware", *_UNPORTED_POLICIES])
+                             "token-aware", "conformal-slo", "precision-aware"])
     ap.add_argument("--kv-precision", choices=["native", "int8", "fp8"], default="",
                     help="KV storage: int8/fp8 store the dense ring (or, with "
                          "--paged, the pages) as codes with per-token-per-head scales")
@@ -182,8 +218,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefix-sharing", action="store_true",
                     help="paged: share resident prompt-prefix pages between requests "
                          "(copy-on-write forks on the chunked path)")
+    ap.add_argument("--tenants", type=str, default=None,
+                    help="multi-tenant mix: name:frac:priority:deadline,... (e.g. "
+                         "gold:0.3:1:6,bulk:0.7:0:24; deadline in slots, '-' = no SLO). "
+                         "Pairs with --policy conformal-slo")
+    ap.add_argument("--slo-quantile", type=float, default=0.9,
+                    help="conformal-slo: per-tenant attainment target q")
+    ap.add_argument("--slo-gain", type=float, default=1.0,
+                    help="conformal-slo: price scale on the SLO queues")
     ap.add_argument("--metrics", action="store_true",
-                    help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED['metrics']}")
+                    help="print the Prometheus text of every engine counter at shutdown")
+    ap.add_argument("--trace-out", type=str, default=None,
+                    help="write a Chrome-trace JSON of the request lifecycle (Perfetto)")
+    ap.add_argument("--decisions-out", type=str, default=None,
+                    help="save the control plane's recorded Algorithm-1 decisions (JSON)")
     ap.add_argument("--temperature", type=float, default=None,
                     help="softmax temperature, >= 0 (0 = greedy argmax; default: pure "
                          "greedy engine, no sampling layer)")
@@ -203,9 +251,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--router", choices=list(ROUTER_KINDS), default="drift",
                     help="fleet request routing: drift = join the shortest "
                          "drift-plus-penalty queue")
-    for flag in ("tenants", "trace_out", "decisions_out"):
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"not ported yet: ROADMAP.md queue 1 {_UNPORTED[flag]}")
     return ap
 
 
@@ -255,9 +300,10 @@ def fleet_summary(args, fleet: ReplicaFleet) -> str:
 
 
 def build(args):
-    """The model, engine, scheduler and request source ``args`` ask for.
-    Raises ValueError for argument combinations the reference's launcher
-    refuses, and NotImplementedError for paths the port does not have yet."""
+    """The model, engine, scheduler and request source ``args`` ask for
+    (with ``--metrics``, ``--trace-out`` or ``--decisions-out`` one
+    Observability bundle on all of them, ``engine.obs``). Raises ValueError
+    for argument combinations the reference's launcher refuses."""
     if args.paged and args.legacy_loop:
         raise ValueError("--legacy-loop is a dense-engine comparison path; "
                          "the paged engine has no per-step loop")
@@ -296,17 +342,6 @@ def build(args):
     if args.replicas > 1 and args.legacy_loop:
         raise ValueError("--legacy-loop is a single-engine comparison path; "
                          "the fleet steps replicas through the fused protocols")
-    for flag, item in _UNPORTED.items():
-        val = getattr(args, flag)
-        if val not in (None, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet; see ROADMAP.md "
-                f"queue 1 {item}")
-    if args.policy in _UNPORTED_POLICIES:
-        raise NotImplementedError(
-            f"--policy {args.policy} is not ported yet; see ROADMAP.md queue 1 "
-            f"{_UNPORTED_POLICIES[args.policy]}")
-    sampling = sampling_params(args)
     for name in ("chunk_size", "chunk_budget"):
         if getattr(args, name) < 0:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 0, "
@@ -316,9 +351,20 @@ def build(args):
         if getattr(args, name) < 1:
             raise ValueError(f"--{name.replace('_', '-')} must be >= 1, "
                              f"got {getattr(args, name)}")
+    if not 0.0 < args.slo_quantile < 1.0:
+        raise ValueError(f"--slo-quantile must be in (0, 1), got {args.slo_quantile}")
+    sampling = sampling_params(args)
+    tenant_specs, tenant_slos = (), ()
+    if args.tenants:
+        tenant_specs, tenant_slos = parse_tenants(args.tenants, args.slo_quantile)
+    if args.policy == "conformal-slo" and not tenant_slos:
+        raise ValueError("--policy conformal-slo needs at least one tenant with a deadline "
+                         "via --tenants (e.g. gold:0.3:1:6,bulk:0.7:0:24)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model = init_params(cfg, seed=0, device=args.device)
+    obs = observability() if telemetry(args) else OBS_OFF
+    sched_obs = obs if telemetry(args) else None
     if args.paged:
         mk_engine = lambda: PagedEngine(model, PagedEngineConfig(
             prompt_len=args.prompt_len, cache_len=args.cache_len,
@@ -326,34 +372,39 @@ def build(args):
             max_active=args.max_active, eos_id=args.eos_id,
             prefix_sharing=args.prefix_sharing, chunk_size=args.chunk_size,
             chunk_budget=args.chunk_budget, kv_precision=args.kv_precision,
-            quant_pages=args.quant_pages, sampling=sampling))
+            quant_pages=args.quant_pages, sampling=sampling), obs=obs)
     else:
         mk_engine = lambda: Engine(model, EngineConfig(
             batch_slots=args.slots, prompt_len=args.prompt_len,
             cache_len=args.cache_len, eos_id=args.eos_id,
             chunk_size=args.chunk_size, chunk_budget=args.chunk_budget,
-            kv_precision=args.kv_precision, sampling=sampling))
+            kv_precision=args.kv_precision, sampling=sampling), obs=obs)
     if args.replicas > 1:   # the replicas share the one model's weights
-        engine = ReplicaFleet.build(mk_engine, args.replicas,
-                                    router=FleetRouter(kind=args.router))
+        router = FleetRouter(kind=args.router,
+                             decisions=obs.decisions if telemetry(args) else None)
+        engine = ReplicaFleet.build(mk_engine, args.replicas, router=router, obs=sched_obs)
     else:
         engine = mk_engine()
     rates = tuple(float(f) for f in range(1, args.raw_rate + 1))
     if args.policy == "adaptive":
-        sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity)
+        sched = AdaptiveScheduler(rates=rates, V=args.V, capacity=args.capacity, obs=sched_obs)
     elif args.policy == "latency-aware":
         sched = PolicyScheduler(
             policy=LatencyAware(rates=rates, V=args.V, cost_gain=1.0,
                                 cost_budget=args.cost_budget),
-            capacity=args.capacity)
+            capacity=args.capacity, obs=sched_obs)
     elif args.policy == "memory-aware":
         sched = MemoryAwareScheduler(rates=rates, V=args.V,
                                      occupancy_budget=args.occupancy_budget,
-                                     capacity=args.capacity)
+                                     capacity=args.capacity, obs=sched_obs)
     elif args.policy == "token-aware":
         sched = TokenAwareScheduler(rates=rates, V=args.V, token_budget=args.token_budget,
                                     tokens_per_request=float(args.prompt_len),
-                                    capacity=args.capacity)
+                                    capacity=args.capacity, obs=sched_obs)
+    elif args.policy == "conformal-slo":
+        sched = ConformalScheduler(rates=rates, V=args.V, tenants=tenant_slos,
+                                   slo_gain=args.slo_gain, capacity=args.capacity,
+                                   obs=sched_obs)
     elif args.policy == "precision-aware":
         # the allocator's region tag ("float8_e4m3fn" for fp8): the reference
         # passes the flag's spelling, which names no region for fp8 (ROADMAP R6)
@@ -361,12 +412,12 @@ def build(args):
             rates=rates, V=args.V, quant_budget=args.quant_budget,
             downgrade_at=args.downgrade_at, upgrade_at=args.upgrade_at,
             quant_precision=parse_kv_precision(args.kv_precision).tag,
-            capacity=args.capacity)
+            capacity=args.capacity, obs=sched_obs)
     else:
-        sched = StaticScheduler(rate=args.rate, capacity=args.capacity)
+        sched = StaticScheduler(rate=args.rate, capacity=args.capacity, obs=sched_obs)
     src = RequestSource(vocab_size=cfg.vocab_size, prompt_len=args.prompt_len,
                         raw_rate=args.raw_rate, max_new_tokens=4,
-                        min_prompt_len=args.min_prompt_len)
+                        min_prompt_len=args.min_prompt_len, tenants=tenant_specs or None)
     return engine, sched, src
 
 
@@ -398,20 +449,55 @@ def paged_summary(tr: dict, engine) -> str:
             f"preemptions={sum(e.preemptions for e in engines)}")
 
 
+def telemetry(args) -> bool:
+    return bool(args.metrics or args.trace_out or args.decisions_out)
+
+
 def quant_summary(args, engine) -> str:
     """The quantized pool's line, each replica's quantized occupancy
-    joined by commas. ``precision_flips`` counts the flips the reference's
-    decision log records; the port has no decision log yet (ROADMAP.md
-    queue 1 item 10), so it prints 0, as the reference does with telemetry
-    off."""
+    joined by commas. ``precision_flips`` counts the latch flips the
+    decision log recorded (0 with telemetry off, as the reference prints)."""
     engines = replicas_of(engine)
     c = [e.counters() for e in engines]
     line = (f"quant: precision={args.kv_precision} pages_quant={c[0]['pages_quant']}"
             f"/{engines[0].allocator.num_pages} quant_occupancy="
             + ",".join(f"{x['quant_occupancy']:.2f}" for x in c))
     if args.policy == "precision-aware":
-        line += f" admit={engines[0].admit_precision} precision_flips=0"
+        flips = len(engine.obs.decisions.precisions) if telemetry(args) else 0
+        line += f" admit={engines[0].admit_precision} precision_flips={flips}"
     return line
+
+
+def slo_summary(sched) -> str:
+    """The reference launcher's ``slo:`` line."""
+    c = sched.counters()
+    att = sched.attainment()
+    return (f"slo: degrade_level={c['degrade_level']} pressure={c['slo_pressure']:.2f} "
+            f"shed_expired={c['requests_shed_expired']} "
+            f"shed_priority={c['requests_shed_priority']} "
+            f"shed_capped={c['requests_shed_capped']} attainment="
+            + ",".join(f"{k}:{v:.3f}" for k, v in sorted(att.items())))
+
+
+def telemetry_lines(args, engine, sched) -> list:
+    """Export the counters into the registry (the SLO scheduler's too) and
+    return the reference launcher's telemetry output: the Prometheus text
+    (``--metrics``), the ``trace:`` line (``--trace-out``, the file
+    written) and the ``decisions:`` line (``--decisions-out``)."""
+    obs = engine.obs
+    engine.export_metrics()
+    if args.policy == "conformal-slo":
+        obs.export(sched.counters())
+    out = []
+    if args.metrics:
+        out.append(obs.registry.prometheus_text().removesuffix("\n"))
+    if args.trace_out:
+        out.append(f"trace: {obs.trace.save(args.trace_out)} "
+                   f"({len(obs.trace)} events, {obs.trace.dropped} dropped)")
+    if args.decisions_out:
+        out.append(f"decisions: {obs.decisions.save(args.decisions_out)} "
+                   f"({len(obs.decisions.rates)} rate, {len(obs.decisions.routes)} route)")
+    return out
 
 
 def prefix_summary(engine) -> str:
@@ -437,7 +523,12 @@ def main(argv=None):
             print(quant_summary(args, engine))
         if args.prefix_sharing:
             print(prefix_summary(engine))
+    if args.policy == "conformal-slo":
+        print(slo_summary(sched))
     print("latency:", latency_stats(engine))
+    if telemetry(args):
+        for line in telemetry_lines(args, engine, sched):
+            print(line)
 
 
 if __name__ == "__main__":

@@ -78,6 +78,25 @@ shared pool of KV pages: admission allocates pages, page growth and
 preempt-and-recompute keep the decode covered, retirement frees the pages,
 and prefix sharing maps resident prompt prefixes onto shared pages (see
 its docstring).
+
+Observability (``repro_torch.obs``). An engine holds an ``Observability``
+bundle (``obs``, default ``OBS_OFF``) and the trace pid it records under
+(``obs_pid``, the replica index a fleet stamps). The request lifecycle is
+recorded as the reference records it: arrival, admission, chunk,
+activation, preemption, raced_hit and retirement events, a ``dispatch``
+span per admission, decode, mixed or fork dispatch (the host's enqueue
+time of the graph replay, on the host clock) and the readback's initiate
+and consume. Every emit sits on the host, around the dispatch and outside
+the bodies the engine captures as graphs, so a replay records exactly what
+an eager dispatch does, and the warm-ups and captures of ``warm_decode``
+record nothing. ``export_metrics`` publishes ``counters()``, host integers
+all, into the bundle's registry. With the bundle off every site costs one
+branch; on or off, no token changes, and the telemetry reads nothing back
+from the card.
+
+Fault injection (``repro_torch.reliability.chaos``) arms an engine through
+``_chaos`` (readback delays and hangs, ``_post_readback``) and, on the
+paged engine, a forwarding allocator whose calls can fail.
 """
 from __future__ import annotations
 
@@ -93,6 +112,7 @@ from repro_torch.device import host_to_device
 from repro_torch.models import attention as A
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs import OBS_OFF
 from repro_torch.runtime.graph import DecodeGraph, _on_device
 from repro_torch.runtime.request import Request
 from repro_torch.runtime.sampling import RowSampling, SamplingParams, row_tables, sample_rows
@@ -458,11 +478,12 @@ def _host_take(row_toks, req: Request, age: int, n_steps: int,
 class Engine:
     """Dense serving engine over ``model`` (on the model's device)."""
 
-    def __init__(self, model: M.Model, ecfg: EngineConfig):
+    def __init__(self, model: M.Model, ecfg: EngineConfig, obs=None):
         cfg = model.cfg
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self._init_obs(obs)
         self._init_sampling(ecfg)
         # every prefill builds the dense ring at the engine's precision (a
         # quantized one holds codes and scales, which the decode reads)
@@ -492,6 +513,15 @@ class Engine:
         self._init_sync_free(B)
         self._chunk = ecfg.chunk_size or max(P // 4, 1)
         self._chunk_ok = T.chunked_prefill_supported(self.cfg) and ecfg.shape_window is None
+
+    def _init_obs(self, obs) -> None:
+        """The observability bundle (``OBS_OFF`` when none), the trace pid,
+        the current control slot for the emits that run below the slot's
+        entry point, and the fault-injection seam."""
+        self.obs = obs or OBS_OFF
+        self.obs_pid = 0          # replica index (a fleet stamps it)
+        self._now = 0
+        self._chaos = None        # an armed ChaosInjector
 
     def _init_sync_free(self, rows: int) -> None:
         self._graphs: dict = {}       # dispatch mode -> its DecodeGraph
@@ -525,6 +555,11 @@ class Engine:
         return t + sum(c.remaining for c in self._cursors.values())
 
     def submit(self, reqs: list) -> None:
+        tr = self.obs.trace
+        if tr.enabled:
+            for r in reqs:
+                tr.emit("arrival", slot=r.arrival_slot, rid=r.rid, pid=self.obs_pid,
+                        prompt_len=len(r.tokens))
         self.pending.extend(reqs)
 
     # ------------------------------------------------ per-request sampling
@@ -591,12 +626,40 @@ class Engine:
                 f"exceeds the sampled-request history capacity {self._gen_cap} "
                 "(gen_buf_len)")
 
-    def _emit_admission(self, req: Request, now: int) -> None:
+    def _emit_admission(self, req: Request, row: int, now: int) -> None:
         """Stamp the engine claim (preemption clears it; the re-claim
-        stamps it again) and count a request that samples."""
+        stamps it again), count a request that samples and record the
+        admission."""
         req.admit_slot = now
         if self._effective(req) is not None:
             self.requests_sampled += 1
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("admission", slot=now, rid=req.rid, row=row, pid=self.obs_pid)
+
+    def _emit_retire(self, req: Request, row: int, slot: int) -> None:
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("retirement", slot=slot, rid=req.rid, row=row, pid=self.obs_pid,
+                    tokens=len(req.generated or ()))
+
+    def _span(self) -> float:
+        """A dispatch span's start on the trace clock (0.0 when off)."""
+        tr = self.obs.trace
+        return tr.now() if tr.enabled else 0.0
+
+    def _emit_dispatch(self, t0: float, slot: int, what: str, **args) -> None:
+        """The host's enqueue span of one dispatch, from ``t0``
+        (``_span``): the graph replay's launch, not its device time."""
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("dispatch", slot=slot, pid=self.obs_pid, ts=t0, dur=tr.now() - t0,
+                    what=what, **args)
+
+    def export_metrics(self, labels: Optional[dict] = None) -> None:
+        """Publish ``counters()`` into the obs registry (a no-op without
+        one)."""
+        self.obs.export(self.counters(), labels)
 
     def counters(self) -> dict:
         """The reference engine's counter/gauge surface. The paged and
@@ -701,7 +764,7 @@ class Engine:
         req.generated = [int(_next_tokens(logits[:1], samp)[0])]
         self.active[slot] = req
         self.slot_age[slot] = 1
-        self._emit_admission(req, now)
+        self._emit_admission(req, slot, now)
 
     def admit_pending(self, now: int, sync: bool = False) -> int:
         """Fill all free slots from the pending queue with ONE prefill
@@ -734,11 +797,13 @@ class Engine:
         for j, r in enumerate(reqs):
             toks[j] = self._bucket(r.tokens, r, bucket)
         adm = self._admission_table(slots, [r.max_new_tokens for r in reqs])
+        t0 = self._span()
         (pos, last), first = self._admit_graphed(bucket, sync, toks, lens, adm,
                                                  (self.state.pos, self.state.last_tok),
                                                  self._samp_args(rows=reqs + [None] * (B - k)))
         self.state = self.state._replace(pos=pos, last_tok=last)
         self.prefill_dispatches += 1
+        self._emit_dispatch(t0, now, "prefill", rows=k)
         if sync:
             for req, slot in zip(reqs, slots, strict=True):
                 req.start_slot = now
@@ -747,7 +812,7 @@ class Engine:
                 self.active[slot] = req
                 self.slot_age[slot] = 1
                 self._row_epoch[slot] += 1
-                self._emit_admission(req, now)
+                self._emit_admission(req, slot, now)
             return k
         self.blocking_syncs += 1
         first = first.cpu().numpy()[:k]
@@ -757,7 +822,7 @@ class Engine:
             req.generated = [int(first[j])]
             self.active[slot] = req
             self.slot_age[slot] = 1  # first token came from prefill
-            self._emit_admission(req, now)
+            self._emit_admission(req, slot, now)
         return k
 
     # ------------------------------------------------- graphed admission
@@ -834,6 +899,7 @@ class Engine:
         r.finish_slot = now
         self.finished.append(r)
         self.active[i] = None
+        self._emit_retire(r, i, now)
 
     def _release_row(self, row: int) -> None:
         """Give up what a row holds beyond its request (a paged row's
@@ -841,6 +907,7 @@ class Engine:
 
     def step(self, now: int) -> dict:
         """Legacy engine slot: admit one-by-one -> one decode -> retire."""
+        self._now = now
         eos = self.ecfg.eos_id
         for slot in self.free_slots():
             if not self.pending:
@@ -858,10 +925,12 @@ class Engine:
             toks = torch.tensor([r.generated[-1] if r else 0 for r in self.active],
                                 dtype=torch.int32, device=self.device)
             extra = [host_to_device(a, self.device) for a in self._samp_decode_args()]
+            t0 = self._span()
             nxt, self.state = _decode_one(self.model, self.state, toks,
                                           self.ecfg.shape_window, *_scan_samp(extra))
             self.decode_dispatches += 1
             self.blocking_syncs += 1
+            self._emit_dispatch(t0, now, "decode", n=1)
             nxt = nxt.cpu().numpy()
             for i, r in enumerate(self.active):
                 if r is None:
@@ -886,14 +955,17 @@ class Engine:
         discarded on the host), so per-step served counts mu(t) match what
         the legacy per-step loop would observe.
         """
+        self._now = now
         admitted = self.admit_pending(now)
         n_active = sum(r is not None for r in self.active)
         per_step = [0] * n_steps
         if n_active:
             toks = np.asarray([r.generated[-1] if r else 0 for r in self.active], np.int32)
+            t0 = self._span()
             all_toks = self._decode_fused(toks, n_steps)
             self.decode_dispatches += 1
             self.blocking_syncs += 1
+            self._emit_dispatch(t0, now, "decode", n=n_steps)
             all_toks = all_toks.cpu().numpy()  # (n_steps, B)
             for i, r in enumerate(self.active):
                 if r is None:
@@ -1068,27 +1140,41 @@ class Engine:
             event.record()
         else:
             host = {name: a.clone() for name, a in arrays.items()}
-        self._pending_read = {"slot": now, "arrays": host, "event": event,
-                              "epoch": self._row_epoch.copy()}
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("readback", slot=now, pid=self.obs_pid, what="initiate")
+        packet = {"slot": now, "arrays": host, "event": event, "epoch": self._row_epoch.copy()}
+        if self._chaos is not None:   # fault injection: a delay or hang of its readiness
+            packet = self._chaos.wrap_readback(packet)
+        self._pending_read = packet
 
     def _readback_ready(self, p: dict) -> bool:
-        """Non-blocking: has the packet's copy completed?"""
+        """Non-blocking: has the packet's copy completed? An injected delay
+        (``polls`` > 0, ``reliability.chaos``) reads not ready until its
+        polls are spent, one per call; a hang (``polls`` < 0) never does."""
+        polls = p.get("polls", 0)
+        if polls:
+            if polls > 0:
+                p["polls"] = polls - 1
+            return False
         return p["event"] is None or p["event"].query()
 
     def _await_readback(self, p: dict) -> None:
         """Wait for the packet's copy, polling its event for at most
         ``readback_timeout_s``; then raise ``ReadbackTimeout`` rather than
-        hang on a wedged transfer. A bound <= 0 waits without one. One
-        event fences the packet's arrays; ``done`` is the first read."""
-        ev = p["event"]
-        if ev is None or ev.query():
+        hang on a wedged transfer. A bound <= 0 waits for the copy without
+        one (an injected hang is then ignored). One event fences the
+        packet's arrays; ``done`` is the first read."""
+        if self._readback_ready(p):
             return
+        ev = p["event"]
         timeout = self.ecfg.readback_timeout_s
         if timeout <= 0:
-            ev.synchronize()
+            if ev is not None:
+                ev.synchronize()
             return
         deadline = time.monotonic() + timeout
-        while not ev.query():
+        while not self._readback_ready(p):
             if time.monotonic() > deadline:
                 rows = [i for i, r in enumerate(self.active)
                         if r is not None and i not in self._cursors]
@@ -1102,9 +1188,11 @@ class Engine:
         flight is an overlap miss, counted in ``readback_waits``."""
         if p is None:
             return 0, []
-        if count_waits and not self._readback_ready(p):
+        waited = count_waits and not self._readback_ready(p)
+        if waited:
             self.readback_waits += 1
         self._await_readback(p)
+        t0 = self._span()
         done = p["arrays"]["done"].numpy()
         age = p["arrays"]["age"].numpy()
         gen = p["arrays"]["gen"].numpy()
@@ -1121,6 +1209,10 @@ class Engine:
             self._retire(row, req, p["slot"])
             self.slot_age[row] = 0
             served += 1
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("readback", slot=p["slot"], pid=self.obs_pid, ts=t0, dur=tr.now() - t0,
+                    what="consume", retired=served, waited=waited)
         extra = served - sum(per_step)
         if extra > 0:  # admission-time finishers (budget <= 1, or EOS first)
             per_step = per_step or [0]
@@ -1141,12 +1233,15 @@ class Engine:
         the wall clock; here the consume point is fixed, so the schedule is
         the same on every device (ROADMAP R5).
         """
+        self._now = now
         prev, self._pending_read = self._pending_read, None
         admitted = self.admit_pending(now, sync=True)
         n_active = sum(r is not None for r in self.active)
         if n_active:
+            t0 = self._span()
             served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
+            self._emit_dispatch(t0, now, "decode", n=n_steps)
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
         self.served_history.append(served_prev)
@@ -1191,7 +1286,7 @@ class Engine:
             self.slot_age[row] = 0
             cached = self._claim_row(row, toks)
             self._cursors[row] = PrefillCursor(req=req, row=row, toks=toks, cached=cached)
-            self._emit_admission(req, now)
+            self._emit_admission(req, row, now)
             k += 1
         return k
 
@@ -1257,16 +1352,23 @@ class Engine:
         chunk just shipped becomes live: its cursor drops (the readback
         consumer may retire it again) and its epoch moves on, so packets of
         earlier dispatches can never retire it."""
+        tr = self.obs.trace
         for row, cur, take, fin in plan["plan"]:
             if not cur.started:
                 cur.started = True
                 cur.req.start_slot = now
+            if tr.enabled:
+                tr.emit("chunk", slot=now, rid=cur.req.rid, row=row, pid=self.obs_pid,
+                        off=cur.off, take=take)
             cur.off += take
             if fin:
                 del self._cursors[row]
                 self._row_epoch[row] += 1
                 self.slot_age[row] = 1
                 self._on_activate(row, cur, now)
+                if tr.enabled:
+                    tr.emit("activation", slot=now, rid=cur.req.rid, row=row,
+                            pid=self.obs_pid, cached=cur.cached)
 
     def _idle_plan(self) -> dict:
         """A chunk plan that runs no chunk (every row's valid 0): the
@@ -1316,18 +1418,23 @@ class Engine:
         on the device (``_sync_activate``).
         """
         self._require_chunked()
+        self._now = now
         prev, self._pending_read = self._pending_read, None
         admitted = self._admit_chunked(now)
         plan = self._chunk_plan(n_steps)
         n_active = sum(r is not None for r in self.active)
         if plan is not None:
+            t0 = self._span()
             served_steps = self._chunk_decode_sync(plan, n_steps)
             self.decode_dispatches += 1
+            self._emit_dispatch(t0, now, "mixed", n=n_steps, chunk_rows=len(plan["plan"]))
             self._finish_chunk_plan(plan, now)
             self._post_readback(now, served_steps)
         elif n_active:
+            t0 = self._span()
             served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
+            self._emit_dispatch(t0, now, "decode", n=n_steps)
             self._post_readback(now, served_steps)
         served_prev, per_step_prev = self._consume_read(prev)
         self.served_history.append(served_prev)
@@ -1408,7 +1515,7 @@ class PagedEngine(Engine):
     page.
     """
 
-    def __init__(self, model: M.Model, ecfg: PagedEngineConfig):
+    def __init__(self, model: M.Model, ecfg: PagedEngineConfig, obs=None):
         cfg = model.cfg
         if not T.paged_segments_supported(cfg):
             raise ValueError(f"{cfg.name}: paged decode needs an all-attention stack")
@@ -1432,6 +1539,7 @@ class PagedEngine(Engine):
             raise ValueError(f"quant_pages={qp} needs a quantized kv_precision, "
                              f"got {kvp.tag!r}")
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
+        self._init_obs(obs)
         self._init_sampling(ecfg)
         # prefill at native storage: the page copy quantizes what lands in
         # the quantized region
@@ -1550,8 +1658,13 @@ class PagedEngine(Engine):
                 and self._prefix.evict(short) >= short)
 
     def _raced_hit(self, row: int, what: str) -> None:
-        """A prefix hit degraded by an eviction in the same allocation."""
+        """A prefix hit degraded by an eviction in the same allocation:
+        counted, and traced so the cache's race window shows on the
+        timeline."""
         self.eviction_raced_hits += 1
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("raced_hit", slot=self._now, row=row, pid=self.obs_pid, what=what)
 
     def _alloc_pages(self, row: int, tokens: int, shared=(),
                      precision: str = "native") -> tuple[Optional[list], list]:
@@ -1598,10 +1711,13 @@ class PagedEngine(Engine):
         idx[1] = N
         for j, (src, dst) in enumerate(self._fork_plan.values()):
             idx[:, j] = (src, dst)
+        rows = len(self._fork_plan)
         self._fork_plan.clear()
+        t0 = self._span()
         idx = host_to_device(idx, self.device)
         self.pools = M.fork_pages(self.pools, idx[0], idx[1])
         self.fork_dispatches += 1
+        self._emit_dispatch(t0, self._now, "fork", rows=rows)
 
     # ------------------------------------------------------------------
     def step(self, now: int) -> dict:
@@ -1638,13 +1754,21 @@ class PagedEngine(Engine):
 
     def _preempt(self, row: int) -> None:
         """Bounce an active request back to pending (pages exhausted)."""
-        self._bounce(row)
+        req = self._bounce(row)
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("preemption", slot=self._now, rid=req.rid, row=row, pid=self.obs_pid,
+                    what="decode")
 
     def _preempt_cursor(self, row: int) -> None:
         """Bounce a mid-prefill request back to pending (the pool starved by
         concurrent prefills); its prompt restarts from chunk 0."""
-        del self._cursors[row]
-        self._bounce(row)
+        cur = self._cursors.pop(row)
+        req = self._bounce(row)
+        tr = self.obs.trace
+        if tr.enabled:
+            tr.emit("preemption", slot=self._now, rid=req.rid, row=row, pid=self.obs_pid,
+                    what="prefill", off=cur.off)
 
     def _decode_step(self, state, tokens: torch.Tensor):
         return M.decode_step_paged(self.model, state, tokens)
@@ -1747,9 +1871,11 @@ class PagedEngine(Engine):
         # cache_len == bucket: the dense prefill cache is exactly the prompt
         # rows, ready to copy into pages (no ring wraparound)
         adm = self._admission_table([t[0] for t in take], [t[1].max_new_tokens for t in take])
+        t0 = self._span()
         _, first = self._admit_graphed(bucket, sync, toks, lens, adm, (page_idx,),
                                        self._samp_args(rows=[t[1] for t in take] + [None] * (R - k)))
         self.prefill_dispatches += 1
+        self._emit_dispatch(t0, now, "prefill", rows=k)
         if not sync:
             self.blocking_syncs += 1
             first = first.cpu().numpy()[:k]
@@ -1757,7 +1883,7 @@ class PagedEngine(Engine):
             req.start_slot = now
             req.first_token_slot = now
             req.generated = None if sync else [int(first[j])]
-            self._emit_admission(req, now)
+            self._emit_admission(req, row, now)
             self.active[row] = req
             self.block_tables[row, : len(pages)] = pages
             self.pos[row] = L
@@ -1819,6 +1945,7 @@ class PagedEngine(Engine):
         """One control slot: batched admit -> page extension -> fused decode
         -> retire (pages freed). <= 1 prefill + 1 decode dispatch; the
         decode's tokens are read back once (the slot's blocking sync)."""
+        self._now = now
         admitted = self.admit_pending(now, lookahead=n_steps)
         self._ensure_pages(n_steps)
         self.occupancy_hwm = self.occupancy()
@@ -1826,9 +1953,11 @@ class PagedEngine(Engine):
         per_step = [0] * n_steps
         if n_active:
             toks = np.asarray([r.generated[-1] if r else 0 for r in self.active], np.int32)
+            t0 = self._span()
             all_toks = self._decode_fused(toks, n_steps)
             self.decode_dispatches += 1
             self.blocking_syncs += 1
+            self._emit_dispatch(t0, now, "decode", n=n_steps)
             all_toks = all_toks.cpu().numpy()  # (n_steps, R)
             for row, req in enumerate(self.active):
                 if req is None:
@@ -1855,14 +1984,17 @@ class PagedEngine(Engine):
         arithmetic: a decoding row's position advances by ``n_steps`` per
         dispatch. No device read gates a dispatch (the reference's early
         consume is left out, as on the dense engine: ROADMAP R5)."""
+        self._now = now
         prev, self._pending_read = self._pending_read, None
         admitted = self.admit_pending(now, lookahead=n_steps, sync=True)
         self._ensure_pages(n_steps, sync=True)
         self.occupancy_hwm = self.occupancy()
         n_active = sum(r is not None for r in self.active)
         if n_active:
+            t0 = self._span()
             served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
+            self._emit_dispatch(t0, now, "decode", n=n_steps)
             for row, req in enumerate(self.active):
                 if req is not None:
                     self.pos[row] += n_steps
@@ -1999,6 +2131,7 @@ class PagedEngine(Engine):
         later. Chunk pages are reserved when a chunk is scheduled; decoding
         rows pre-extend as on the sync-free loop."""
         self._require_chunked()
+        self._now = now
         prev, self._pending_read = self._pending_read, None
         admitted = self._admit_chunked(now)
         self._flush_forks()   # forked pages land before this slot's chunks
@@ -2017,11 +2150,14 @@ class PagedEngine(Engine):
         decoding = any(r is not None and row not in self._cursors
                        for row, r in enumerate(self.active))
         if plan is not None or decoding:
+            t0 = self._span()
             if plan is not None:
                 served_steps = self._chunk_decode_sync(plan, n_steps)
             else:
                 served_steps = self._decode_sync(n_steps)
             self.decode_dispatches += 1
+            self._emit_dispatch(t0, now, "mixed" if plan is not None else "decode", n=n_steps,
+                                chunk_rows=len(plan["plan"]) if plan else 0)
             for row, req in enumerate(self.active):
                 if req is not None and row not in self._cursors:
                     self.pos[row] += n_steps   # decoding rows (the host mirror)

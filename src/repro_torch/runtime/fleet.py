@@ -54,18 +54,25 @@ version: stop routing to the replica and move its *queued* work away while
 its in-flight rows finish normally; ``resume_replica`` undoes it.
 ``drain()`` flushes every live replica's readback tail and is idempotent.
 
-The reference's observability bundle (``obs``), its fault injector
-(``chaos``) and ``export_metrics`` are not ported yet (ROADMAP.md queue 1
-item 10): passing them raises.
+Observability and faults
+------------------------
+One ``Observability`` bundle (``obs``) serves the whole fleet: a replica
+built without its own gets the fleet's, and every replica records under
+its index as the trace pid (one timeline lane per replica). The router
+records its decisions in the bundle's decision log; ``submit`` records each
+route and ``fail_replica`` each requeue. ``export_metrics`` publishes every
+replica's counters labelled ``replica="i"`` plus the fleet's own
+aggregates. An armed ``ChaosInjector`` (``chaos``) fires its slot-scoped
+faults (replica failure, forced prefix eviction) from ``_step``, before any
+replica steps, so chaos runs under the unmodified serve loop.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from repro_torch.control.router import FleetRouter, ReplicaLoad
+from repro_torch.obs import OBS_OFF
 from repro_torch.runtime.engine import Engine
-
-_ITEM10 = "ROADMAP.md queue 1 item 10 (observability and reliability)"
 
 # counters() keys that are levels, not totals: fleet aggregation takes the
 # max over live replicas (worst replica) instead of summing
@@ -92,9 +99,6 @@ class ReplicaFleet:
 
     def __init__(self, replicas: list, router: FleetRouter | None = None,
                  modes: list | None = None, obs=None, chaos=None):
-        if obs is not None or chaos is not None:
-            raise NotImplementedError(f"the fleet's observability and fault injection are "
-                                      f"not ported yet; see {_ITEM10}")
         if not replicas:
             raise ValueError("a fleet needs at least one replica")
         if modes is not None and len(modes) != len(replicas):
@@ -106,6 +110,15 @@ class ReplicaFleet:
         self.replicas = list(replicas)
         self.router = router or FleetRouter()
         self.modes = list(modes) if modes is not None else None
+        # one bundle for the whole fleet: a replica not handed its own gets
+        # the fleet's, and each records under its index as the trace pid
+        self.obs = obs or OBS_OFF
+        for i, e in enumerate(self.replicas):
+            e.obs_pid = i
+            if obs is not None and e.obs is OBS_OFF:
+                e.obs = self.obs
+        if obs is not None and self.router.decisions is None:
+            self.router.decisions = self.obs.decisions
         self.device = self.replicas[0].device   # where the scheduler runs Algorithm 1
         n = len(self.replicas)
         self.alive = [True] * n       # failed replicas are never stepped again
@@ -122,6 +135,11 @@ class ReplicaFleet:
         # them (serve() duck-types on hasattr(engine, "occupancy"))
         if all(hasattr(e, "occupancy") for e in self.replicas):
             self.occupancy = self._occupancy
+        # the fault-injection seam: an armed ChaosInjector fires its
+        # slot-scoped faults from _step
+        self.chaos = None
+        if chaos is not None:
+            chaos.arm(self)
 
     # ------------------------------------------------------------ builders
     @classmethod
@@ -129,10 +147,8 @@ class ReplicaFleet:
               modes: list | None = None, obs=None, chaos=None) -> "ReplicaFleet":
         """Fleet of ``n`` replicas from a zero-arg engine factory (one
         ``Model`` closed over by the factory: the weights are shared)."""
-        if obs is not None or chaos is not None:
-            raise NotImplementedError(f"the fleet's observability and fault injection are "
-                                      f"not ported yet; see {_ITEM10}")
-        return cls([make_engine() for _ in range(n)], router=router, modes=modes)
+        return cls([make_engine() for _ in range(n)], router=router, modes=modes, obs=obs,
+                   chaos=chaos)
 
     # ------------------------------------------------------- observations
     def queue_len(self) -> int:
@@ -233,7 +249,15 @@ class ReplicaFleet:
         return out
 
     def export_metrics(self, labels: dict | None = None) -> None:
-        raise NotImplementedError(f"metrics export is not ported yet; see {_ITEM10}")
+        """Publish per-replica counters (labelled ``replica="i"``) plus the
+        fleet-only aggregates (unlabelled: they share no name with the
+        labelled per-replica families, so registration never collides)."""
+        base = dict(labels or {})
+        for i, e in enumerate(self.replicas):
+            e.export_metrics({**base, "replica": str(i)})
+        agg = self.counters()
+        self.obs.export({k: agg[k] for k in ("replicas", "replicas_alive", "requeues",
+                                             "failures", "routed_total")}, base or None)
 
     # ------------------------------------------------------------ routing
     def _load_of(self, eng: Engine) -> ReplicaLoad:
@@ -267,9 +291,14 @@ class ReplicaFleet:
             if any(p is not None for p in probes):
                 aff = np.asarray([p(req.tokens) if p is not None else 0 for p in probes],
                                  np.float32)
-            i = self.router.route(loads, mask, self._prefs, affinity=aff, rid=req.rid)
+            i = self.router.route(loads, mask, self._prefs, affinity=aff, rid=req.rid,
+                                  tenant=req.tenant)
             hit = int(aff[i]) if aff is not None else 0
             self.router.charge(loads, i, len(req.tokens), hit_tokens=hit)
+            tr = self.obs.trace
+            if tr.enabled:
+                tr.emit("route", slot=req.arrival_slot, rid=req.rid, pid=i, replica=i,
+                        affinity_hit=hit)
             self.replicas[i].submit([req])
 
     # ------------------------------------------------------------ serving
@@ -287,6 +316,8 @@ class ReplicaFleet:
                 eng.warm_decode(n_steps, sync=mode == "sync", chunked=mode == "chunked")
 
     def _step(self, default_mode: str, now: int, n_steps: int) -> dict:
+        if self.chaos is not None:
+            self.chaos.before_slot(now)
         served = active = admitted = 0
         per_step = [0] * n_steps
         for i, eng in enumerate(self.replicas):
@@ -335,6 +366,7 @@ class ReplicaFleet:
         release the rows they held. Returns them in admission order."""
         eng = self.replicas[i]
         requeued = []
+        tr = self.obs.trace
         # in-flight readbacks reference rows about to be recycled; the
         # packet is dropped, so those completions can never double-land
         eng._pending_read = None
@@ -350,6 +382,11 @@ class ReplicaFleet:
             req.start_slot = None
             req.first_token_slot = None
             requeued.append(req)
+            if tr.enabled:
+                tr.emit("requeue", rid=req.rid, row=row, pid=i, what="active")
+        if tr.enabled:
+            for req in eng.pending:
+                tr.emit("requeue", rid=req.rid, pid=i, what="pending")
         requeued.extend(eng.pending)
         eng.pending.clear()
         return requeued

@@ -24,6 +24,18 @@ slot's decision on the device, copies it into pinned host memory behind a
 CUDA event, and returns the previous slot's decision (one-slot-lagged
 control), so reading the controller never drains the card's stream.
 
+Decision recording. With an ``obs`` bundle whose decision log is live,
+every control-slot decision is recorded with its decomposition, recomputed
+on the host under the dispatch's own rule (``obs.explain_tables``), and
+every admission-precision latch flip with the occupancy that moved it.
+Recording never changes a decision and never synchronizes the card: a
+virtual queue's value Z(t), a tensor beside the policy's tables, rides the
+decision's own readback (one copy of both), so on the sync-free loop the
+record of slot t is written when slot t's decision is read, at slot t+1
+(``serve`` calls ``flush_decisions`` after its last slot). A latch flip
+records Z as the host holds it: read off a CPU tensor, else the last Z
+read back.
+
 ``AdaptiveScheduler`` / ``StaticScheduler`` / ``MemoryAwareScheduler`` /
 ``TokenAwareScheduler`` / ``PrecisionAwareScheduler`` are thin
 constructors over ``PolicyScheduler``.
@@ -31,8 +43,10 @@ constructors over ``PolicyScheduler``.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.control import (DriftPlusPenalty, MemoryAware, Policy, PrecisionAware,
@@ -40,6 +54,7 @@ from repro_torch.control import (DriftPlusPenalty, MemoryAware, Policy, Precisio
 from repro_torch.control.policy import as_f32
 from repro_torch.core.utility import Utility, paper_utility
 from repro_torch.device import resolve_device
+from repro_torch.obs import explain_tables, policy_tables
 
 
 @dataclasses.dataclass
@@ -49,6 +64,9 @@ class PolicyScheduler:
     policy: Policy = None  # type: ignore[assignment]
     capacity: int = 256
     device: Optional[str] = None
+    # an Observability bundle (repro_torch.obs): with its decision log live,
+    # every decision and every precision-latch flip is recorded
+    obs: Optional[object] = None
 
     def __post_init__(self):
         if self.policy is None:
@@ -59,7 +77,17 @@ class PolicyScheduler:
         self._carry = self.policy.init()
         self.dropped = 0
         self.rate_history: list = []
-        self._pending_rate = None  # control_async: (host copy, event) of the last decision
+        self._pending_rate = None  # control_async: the last decision's readback packet
+        self._decisions = self.obs.decisions if self.obs is not None else None
+        self._admit_precision = "native"
+        self._last_vq = 0.0        # the last virtual-queue value read back
+        # host float32 copies of the tables for recording (Static records
+        # no decomposition, as the reference's scheduler)
+        self._table_path = not isinstance(self.policy, Static) and hasattr(self.policy, "tables")
+        if self._table_path:
+            self._f_np, self._s_np, self._lam_np = policy_tables(self.policy)
+            cost = np.float32(getattr(self.policy, "vq_cost_per_rate", 0.0))
+            self._cost_np = cost * self._f_np
 
     def _on_device(self) -> torch.device:
         """Move the policy's tables and the carry on first use."""
@@ -92,7 +120,61 @@ class PolicyScheduler:
         if occupancy is None or not hasattr(self.policy, "admit_precision"):
             return None
         chosen, self._carry = self.policy.admit_precision(self._carry, occupancy)
+        prev, self._admit_precision = self._admit_precision, chosen
+        if chosen != prev and self._recording():
+            self._decisions.record_precision(t=len(self.rate_history),
+                                             occupancy=float(occupancy), vq=self._host_vq(),
+                                             prev=prev, chosen=chosen)
         return chosen
+
+    # ------------------------------------------------------------ recording
+    def _recording(self) -> bool:
+        return self._decisions is not None and self._decisions.enabled
+
+    def _vq(self):
+        """The carry's virtual-queue value as the decision will price it: a
+        host float, or a 0-d tensor beside the tables (read back with the
+        decision, never alone)."""
+        v = getattr(self._carry, "value", 0.0)
+        return float(v) if isinstance(v, numbers.Real) else v
+
+    def _host_vq(self) -> float:
+        """Z without a readback: a host value, a CPU tensor's, or else the
+        last one read back with a decision."""
+        v = self._vq()
+        if isinstance(v, torch.Tensor):
+            return float(v) if v.device.type == "cpu" else self._last_vq
+        return v
+
+    def _record(self, t: int, backlog, vq: float, applied: float, lagged: bool) -> None:
+        """Log one control decision with its host-recomputed decomposition
+        (table policies; Static records the scalar inputs only)."""
+        self._last_vq = vq
+        V = float(getattr(self.policy, "V", 0.0))
+        if not self._table_path:
+            self._decisions.record_rate(t=t, backlog=float(backlog), vq=vq, V=V,
+                                        chosen=applied, lagged=lagged)
+            return
+        ex = explain_tables(float(backlog), self._f_np, self._s_np, self._lam_np, V,
+                            vq=vq, cost_tab=self._cost_np)
+        self._decisions.record_rate(t=t, backlog=float(backlog), vq=vq, V=V, chosen=applied,
+                                    rates=ex["rates"], drift=ex["drift"],
+                                    penalty=ex["penalty"], argmax=ex["argmax"], lagged=lagged)
+
+    def flush_decisions(self) -> None:
+        """Write the record still waiting on its readback (the sync-free
+        loop's last decision, when Z lives on the card); waits for that
+        copy once. A no-op otherwise."""
+        p = self._pending_rate
+        if p is not None and p["record"] is not None:
+            if p["event"] is not None:
+                p["event"].synchronize()
+            self._complete_record(p)
+
+    def _complete_record(self, p: dict) -> None:
+        t, backlog = p["record"]
+        p["record"] = None
+        self._record(t, backlog, float(p["host"][1]), self.rate_history[t], lagged=True)
 
     def _act(self, backlog: int) -> torch.Tensor:
         """Evaluate the policy on the device; the (unread) decision."""
@@ -109,8 +191,16 @@ class PolicyScheduler:
         the policy acts."""
         self._on_device()
         self._observe(occupancy, token_backlog, quant_occupancy)
-        f = float(self._act(backlog))
+        rec = self._recording()
+        vq = self._vq() if rec else 0.0
+        f_star = self._act(backlog)
+        if isinstance(vq, torch.Tensor):   # one readback of both
+            f, vq = (float(x) for x in torch.stack([f_star.double(), vq.double()]).cpu())
+        else:
+            f = float(f_star)
         self.rate_history.append(f)
+        if rec:
+            self._record(len(self.rate_history) - 1, backlog, vq, f, lagged=False)
         return f
 
     def control_async(self, backlog: int, occupancy: Optional[float] = None,
@@ -126,24 +216,41 @@ class PolicyScheduler:
         ``Static`` returns its rate with no device work."""
         self._on_device()
         self._observe(occupancy, token_backlog, quant_occupancy)
+        rec = self._recording()
+        vq = self._vq() if rec else 0.0
+        t = len(self.rate_history)
         if isinstance(self.policy, Static):
             f = float(self.policy.rate)
             self.rate_history.append(f)
+            if rec:
+                self._record(t, backlog, float(vq), f, lagged=False)
             return f
         f_star = self._act(backlog)
+        # a tensor Z rides the decision's copy: [f*, Z] in float64
+        paired = isinstance(vq, torch.Tensor)
+        out = torch.stack([f_star.double(), vq.double()]) if paired else f_star
         if self._dev.type == "cuda":
-            host = torch.empty(f_star.shape, dtype=f_star.dtype, pin_memory=True)
-            host.copy_(f_star, non_blocking=True)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
         else:
-            host, event = f_star, None
-        prev, self._pending_rate = self._pending_rate, (host, event)
-        host, event = prev if prev is not None else self._pending_rate
-        if event is not None:
-            event.synchronize()   # recorded a slot ago: the card is past it
-        f = float(host)
+            host, event = out, None
+        packet = {"host": host, "event": event, "pair": paired,
+                  "record": (t, backlog) if paired else None}
+        prev, self._pending_rate = self._pending_rate, packet
+        p = prev if prev is not None else packet
+        if p["event"] is not None:
+            p["event"].synchronize()   # recorded a slot ago: the card is past it
+        f = float(p["host"][0]) if p["pair"] else float(p["host"])
         self.rate_history.append(f)
+        if rec:
+            # the applied rate is the previous slot's decision; the record
+            # explains this slot's argmax (chosen may differ)
+            if p["record"] is not None:
+                self._complete_record(p)
+            if not paired:
+                self._record(t, backlog, vq, f, lagged=True)
         return f
 
     def admit(self, engine, reqs: list, now: int) -> list:
@@ -162,20 +269,21 @@ def AdaptiveScheduler(
     utility: Optional[Utility] = None,
     capacity: int = 256,
     device: Optional[str] = None,
+    obs=None,
 ) -> PolicyScheduler:
     """Algorithm-1 scheduler (historical constructor)."""
     policy = DriftPlusPenalty(
         rates=tuple(float(f) for f in rates), V=V,
         utility=utility or paper_utility(max(rates)),
     )
-    return PolicyScheduler(policy=policy, capacity=capacity, device=device)
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device, obs=obs)
 
 
 def StaticScheduler(rate: float = 10.0, capacity: int = 256,
-                    device: Optional[str] = None) -> PolicyScheduler:
+                    device: Optional[str] = None, obs=None) -> PolicyScheduler:
     """Paper baseline: fixed sampling rate, no queue awareness."""
     return PolicyScheduler(policy=Static(rate=float(rate)), capacity=capacity,
-                           device=device)
+                           device=device, obs=obs)
 
 
 def MemoryAwareScheduler(
@@ -186,6 +294,7 @@ def MemoryAwareScheduler(
     mem_gain: float = 1.0,
     capacity: int = 256,
     device: Optional[str] = None,
+    obs=None,
 ) -> PolicyScheduler:
     """Algorithm-1 scheduler that also prices page-pool occupancy."""
     policy = MemoryAware(
@@ -193,7 +302,7 @@ def MemoryAwareScheduler(
         pages_per_request=pages_per_request,
         occupancy_budget=occupancy_budget, mem_gain=mem_gain,
     )
-    return PolicyScheduler(policy=policy, capacity=capacity, device=device)
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device, obs=obs)
 
 
 def TokenAwareScheduler(
@@ -204,6 +313,7 @@ def TokenAwareScheduler(
     tok_gain: float = 1.0,
     capacity: int = 256,
     device: Optional[str] = None,
+    obs=None,
 ) -> PolicyScheduler:
     """Algorithm-1 scheduler that also prices pending prompt tokens (pairs
     with the engine's ``token_backlog()`` observation)."""
@@ -212,7 +322,7 @@ def TokenAwareScheduler(
         tokens_per_request=tokens_per_request,
         token_budget=token_budget, tok_gain=tok_gain,
     )
-    return PolicyScheduler(policy=policy, capacity=capacity, device=device)
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device, obs=obs)
 
 
 def PrecisionAwareScheduler(
@@ -226,6 +336,7 @@ def PrecisionAwareScheduler(
     quant_precision: str = "int8",
     capacity: int = 256,
     device: Optional[str] = None,
+    obs=None,
 ) -> PolicyScheduler:
     """Algorithm-1 scheduler with the quantized-page admission lever: the
     serve loop asks ``admit_precision(engine occupancy)`` each slot for the
@@ -240,4 +351,4 @@ def PrecisionAwareScheduler(
         downgrade_at=downgrade_at, upgrade_at=upgrade_at,
         quant_precision=quant_precision,
     )
-    return PolicyScheduler(policy=policy, capacity=capacity, device=device)
+    return PolicyScheduler(policy=policy, capacity=capacity, device=device, obs=obs)

@@ -103,6 +103,8 @@ def serve(engine, scheduler, source: RequestSource, *,
         # flush the in-flight slot's readback so the totals match the
         # synchronous paths; its completions belong to the last slot
         trace["served"][-1] += engine.drain()["served"]
+    if hasattr(scheduler, "flush_decisions"):
+        scheduler.flush_decisions()   # a decision record still awaiting its readback
     return {k: np.asarray(v) for k, v in trace.items()}
 
 
@@ -113,7 +115,10 @@ def latency_stats(engine: Engine) -> dict:
     finish_slot), each guarded on its own list. ``ttft`` is arrival to the
     slot whose dispatch emitted the first generated token; ``queue_wait``
     is arrival to engine claim. ``admitted_but_unfinished`` counts requests
-    holding an engine row or queue slot at shutdown.
+    holding an engine row or queue slot at shutdown. A multi-tenant
+    workload adds ``tenants``: per tenant its count, TTFT percentiles and
+    deadline attainment (the samples ``ConformalSLO`` calibrates on); a
+    single-tenant run keeps the flat dict.
     """
     waits = [r.start_slot - r.arrival_slot for r in engine.finished
              if r.start_slot is not None]
@@ -138,4 +143,22 @@ def latency_stats(engine: Engine) -> dict:
     if ttfts:
         out["ttft_p50"] = float(np.percentile(ttfts, 50))
         out["ttft_p99"] = float(np.percentile(ttfts, 99))
+    tenants = {r.tenant for r in engine.finished}
+    if tenants - {"default"}:
+        out["tenants"] = {}
+        for name in sorted(tenants):
+            rs = [r for r in engine.finished if r.tenant == name]
+            tt = [r.first_token_slot - r.arrival_slot for r in rs
+                  if r.first_token_slot is not None]
+            entry = {"n": len(rs)}
+            if tt:
+                entry["ttft_p50"] = float(np.percentile(tt, 50))
+                entry["ttft_p99"] = float(np.percentile(tt, 99))
+            with_deadline = [r for r in rs if r.deadline_slots is not None
+                             and r.first_token_slot is not None]
+            if with_deadline:
+                ontime = sum(r.first_token_slot - r.arrival_slot <= r.deadline_slots
+                             for r in with_deadline)
+                entry["attainment"] = ontime / len(with_deadline)
+            out["tenants"][name] = entry
     return out

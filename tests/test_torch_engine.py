@@ -130,12 +130,22 @@ def test_launcher_summary_line_matches_reference():
     assert ours[1] == ref[1]  # the latency dict too
 
 
-def test_launcher_refuses_unported_paths():
+def test_launcher_refuses_unported_paths(capsys):
+    """The model zoo beyond dense and SSM stacks still raises naming its
+    ROADMAP.md queue-1 item; the observability and reliability flags run
+    (their lines are held to the reference's in tests/test_torch_obs.py
+    and tests/test_torch_reliability.py)."""
     from repro_torch.launch import serve as launcher
-    for argv in (["--policy", "conformal-slo"],
+    for arch in ("olmoe-1b-7b", "recurrentgemma-2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+            launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--horizon", "2"])
+    for argv in (["--policy", "conformal-slo", "--tenants", "gold:1:1:6"],
                  ["--tenants", "gold:1:1:6"], ["--metrics"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-            launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", *argv])
+        launcher.main(["--arch", "granite-3-2b", "--smoke", "--device", "cpu", "--horizon", "2",
+                       *argv])
+    out = capsys.readouterr().out
+    assert "slo: degrade_level=" in out and "# TYPE repro_steps counter" in out
+    assert "'tenants': {'gold'" in out
 
 
 def test_engine_defaults_to_the_card():

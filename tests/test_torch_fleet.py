@@ -230,8 +230,14 @@ def test_router_rejects_unroutable_fleet():
         r.route(np.zeros(2, np.float32), [False, False], np.ones(2, np.float32))
     with pytest.raises(ValueError, match="not in"):
         FleetRouter(kind="random")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FleetRouter(decisions=object())
+    # a decision log records the refused route no more than any other: the
+    # refusal comes first
+    from repro_torch.obs import DecisionLog
+    log = DecisionLog()
+    with pytest.raises(RuntimeError, match="no routable replica"):
+        FleetRouter(decisions=log).route(np.zeros(2, np.float32), [False, False],
+                                         np.ones(2, np.float32))
+    assert not log.routes
 
 
 # ------------------------------------------------------ failure and drain
@@ -467,7 +473,10 @@ def test_mixed_mode_fleet():
 
 def test_fleet_surface_and_unported_hooks():
     """The single-engine surface the serve loop and the launcher read, and
-    the reference's observability hooks, which raise naming item 10."""
+    the reference's observability and fault-injection hooks: ``obs=``
+    reaches every replica under its index as the trace pid and the
+    router's decision log, ``chaos=`` arms every replica and the fleet,
+    and ``export_metrics`` publishes per-replica labelled families."""
     fleet = ReplicaFleet.build(lambda: _port_mk_engine("paged"), 2)
     assert fleet.device.type == "cpu" and hasattr(fleet, "occupancy")
     assert fleet.replicas[0].model is fleet.replicas[1].model   # one set of weights
@@ -476,11 +485,19 @@ def test_fleet_surface_and_unported_hooks():
     c = fleet.counters()
     assert c["replicas"] == c["replicas_alive"] == 2 and c["routed_total"] == 0
     assert not hasattr(ReplicaFleet.build(lambda: _port_mk_engine("dense"), 2), "occupancy")
-    for kw in ({"obs": object()}, {"chaos": object()}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            ReplicaFleet.build(lambda: _port_mk_engine("dense"), 2, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        fleet.export_metrics()
+    from repro_torch.obs import OBS_OFF, observability
+    from repro_torch.reliability import ChaosInjector
+    bundle, chaos = observability(), ChaosInjector(seed=0)
+    watched = ReplicaFleet.build(lambda: _port_mk_engine("paged"), 2, obs=bundle, chaos=chaos)
+    assert [e.obs_pid for e in watched.replicas] == [0, 1]
+    assert all(e.obs is bundle for e in watched.replicas)
+    assert watched.router.decisions is bundle.decisions and watched.chaos is chaos
+    assert chaos.engines == watched.replicas and all(e._chaos is chaos for e in watched.replicas)
+    watched.export_metrics()
+    snap = bundle.registry.snapshot()
+    assert snap['repro_steps{replica="1"}'] == 0 and snap["repro_replicas_alive"] == 2
+    assert fleet.obs is OBS_OFF and fleet.chaos is None
+    fleet.export_metrics()   # no registry: a no-op
 
 
 # ---------------------------------------------------------------- launcher
