@@ -92,7 +92,20 @@ log. chaos_shared_x2 runs the reference's shared-x2 chaos cell at full
 width (two paged prefix-sharing replicas, ``reliability.harness.
 chaos_drive`` with replica failure, allocator shortfalls, readback delays
 and prefix evictions): streams equal one clean engine's but at near-ties,
-everything retires once, no page leaks. sampling holds
+everything retires once, no page leaks. The MoE
+stacks: moe_model (full-width olmoe-1b-7b, prefill of 8 x 512 padded
+prompts through K1 and 16 decode steps through K2, the plain path handed
+the kernel path's experts and held to MODEL_TOL, every routing it would
+choose otherwise at a router-logit gap below MOE_ROUTE_TIE, a
+tile-skipping decode beside it failing that rule, and the smoke model on
+the card against the CPU path), moe_paged_model (olmoe's paged decode at
+16 rows, 5 live among 11 free, capacity drops every step, K3 against the
+plain version under the same rule, a K3 that gives free rows zeros
+failing it), K1, K2 and K3 at olmoe's shapes among the kernels and K2,
+K2q, K3 and K3q on rows with no valid slot (``check_free_rows``), then
+moe_serve, moe_sync_serve and moe_paged_serve (each with its
+profile) and deepseek_moe_serve (deepseek-moe-16b cut to 4 layers), their
+traces held to the CPU run's. sampling holds
 per-request sampling on the card to the CPU (the threefry keys and random
 bits over the vocabulary bit for bit, ``sample_rows``' tokens but at
 near-ties), and sampled_serve and sampled_chunked_serve serve the main and
@@ -207,6 +220,31 @@ PAGED_CHUNK_MODEL_TOL = 0.16
 # that drops the state carried between chunks lands 0.18-0.27 away at the
 # steps after each chunk boundary.
 SSM_MODEL_TOL = 0.15
+# olmoe-1b-7b (arXiv:2409.02060) at its published widths: 16 layers, d 2048,
+# 16 query heads on 16 KV heads (hd 128), qk-norm, 64 experts top-8 of width
+# 1024, vocabulary 50,304, bf16, seeded random weights, on the main path's
+# geometry. MoE is not ragged (capacity couples the tokens of a dispatch),
+# so every admission prefills the whole 512-token bucket through K1, and a
+# paged request holds the bucket's 32 pages.
+MOE_ARGS = SERVE_ARGS + ["--arch", "olmoe-1b-7b"]
+MOE_SYNC_ARGS = MOE_ARGS + ["--sync-free"]
+MOE_PAGED_ARGS = MOE_ARGS + PAGED_POOL + ["--policy", "memory-aware"]
+# deepseek-moe-16b (arXiv:2401.06066) at its published widths (d 2048, 16
+# heads, 64 experts top-6 of width 1408, 2 shared experts, vocabulary
+# 102,400), cut from 28 layers to its dense first layer and 3 MoE layers
+DEEPSEEK_ARGS = SERVE_ARGS + ["--arch", "deepseek-moe-16b"]
+DEEPSEEK_LAYERS = 4
+# check_moe_model's routing rule. The kernel path and the plain one round
+# bf16 hidden states at other points, so a router near-tie among 4,096
+# prompt tokens x 16 layers can pick other experts, and one other expert
+# moves a token's output by far more than MODEL_TOL. So the plain path is
+# handed the kernel path's experts (its own router probabilities gathered at
+# them), its logits must stay within MODEL_TOL, and wherever its own top-8
+# set differs from the kernel path's, the gap between its 8th and 9th
+# router logits must be below MOE_ROUTE_TIE: what rounding can reverse.
+# Expected: router logits ~N(0, 1), their 8th-9th gap ~0.08 typical; the
+# paths' logits part by ~1e-3 to 1e-2, so reversed pairs sit below ~0.05.
+MOE_ROUTE_TIE = 0.1
 
 
 T0 = time.perf_counter()
@@ -521,8 +559,10 @@ def check_kernels(timer) -> dict:
     # K3: the paged serve's shape (16 rows, 64-page tables of 16 rows), pos
     # spread over 128-1023, tables over a random permutation of the pool
     # with trailing -1, garbage in every row no table reaches; the small
-    # case adds an inactive row (no valid slot: the kernel writes zeros,
-    # the plain version averages garbage page 0, so it is checked apart)
+    # case adds an inactive row (no valid slot: the kernel and the plain
+    # version average page 0, here garbage of +-1e30 whose sum depends on
+    # the order of the adds, so it is only held finite; check_free_rows
+    # holds such rows to the plain version over clean pools)
     rng = np.random.default_rng(3)
     for B, MP, ps, H, KVH, hd, dtype, main in ((16, 64, 16, 32, 8, 64, torch.bfloat16, True),
                                                (16, 64, 16, 32, 8, 64, torch.float32, False),
@@ -541,21 +581,11 @@ def check_kernels(timer) -> dict:
         env = ref.paged_decode_attention_ref(q, k, v.abs(), bt, pos)
         got = fn()
         torch.cuda.synchronize()
-        if got[~has].any():
-            raise AssertionError(f"{case}: a row with no valid slot is not zeros")
-        N = k.shape[0]
-        flat = bt.clamp(0, N - 1).flatten()
-        valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
-                 & (torch.arange(MP * ps, device="cuda")[None, :] <= pos[:, None]))
-        mask = valid[:, None, None, :]
-
-        def lib(flat=flat, mask=mask, q=q, k=k, v=v, B=B, MP=MP, ps=ps, KVH=KVH, hd=hd):
-            kk = k.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
-            vv = v.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
-            return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
-                                                  enable_gqa=True)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{case}: a row is not finite")
         record(case, "paged_decode_attention", dtype, got[has], plain()[has], env[has], fn,
-               plain, lib, _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), main,
+               plain, _paged_library(q, k, v, bt, pos),
+               _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), main,
                library="index_select of the K and V pages + scaled_dot_product_attention")
     # K4: the chunked serve's shape (8 rows, chunks of 128, ring 1024) with
     # the chunk mix above; the small case has an inactive row too
@@ -586,6 +616,8 @@ def check_kernels(timer) -> dict:
                **_chunk_tiles(H, C, p0_np, nv_np,
                               lambda b, last, p0_np=p0_np, L=L: last
                               if p0_np[b] >= 0 and last <= L else L))
+    check_moe_shapes(randn, record, sdpa_prefill)
+    check_free_rows(rng, randn, record)
     check_flash_anatomy(timer)
     check_quant_kernel(rng, record)
     check_quant_attention_kernels(rng, record)
@@ -594,6 +626,164 @@ def check_kernels(timer) -> dict:
     check_ssd_kernel(record)
     rows.update(check_ssd_anatomy(timer))
     return rows
+
+
+def _paged_library(q, k, v, bt, pos):
+    """K3's library route: gather each row's pages (index_select), then one
+    scaled_dot_product_attention call over the masked slots."""
+    B, MP = bt.shape
+    N, ps, KVH, hd = k.shape
+    flat = bt.clamp(0, N - 1).flatten()
+    valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
+             & (torch.arange(MP * ps, device="cuda")[None, :] <= pos[:, None]))
+    mask = valid[:, None, None, :]
+
+    def lib():
+        kk = k.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+        vv = v.index_select(0, flat).view(B, MP * ps, KVH, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kk, vv, attn_mask=mask,
+                                              enable_gqa=True)
+    return lib
+
+
+def check_moe_shapes(randn, record, sdpa_prefill) -> None:
+    """K1, K2 and K3 at olmoe-1b-7b's serving shapes (16 query heads on 16
+    KV heads, hd 128: a group of one), each with its device time, bound and
+    library time: K1 over an MoE admission's padded bucket (8 rows of 512,
+    no ragged lengths), K2 over the ring of 1024 and K3 over the paged
+    serve's tables (16 rows, 64 pages of 16), rows at the positions of a
+    prompt padded to 512 plus up to 28 decode steps."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(28)
+    dtype, H, KVH, hd = torch.bfloat16, 16, 16, 128
+    B, S, L = 8, 512, 1024
+    q = randn((B, S, H, hd), dtype)
+    k, v = randn((B, S, KVH, hd), dtype), randn((B, S, KVH, hd), dtype)
+    fn = lambda: kf.flash_attention(q, k, v)
+    plain = lambda: ref.attention_ref(q, k, v)
+    record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 olmoe-1b-7b admission",
+           "flash_attention", dtype, fn(), plain(), ref.attention_ref(q, k, v.abs()), fn,
+           plain, sdpa_prefill(q, k, v, None, None, True),
+           _prefill_work(B, S, H, KVH, hd, q.element_size(), None, None), False, device=True,
+           instantiation=KERNEL_ROUTE[dtype])
+
+    pos_np = (S + rng.integers(0, 29, B)).astype(np.int32)
+    sp_np = _ring_slot_pos(B, L, pos_np)
+    q = randn((B, H, hd), dtype)
+    k, v = randn((B, L, KVH, hd), dtype), randn((B, L, KVH, hd), dtype)
+    sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kd.decode_attention(q, k, v, sp, pos)
+    plain = lambda: ref.decode_attention_ref(q, k, v, sp, pos)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    record(f"decode_attention B{B} L{L} H{H}/{KVH} hd{hd} bf16 olmoe-1b-7b pos 512-540",
+           "decode_attention", dtype, fn(), plain(),
+           ref.decode_attention_ref(q, k, v.abs(), sp, pos), fn, plain, lib,
+           _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, None), False,
+           device=True)
+
+    B, MP, ps = 16, 64, 16
+    k_np, v_np, bt_np, pos_np = _paged_inputs(rng, B, MP, ps, KVH, hd,
+                                              (S + rng.integers(0, 29, B)).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(dtype)
+    k, v = (torch.from_numpy(a).cuda().to(dtype) for a in (k_np, v_np))
+    bt, pos = torch.from_numpy(bt_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kp.paged_decode_attention(q, k, v, bt, pos)
+    plain = lambda: ref.paged_decode_attention_ref(q, k, v, bt, pos)
+    record(f"paged_decode_attention B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} bf16 olmoe-1b-7b "
+           "pos 512-540", "paged_decode_attention", dtype, fn(), plain(),
+           ref.paged_decode_attention_ref(q, k, v.abs(), bt, pos), fn, plain,
+           _paged_library(q, k, v, bt, pos),
+           _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), False, device=True,
+           library="index_select of the K and V pages + scaled_dot_product_attention")
+
+
+def check_free_rows(rng, randn, record) -> None:
+    """Rows with no valid slot, as an engine's free rows carry, at
+    olmoe-1b-7b's decode shapes (16 query heads on 16 KV heads, hd 128,
+    bf16) over clean K/V: K2 over rings of 1024 (an empty ring, a ring of
+    later positions only, six live rows at 512-540) and K2q over their int8
+    codes; K3 over the paged serve's tables (16 rows, 64 pages of 16: 5
+    live at 512-540 in rows 2, 5, 9, 12 and 15, 11 free with all -1 tables
+    at pos 0 or a stale 600, page 0 one of the live rows') and K3q over a
+    mixed pool (the lower half of the ids native, the upper int8). Every
+    row is held to the plain version: its uniform softmax over masked
+    scores averages the whole ring, or every table slot with -1 read as
+    page 0 (quantized page 0 on the mixed pool). A free row's work is its
+    V, read once."""
+    from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import paged_attention_quant as kq
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.quant import quantize_kv
+
+    dtype, H, KVH, hd, esize = torch.bfloat16, 16, 16, 128, 2
+    int8 = parse_kv_precision("int8")
+    B, L = 8, 1024
+    pos_np = (512 + rng.integers(0, 29, B)).astype(np.int32)
+    sp_np = _ring_slot_pos(B, L, pos_np)
+    sp_np[0] = -1                                # an empty ring
+    sp_np[1] = np.arange(L) + pos_np[1] + 1      # positions after pos only
+    q = randn((B, H, hd), dtype)
+    k, v = randn((B, L, KVH, hd), dtype), randn((B, L, KVH, hd), dtype)
+    sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kd.decode_attention(q, k, v, sp, pos)
+    plain = lambda: ref.decode_attention_ref(q, k, v, sp, pos)
+    nbytes, flops = _decode_work(B, L, H, KVH, hd, esize, sp_np, pos_np, None)
+    record(f"decode_attention B{B} L{L} H{H}/{KVH} hd{hd} bf16 2 rows with no valid slot",
+           "decode_attention", dtype, fn(), plain(),
+           ref.decode_attention_ref(q, k, v.abs(), sp, pos), fn, plain, None,
+           (nbytes + 2 * L * KVH * hd * esize, flops + 2 * 2.0 * hd * H * L), False)
+    qk, ks = quantize_kv(k, int8)
+    qv, vs = quantize_kv(v, int8)
+    fn = lambda: kd.decode_attention_quant(q, qk, qv, ks, vs, sp, pos)
+    plain = lambda: ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos)
+    nbytes, flops = _decode_quant_work(B, L, H, KVH, hd, esize, sp_np, pos_np, None)
+    record(f"decode_attention_quant int8 B{B} L{L} H{H}/{KVH} hd{hd} bf16 2 rows with no "
+           "valid slot", "decode_attention_quant", dtype, fn(), plain(),
+           ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos), fn, plain,
+           None, (nbytes + 2 * L * KVH * (hd + 4), flops + 2 * 2.0 * hd * H * L), False)
+
+    B, MP, ps = 16, 64, 16
+    N = B * MP
+    live = [2, 5, 9, 12, 15]
+    pos_np = np.where(np.arange(B) % 2, 600, 0).astype(np.int32)
+    pos_np[live] = 512 + rng.integers(0, 29, len(live))
+    perm = rng.permutation(N).astype(np.int32)
+    perm = np.concatenate(([0], perm[perm != 0]))   # page 0 holds a live row's first slots
+    bt_np = np.full((B, MP), -1, np.int32)
+    for i, b in enumerate(live):
+        n = pos_np[b] // ps + 1
+        bt_np[b, :n] = perm[i * MP: i * MP + n]
+    q = randn((B, H, hd), dtype)
+    k, v = randn((N, ps, KVH, hd), dtype), randn((N, ps, KVH, hd), dtype)
+    bt, pos = torch.from_numpy(bt_np).cuda(), torch.from_numpy(pos_np).cuda()
+    free_flops = 2.0 * hd * H * MP * ps * (B - len(live))
+    fn = lambda: kp.paged_decode_attention(q, k, v, bt, pos)
+    plain = lambda: ref.paged_decode_attention_ref(q, k, v, bt, pos)
+    nbytes, flops = _paged_work(H, KVH, hd, esize, ps, bt_np, pos_np)
+    record(f"paged_decode_attention B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} bf16 "
+           f"{B - len(live)} free rows", "paged_decode_attention", dtype, fn(), plain(),
+           ref.paged_decode_attention_ref(q, k, v.abs(), bt, pos), fn, plain, None,
+           (nbytes + ps * KVH * hd * esize, flops + free_flops), False)
+    Nn = N // 2
+    qk, ks = quantize_kv(k[Nn:], int8)
+    qv, vs = quantize_kv(v[Nn:], int8)
+    kn, vn = k[:Nn], v[:Nn]
+    fn = lambda: kq.paged_decode_attention_quant(q, kn, vn, qk, qv, ks, vs, bt, pos)
+    plain = lambda: ref.paged_decode_attention_mixed_ref(q, kn, vn, qk, qv, ks, vs, bt, pos)
+    nbytes, flops = _quant_work(H, KVH, hd, esize, ps, Nn, bt_np, pos_np)
+    record(f"paged_decode_attention_quant mixed B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} bf16 "
+           f"{B - len(live)} free rows", "paged_decode_attention_quant", dtype, fn(), plain(),
+           ref.paged_decode_attention_mixed_ref(q, kn, vn.abs(), qk, _abs_codes(qv), ks, vs, bt,
+                                                pos), fn, plain, None,
+           (nbytes + ps * KVH * (hd + 4), flops + free_flops), False)
 
 
 def check_flash_anatomy(timer) -> None:
@@ -787,13 +977,16 @@ def check_quant_kernel(rng, record) -> None:
     """K3q at K3's main-path shape (16 rows, 64-page tables of 16 rows, H
     32/8, hd 64) in bf16 and f32, over an all-int8 pool, an all-fp8 pool
     and a mixed pool (the lower half native, the upper half int8): rows 1-3
-    at page-boundary positions, an inactive row 0 (all -1: the kernel
-    writes zeros, checked apart), unallocated table tails, +-1e30 garbage
+    at page-boundary positions, an inactive row 0 (all -1: the mean of
+    garbage page 0, held finite here and to the plain version over clean
+    pools in ``check_free_rows``), unallocated table tails, +-1e30 garbage
     (quantized to +-qmax codes) in every row no table reaches. The mixed
     bf16 case is the quantized serve's and goes into the ``kernels`` line.
     Each case also holds K3q to K3 over the same pool with its code pages
     dequantized (``dequantize_kv``) after the native ones, under the same
-    table ids: equal bit for bit, as both run decode_core.cuh."""
+    table ids: equal bit for bit on every row with a valid slot, as both
+    run decode_core.cuh (row 0 reads quantized page 0 in K3q and native
+    page 0 in K3, as their plain versions do)."""
     from repro_torch.cache import parse_kv_precision
     from repro_torch.kernels import paged_attention as kp
     from repro_torch.kernels import paged_attention_quant as kq
@@ -837,9 +1030,9 @@ def check_quant_kernel(rng, record) -> None:
                 kk, vv = torch.cat((k, kk)), torch.cat((v, vv))
             native = kp.paged_decode_attention(q, kk, vv, bt, pos)
             torch.cuda.synchronize()
-            if got[~has].any():
-                raise AssertionError(f"{case}: a row with no valid slot is not zeros")
-            if not torch.equal(got, native):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{case}: a row is not finite")
+            if not torch.equal(got[has], native[has]):
                 raise AssertionError(f"{case}: not K3 over the dequantized pool bit for bit")
             flat = bt.clamp(0, k_np.shape[0] - 1).flatten()
             valid = (torch.repeat_interleave(bt >= 0, ps, dim=1)
@@ -2384,6 +2577,293 @@ def check_ssm_model() -> dict:
 
 # --------------------------------------------------------------- serve
 # kernels each path must launch
+def _moe_routing(forced=None):
+    """Route one path's MoE blocks through a wrapper of ``models.moe.route``:
+    without ``forced`` it keeps each call's experts and router
+    probabilities; with ``forced`` (another path's record) it hands back
+    that path's experts call by call, with this path's probabilities
+    gathered at them, and notes for each token whether this path's own
+    top-k set differs, the gap between its k-th and (k+1)-th router logits
+    (log-probabilities: the same gap) and the largest |difference| of the
+    paths' log-probabilities. Returns (record, notes, restore)."""
+    from repro_torch.models import moe as MOE
+
+    route, record, notes = MOE.route, [], []
+
+    def routed(probs, k):
+        p, e = route(probs, k)
+        if forced is None:
+            record.append((e, probs))
+            return p, e
+        fe, fprobs = forced[len(record)]
+        record.append((e, probs))
+        mine = torch.zeros_like(probs, dtype=torch.bool).scatter_(-1, e, True)
+        theirs = torch.zeros_like(mine).scatter_(-1, fe, True)
+        top = probs.sort(dim=-1, descending=True).values.log()
+        notes.append(((mine != theirs).any(-1), top[:, k - 1] - top[:, k],
+                      (probs.log() - fprobs.log()).abs().amax()))
+        return probs.gather(-1, fe), fe
+    MOE.route = routed
+    return record, notes, lambda: setattr(MOE, "route", route)
+
+
+def _route_rule(lk, lp, notes) -> dict:
+    """check_moe_model's rule over one path held to the kernel path's
+    routing: its logits within MODEL_TOL of the kernel path's, and every
+    token whose own top-k set differs at a router-logit gap below
+    MOE_ROUTE_TIE."""
+    flips = torch.cat([d for d, _, _ in notes])
+    gaps = torch.cat([g for _, g, _ in notes])
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    worst = gaps[flips].max().item() if bool(flips.any()) else 0.0
+    return {"max_abs_err_per_step": errs, "routings": int(flips.numel()),
+            "routing_flips": int(flips.sum()), "max_flip_logit_gap": worst,
+            "max_abs_log_prob_diff": max(float(m) for _, _, m in notes),
+            "passes": max(errs) <= MODEL_TOL and worst < MOE_ROUTE_TIE}
+
+
+def check_moe_model() -> dict:
+    """Full-width olmoe-1b-7b: a padded prefill of 8 x 512 (prompts of
+    512, 300, 129, 1, 512, 64, 200 and 511 tokens, zero pads, as the
+    engine pads them; K1) and 16 greedy decode steps (K2), through the
+    kernels and through the plain versions on the same weights and fed
+    tokens. The plain path takes the kernel path's experts (``_moe_routing``)
+    and must pass ``_route_rule``; a path whose decode attention skips one
+    KV tile, under the same routing, must fail it. The drops of each
+    prefill layer (capacity 640 for 4,096 tokens) are counted from the
+    kernel path's experts. Then the smoke config on the card against the
+    CPU path the CPU tests hold against the JAX package (float32 both)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = get_config("olmoe-1b-7b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L = 8, 512, 1024
+    rng = np.random.default_rng(0)
+    toks = rng.integers(1, cfg.vocab_size, (B, S)).astype(np.int32)
+    for b, n in enumerate((512, 300, 129, 1, 512, 64, 200, 511)):
+        toks[b, n:] = 0
+    toks = torch.from_numpy(toks).cuda()
+    plain, faulty = _attention_impls()
+    record, _, restore = _moe_routing()
+    try:
+        lk = _greedy_logits(model, toks, L, None, ops)
+    finally:
+        restore()
+    feed = lk[:-1].argmax(-1).to(torch.int32)   # every path decodes the same tokens
+    rules = {}
+    for name, impl in (("plain", plain), ("tile_skipping_decode", faulty)):
+        _, notes, restore = _moe_routing(forced=record)
+        try:
+            lp = _greedy_logits(model, toks, L, None, impl, feed)
+        finally:
+            restore()
+        rules[name] = _route_rule(lk, lp, notes)
+        if name == "plain":
+            top2 = lp.topk(2, dim=-1).values
+            sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+            rules[name].update(logit_scale=lp.abs().max().item(), tokens_checked=int(sure.sum()),
+                               token_mismatches_beyond_margin=int(
+                                   (lk.argmax(-1) != lp.argmax(-1))[sure].sum()))
+        del lp, notes
+    torch.cuda.synchronize()
+    C = expert_capacity(B * S, cfg)
+    drops = [int((torch.bincount(e.flatten(), minlength=cfg.n_experts) - C).clamp_min(0).sum())
+             for e, _ in record[:cfg.n_layers]]
+    res = {"tol": MODEL_TOL, "route_tie": MOE_ROUTE_TIE, "capacity": C,
+           "prefill_assignments_dropped_per_layer": drops, **rules}
+    bad = not (torch.isfinite(lk).all() and lk.shape == (17, B, cfg.vocab_size))
+    del lk, record
+    if bad:
+        emit("moe_model", **res)
+        raise AssertionError("bad kernel-path logits")
+    if not rules["plain"]["passes"] or rules["plain"]["token_mismatches_beyond_margin"]:
+        emit("moe_model", **res)
+        raise AssertionError("the MoE kernel path and plain path disagree")
+    if rules["tile_skipping_decode"]["passes"]:
+        emit("moe_model", **res)
+        raise AssertionError("the routing rule does not catch a skipped KV tile")
+    res["paged"] = check_moe_paged(model)
+    del model
+    torch.cuda.empty_cache()
+
+    smoke = get_config("olmoe-1b-7b", smoke=True)
+    cpu_m = init_params(smoke, seed=0, device="cpu")
+    gpu_m = init_params(smoke, seed=0, device="cpu").cuda()
+    st = torch.from_numpy(rng.integers(0, smoke.vocab_size, (4, 16)).astype(np.int32))
+    lc, scpu = prefill(cpu_m, st, 64)
+    lg, sgpu = prefill(gpu_m, st.cuda(), 64)
+    smoke_err = [(lg.cpu() - lc).abs().max().item()]
+    for _ in range(3):
+        nxt = lc.argmax(-1).to(torch.int32)
+        lc, scpu = decode_step(cpu_m, scpu, nxt)
+        lg, sgpu = decode_step(gpu_m, sgpu, nxt.cuda())
+        smoke_err.append((lg.cpu() - lc).abs().max().item())
+    res.update(smoke_max_abs_err=smoke_err, smoke_tol=1e-4)
+    emit("moe_model", **res)
+    if max(smoke_err) > 1e-4:
+        raise AssertionError("the MoE smoke model on the card disagrees with the CPU path")
+    torch.cuda.empty_cache()
+    return res
+
+
+# check_moe_paged's rows: 5 of the paged serve's 16 hold a request (prompts
+# of 512, 300, 129, 64 and 511 tokens padded to the 512 bucket), 11 are free
+MOE_PAGED_LIVE = {2: 512, 5: 300, 9: 129, 12: 64, 15: 511}
+
+
+def _moe_paged_logits(model, toks, bt, pos, pool_ids, impl, forced=None, feed=None):
+    """Prefill ``toks`` (the live rows' padded bucket) through the kernels,
+    splice it into a fresh pool at ``pool_ids`` (live row, bucket page) and
+    run 16 paged decode steps of all 16 rows with the model's attention
+    pointed at ``impl`` and its routing through ``_moe_routing(forced)``.
+    ``feed`` (16, B) fixes each step's tokens; else a live row takes its
+    previous argmax and a free row token 0. Returns (logits (16, B, V),
+    fed tokens, routing record, notes)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg, B = model.cfg, bt.shape[0]
+    S = toks.shape[1]
+    logits, dense = M.prefill(model, toks, S)
+    pools = M.paged_splice_prompt(T.paged_pools_init(cfg, int(bt.max()) + 1, 16, "cuda"),
+                                  dense.caches, pool_ids)
+    del dense
+    live = torch.tensor(list(MOE_PAGED_LIVE), device="cuda")
+    tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    tok[live] = logits.float().argmax(-1).to(torch.int32)
+    state = M.PagedDecodeState(pools, bt, pos.clone(), tok)
+    record, notes, restore = _moe_routing(forced)
+    kernels_ops, A.ops = A.ops, impl
+    out, fed = [], []
+    try:
+        for step in range(16):
+            tok = tok if feed is None else feed[step]
+            fed.append(tok)
+            lg, state = M.decode_step_paged(model, state, tok)
+            out.append(lg.float())
+            tok = torch.zeros_like(tok)
+            tok[live] = lg[live].argmax(-1).to(torch.int32)
+    finally:
+        A.ops = kernels_ops
+        restore()
+    return torch.stack(out), torch.stack(fed), record, notes
+
+
+def _capacity_drops(experts, C: int, E: int) -> torch.Tensor:
+    """Which of a dispatch's assignments (T, k) find their expert full: slots
+    go in flat (token, k) order, as ``models.moe._moe_block`` gives them."""
+    onehot = F.one_hot(experts.flatten().long(), E)
+    slot = (onehot.cumsum(0) - 1).gather(1, experts.flatten().long()[:, None])[:, 0]
+    return (slot >= C).view(experts.shape)
+
+
+def check_moe_paged(model) -> dict:
+    """olmoe-1b-7b's paged decode at the paged serve's 16 rows (tables of
+    64 pages of 16; ``MOE_PAGED_LIVE``: 5 live rows among 11 free ones,
+    whose tables are all -1 and whose token is 0). Decode capacity is 8 for
+    16 tokens, so the free rows' 11 equal assignments overflow their 8
+    experts every step, and a live row after them in flat order can find
+    an expert full. 16 greedy steps from the same prefilled pool, page 0
+    among the live rows' pages, through K3 and through the plain version;
+    the plain path takes K3's experts (``_moe_routing``) and must pass
+    ``_route_rule`` over all 16 rows, the free rows' logits included. A K3
+    that gives a row with no valid slot zeros, where the TPU kernel and the
+    plain version average page 0, must fail it."""
+    from types import SimpleNamespace
+
+    from repro_torch.cache import pages_for
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.moe import expert_capacity
+
+    cfg = model.cfg
+    B, S, ps, MP, steps = 16, 512, 16, 64, 16
+    rng = np.random.default_rng(28)
+    toks = rng.integers(1, cfg.vocab_size, (len(MOE_PAGED_LIVE), S)).astype(np.int32)
+    for r, n in enumerate(MOE_PAGED_LIVE.values()):
+        toks[r, n:] = 0
+    n_pages = pages_for(S + steps, ps)
+    perm = rng.permutation(len(MOE_PAGED_LIVE) * n_pages).astype(np.int32)
+    perm = np.concatenate(([0], perm[perm != 0]))   # page 0: row 2's first 16 positions
+    bt = np.full((B, MP), -1, np.int32)
+    for r, row in enumerate(MOE_PAGED_LIVE):
+        bt[row, :n_pages] = perm[r * n_pages:(r + 1) * n_pages]
+    pool_ids = bt[list(MOE_PAGED_LIVE), :S // ps]
+    pos = np.zeros(B, np.int32)
+    pos[list(MOE_PAGED_LIVE)] = S
+    toks, bt, pos = (torch.from_numpy(a).cuda() for a in (toks, bt, pos))
+
+    def zeros_where_no_slot(q, k, v, block_tables, p):
+        out = ops.paged_decode_attention(q, k, v, block_tables, p)
+        return out * (block_tables >= 0).any(-1)[:, None, None].to(out.dtype)
+
+    plain = SimpleNamespace(flash_attention=ops.flash_attention,
+                            paged_decode_attention=ref.paged_decode_attention_ref)
+    faulty = SimpleNamespace(flash_attention=ops.flash_attention,
+                             paged_decode_attention=zeros_where_no_slot)
+    lk, feed, record, _ = _moe_paged_logits(model, toks, bt, pos, pool_ids, ops)
+    rules = {}
+    for name, impl in (("plain", plain), ("zeros_where_no_slot", faulty)):
+        lp, _, _, notes = _moe_paged_logits(model, toks, bt, pos, pool_ids, impl, record, feed)
+        rules[name] = _route_rule(lk, lp, notes)
+        del lp, notes
+    # the zeros on its own routing, as K3 served free rows before: what the
+    # live rows' logits and dropped assignments become
+    lz, _, own, _ = _moe_paged_logits(model, toks, bt, pos, pool_ids, faulty, feed=feed)
+    torch.cuda.synchronize()
+    C = expert_capacity(B, cfg)
+    live = torch.zeros(B, dtype=torch.bool, device="cuda")
+    live[list(MOE_PAGED_LIVE)] = True
+    dropped, dropped_z = (torch.stack([_capacity_drops(e, C, cfg.n_experts) for e, _ in r])
+                          for r in (record, own))
+    res = {"tol": MODEL_TOL, "route_tie": MOE_ROUTE_TIE, "capacity": C, "rows": B,
+           "live_rows": list(MOE_PAGED_LIVE), "steps": steps,
+           "assignments_dropped": int(dropped.sum()),
+           "live_assignments_dropped": int(dropped[:, live].sum()),
+           "dispatches_with_a_live_drop": int(dropped[:, live].any(-1).any(-1).sum()),
+           "dispatches": len(record), **rules,
+           "zeros_own_routing": {
+               "live_max_abs_err_per_step": (lz - lk)[:, live].abs().amax(dim=(1, 2)).tolist(),
+               "dispatches_whose_live_drops_differ":
+                   int((dropped_z[:, live] != dropped[:, live]).any(-1).any(-1).sum())}}
+    del lz
+    emit("moe_paged_model", **res)
+    if not (torch.isfinite(lk).all() and lk.shape == (steps, B, cfg.vocab_size)):
+        raise AssertionError("bad paged MoE kernel-path logits")
+    if not res["assignments_dropped"]:
+        raise AssertionError("the paged MoE decode dropped no assignment")
+    if not rules["plain"]["passes"]:
+        raise AssertionError("the paged MoE kernel path and plain path disagree")
+    if rules["zeros_where_no_slot"]["passes"]:
+        raise AssertionError("the routing rule does not catch zeros on rows with no valid slot")
+    return res
+
+
+def drive_deepseek_serve() -> dict:
+    """deepseek-moe-16b on the fused loop at its published widths, cut to
+    ``DEEPSEEK_LAYERS`` layers (the dense first layer and MoE layers with
+    shared experts): the launcher's config with fewer layers."""
+    from repro_torch.launch import serve as launcher
+
+    get = launcher.get_config
+
+    def reduced(arch, smoke=False):
+        cfg = get(arch, smoke=smoke)
+        return cfg if smoke else cfg.replace(n_layers=DEEPSEEK_LAYERS)
+    launcher.get_config = reduced
+    try:
+        full = get("deepseek-moe-16b")
+        return drive_main_path(DEEPSEEK_ARGS, "deepseek_moe_serve", MOE_KERNELS, extra={
+            "reduced": {"n_layers": [full.n_layers, DEEPSEEK_LAYERS]},
+            "segments": {"attn": full.first_k_dense,
+                         "attn_moe": DEEPSEEK_LAYERS - full.first_k_dense}})
+    finally:
+        launcher.get_config = get
+
+
 DENSE_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention")
 PAGED_KERNELS = ("flash_attention_ragged", "paged_decode_attention")
 SYNC_KERNELS = ("flash_attention_ragged", "decode_attention")
@@ -2395,6 +2875,8 @@ PAGED_CHUNKED_KERNELS = ("paged_chunk_attention", "paged_decode_attention")
 PREFIX_KERNELS = ("paged_chunk_attention_quant", "paged_decode_attention_quant")
 DENSE_QUANT_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_quant")
 DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
+MOE_KERNELS = ("flash_attention", "decode_attention")
+MOE_PAGED_KERNELS = ("flash_attention", "paged_decode_attention")
 
 
 def _sync_checked(sched) -> None:
@@ -2489,13 +2971,20 @@ def _warmups(args, engine) -> tuple:
     return (1 + buckets) * variants, buckets * variants
 
 
+def _prefill_kernel(engine) -> str:
+    """An admission's prefill attention: K1r over a ragged bucket on a
+    dense attention stack, K1 over the whole padded bucket on an MoE one."""
+    return "flash_attention_ragged" if engine._ragged else "flash_attention"
+
+
 def _prefill_graph_launches(engine) -> dict:
-    """The kernels one admission graph must hold: K1r once per layer on an
-    attention stack, the SSD scan's (K6) on a Mamba-2 one."""
+    """The kernels one admission graph must hold: K1r (K1 on an MoE stack)
+    once per layer on an attention stack, the SSD scan's (K6) on a Mamba-2
+    one."""
     n = engine.cfg.n_layers
     if engine.cfg.is_ssm:
         return {k: n for k in ("ssd_scan", *SSD_PHASES)}
-    return {"flash_attention_ragged": n}
+    return {_prefill_kernel(engine): n}
 
 
 def _check_prefill_graphs(phase: str, engine) -> None:
@@ -2560,7 +3049,7 @@ def _memory(held: int) -> dict:
 
 
 def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS,
-                    keep: bool = False) -> dict:
+                    keep: bool = False, extra: dict = None) -> dict:
     """One of the launcher's paths: build (the dense engine's boot prefill
     runs K1, or K6 on a Mamba-2 stack) and serve. The launch counts are
     zeroed just before the build and read just after the serve; every
@@ -2570,7 +3059,7 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     to the same launcher's on the CPU (``cpu_trace``). The result also
     holds the finished requests' streams (``streams``, not printed) and,
     with ``keep``, the parsed arguments, engine, scheduler and trace
-    (``run``) for the caller's own checks."""
+    (``run``) for the caller's own checks. ``extra`` joins the phase line."""
     from repro_torch import kernels
     from repro_torch.launch import serve as launcher
 
@@ -2617,7 +3106,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
            "graph_nodes": {m: g.launches for m, g in engine._graphs.items() if g.graph},
            "graph_kernel_nodes": {m: g.nodes for m, g in engine._graphs.items() if g.graph},
            **_memory(held), "counters": engine.counters(), "syncs": tr["syncs"].tolist(),
-           "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")}}
+           "trace": {c: tr[c].tolist() for c in ("rate", "served", "backlog", "dispatches")},
+           **(extra or {})}
     if args.paged:
         res.update(paged=launcher.paged_summary(tr, engine),
                    peak_occupancy=float(tr["occupancy"].max()),
@@ -2664,22 +3154,26 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     # the admissions (their warm-ups too) and the decodes (theirs too)
     prefills = engine.prefill_dispatches + engine.prefill_warmups
     decodes = engine.decode_dispatches + engine.warmup_dispatches - engine.prefill_warmups
+    # a padded (MoE) stack's admissions run K1, as the dense engine's boot
+    # prefill does on every stack
+    pre = _prefill_kernel(engine)
+    boot = int(pre == "flash_attention" and not args.paged)
     if ssm:   # every prefill (the boot's too) runs the scan once per layer, bf16: three kernels
         want = {k: n_layers * (prefills + 1) for k in ("ssd_scan", *SSD_PHASES)}
     elif args.paged:
         quant = args.kv_precision in ("int8", "fp8")
         decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
-        want = {"flash_attention_ragged": n_layers * prefills,
-                decode: n_layers * decodes * 2}
+        want = {pre: n_layers * prefills, decode: n_layers * decodes * 2}
         if args.chunked:
             chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
             want[chunk] = n_layers * (mixed[0] + mixed[2])
     else:
-        want = {"flash_attention_ragged": n_layers * prefills,
-                ring: n_layers * decodes * 2,
+        want = {pre: n_layers * (prefills + boot), ring: n_layers * decodes * 2,
                 "chunk_attention": n_layers * (mixed[0] + mixed[2])}
         if quant:   # a quantized ring never reaches the native decode
             want["decode_attention"] = 0
+    if pre == "flash_attention" and not ssm:
+        want["flash_attention_ragged"] = 0
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"{phase}: launches {counts} are not {want}")
     if asynchronous and (engine.blocking_syncs or max(res["syncs"])):
@@ -2694,7 +3188,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
             raise AssertionError(f"{phase}: the quantized region was not used beside the "
                                  "native one")
     sampled = engine.ecfg.sampling is not None
-    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled:
+    moe = engine.cfg.is_moe
+    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled or moe:
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -4039,11 +4534,20 @@ def main() -> int:
     drive_obs_serve(sync_path)
     drive_slo_serve()
     drive_chaos_shared_x2()
+    check_moe_model()
+    moe_path = drive_main_path(MOE_ARGS, "moe_serve", MOE_KERNELS)
+    profile_main_path(MOE_ARGS, moe_path["serve_s"], "moe_profile")
+    moe_sync = drive_main_path(MOE_SYNC_ARGS, "moe_sync_serve", MOE_KERNELS)
+    profile_main_path(MOE_SYNC_ARGS, moe_sync["serve_s"], "moe_sync_profile")
+    moe_paged = drive_main_path(MOE_PAGED_ARGS, "moe_paged_serve", MOE_PAGED_KERNELS)
+    profile_main_path(MOE_PAGED_ARGS, moe_paged["serve_s"], "moe_paged_profile")
+    drive_deepseek_serve()
     graph_ab()
     check_fig2()
 
-    # launches: each kernel's count from the run of the path it serves
-    counts = {**main_path["launches"],
+    # launches: each kernel's count from the run of the path it serves (K1
+    # serves every admission of the MoE path, the main path's only at boot)
+    counts = {**main_path["launches"], "flash_attention": moe_path["launches"]["flash_attention"],
               "paged_decode_attention": paged_path["launches"]["paged_decode_attention"],
               "paged_decode_attention_quant":
                   quant_path["launches"]["paged_decode_attention_quant"],

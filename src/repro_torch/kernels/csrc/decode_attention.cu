@@ -14,9 +14,9 @@
 // combined through distributed shared memory in the same launch. A slot's
 // row is the slot itself; a tile whose 64 slot_pos entries hold no valid
 // slot is skipped before any K/V load, and invalid slots of a valid tile
-// are not read. A row with no valid slot gets zeros (the TPU kernel and the plain
-// version average its V under a uniform softmax); the engine discards such
-// rows.
+// are not read. A row with no valid slot gets the mean of its ring's V, as
+// from the TPU kernel and the plain version (a uniform softmax over masked
+// scores).
 //
 // What bounds it: bytes. A step reads the valid slots' K/V once (B 8, L
 // 1024, KVH 8, hd 64 in bf16: 16.8 MB when every slot is valid, ~5 us at

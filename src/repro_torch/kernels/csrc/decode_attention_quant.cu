@@ -24,8 +24,8 @@
 // K2 over the dequantized ring bit for bit, and, as K3q (paged_attention_
 // quant.cu) runs the same core, a dense int8 ring that has not wrapped
 // equals an all-int8 page pool holding the same codes bit for bit. A row
-// with no valid slot gets zeros (the plain version averages its V there);
-// the engine discards such rows.
+// with no valid slot gets the mean of its dequantized ring's V, as from the
+// plain version (a uniform softmax over masked scores).
 //
 // What bounds it: bytes. A step reads each valid slot's codes once (1 byte
 // per element instead of 2 in bf16) plus 4 bytes of scale per row and KV

@@ -66,12 +66,22 @@
 // head in its own shared memory and the cluster meets at a barrier; then
 // rank r combines the r-th eighth of the G x HD outputs, reading the SPLIT
 // partials through distributed shared memory in rank order: M = max m_s,
-// out = sum exp(m_s - M) acc_s / max(sum exp(m_s - M) l_s, 1e-30); the
+// out = sum exp(m_s - M) acc_s / sum exp(m_s - M) l_s; the
 // cluster meets again before any CTA exits. A rank with no valid tile
-// leaves m = -1e30, l = 0, acc = 0, so it adds nothing, and a row with no
-// valid slot at all gets zeros. No scratch in device memory, no atomics,
-// no second pass: the result does not depend on the order in which CTAs
-// run, and each call is one kernel launch.
+// leaves m = -1e30, l = 0, acc = 0, so it adds nothing.
+//
+// A row with no valid slot at all (every rank's m still -1e30 once the
+// cluster has met) gets what the TPU kernel and the plain version give it:
+// a uniform softmax over its masked scores, the mean of V over every slot
+// the plain version gathers (the whole ring for K2 and K2q; every table
+// slot for K3 and K3q, an unallocated page read as page 0 of the pool's
+// code region, or of the native one when it has none). Then each rank
+// leaves the sum of V over its tiles' slots as its partial (``mean_of_v``:
+// m 0, l the number of slots) and the combine divides; a row with a valid
+// slot pays one read of the eight ranks' m's for it. The main pass keeps
+// its registers: the sum runs after it, on plain loads. No scratch in
+// device memory, no atomics, no second launch: the result does not depend
+// on the order in which CTAs run, and each call is one kernel launch.
 //
 // What bounds it: bytes. A step reads each valid K/V row once for all G
 // query heads that use it (a code row as hd bytes and a 4-byte scale), at
@@ -97,7 +107,9 @@ constexpr int STAGES = 2;   // the ring of K/V tiles
 constexpr int INVALID = -1; // a source's row for a slot that is not read
 
 // Ring slots (K2, K2q): a slot reads its own row when its position is
-// visible to pos; with CODES that row is a code row.
+// visible to pos; with CODES that row is a code row. A row with no valid
+// slot reads every slot below ``every_slots()``, each its own row
+// (``every_row``).
 template <bool CODES> struct RingSlots {
   const int* sp;  // this batch row's slot_pos (L,)
   int n_slots;    // L
@@ -106,23 +118,37 @@ template <bool CODES> struct RingSlots {
     if (slot >= n_slots) return INVALID;
     const int p = __ldg(sp + slot);
     const bool ok = p >= 0 && p <= pos && (window <= 0 || p > pos - window);
-    return ok ? (CODES ? -2 - slot : slot) : INVALID;
+    return ok ? every_row(slot) : INVALID;
   }
+  __device__ int every_slots() const { return n_slots; }
+  __device__ int every_row(int slot) const { return CODES ? -2 - slot : slot; }
 };
 
 // Logical slots through a block table (K3, K3q): an id below Nn names a
 // native page, one in [Nn, Nn + Nq) code page id - Nn, anything else is
-// unallocated. Slot j lies at page row j % ps.
+// unallocated. Slot j lies at page row j % ps. A row with no valid slot
+// reads every table slot (``every_slots()``), an unallocated page where the
+// plain version's clamped gather reads it (``every_row``: code page
+// clamp(id - Nn, 0, Nq - 1) when the pool has code pages, else native page
+// clamp(id, 0, Nn - 1); page 0 of its region for -1).
 struct PagedSlots {
-  const int* bt;  // this batch row's block table (MP,)
-  int n_slots;    // min(pos + 1, MP * ps): slots past pos or the table are invalid
+  const int* bt;    // this batch row's block table (MP,)
+  int n_slots;      // min(pos + 1, MP * ps): slots past pos or the table are invalid
   int Nn, Nq, ps;
+  int table_slots;  // MP * ps
   __device__ int row(int slot) const {
     if (slot >= n_slots) return INVALID;
     const int page = __ldg(bt + slot / ps);
     if (page >= 0 && page < Nn) return page * ps + slot % ps;
     if (page >= Nn && page - Nn < Nq) return -2 - ((page - Nn) * ps + slot % ps);
     return INVALID;
+  }
+  __device__ int every_slots() const { return table_slots; }
+  __device__ int every_row(int slot) const {
+    const int page = __ldg(bt + slot / ps), r = slot % ps;
+    if (page >= 0 && page < Nn) return page * ps + r;
+    if (Nq) return -2 - (min(max(page - Nn, 0), Nq - 1) * ps + r);
+    return min(max(page, 0), Nn - 1) * ps + r;
   }
 };
 
@@ -404,6 +430,69 @@ template <int HD> struct MmaHeads {
   }
 };
 
+// The partial of a row with no valid slot: this rank's tiles' slots (tile
+// t = rank, rank + SPLIT, ... of 64, below src.every_slots()), each read
+// at src.every_row, their V summed in f32 for each of the G heads (ACC),
+// m = 0 and l = the number of slots (-1e30 and 0 for a rank with none), so
+// the combine gives the mean. A thread takes 8 dims of every lanes-th slot
+// (a code row dequantized and rounded to T as `dequantize_kv` does), and
+// the lanes are summed in ``scratch`` (the K/V ring, free once the main
+// pass is done).
+template <typename T, int HD, typename Source, typename Codes>
+__device__ __forceinline__ void mean_of_v(const Source& src, const Codes& codes,
+                                          const T* __restrict__ v_base, size_t row_stride,
+                                          int rank, int G, char* scratch, float* ACC,
+                                          float* Ms, float* Ls) {
+  constexpr int NCH = HD / 8;  // 8-dim chunks of a row
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lanes = nthreads / NCH, lane = tid / NCH, c = tid % NCH;
+  const int n = src.every_slots();
+  int cnt = 0;
+  for (int t = rank; t * BL < n; t += SPLIT) cnt += min(BL, n - t * BL);
+  float acc[8] = {};
+#pragma unroll 4
+  for (int k = lane; k < cnt; k += lanes) {
+    const int row = src.every_row((rank + k / BL * SPLIT) * BL + k % BL);
+    float f[8] = {};
+    if (row >= 0) {
+      const T* p = v_base + (size_t)row * row_stride + c * 8;
+      if constexpr (std::is_same<T, float>::value) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+        f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+        f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+      } else {
+        const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = repro::to_f(h[e]);
+      }
+    } else if constexpr (Codes::ON) {
+      const size_t qr = (size_t)(-2 - row);
+      const uint2 u = __ldg(reinterpret_cast<const uint2*>(codes.v + qr * codes.row_stride + c * 8));
+      const float sc = __ldg(codes.vs + qr * codes.scale_stride);
+      repro::codes8_to_f<typename Codes::Code>(u, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[e] = repro::to_f(repro::from_f<T>(f[e] * sc));
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] += f[e];
+  }
+  float* part = reinterpret_cast<float*>(scratch);  // [lanes][HD]
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[lane * HD + c * 8 + e] = acc[e];
+  __syncthreads();
+  for (int d = tid; d < HD; d += nthreads) {
+    float s = 0.f;
+    for (int l = 0; l < lanes; ++l) s += part[l * HD + d];
+    for (int h = 0; h < G; ++h) ACC[h * HD + d] = s;
+  }
+  for (int h = tid; h < G; h += nthreads) {
+    Ms[h] = cnt ? 0.f : repro::NEG_INF;
+    Ls[h] = (float)cnt;
+  }
+}
+
 // Decode attention of the G query heads at ``q_grp`` (G x HD, contiguous)
 // over the slots that ``src`` names, into ``out_grp`` (G x HD); ``codes``
 // holds the code rows a source names (NoCodes: it names none, and k_base
@@ -568,6 +657,15 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
   // the G x HD outputs (G * HD is a multiple of 32)
   heads.partial(sm + S::K_OFF, ACC, Ms, Ls, G);
   cluster.sync();
+  // no rank saw a valid slot: the mean of V over every slot (header)
+  bool none = true;
+#pragma unroll
+  for (int r = 0; r < SPLIT; ++r) none &= cluster.map_shared_rank(Ms, r)[0] == repro::NEG_INF;
+  if (none) {
+    cluster.sync();  // every rank has read the m's before any rank rewrites its own
+    mean_of_v<T, HD>(src, codes, v_base, row_stride, rank, G, sm + S::K_OFF, ACC, Ms, Ls);
+    cluster.sync();
+  }
   const int chunk = G * HD / SPLIT;
   for (int i = tid; i < chunk; i += nthreads) {
     const int idx = rank * chunk + i, h = idx / HD;
@@ -585,7 +683,7 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
       lsum = fmaf(w, cluster.map_shared_rank(Ls, r)[h], lsum);
       o = fmaf(w, cluster.map_shared_rank(ACC, r)[idx], o);
     }
-    out_grp[idx] = repro::from_f<T>(o / fmaxf(lsum, 1e-30f));  // lsum = 0 (no valid slot): 0
+    out_grp[idx] = repro::from_f<T>(o / lsum);
   }
   cluster.sync();  // every rank has read the partials before any CTA exits
 }

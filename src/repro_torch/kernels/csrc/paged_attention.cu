@@ -27,9 +27,11 @@
 // the TPU kernel's all-masked steps before the first valid one are rescaled
 // away by exp(-1e30 - m) = 0, and those after it add exp(-1e30 - m) = 0.
 // A row with NO valid slot (an inactive engine row has an all -1 table)
-// gets zeros here, where the TPU kernel and the plain version average page
-// 0's V (a uniform softmax over masked scores). The engine discards those
-// rows, and the checks compare only rows with a valid slot.
+// gets what the TPU kernel and the plain version give it, a uniform
+// softmax over masked scores: the mean of V over every table slot, an
+// unallocated page read as page 0. The engine's free rows carry it into
+// their MoE router, where it decides whose assignments fill an expert's
+// capacity.
 //
 // What bounds it: bytes. One step reads the valid pages' K/V once (B 16,
 // pos 128-1023, KVH 8, hd 64 in bf16: ~16 MB, ~5 us at 3.35 TB/s) for a
@@ -53,7 +55,7 @@ paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_p
   const int b = blockIdx.y;
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
   const dc::PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), N, 0,
-                          ps};
+                          ps, MP * ps};
   dc::attend<T, HD>(src, G, q + grp, k_pages + (size_t)kvh * HD, v_pages + (size_t)kvh * HD,
                     (size_t)KVH * HD, out + grp, scale);
 }

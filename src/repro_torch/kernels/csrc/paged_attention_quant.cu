@@ -31,9 +31,11 @@
 // pool, and over a mixed pool K3 over the native pages followed by the
 // dequantized ones, under the same table ids, bit for bit; and a dense
 // int8 ring (K2q, same core) that has not wrapped equals an all-int8 pool
-// holding the same codes. A row with no valid slot gets zeros (the TPU
-// kernel and the plain version average page 0's V there); the engine
-// discards such rows.
+// holding the same codes. A row with no valid slot gets the mean of V over
+// every table slot, an unallocated page read as quantized page 0, as from
+// the plain version.
+// So there K3q over a mixed pool reads another page than K3 over its
+// dequantized concatenation, whose -1 reads native page 0.
 //
 // What bounds it: bytes. A step reads each valid row once: its codes (1
 // byte per element instead of 2 in bf16) plus 4 bytes of scale per row and
@@ -60,7 +62,7 @@ paged_decode_attention_quant_kernel(
   const size_t row_stride = (size_t)KVH * HD;  // between pool rows, in elements
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
   const dc::PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), Nn,
-                           Nq, ps};
+                           Nq, ps, MP * ps};
   const dc::CodeRows<C> codes{qk_pages + (size_t)kvh * HD, qv_pages + (size_t)kvh * HD,
                               k_scale + kvh, v_scale + kvh, row_stride, (size_t)KVH};
   // with Nn == 0 the native pools are null and never read

@@ -16,9 +16,9 @@ tile once for all G query heads of its KV head (K2q's codes dequantized in
 shared memory as ``dequantize_kv`` does; then bf16 products on the tensor
 cores by mma.sync, f32 on the CUDA cores), and combines the 8 partial
 softmax states through distributed shared memory. So K2q over codes equals
-K2 over the dequantized ring bit for bit. A row with no valid slot comes
-back as zeros (the plain version averages its V there); the engine
-discards such rows.
+K2 over the dequantized ring bit for bit. A row with no valid slot gets
+the mean of its ring's V, as from the plain version (a uniform softmax
+over masked scores).
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain

@@ -14,8 +14,10 @@ them and combines their partial softmax states through distributed shared
 memory in the same launch. Sharing the core with K2 keeps a paged pool bit
 for bit equal to a dense ring that holds the same K/V at the same slots.
 
-Rows with no valid slot come back as zeros (the plain version averages
-page 0's V there); the engine discards them. This wrapper takes CUDA
+A row with no valid slot gets the mean of V over every table slot, an
+unallocated page read as page 0, as from the plain version (a uniform
+softmax over masked scores): an engine's free rows carry it into their
+MoE router. This wrapper takes CUDA
 tensors only and raises on anything the kernel does not take;
 ``repro_torch.kernels.ops`` sends CPU tensors to the plain version instead.
 """

@@ -12,8 +12,9 @@ It is K3 (``paged_attention``) on the same flash-decoding core
 splits the 64-slot tiles, and the partials are combined in the same
 launch. So over an all-quantized pool it equals K3 over the dequantized
 pool, and over a mixed pool K3 over the native pages followed by the
-dequantized ones, bit for bit. A row with no valid slot comes back as
-zeros. Byte-bound on the H100: at the paged serve's shapes (B 16, pos up
+dequantized ones, bit for bit, on every row with a valid slot. A row
+with none gets the mean of V over every table slot, an unallocated page
+read as quantized page 0, as from the plain version. Byte-bound on the H100: at the paged serve's shapes (B 16, pos up
 to 1023, KVH 8, hd 64) an all-int8 step reads ~10 MB of codes and scales,
 ~3 us at 3.35 TB/s.
 

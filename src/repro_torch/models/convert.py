@@ -35,8 +35,10 @@ def _put(p: torch.Tensor, arr, name: str) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     """``tree`` = {"embed": {"tok"}, "stack": [per-segment dict], "ln_f":
     {"scale"}} with segment leaves stacked on a leading layer axis: ``ln1``,
-    ``attn``, ``ln2`` and ``mlp`` for an ``attn`` segment, ``ln1`` and
-    ``ssm`` for an ``ssm`` segment."""
+    ``attn``, ``ln2`` and ``mlp`` for an ``attn`` segment, ``moe`` in place
+    of ``mlp`` for an ``attn_moe`` segment (``router``, ``w_gate``,
+    ``w_up``, ``w_down`` and, with shared experts, ``shared``), ``ln1``
+    and ``ssm`` for an ``ssm`` segment."""
     model = Model(cfg, device)
     _put(model.tok, tree["embed"]["tok"], "embed.tok")
     _put(model.ln_f, tree["ln_f"]["scale"], "ln_f.scale")
@@ -57,6 +59,16 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
             _put(blk.ln2, leaves["ln2"]["scale"][i], f"{at}.ln2")
             for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
                 _put(getattr(blk.attn, name), leaves["attn"][name][i], f"{at}.attn.{name}")
+            if blk.kind == "attn_moe":
+                moe, m = blk.moe, leaves["moe"]
+                if (moe.shared is None) != ("shared" not in m):
+                    raise ValueError(f"{at}.moe: shared experts in only one of tree and model")
+                for name in ("router", "w_gate", "w_up", "w_down"):
+                    _put(getattr(moe, name), m[name][i], f"{at}.moe.{name}")
+                for name in ("w_gate", "w_up", "w_down") if moe.shared is not None else ():
+                    _put(getattr(moe.shared, name), m["shared"][name][i],
+                         f"{at}.moe.shared.{name}")
+                continue
             for name in ("w_gate", "w_up", "w_down"):
                 _put(getattr(blk, name), leaves["mlp"][name][i], f"{at}.mlp.{name}")
     return model

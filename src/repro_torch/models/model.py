@@ -75,7 +75,8 @@ _NORMS = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     """A model with weights drawn from ``torch.Generator(seed)`` on its
     device, scaled as the reference initialises them: N(0, 1/d_in) for the
-    projections (drawn in float32, cast to the config dtype), N(0, 0.02^2)
+    projections, the MoE router and each expert's matrices (drawn in
+    float32 one leaf at a time, cast to the leaf's dtype), N(0, 0.02^2)
     for the embedding, N(0, 0.1^2) for a Mamba-2 conv weight, ones for the
     norms, and the reference's constants for the other Mamba-2 leaves
     (``ssm.ssm_constants``). The draws differ from the reference's
@@ -96,6 +97,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
             scale = (p.shape[0] * p.shape[1]) ** -0.5
         elif leaf == "conv_w":
             scale = 0.1
+        elif p.dim() == 3 and ".moe.w_" in name:   # an expert stack (E, d_in, d_out)
+            scale = p.shape[1] ** -0.5
         else:
             scale = p.shape[0] ** -0.5
         w = torch.randn(p.shape, generator=g, device=p.device, dtype=torch.float32)

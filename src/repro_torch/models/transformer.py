@@ -1,8 +1,9 @@
 """Stack builder: the model as a list of segments of blocks.
 
 The segment plan is the reference package's (``plan_segments``). The port
-runs the ``attn`` segment (self-attention + dense MLP) and the ``ssm``
-segment (a Mamba-2 block, no FFN), and keeps one block module per layer,
+runs the ``attn`` segment (self-attention + dense MLP), the ``attn_moe``
+segment (self-attention + the MoE FFN of ``models/moe.py``) and the
+``ssm`` segment (a Mamba-2 block, no FFN), and keeps one block module per layer,
 where the reference stacks each segment's layers on a leading axis for
 ``lax.scan``. Decode caches, recurrent states and page pools keep that
 leading layer axis, so a decode state compares leaf by leaf with the
@@ -19,10 +20,11 @@ from torch import nn
 from repro_torch.cache.precision import resolve_kv_precision
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import cdtype, mlp, param, rmsnorm
 
-_ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense)"
+_ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense, MoE and SSM)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +79,13 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 def check_supported(cfg: ModelConfig) -> None:
     """The port's models run dense decoder-only attention stacks, whose own
     caches hold K/V at the compute dtype or as int8 or fp8 codes with
-    per-token-per-head scales (``kv_precision``), and pure Mamba-2 stacks."""
+    per-token-per-head scales (``kv_precision``), MoE attention stacks
+    (with a leading dense segment under ``first_k_dense``) and pure Mamba-2
+    stacks."""
     dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
+    moe = cfg.arch_type == "moe" and {s.kind for s in plan_segments(cfg)} <= {"attn", "attn_moe"}
     ssm = cfg.arch_type == "ssm" and plan_segments(cfg) == (Segment("ssm", cfg.n_layers),)
-    if not (dense or ssm):
+    if not (dense or moe or ssm):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
@@ -110,6 +115,20 @@ class Block(nn.Module):
         self.w_down = param((Fd, D), dt, device)
 
 
+class MoEBlock(nn.Module):
+    """One ``attn_moe`` layer: ln1 -> attention -> residual -> ln2 -> MoE
+    FFN -> residual."""
+    kind = "attn_moe"
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D = cfg.d_model
+        self.ln1 = param((D,), torch.float32, device)
+        self.attn = A.Attention(cfg, device)
+        self.ln2 = param((D,), torch.float32, device)
+        self.moe = MOE.MoE(cfg, device)
+
+
 class SSMBlock(nn.Module):
     """One ``ssm`` layer: ln1 -> Mamba-2 block -> residual (no FFN)."""
     kind = "ssm"
@@ -120,7 +139,7 @@ class SSMBlock(nn.Module):
         self.ssm = SSM.SSM(cfg, device)
 
 
-_BLOCKS = {"attn": Block, "ssm": SSMBlock}
+_BLOCKS = {"attn": Block, "attn_moe": MoEBlock, "ssm": SSMBlock}
 
 
 def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
@@ -130,8 +149,22 @@ def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
         for seg in plan_segments(cfg, "decoder"))
 
 
-def _ffn(p: Block, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return h + mlp(p.w_gate, p.w_up, p.w_down, rmsnorm(p.ln2, h, cfg.norm_eps))
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual FFN of an ``attn`` (dense MLP) or ``attn_moe`` (MoE)
+    block; serving discards the MoE's auxiliary terms, as the reference's
+    does."""
+    x = rmsnorm(p.ln2, h, cfg.norm_eps)
+    if p.kind == "attn_moe":
+        return h + MOE.moe_ffn(p.moe, x, cfg)[0]
+    return h + mlp(p.w_gate, p.w_up, p.w_down, x)
+
+
+def _require_chunkable(seg: nn.ModuleList) -> None:
+    """Chunk boundaries would change an MoE block's capacity assignment
+    (a cumulative count over the whole token block), as the reference's
+    ``chunk_hidden`` refuses."""
+    if seg[0].kind != "attn":
+        raise ValueError(f"chunked prefill is not supported for {seg[0].kind!r} blocks")
 
 
 def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
@@ -191,6 +224,7 @@ def chunk_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
     same fixed-shape targets."""
     writes = A.chunk_write_targets(pos0, valid, h.shape[1], caches[0].cache_len)
     for seg, cache in zip(stack, caches, strict=True):
+        _require_chunkable(seg)
         for i, p in enumerate(seg):
             a = A.attn_chunk(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cache.layer(i),
                              pos0, valid, cfg, writes, reset=reset)
@@ -256,6 +290,7 @@ def chunk_hidden_paged(stack: nn.ModuleList, h: torch.Tensor, pools: list,
     pool pages [0, base) and the staging buffers."""
     writes = A.paged_chunk_targets(block_table, pos0, valid, pools[0], h.shape[1])
     for seg, pool in zip(stack, pools, strict=True):
+        _require_chunkable(seg)
         for i, p in enumerate(seg):
             a = A.attn_chunk_paged(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), pool.layer(i),
                                    block_table, pos0, valid, cfg, writes, base)

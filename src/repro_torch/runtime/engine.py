@@ -1836,7 +1836,8 @@ class PagedEngine(Engine):
             if sync:
                 self._validate_gen_cap(req)
             self._validate_sampled(req)
-            L = max(1, min(len(req.tokens), P))
+            # a padded (not ragged) stack prefills and holds the whole bucket
+            L = max(1, min(len(req.tokens), P)) if self._ragged else P
             shared: list = []
             if self._prefix is not None:
                 hit = self._prefix.lookup(np.asarray(req.tokens[:L], np.int32),
