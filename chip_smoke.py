@@ -4,8 +4,9 @@ against its plain version. Exits nonzero on any fault; nothing is caught.
   python3 chip_smoke.py
 
 Phases, each printing one JSON line: device, build (nvcc, all sources at
-once; each flash_attention, chunk attention (K4, K4p, K4q), SSD scan (K6)
-and decode (K2, K3) instantiation's shared memory, registers and spills),
+once; each flash_attention, chunk attention (K4, K4p, K4q), SSD scan (K6),
+RG-LRU scan (K7) and decode (K2, K3) instantiation's shared memory,
+registers and spills),
 kernels (each
 CUDA kernel against its plain PyTorch version, element by element, at the
 full-width granite-3-2b serving shapes in bf16 and in f32 and at the smoke
@@ -105,7 +106,16 @@ failing it), K1, K2 and K3 at olmoe's shapes among the kernels and K2,
 K2q, K3 and K3q on rows with no valid slot (``check_free_rows``), then
 moe_serve, moe_sync_serve and moe_paged_serve (each with its
 profile) and deepseek_moe_serve (deepseek-moe-16b cut to 4 layers), their
-traces held to the CPU run's. sampling holds
+traces held to the CPU run's. The hybrid Griffin stack: K1 at hd 256
+(recurrentgemma-2b's admission, and windowed over prompts of 2,560), K2 at
+a group of 10 and hd 256 (the serve's ring and a wrapped 2,048-slot one)
+and the RG-LRU scan K7 among the kernels (``check_hybrid_shapes``),
+hybrid_model (full-width recurrentgemma-2b, two prompts of 2,560 in a
+cache of 4,096 through K1, K7 and 32 decode steps through K2, against the
+plain versions within MODEL_TOL, a scan that drops its carry beside it,
+and the smoke model on the card against the CPU path), then hybrid_serve
+(with its profile) and hybrid_sync_serve, their traces held to the CPU
+run's. sampling holds
 per-request sampling on the card to the CPU (the threefry keys and random
 bits over the vocabulary bit for bit, ``sample_rows``' tokens but at
 near-ties), and sampled_serve and sampled_chunked_serve serve the main and
@@ -234,6 +244,26 @@ MOE_PAGED_ARGS = MOE_ARGS + PAGED_POOL + ["--policy", "memory-aware"]
 # 102,400), cut from 28 layers to its dense first layer and 3 MoE layers
 DEEPSEEK_ARGS = SERVE_ARGS + ["--arch", "deepseek-moe-16b"]
 DEEPSEEK_LAYERS = 4
+# recurrentgemma-2b (arXiv:2402.19427) at its published widths: 26 layers
+# (8 groups of (rec, rec, attn), then 2 rec layers), d 2560, 10 query heads
+# on one KV head (hd 256), local window 2048, d_ff 7680 (GeLU), RG-LRU width
+# 2560 in 10 gate blocks, conv width 4, vocabulary 256,000, bf16, tied
+# embeddings, seeded random weights, on the main path's geometry. A
+# recurrent stack is not ragged: every admission prefills the whole
+# 512-token bucket, each group's attention through K1 and each RG-LRU
+# block's scan through K7; its ring holds min(1024, 2048) slots.
+HYBRID_ARGS = SERVE_ARGS + ["--arch", "recurrentgemma-2b"]
+HYBRID_SYNC_ARGS = HYBRID_ARGS + ["--sync-free"]
+# check_hybrid_model: two prompts of 2,560 tokens (past the window, so K1's
+# window cuts) in a cache of 4,096 (the group rings hold 2,048 slots and
+# wrap during the decode steps)
+HYBRID_MODEL_B, HYBRID_MODEL_S, HYBRID_MODEL_L, HYBRID_MODEL_STEPS = 2, 2560, 4096, 32
+# prompt positions whose logits the hybrid check compares: the first, each
+# end of a 512-step scan chunk of the faulty path and the steps after it,
+# the window's edge and the last
+HYBRID_POSITIONS = (0, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049, 2559)
+HYBRID_CHUNK = 512
+
 # check_moe_model's routing rule. The kernel path and the plain one round
 # bf16 hidden states at other points, so a router near-tie among 4,096
 # prompt tokens x 16 layers can pick other experts, and one other expert
@@ -617,6 +647,7 @@ def check_kernels(timer) -> dict:
                               lambda b, last, p0_np=p0_np, L=L: last
                               if p0_np[b] >= 0 and last <= L else L))
     check_moe_shapes(randn, record, sdpa_prefill)
+    check_hybrid_shapes(randn, record, sdpa_prefill)
     check_free_rows(rng, randn, record)
     check_flash_anatomy(timer)
     check_quant_kernel(rng, record)
@@ -701,6 +732,81 @@ def check_moe_shapes(randn, record, sdpa_prefill) -> None:
            _paged_library(q, k, v, bt, pos),
            _paged_work(H, KVH, hd, q.element_size(), ps, bt_np, pos_np), False, device=True,
            library="index_select of the K and V pages + scaled_dot_product_attention")
+
+
+def _scan_work(B, S, R, init):
+    """Bytes and FLOPs K7 needs: log_a and gated read, every h written (and
+    h0 read), all float32; a multiply, an add and an exp per element."""
+    return 4.0 * (3 * B * S * R + (B * R if init else 0)), 3.0 * B * S * R
+
+
+def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
+    """K1, K2 and K7 at recurrentgemma-2b's shapes (10 query heads on one
+    KV head, hd 256, R 2560), each with its device time, bound and library
+    time: K1 over an admission's padded bucket (8 rows of 512, causal) and
+    windowed over two prompts of 2,560 (window 2048: the window cuts); K2
+    over the serve's ring of 1024 at the positions of a prompt padded to 512
+    plus up to 28 decode steps, and over a 2,048-slot ring written past its
+    end under window 2048; K7 over the admission's 8 x 512 x 2560 from a
+    zero state (the main row: what each admission runs) and from h0."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as krg
+
+    rng = np.random.default_rng(29)
+    dtype, H, KVH, hd, W = torch.bfloat16, 10, 1, 256, 2048
+    for B, S, win in ((8, 512, None), (2, 2560, W)):
+        q = randn((B, S, H, hd), dtype)
+        k, v = randn((B, S, KVH, hd), dtype), randn((B, S, KVH, hd), dtype)
+        fn = lambda q=q, k=k, v=v, win=win: kf.flash_attention(q, k, v, window=win)
+        plain = lambda q=q, k=k, v=v, win=win: ref.attention_ref(q, k, v, window=win)
+        record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 recurrentgemma-2b"
+               + (f" window{win}" if win else " admission"),
+               "flash_attention", dtype, fn(), plain(),
+               ref.attention_ref(q, k, v.abs(), window=win), fn, plain,
+               sdpa_prefill(q, k, v, None, win, win is None),
+               _prefill_work(B, S, H, KVH, hd, q.element_size(), None, win), False,
+               device=True, instantiation=KERNEL_ROUTE[dtype])
+        del q, k, v
+
+    for B, L, pos_np, win, what in (
+            (8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), W, "pos 512-540"),
+            (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32), W,
+             "ring wrapped, pos 2048-2647")):
+        sp_np = _ring_slot_pos(B, L, pos_np)
+        q = randn((B, H, hd), dtype)
+        k, v = randn((B, L, KVH, hd), dtype), randn((B, L, KVH, hd), dtype)
+        sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+        fn = lambda q=q, k=k, v=v, sp=sp, pos=pos: kd.decode_attention(q, k, v, sp, pos,
+                                                                       window=W)
+        plain = lambda q=q, k=k, v=v, sp=sp, pos=pos: ref.decode_attention_ref(
+            q, k, v, sp, pos, window=W)
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - W))[:, None, None, :]
+        lib = lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        record(f"decode_attention B{B} L{L} H{H}/{KVH} hd{hd} bf16 window{W} "
+               f"recurrentgemma-2b {what}", "decode_attention", dtype, fn(), plain(),
+               ref.decode_attention_ref(q, k, v.abs(), sp, pos, window=W), fn, plain, lib,
+               _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, W), False,
+               device=True)
+
+    B, S, R = 8, 512, 2560
+    g = torch.Generator(device="cuda").manual_seed(29)
+    sp = torch.log1p(torch.exp(-torch.linspace(2.2, 6.9, R, device="cuda")))
+    log_a = -8.0 * torch.rand((B, S, R), generator=g, device="cuda") * sp
+    gated = 0.5 * torch.randn((B, S, R), generator=g, device="cuda")
+    for h0 in (None, torch.randn((B, R), generator=g, device="cuda")):
+        fn = lambda h0=h0: krg.rglru_scan(log_a, gated, h0)
+        plain = lambda h0=h0: ref.rglru_scan_ref(log_a, gated, h0)
+        env = ref.rglru_scan_ref(log_a, gated.abs(), None if h0 is None else h0.abs())
+        got = fn()
+        record(f"rglru_scan B{B} S{S} R{R} f32 recurrentgemma-2b admission"
+               + (" from h0" if h0 is not None else ""), "rglru_scan", torch.float32, got,
+               plain(), env, fn, plain, None, _scan_work(B, S, R, h0 is not None),
+               h0 is None, library="none: no single PyTorch call computes the scan",
+               device=True, bit_equal_to_plain=bool(torch.equal(got, plain())))
 
 
 def check_free_rows(rng, randn, record) -> None:
@@ -2575,6 +2681,161 @@ def check_ssm_model() -> dict:
     return res
 
 
+def _hybrid_layers(cfg) -> tuple[int, int]:
+    """(local-attention layers, RG-LRU layers) of a hybrid stack: the
+    pattern over the groups, then the remainder's first entries."""
+    pattern, n = cfg.block_pattern, cfg.n_layers
+    kinds = list(pattern) * (n // len(pattern)) + list(pattern[:n % len(pattern)])
+    return kinds.count("attn"), kinds.count("rec")
+
+
+def _hybrid_impls():
+    """Stand-ins for ``repro_torch.kernels.ops`` that the hybrid stack's
+    attention and RG-LRU blocks call: the plain versions, and a faulty
+    path whose scan runs K7 on each HYBRID_CHUNK-step piece of the prompt
+    from a zero state, as a scan that dropped the state carried across a
+    piece would."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru_scan as krg
+
+    plain_attn, _ = _attention_impls()
+
+    def no_carry(log_a, gated, h0=None):
+        return torch.cat([krg.rglru_scan(log_a[:, a:a + HYBRID_CHUNK].contiguous(),
+                                         gated[:, a:a + HYBRID_CHUNK].contiguous(),
+                                         h0 if a == 0 else None)
+                          for a in range(0, gated.shape[1], HYBRID_CHUNK)], dim=1)
+
+    plain = SimpleNamespace(flash_attention=plain_attn.flash_attention,
+                            decode_attention=plain_attn.decode_attention,
+                            rglru_scan=ref.rglru_scan_ref)
+    faulty = SimpleNamespace(flash_attention=ops.flash_attention,
+                             decode_attention=ops.decode_attention, rglru_scan=no_carry)
+    return plain, faulty
+
+
+def _hybrid_logits(model, toks, cache_len, impl, feed=None):
+    """The logits at HYBRID_POSITIONS of the prompt (the last is the
+    prefill's) and HYBRID_MODEL_STEPS greedy decode steps, with the
+    attention and RG-LRU blocks pointed at ``impl``; (positions + steps, B,
+    V) float32. ``feed`` (steps, B) fixes the decoded tokens, else each step
+    takes the previous argmax."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step
+    from repro_torch.models import model as M
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import rmsnorm, unembed
+
+    saved = A.ops, RG.ops
+    A.ops = RG.ops = impl
+    try:
+        cfg = model.cfg
+        B, S = toks.shape
+        h, caches = T.prefill_hidden(model.stack, M._embed(model, toks), cfg,
+                                     cache_len=cache_len)
+        out = [unembed(model.tok, rmsnorm(model.ln_f, h[:, p], cfg.norm_eps)).float()
+               for p in HYBRID_POSITIONS]
+        del h
+        state = M.DecodeState(caches=caches,
+                              pos=torch.full((B,), S, dtype=torch.int32, device=toks.device),
+                              last_tok=toks[:, -1])
+        for step in range(HYBRID_MODEL_STEPS):
+            nxt = out[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+            logits, state = decode_step(model, state, nxt)
+            out.append(logits.float())
+        del state
+    finally:
+        A.ops, RG.ops = saved
+    return torch.stack(out)
+
+
+def check_hybrid_model() -> dict:
+    """Full-width recurrentgemma-2b on seeded weights: HYBRID_MODEL_B
+    prompts of HYBRID_MODEL_S tokens in a cache of HYBRID_MODEL_L (the
+    group rings hold the window's 2,048 slots: K1's window cuts, and the
+    rings wrap during the decode), then HYBRID_MODEL_STEPS greedy decode
+    steps on fed tokens, through the kernels (K1, K2, K7) and through the
+    plain versions: the logits at HYBRID_POSITIONS and every step within
+    MODEL_TOL, the greedy tokens equal but where the plain path's top-2 gap
+    is below it, and a scan that drops the state between 512-step pieces
+    beyond it. Then the smoke model on the card against the CPU path the
+    CPU tests hold against the JAX package (float32 both; prompts of 40
+    past the smoke window of 32)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = get_config("recurrentgemma-2b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L = HYBRID_MODEL_B, HYBRID_MODEL_S, HYBRID_MODEL_L
+    rng = np.random.default_rng(29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    plain, no_carry = _hybrid_impls()
+    lp = _hybrid_logits(model, toks, L, plain)
+    n = len(HYBRID_POSITIONS)
+    feed = lp[n - 1:-1].argmax(-1).to(torch.int32)   # every path decodes the same tokens
+    kernels.reset_launch_counts()
+    lk = _hybrid_logits(model, toks, L, ops, feed)
+    counts = kernels.launch_counts()
+    lf = _hybrid_logits(model, toks, L, no_carry, feed)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and lk.shape == (n + HYBRID_MODEL_STEPS, B,
+                                                      cfg.vocab_size)):
+        raise AssertionError("bad kernel-path logits")
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
+    attns, recs = _hybrid_layers(cfg)
+    want = {"flash_attention": attns, "decode_attention": attns * HYBRID_MODEL_STEPS,
+            "rglru_scan": recs}
+    res = {"logit_scale": lp.abs().max().item(), "tol": MODEL_TOL,
+           "B": B, "S": S, "cache_len": L, "ring": min(L, cfg.local_window),
+           "positions": list(HYBRID_POSITIONS),
+           "max_abs_err_per_position": errs[:n], "max_abs_err_per_step": errs[n:],
+           "tokens_checked": int(sure.sum()), "token_mismatches_beyond_margin": flips,
+           "no_carry_max_abs_err_per_position": fault[:n],
+           "no_carry_max_abs_err_per_step": fault[n:],
+           "kernel_path_launches": {k: counts[k] for k in want}}
+    del model, lk, lp, lf
+    torch.cuda.empty_cache()
+    if max(errs) > MODEL_TOL or flips:
+        emit("hybrid_model", **res)
+        raise AssertionError("hybrid kernel path and plain path disagree")
+    if any(counts[k] != v for k, v in want.items()):
+        emit("hybrid_model", **res)
+        raise AssertionError(f"hybrid kernel path launched {counts}, not {want}")
+    if not max(fault) > MODEL_TOL:
+        emit("hybrid_model", **res)
+        raise AssertionError("the model tolerance does not catch a dropped scan carry")
+
+    smoke = get_config("recurrentgemma-2b", smoke=True)
+    cpu_m = init_params(smoke, seed=0, device="cpu")
+    gpu_m = init_params(smoke, seed=0, device="cpu").cuda()
+    st = torch.from_numpy(rng.integers(0, smoke.vocab_size, (4, 40)).astype(np.int32))
+    lc, scpu = prefill(cpu_m, st, 64)
+    lg, sgpu = prefill(gpu_m, st.cuda(), 64)
+    smoke_err = [(lg.cpu() - lc).abs().max().item()]
+    for _ in range(3):
+        nxt = lc.argmax(-1).to(torch.int32)
+        lc, scpu = decode_step(cpu_m, scpu, nxt)
+        lg, sgpu = decode_step(gpu_m, sgpu, nxt.cuda())
+        smoke_err.append((lg.cpu() - lc).abs().max().item())
+    from repro_torch.runtime.engine import _leaves
+    state_err = max((g.cpu().float() - c.float()).abs().max().item()
+                    for g, c in zip(_leaves(sgpu.caches), _leaves(scpu.caches)))
+    res.update(smoke_max_abs_err=smoke_err, smoke_state_max_abs_err=state_err, smoke_tol=1e-4)
+    emit("hybrid_model", **res)
+    if max(smoke_err) > 1e-4 or state_err > 1e-4:
+        raise AssertionError("smoke hybrid model on the card disagrees with the CPU path")
+    return res
+
+
 # --------------------------------------------------------------- serve
 # kernels each path must launch
 def _moe_routing(forced=None):
@@ -2842,6 +3103,20 @@ def check_moe_paged(model) -> dict:
     return res
 
 
+def _hybrid_extra() -> dict:
+    """What a hybrid serve phase line adds: the model's shape and the
+    launches each admission replay and each decode step must add."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("recurrentgemma-2b")
+    attns, recs = _hybrid_layers(cfg)
+    return {"layers": {"attn": attns, "rec": recs},
+            "launches_per_admission_replay": {"flash_attention": attns, "rglru_scan": recs},
+            "launches_per_decode_step": {"decode_attention": attns},
+            "ring": min(int(HYBRID_ARGS[HYBRID_ARGS.index("--cache-len") + 1]),
+                        cfg.local_window)}
+
+
 def drive_deepseek_serve() -> dict:
     """deepseek-moe-16b on the fused loop at its published widths, cut to
     ``DEEPSEEK_LAYERS`` layers (the dense first layer and MoE layers with
@@ -2877,6 +3152,7 @@ DENSE_QUANT_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_atte
 DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
 MOE_KERNELS = ("flash_attention", "decode_attention")
 MOE_PAGED_KERNELS = ("flash_attention", "paged_decode_attention")
+HYBRID_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
 
 
 def _sync_checked(sched) -> None:
@@ -2980,10 +3256,13 @@ def _prefill_kernel(engine) -> str:
 def _prefill_graph_launches(engine) -> dict:
     """The kernels one admission graph must hold: K1r (K1 on an MoE stack)
     once per layer on an attention stack, the SSD scan's (K6) on a Mamba-2
-    one."""
+    one, K1 and K7 on a hybrid one."""
     n = engine.cfg.n_layers
     if engine.cfg.is_ssm:
         return {k: n for k in ("ssd_scan", *SSD_PHASES)}
+    if engine.cfg.is_hybrid:   # K1 per local-attention layer, K7 per RG-LRU layer
+        attns, recs = _hybrid_layers(engine.cfg)
+        return {"flash_attention": attns, "rglru_scan": recs}
     return {_prefill_kernel(engine): n}
 
 
@@ -3160,6 +3439,10 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     boot = int(pre == "flash_attention" and not args.paged)
     if ssm:   # every prefill (the boot's too) runs the scan once per layer, bf16: three kernels
         want = {k: n_layers * (prefills + 1) for k in ("ssd_scan", *SSD_PHASES)}
+    elif engine.cfg.is_hybrid:   # every prefill (the boot's too) runs K1 and K7 per layer
+        attns, recs = _hybrid_layers(engine.cfg)
+        want = {"flash_attention": attns * (prefills + 1), "rglru_scan": recs * (prefills + 1),
+                "decode_attention": attns * decodes * 2}
     elif args.paged:
         quant = args.kv_precision in ("int8", "fp8")
         decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
@@ -3188,8 +3471,9 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
             raise AssertionError(f"{phase}: the quantized region was not used beside the "
                                  "native one")
     sampled = engine.ecfg.sampling is not None
-    moe = engine.cfg.is_moe
-    if args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled or moe:
+    moe, hybrid = engine.cfg.is_moe, engine.cfg.is_hybrid
+    if (args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled or moe
+            or hybrid):
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -3802,6 +4086,7 @@ def cpu_trace(argv: list) -> dict:
 # ("decode_attention_kernel" is also inside the paged kernel's name)
 KERNEL_KINDS = (("K6", ("ssd_scan_kernel", "ssd_chunk_states_kernel", "ssd_state_passing_kernel",
                         "ssd_chunk_outputs_kernel")),
+                ("K7", ("rglru_scan_kernel",)),
                 ("K4p/K4q", ("paged_chunk_attention_kernel",)),
                 ("K3q", ("paged_decode_attention_quant_kernel",)),
                 ("K3", ("paged_decode_attention_kernel",)),
@@ -4041,12 +4326,14 @@ def _ab_serve(argv: list, graph: bool) -> dict:
 
 def _ab_host_launches(argv: list, graph: bool) -> list:
     """Host launches of each slot in ``AB_WINDOW``, from a profile of that
-    window of another identical serve."""
+    window of another identical serve, cut to the window and the start of
+    the slot after it (the profile reads nothing later)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch import serve as launcher
 
     args = launcher.build_parser().parse_args(argv)
+    args.horizon = min(args.horizon, AB_WINDOW[1] + 2)
     engine, sched, src = launcher.build(args)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
@@ -4461,7 +4748,14 @@ def main() -> int:
                                  kf.smem_bytes(64, torch.float32, quantized=True),
                              "flash_attention_quant_hd64_bf16_wgmma":
                                  kf.smem_bytes(64, torch.bfloat16, quantized=True),
+                             "flash_attention_hd256_bf16_wgmma":
+                                 kf.smem_bytes(256, torch.bfloat16),
+                             "flash_attention_hd256_f32_cuda_cores":
+                                 kf.smem_bytes(256, torch.float32),
                              "decode_attention_hd64_G4_bf16": kd.smem_bytes(64, 4),
+                             "decode_attention_hd256_G10_bf16": kd.smem_bytes(256, 10),
+                             "decode_attention_hd256_G10_f32_refused":
+                                 kd.smem_bytes(256, 10, torch.float32),
                              "decode_attention_quant_hd64_G4_bf16": kd.quant_smem_bytes(64, 4),
                              "paged_decode_attention_hd64_G4_bf16": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4_bf16": kpq.smem_bytes(64, 4),
@@ -4482,6 +4776,9 @@ def main() -> int:
          chunk_attention_instantiations=chunk_instantiations(
              info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]),
          ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]),
+         rglru_scan_instantiations=[{k: f.get(k) for k in ("function", "registers",
+                                                           "spill_stores", "spill_loads")}
+                                    for f in info["rglru_scan"]["ptxas"]],
          decode_instantiations=decode_instantiations(
              [f for n in ("decode_attention", "paged_attention", "decode_attention_quant",
                           "paged_attention_quant") for f in info[n]["ptxas"]]))
@@ -4542,6 +4839,12 @@ def main() -> int:
     moe_paged = drive_main_path(MOE_PAGED_ARGS, "moe_paged_serve", MOE_PAGED_KERNELS)
     profile_main_path(MOE_PAGED_ARGS, moe_paged["serve_s"], "moe_paged_profile")
     drive_deepseek_serve()
+    check_hybrid_model()
+    hybrid_path = drive_main_path(HYBRID_ARGS, "hybrid_serve", HYBRID_KERNELS,
+                                  extra=_hybrid_extra())
+    profile_main_path(HYBRID_ARGS, hybrid_path["serve_s"], "hybrid_profile")
+    drive_main_path(HYBRID_SYNC_ARGS, "hybrid_sync_serve", HYBRID_KERNELS,
+                    extra=_hybrid_extra())
     graph_ab()
     check_fig2()
 
@@ -4560,7 +4863,8 @@ def main() -> int:
               "flash_attention_quant": dense_quant["launches"]["flash_attention_quant"],
               "flash_attention_quant_ragged":
                   dense_quant["launches"]["flash_attention_quant_ragged"],
-              "decode_attention_quant": dense_quant["launches"]["decode_attention_quant"]}
+              "decode_attention_quant": dense_quant["launches"]["decode_attention_quant"],
+              "rglru_scan": hybrid_path["launches"]["rglru_scan"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4593,7 +4897,11 @@ def main() -> int:
            # K2q: no Pallas kernel; the reference's attn_decode dequantizes the
            # ring in XLA
            "decode_attention_quant": ("src/repro_torch/kernels/csrc/decode_attention_quant.cu",
-                                      "src/repro/models/attention.py:584")}
+                                      "src/repro/models/attention.py:584"),
+           # K7: no Pallas kernel; the reference scans each RG-LRU block with
+           # jax.lax.associative_scan in XLA
+           "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                          "src/repro/models/rglru.py:98")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

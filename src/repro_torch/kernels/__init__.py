@@ -1,15 +1,16 @@
-"""The attention kernels and the SSD scan: hand-written CUDA for Hopper,
-their plain versions, and the launch counts that show a run went through
-the kernels."""
+"""The attention kernels, the SSD scan and the RG-LRU scan: hand-written
+CUDA for Hopper, their plain versions, and the launch counts that show a
+run went through the kernels."""
 from typing import Optional
 
 from repro_torch.kernels import (chunk_attention, decode_attention, flash_attention,
                                  paged_attention, paged_attention_quant,
-                                 paged_chunk_attention, ssd_scan)
+                                 paged_chunk_attention, rglru_scan, ssd_scan)
 
 _COUNTERS = (flash_attention.launches, decode_attention.launches,
              paged_attention.launches, paged_attention_quant.launches,
-             chunk_attention.launches, paged_chunk_attention.launches, ssd_scan.launches)
+             chunk_attention.launches, paged_chunk_attention.launches, ssd_scan.launches,
+             rglru_scan.launches)
 
 
 def launch_counts() -> dict:

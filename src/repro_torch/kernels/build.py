@@ -22,7 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "decode_attention_quant", "paged_attention",
-           "paged_attention_quant", "chunk_attention", "paged_chunk_attention", "ssd_scan")
+           "paged_attention_quant", "chunk_attention", "paged_chunk_attention", "ssd_scan",
+           "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

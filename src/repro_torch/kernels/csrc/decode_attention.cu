@@ -21,7 +21,7 @@
 // What bounds it: bytes. A step reads the valid slots' K/V once (B 8, L
 // 1024, KVH 8, hd 64 in bf16: 16.8 MB when every slot is valid, ~5 us at
 // 3.35 TB/s) for a few MFLOP; decode_core.cuh says what the design does
-// about that.
+// about that. Head dims 32, 64, 128, and 256 in bf16 (recurrentgemma-2b).
 #include "decode_core.cuh"
 
 namespace {
@@ -71,6 +71,10 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
+    case 256:  // bf16 only: the f32 route's shared memory would exceed a CTA's (decode_core.cuh)
+      if constexpr (dc::Route<T>::MMA)
+        return launch<T, 256>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -93,7 +97,10 @@ extern "C" cudaError_t decode_attention_fwd(const void* q, const void* k, const 
 }
 
 // Dynamic shared memory one CTA takes for head dim hd, group size G and
-// dtype (is_bf16 as above); 0 if hd is unsupported.
+// dtype (is_bf16 as above); 0 if hd is unsupported. For float32 at hd 256
+// it is the amount the kernel would need, which no CTA may have.
 extern "C" int decode_attention_smem_bytes(int hd, int G, int is_bf16) {
+  if (hd == 256)
+    return (int)(is_bf16 ? dc::Smem<__nv_bfloat16, 256>::bytes(G) : dc::Smem<float, 256>::bytes(G));
   return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
 }

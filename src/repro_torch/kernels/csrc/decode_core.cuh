@@ -83,6 +83,13 @@
 // device memory, no atomics, no second launch: the result does not depend
 // on the order in which CTAs run, and each call is one kernel launch.
 //
+// Head dims 32, 64 and 128 on both routes, and 256 on the bf16 one
+// (recurrentgemma-2b: 10 query heads on one KV head). At hd 256 a K or V
+// row is 512 bytes (528 apart in shared memory), the two stages of 64 K and
+// V rows take 135 KB and q and the partial of G 10 another 20 KB: one CTA
+// of 128 threads a SM. The f32 route's two stages would take 266 KB, more
+// than a CTA may have, so its wrappers refuse hd 256.
+//
 // What bounds it: bytes. A step reads each valid K/V row once for all G
 // query heads that use it (a code row as hd bytes and a 4-byte scale), at
 // 4 * hd FLOPs per (head, slot), two orders of magnitude below the card's
@@ -289,14 +296,33 @@ template <int HD> struct WarpPerHead {
 // (t % 4), +1. A warp whose slots of a tile are all masked (the tile has a
 // valid slot elsewhere) keeps m = -1e30 until it sees a valid slot, and a
 // partial with m = -1e30 weighs exp(-1e30 - M) = 0 in every merge.
+//
+// At hd 256 the O accumulator alone is 128 f32 registers a thread, and q's
+// fragments would add 64 more (a bf16 thread held 149 registers at hd 128),
+// so there (QREG false) q's fragment of each k-step is packed again from
+// the f32 q in shared memory as the tile's product needs it: eight 4-byte
+// shared loads and four packs a k-step, against a tile's 64 rows of 512
+// bytes of K and of V from device memory.
 template <int HD> struct MmaHeads {
   using S = Smem<__nv_bfloat16, HD>;
   static constexpr int KC = HD / 16;  // 16-wide k-steps of q K^T; pairs of 8-dim blocks of O
-  int w, lane, cb, r0, r1;
+  static constexpr bool QREG = KC <= 8;  // q's fragments held in registers (hd <= 128)
+  int w, lane, cb, r0, r1, g;
   bool two_rows;          // rows r1 hold heads (G > r0's block + 8); else they are zeros
-  uint32_t qa[KC][4];     // q as the A operand of S = q K^T
+  uint32_t qa[QREG ? KC : 1][4];  // q as the A operand of S = q K^T (QREG)
   float o[2 * KC][4];     // O = P V, one accumulator per 8-dim block
   float m[2], l[2];
+
+  // q's A fragment of k-step kc, from the f32 q in shared memory
+  __device__ void q_frag(const float* Qs, int kc, uint32_t (&a)[4]) const {
+    const int c = 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {  // a[0]: r0 low, a[1]: r1 low, a[2]: r0 high, a[3]: r1 high
+      const int r = (h & 1) ? r1 : r0;
+      const int d = 16 * kc + 8 * (h >> 1) + c;
+      a[h] = r < g ? repro::sm90::pack_bf16(Qs[r * HD + d], Qs[r * HD + d + 1]) : 0u;
+    }
+  }
 
   __device__ void init(const float* Qs, int G) {
     w = threadIdx.x >> 5;
@@ -304,16 +330,11 @@ template <int HD> struct MmaHeads {
     cb = w & 3;
     r0 = 16 * (w >> 2) + (lane >> 2);
     r1 = r0 + 8;
+    g = G;
     two_rows = 16 * (w >> 2) + 8 < G;
-    const int c = 2 * (lane & 3);
+    if constexpr (QREG) {
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {  // a[0]: r0 low, a[1]: r1 low, a[2]: r0 high, a[3]: r1 high
-        const int r = (h & 1) ? r1 : r0;
-        const int d = 16 * kc + 8 * (h >> 1) + c;
-        qa[kc][h] = r < G ? repro::sm90::pack_bf16(Qs[r * HD + d], Qs[r * HD + d + 1]) : 0u;
-      }
+      for (int kc = 0; kc < KC; ++kc) q_frag(Qs, kc, qa[kc]);
     }
 #pragma unroll
     for (int b = 0; b < 2 * KC; ++b)
@@ -331,10 +352,16 @@ template <int HD> struct MmaHeads {
     // S = q K^T: K rows are slots, hd contiguous, which is B's column-major layout
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
-      uint32_t b[4];
+      uint32_t b[4], qf[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int h = 0; h < 4; ++h) qf[h] = qa[kc][h];
+      } else {
+        q_frag(Qs, kc, qf);
+      }
       repro::sm90::ldmatrix_x4(b, kb + (8 * (mi >> 1) + ri) * S::ROW + (16 * kc + 8 * (mi & 1)) * 2);
-      repro::sm90::mma_m16n8k16_bf16(s[0], qa[kc], b[0], b[1]);
-      repro::sm90::mma_m16n8k16_bf16(s[1], qa[kc], b[2], b[3]);
+      repro::sm90::mma_m16n8k16_bf16(s[0], qf, b[0], b[1]);
+      repro::sm90::mma_m16n8k16_bf16(s[1], qf, b[2], b[3]);
     }
     // mask, scale and the online softmax on the fragment
     float mx0 = repro::NEG_INF, mx1 = repro::NEG_INF;
@@ -512,7 +539,7 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
   constexpr int VEC = 16 / (int)sizeof(T);
   constexpr int CCH = HD / 16;                     // 16-byte chunks of a code row
   constexpr int CODE_STEP = 16 * (int)sizeof(T);  // bytes of a code chunk's 16 values
-  static_assert(HD % 32 == 0 && (HD * (int)sizeof(T)) % 16 == 0, "HD must be 32, 64, 128");
+  static_assert(HD % 32 == 0 && (HD * (int)sizeof(T)) % 16 == 0, "HD must be 32, 64, 128, 256");
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();

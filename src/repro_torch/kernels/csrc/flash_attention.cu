@@ -17,7 +17,8 @@
 // value dtype before the PV product, KV tiles wholly above the diagonal,
 // outside the window, or at or beyond the row's length are skipped, and
 // query rows at or beyond the row's length are written as zeros. Any Sq and
-// Sk are accepted (the ragged tile edge is masked); hd must be 32, 64 or 128.
+// Sk are accepted (the ragged tile edge is masked); hd must be 32, 64 or 128,
+// or 256 over native K/V (recurrentgemma-2b's MQA heads).
 //
 // Quantized K/V (K1q, K1rq) change only the tile loads: each code is
 // converted exactly, multiplied by its row and head's scale in f32 and
@@ -60,6 +61,14 @@
 // each tile's cost. Two warpgroups ping-ponging softmax and products, a
 // persistent grid that starts the longest q-tiles first, and K/V shared
 // across a KV group are the next levers.
+//
+// hd 256 (recurrentgemma-2b: 10 query heads on one KV head). bf16: a 64-row
+// tile is 32 KB, so Q and two stages of K and V take 160 KB and one CTA fits
+// an SM; the O accumulator is four 64-column blocks of V, 128 f32 registers
+// a thread beside S's 32 (chip_smoke.py's build phase prints ptxas's
+// registers and spills per instantiation). f32: the CUDA-core kernel's
+// tiles take 215,296 bytes at QS = KS = 260, inside the 232,448 a CTA may
+// have, and each thread holds 128 output dims.
 #include <type_traits>
 
 #include "dequant.cuh"
@@ -596,6 +605,11 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, C, 128>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
                                window, scale, s);
+    case 256:  // native K/V only (recurrentgemma-2b's MQA); codes stop at 128
+      if constexpr (std::is_same<T, C>::value)
+        return launch<T, C, 256>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
+                                 window, scale, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -660,7 +674,8 @@ int smem_of(int is_bf16, int quantized) {
   return quantized ? (int)WgSmem<int8_t, HD>::bytes : (int)WgSmem<bf16, HD>::bytes;
 }
 
-// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported):
+// Dynamic shared memory one CTA takes for head dim hd (0 if unsupported;
+// hd 256 over native K/V only):
 // the f32 kernel's (is_bf16 0; the quantized kernel stages the same float
 // tiles) or the bf16 wgmma kernel's over native (quantized 0) or code K/V.
 extern "C" int flash_attention_smem_bytes(int hd, int is_bf16, int quantized) {
@@ -668,6 +683,7 @@ extern "C" int flash_attention_smem_bytes(int hd, int is_bf16, int quantized) {
     case 32: return smem_of<32>(is_bf16, quantized);
     case 64: return smem_of<64>(is_bf16, quantized);
     case 128: return smem_of<128>(is_bf16, quantized);
+    case 256: return quantized ? 0 : smem_of<256>(is_bf16, quantized);
     default: return 0;
   }
 }

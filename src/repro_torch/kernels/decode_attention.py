@@ -22,7 +22,8 @@ over masked scores).
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
-versions instead.
+versions instead. K2 takes head dims 32, 64, 128 and, in bf16, 256
+(recurrentgemma-2b's MQA heads, a group of 10); K2q stops at 128.
 """
 from __future__ import annotations
 
@@ -38,7 +39,9 @@ launches = {"decode_attention": 0, "decode_attention_quant": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)   # K2; 256 in bf16 only
+_CODE_HEAD_DIMS = (32, 64, 128)    # K2q
+SMEM_LIMIT = 232448                # the dynamic shared memory an H100 CTA may have
 
 
 def _fn():
@@ -75,7 +78,8 @@ def quant_smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> in
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Tensor,
-           pos: torch.Tensor, window: Optional[int], kv_dtypes) -> None:
+           pos: torch.Tensor, window: Optional[int], kv_dtypes,
+           head_dims=_HEAD_DIMS) -> None:
     """Raise on anything the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got {q.device}")
@@ -87,10 +91,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Te
                          f"v {tuple(v.shape)}")
     B, H, hd = q.shape
     _, L, KVH, hd_k = k.shape
-    if (k.shape[0] != B or hd_k != hd or hd not in _HEAD_DIMS or H % KVH
+    if (k.shape[0] != B or hd_k != hd or hd not in head_dims or H % KVH
             or H // KVH > 32):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}: need "
-                         f"equal B, hd in {_HEAD_DIMS}, H % KVH == 0, H/KVH <= 32")
+                         f"equal B, hd in {head_dims}, H % KVH == 0, H/KVH <= 32")
+    if hd == 256 and q.dtype == torch.float32:
+        need = smem_bytes(256, H // KVH, torch.float32)
+        raise ValueError(f"decode_attention in float32 at hd 256 needs {need} bytes of "
+                         f"shared memory a CTA (two stages of 64 K and V rows of 1,040 "
+                         f"bytes), above the {SMEM_LIMIT} an H100 CTA may have: it runs "
+                         "in bfloat16 only")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if slot_pos.dtype != torch.int32 or slot_pos.shape != (B, L):
@@ -133,7 +143,7 @@ def decode_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2q: q (B,H,hd) float32 or bfloat16, ring codes k/v (B,L,KVH,hd) int8
     or float8_e4m3fn with k_scale/v_scale (B,L,KVH) float32, slot_pos (B,L)
     int32, pos (B,) int32 -> (B,H,hd) in q's dtype, on the card."""
-    _check(q, k, v, slot_pos, pos, window, _CODES)
+    _check(q, k, v, slot_pos, pos, window, _CODES, _CODE_HEAD_DIMS)
     B, H, hd = q.shape
     _, L, KVH, _ = k.shape
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):

@@ -17,7 +17,8 @@ holds the kernel above that bound is issue: each CTA's serial chain of
 copies, products and softmax, with the causal grid's diagonal tiles and
 triangular load on top (``chip_smoke.py``'s flash_anatomy phase). f32 q
 keeps a CUDA-core kernel: a tensor-core product in f32 is TF32, which its
-f32 tolerance does not allow.
+f32 tolerance does not allow. Head dims 32, 64 and 128 on every route, and
+256 (recurrentgemma-2b's MQA heads) over native K/V on both.
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -38,7 +39,8 @@ launches = {"flash_attention": 0, "flash_attention_ragged": 0,
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 256)
+_CODE_HEAD_DIMS = (32, 64, 128)   # K1q/K1rq: hd 256 serves no quantized path
 
 
 def _fn():
@@ -72,7 +74,8 @@ def smem_bytes(hd: int, dtype: torch.dtype, quantized: bool = False) -> int:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           seq_lens: Optional[torch.Tensor], window: Optional[int], kv_dtypes) -> None:
+           seq_lens: Optional[torch.Tensor], window: Optional[int], kv_dtypes,
+           head_dims=_HEAD_DIMS) -> None:
     """Raise on anything the kernel does not take."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention kernel needs CUDA tensors, got {q.device}")
@@ -84,9 +87,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     B, Sq, H, hd = q.shape
     _, Sk, KVH, hd_k = k.shape
-    if k.shape[0] != B or hd_k != hd or hd not in _HEAD_DIMS or H % KVH:
+    if k.shape[0] != B or hd_k != hd or hd not in head_dims or H % KVH:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}: "
-                         f"need equal B and hd in {_HEAD_DIMS}, H % KVH == 0")
+                         f"need equal B and hd in {head_dims}, H % KVH == 0")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -132,7 +135,7 @@ def flash_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1q (K1rq with ``seq_lens``): q (B,Sq,H,hd) float32 or bfloat16, k/v
     (B,Sk,KVH,hd) int8 or float8_e4m3fn codes with k_scale/v_scale
     (B,Sk,KVH) float32 -> (B,Sq,H,hd) in q's dtype, on the card."""
-    _check(q, k, v, seq_lens, window, _CODES)
+    _check(q, k, v, seq_lens, window, _CODES, _CODE_HEAD_DIMS)
     B, Sq, H, hd = q.shape
     _, Sk, KVH, _ = k.shape
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):

@@ -1,4 +1,5 @@
-"""Kernel entry points (attention, the SSD scan) that choose by device.
+"""Kernel entry points (attention, the SSD and RG-LRU scans) that choose by
+device.
 
 A CPU tensor goes to the plain version (``repro_torch.kernels.ref``); a
 CUDA tensor goes to the hand-written kernel, whose wrapper raises on
@@ -17,6 +18,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_attention_quant as _paq
 from repro_torch.kernels import paged_chunk_attention as _pca
+from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import (attention_quant_ref, attention_ref,
                                      chunk_attention_quant_ref, chunk_attention_ref,
@@ -24,7 +26,8 @@ from repro_torch.kernels.ref import (attention_quant_ref, attention_ref,
                                      paged_chunk_attention_ref,
                                      paged_decode_attention_mixed_ref,
                                      paged_decode_attention_quant_ref,
-                                     paged_decode_attention_ref, ssd_chunked)
+                                     paged_decode_attention_ref, rglru_scan_ref,
+                                     ssd_chunked)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -144,3 +147,12 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
     return _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
+
+
+def rglru_scan(log_a: torch.Tensor, gated: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The RG-LRU recurrence h_t = exp(log_a_t) h_{t-1} + gated_t over
+    (B, S, R) float32 from h0 (B, R) (None: zeros): every h_t (K7)."""
+    if gated.device.type == "cpu":
+        return rglru_scan_ref(log_a, gated, h0)
+    return _rg.rglru_scan(log_a, gated, h0)

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels: the attention kernels with full
-score matrices, and the SSD scan (``ssd_chunked``, with ``ssd_ref`` its
-sequential oracle).
+score matrices, the SSD scan (``ssd_chunked``, with ``ssd_ref`` its
+sequential oracle) and the RG-LRU scan (``rglru_scan_ref``).
 
 These compute what the CUDA kernels compute, in the simplest correct way,
 so that the CPU tests and ``chip_smoke.py`` hold the kernels against
@@ -370,3 +370,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     contrib, decay = ssd_chunk_states_ref(x, dt, A, Bm, chunk)
     entering, final = ssd_state_passing_ref(contrib, decay, init_state)
     return ssd_chunk_outputs_ref(x, dt, A, Bm, Cm, entering, chunk), final
+
+
+def rglru_scan_ref(log_a: torch.Tensor, gated: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The RG-LRU recurrence, the plain version of K7: h_t = exp(log_a_t)
+    h_{t-1} + gated_t over log_a, gated (B, S, R) float32, from h0 (B, R)
+    float32 (None: zeros). Returns every h_t, (B, S, R) float32. A loop
+    over t with K7's two roundings a step (the product, then the sum)."""
+    B, S, R = gated.shape
+    h = torch.zeros((B, R), dtype=torch.float32, device=gated.device) if h0 is None else h0
+    a = torch.exp(log_a)
+    out = torch.empty_like(gated)
+    for t in range(S):
+        h = a[:, t] * h + gated[:, t]
+        out[:, t] = h
+    return out

@@ -69,7 +69,16 @@ drawn with the reference's request-keyed threefry keys, and print a
 
 ``--arch mamba2-130m`` serves the Mamba-2 stack on the dense engine (the
 fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
-``--paged`` refuse it with ValueError, as the reference does.
+``--paged`` refuse it with ValueError, as the reference does. So does
+``--arch recurrentgemma-2b``, the hybrid Griffin stack (RG-LRU blocks and
+local attention with a window of 2048, head dim 256; its admissions prefill
+the whole padded bucket, R7): the dense engine's fused, ``--legacy-loop``
+and ``--sync-free`` loops, per-request sampling included, at native KV
+precision (``--kv-precision int8|fp8`` raises NotImplementedError, ROADMAP
+item 11); ``--chunked`` and ``--paged`` raise the reference's ValueErrors:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+      --smoke --horizon 12 [--sync-free | --legacy-loop] [--device cpu]
 
 ``--replicas N`` serves from a ``ReplicaFleet`` of N equal engines on the
 one card (one model, its weights shared; each replica its own cache and

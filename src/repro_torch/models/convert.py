@@ -7,9 +7,10 @@ returns the port's ``Model`` with the same values, one block per layer.
 ``paged_pool_from_numpy`` carries a reference ``PagedKVPool``'s arrays into
 the port's pool layout, scratch pages and rows included, and
 ``kv_cache_from_numpy`` a reference dense ``KVCache``'s (codes, scales and
-staging buffers included), so both packages can start from one cache
-state. Like every entry point of the port they place what they build on the
-card unless the caller asks for the CPU.
+staging buffers included) and ``rec_state_from_numpy`` a reference RG-LRU
+``RecState``'s, so both packages can start from one cache state. Like
+every entry point of the port they place what they build on the card
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import KVCache, PagedKVPool
 from repro_torch.models.model import Model
+from repro_torch.models.rglru import RecState
 
 
 def _put(p: torch.Tensor, arr, name: str) -> None:
@@ -31,6 +33,44 @@ def _put(p: torch.Tensor, arr, name: str) -> None:
     p.copy_(torch.tensor(a).to(p.dtype))
 
 
+def _first_leaf(tree):
+    return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
+
+
+def _put_block(blk, leaves: dict, i: int, at: str, cfg: ModelConfig) -> None:
+    """Layer i of a segment's stacked leaves into the port's block."""
+    if blk.kind == "group":
+        for name in blk.names:
+            _put_block(getattr(blk, name), leaves[name], i, f"{at}.{name}", cfg)
+        return
+    _put(blk.ln1, leaves["ln1"]["scale"][i], f"{at}.ln1")
+    if blk.kind in ("ssm", "rec"):
+        mod = getattr(blk, blk.kind)
+        names = [n for n, _ in mod.named_parameters()]
+        if sorted(names) != sorted(leaves[blk.kind]):
+            raise ValueError(f"{at}.{blk.kind}: leaves {sorted(leaves[blk.kind])} != "
+                             f"{sorted(names)}")
+        for name in names:
+            _put(getattr(mod, name), leaves[blk.kind][name][i], f"{at}.{blk.kind}.{name}")
+        if blk.kind == "ssm":
+            return
+    else:
+        for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
+            _put(getattr(blk.attn, name), leaves["attn"][name][i], f"{at}.attn.{name}")
+    _put(blk.ln2, leaves["ln2"]["scale"][i], f"{at}.ln2")
+    if blk.kind == "attn_moe":
+        moe, m = blk.moe, leaves["moe"]
+        if (moe.shared is None) != ("shared" not in m):
+            raise ValueError(f"{at}.moe: shared experts in only one of tree and model")
+        for name in ("router", "w_gate", "w_up", "w_down"):
+            _put(getattr(moe, name), m[name][i], f"{at}.moe.{name}")
+        for name in ("w_gate", "w_up", "w_down") if moe.shared is not None else ():
+            _put(getattr(moe.shared, name), m["shared"][name][i], f"{at}.moe.shared.{name}")
+        return
+    for name in ("w_gate", "w_up", "w_down"):
+        _put(getattr(blk, name), leaves["mlp"][name][i], f"{at}.mlp.{name}")
+
+
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     """``tree`` = {"embed": {"tok"}, "stack": [per-segment dict], "ln_f":
@@ -38,39 +78,19 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     ``attn``, ``ln2`` and ``mlp`` for an ``attn`` segment, ``moe`` in place
     of ``mlp`` for an ``attn_moe`` segment (``router``, ``w_gate``,
     ``w_up``, ``w_down`` and, with shared experts, ``shared``), ``ln1``
-    and ``ssm`` for an ``ssm`` segment."""
+    and ``ssm`` for an ``ssm`` segment, ``rec`` (the RG-LRU's leaves) in
+    place of ``attn`` for a ``rec`` segment, and for a hybrid ``group``
+    segment one such sub-dict per pattern entry (``b0_rec``, ``b1_rec``,
+    ``b2_attn``), each stacked over the groups."""
     model = Model(cfg, device)
     _put(model.tok, tree["embed"]["tok"], "embed.tok")
     _put(model.ln_f, tree["ln_f"]["scale"], "ln_f.scale")
     for s, (seg, leaves) in enumerate(zip(model.stack, tree["stack"], strict=True)):
-        n = np.asarray(leaves["ln1"]["scale"]).shape[0]
+        n = np.asarray(_first_leaf(leaves)).shape[0]
         if n != len(seg):
             raise ValueError(f"segment {s}: {n} layers in the tree, {len(seg)} in the model")
         for i, blk in enumerate(seg):
-            at = f"stack[{s}][{i}]"
-            _put(blk.ln1, leaves["ln1"]["scale"][i], f"{at}.ln1")
-            if blk.kind == "ssm":
-                names = [n for n, _ in blk.ssm.named_parameters()]
-                if sorted(names) != sorted(leaves["ssm"]):
-                    raise ValueError(f"{at}.ssm: leaves {sorted(leaves['ssm'])} != {sorted(names)}")
-                for name in names:
-                    _put(getattr(blk.ssm, name), leaves["ssm"][name][i], f"{at}.ssm.{name}")
-                continue
-            _put(blk.ln2, leaves["ln2"]["scale"][i], f"{at}.ln2")
-            for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
-                _put(getattr(blk.attn, name), leaves["attn"][name][i], f"{at}.attn.{name}")
-            if blk.kind == "attn_moe":
-                moe, m = blk.moe, leaves["moe"]
-                if (moe.shared is None) != ("shared" not in m):
-                    raise ValueError(f"{at}.moe: shared experts in only one of tree and model")
-                for name in ("router", "w_gate", "w_up", "w_down"):
-                    _put(getattr(moe, name), m[name][i], f"{at}.moe.{name}")
-                for name in ("w_gate", "w_up", "w_down") if moe.shared is not None else ():
-                    _put(getattr(moe.shared, name), m["shared"][name][i],
-                         f"{at}.moe.shared.{name}")
-                continue
-            for name in ("w_gate", "w_up", "w_down"):
-                _put(getattr(blk, name), leaves["mlp"][name][i], f"{at}.mlp.{name}")
+            _put_block(blk, leaves, i, f"stack[{s}][{i}]", cfg)
     return model
 
 
@@ -121,3 +141,12 @@ def kv_cache_from_numpy(k, v, slot_pos, k_scale=None, v_scale=None, stage_k=None
         return None if a is None else _torch(a).to(device)
     return KVCache(k=put(k), v=put(v), slot_pos=put(slot_pos), k_scale=put(k_scale),
                    v_scale=put(v_scale), stage_k=put(stage_k), stage_v=put(stage_v))
+
+
+@torch.no_grad()
+def rec_state_from_numpy(conv, h, device=None) -> RecState:
+    """The port's RG-LRU state holding a reference ``RecState``'s contents
+    (conv (..., B, W-1, R) in the compute dtype, h (..., B, R) float32; any
+    leading layer axes). ``device`` None: the card."""
+    device = resolve_device(device)
+    return RecState(conv=_torch(conv).to(device), h=_torch(h).to(device))

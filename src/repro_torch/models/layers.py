@@ -1,4 +1,4 @@
-"""Layer primitives: norms, rotary embeddings, gated MLP, embeddings.
+"""Layer primitives: norms, rotary embeddings, gated MLP (SiLU or GeLU), embeddings.
 
 Plain functions on tensors, with the reference package's numerics: RMSNorm
 in float32 cast back to the input dtype, RoPE angles in float32, weights in
@@ -48,10 +48,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1).to(x.dtype)
 
 
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":   # jax.nn.gelu(approximate=True), the reference's
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
 def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-        x: torch.Tensor) -> torch.Tensor:
-    """SiLU-gated MLP."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+        x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: act(x @ w_gate) * (x @ w_up) @ w_down, act SiLU or
+    (tanh-approximated) GeLU."""
+    return (_act(act, x @ w_gate) * (x @ w_up)) @ w_down
 
 
 def embed(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

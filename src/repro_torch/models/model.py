@@ -26,11 +26,13 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import cdtype, embed, param, rmsnorm, unembed
+from repro_torch.models.rglru import RGLRU, RGLRU_CONSTANTS, rglru_constants
 from repro_torch.models.ssm import SSM, SSM_CONSTANTS, ssm_constants
 
 
 class DecodeState(NamedTuple):
-    caches: list             # per-segment KVCache or SSMState, leaves (n_layers, B, ...)
+    caches: list             # per-segment KVCache, SSMState, RecState or a group's dict of
+                             # them, leaves (n_layers, B, ...)
     pos: torch.Tensor        # (B,) int32 next absolute position to write
     last_tok: torch.Tensor   # (B,) int32 last emitted/fed token
 
@@ -49,10 +51,10 @@ class PagedDecodeState(NamedTuple):
 
 
 class Model(nn.Module):
-    """Decoder: tied embedding ``tok`` (V, D), per-layer blocks (attention
-    or Mamba-2), final norm ``ln_f`` (D,) float32. Parameters are allocated
-    uninitialised; use ``init_params`` or ``convert.params_from_numpy`` to
-    fill them."""
+    """Decoder: tied embedding ``tok`` (V, D), per-layer blocks (attention,
+    Mamba-2, RG-LRU or a hybrid group), final norm ``ln_f`` (D,) float32.
+    Parameters are allocated uninitialised; use ``init_params`` or
+    ``convert.params_from_numpy`` to fill them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -77,16 +79,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     device, scaled as the reference initialises them: N(0, 1/d_in) for the
     projections, the MoE router and each expert's matrices (drawn in
     float32 one leaf at a time, cast to the leaf's dtype), N(0, 0.02^2)
-    for the embedding, N(0, 0.1^2) for a Mamba-2 conv weight, ones for the
-    norms, and the reference's constants for the other Mamba-2 leaves
-    (``ssm.ssm_constants``). The draws differ from the reference's
-    jax.random ones; the tests carry weights across with
-    ``convert.params_from_numpy`` instead."""
+    for the embedding, N(0, 0.1^2) for a Mamba-2 or RG-LRU conv weight,
+    N(0, 1/bs) for the RG-LRU's block-diagonal gates (nb, bs, bs), ones for
+    the norms, and the reference's constants for the other Mamba-2 and
+    RG-LRU leaves (``ssm.ssm_constants``, ``rglru.rglru_constants``). The
+    draws differ from the reference's jax.random ones; the tests carry
+    weights across with ``convert.params_from_numpy`` instead."""
     model = Model(cfg, device)
     g = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in SSM_CONSTANTS:
+        if leaf in SSM_CONSTANTS or leaf in RGLRU_CONSTANTS:
             continue
         if leaf in _NORMS:
             p.fill_(1.0)
@@ -97,7 +100,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
             scale = (p.shape[0] * p.shape[1]) ** -0.5
         elif leaf == "conv_w":
             scale = 0.1
-        elif p.dim() == 3 and ".moe.w_" in name:   # an expert stack (E, d_in, d_out)
+        elif p.dim() == 3 and (".moe.w_" in name or leaf in ("w_a", "w_x")):
+            # an expert stack (E, d_in, d_out) or RG-LRU gate blocks (nb, bs, bs)
             scale = p.shape[1] ** -0.5
         else:
             scale = p.shape[0] ** -0.5
@@ -106,6 +110,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Model:
     for mod in model.modules():
         if isinstance(mod, SSM):
             ssm_constants(mod, cfg)
+        elif isinstance(mod, RGLRU):
+            rglru_constants(mod, cfg)
     return model
 
 

@@ -2,12 +2,18 @@
 
 The segment plan is the reference package's (``plan_segments``). The port
 runs the ``attn`` segment (self-attention + dense MLP), the ``attn_moe``
-segment (self-attention + the MoE FFN of ``models/moe.py``) and the
-``ssm`` segment (a Mamba-2 block, no FFN), and keeps one block module per layer,
-where the reference stacks each segment's layers on a leading axis for
+segment (self-attention + the MoE FFN of ``models/moe.py``), the ``ssm``
+segment (a Mamba-2 block, no FFN) and the hybrid Griffin stack's ``group``
+segment (the pattern's sub-blocks in order: RG-LRU blocks of
+``models/rglru.py`` and local attention, each with its GeLU MLP) and ``rec``
+remainder segments, and keeps one block module per layer, where the
+reference stacks each segment's layers on a leading axis for
 ``lax.scan``. Decode caches, recurrent states and page pools keep that
 leading layer axis, so a decode state compares leaf by leaf with the
-reference's. Any other segment kind raises NotImplementedError.
+reference's: a ``group`` segment's cache is the reference's dict, one
+``RecState`` or ``KVCache`` per sub-block (``"b0"``, ``"b1"``, ...), its
+attention ring ``min(cache_len, local_window)`` slots long. Any other
+segment kind raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -21,10 +27,11 @@ from repro_torch.cache.precision import resolve_kv_precision
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import cdtype, mlp, param, rmsnorm
 
-_ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense, MoE and SSM)"
+_ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense, MoE, SSM and hybrid)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,24 +87,32 @@ def check_supported(cfg: ModelConfig) -> None:
     """The port's models run dense decoder-only attention stacks, whose own
     caches hold K/V at the compute dtype or as int8 or fp8 codes with
     per-token-per-head scales (``kv_precision``), MoE attention stacks
-    (with a leading dense segment under ``first_k_dense``) and pure Mamba-2
-    stacks."""
+    (with a leading dense segment under ``first_k_dense``), pure Mamba-2
+    stacks and hybrid Griffin stacks (RG-LRU and local attention, GeLU
+    MLPs) at native KV precision."""
+    kinds = {s.kind for s in plan_segments(cfg)}
     dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
-    moe = cfg.arch_type == "moe" and {s.kind for s in plan_segments(cfg)} <= {"attn", "attn_moe"}
+    moe = cfg.arch_type == "moe" and kinds <= {"attn", "attn_moe"}
     ssm = cfg.arch_type == "ssm" and plan_segments(cfg) == (Segment("ssm", cfg.n_layers),)
-    if not (dense or moe or ssm):
+    hybrid = cfg.arch_type == "hybrid" and kinds <= {"group", "rec", "attn"}
+    if not (dense or moe or ssm or hybrid):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
-    if resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype).is_cast:
+    prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
+    if prec.is_cast:
         raise NotImplementedError(
             f"{cfg.name}: the unscaled KV storage cast "
             f"{cfg.kv_precision or cfg.cache_dtype!r} is not ported yet (int8 and fp8 "
             "are); see ROADMAP.md queue 1 item 9 (the legacy unscaled casts)")
-    if not cfg.tie_embeddings or cfg.attn_logit_softcap or cfg.act != "silu":
+    if hybrid and prec.is_quantized:
         raise NotImplementedError(
-            f"{cfg.name}: untied embeddings, logit softcap and non-SiLU MLPs are "
-            f"not ported yet; see {_ZOO}")
+            f"{cfg.name}: a hybrid stack's quantized KV ring ({cfg.kv_precision!r}) is not "
+            f"ported yet: it needs K2q at head dim {cfg.head_dim_}; see {_ZOO}")
+    if not cfg.tie_embeddings or cfg.attn_logit_softcap or cfg.act not in ("silu", "gelu"):
+        raise NotImplementedError(
+            f"{cfg.name}: untied embeddings, logit softcap and MLPs other than SiLU and "
+            f"GeLU are not ported yet; see {_ZOO}")
 
 
 class Block(nn.Module):
@@ -139,7 +154,44 @@ class SSMBlock(nn.Module):
         self.ssm = SSM.SSM(cfg, device)
 
 
-_BLOCKS = {"attn": Block, "attn_moe": MoEBlock, "ssm": SSMBlock}
+class RecBlock(nn.Module):
+    """One ``rec`` layer: ln1 -> RG-LRU block -> residual -> ln2 -> MLP ->
+    residual."""
+    kind = "rec"
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, Fd, dt = cfg.d_model, cfg.d_ff, cdtype(cfg)
+        self.ln1 = param((D,), torch.float32, device)
+        self.rec = RG.RGLRU(cfg, device)
+        self.ln2 = param((D,), torch.float32, device)
+        self.w_gate = param((D, Fd), dt, device)
+        self.w_up = param((D, Fd), dt, device)
+        self.w_down = param((Fd, D), dt, device)
+
+
+class GroupBlock(nn.Module):
+    """One ``group`` layer: the hybrid pattern's sub-blocks in order, named
+    as the reference's leaves (``b0_rec``, ``b1_rec``, ``b2_attn`` for
+    recurrentgemma's (rec, rec, attn)), each a ``RecBlock`` or an attention
+    ``Block``."""
+    kind = "group"
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.names = []
+        for i, bk in enumerate(cfg.block_pattern):
+            sub = "rec" if bk == "rec" else "attn"
+            self.names.append(f"b{i}_{sub}")
+            self.add_module(self.names[-1], (RecBlock if sub == "rec" else Block)(cfg, device))
+
+    def subs(self) -> list:
+        """(cache key ``b{i}``, sub-block) in the pattern's order."""
+        return [(n.split("_")[0], getattr(self, n)) for n in self.names]
+
+
+_BLOCKS = {"attn": Block, "attn_moe": MoEBlock, "ssm": SSMBlock, "rec": RecBlock,
+           "group": GroupBlock}
 
 
 def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
@@ -150,52 +202,118 @@ def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The residual FFN of an ``attn`` (dense MLP) or ``attn_moe`` (MoE)
-    block; serving discards the MoE's auxiliary terms, as the reference's
-    does."""
+    """The residual FFN of an ``attn`` or ``rec`` block (the dense MLP) or
+    an ``attn_moe`` block (MoE); serving discards the MoE's auxiliary
+    terms, as the reference's does."""
     x = rmsnorm(p.ln2, h, cfg.norm_eps)
     if p.kind == "attn_moe":
         return h + MOE.moe_ffn(p.moe, x, cfg)[0]
-    return h + mlp(p.w_gate, p.w_up, p.w_down, x)
+    return h + mlp(p.w_gate, p.w_up, p.w_down, x, cfg.act)
+
+
+def _window_for(cfg: ModelConfig, shape_window: Optional[int]) -> Optional[int]:
+    """Attention's window: a hybrid stack's local window, else
+    ``shape_window`` (the reference's ``_window_for``)."""
+    return cfg.local_window if cfg.is_hybrid else shape_window
 
 
 def _require_chunkable(seg: nn.ModuleList) -> None:
     """Chunk boundaries would change an MoE block's capacity assignment
-    (a cumulative count over the whole token block), as the reference's
-    ``chunk_hidden`` refuses."""
+    (a cumulative count over the whole token block), and recurrent blocks
+    carry no ring, as the reference's ``chunk_hidden`` refuses."""
     if seg[0].kind != "attn":
         raise ValueError(f"chunked prefill is not supported for {seg[0].kind!r} blocks")
+
+
+def _stack_states(states: list):
+    """Per-layer recurrent states as one state with the layer axis first."""
+    return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
 def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
                    cache_len: int, shape_window: Optional[int] = None,
                    seq_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
     """Full-prompt pass building the decode caches. Returns (h, caches),
-    one layer-stacked KVCache (``attn``) or SSMState (``ssm``) per segment.
-    A recurrent state integrates every position, pads included, so
-    ``seq_lens`` on an ``ssm`` segment raises ValueError."""
+    one layer-stacked KVCache (``attn``), SSMState (``ssm``), RecState
+    (``rec``) or dict of them (``group``) per segment. A recurrent state
+    integrates every position, pads included, so ``seq_lens`` on a
+    recurrent segment raises ValueError."""
     B = h.shape[0]
+    window = _window_for(cfg, shape_window)
     caches = []
     for seg in stack:
-        if seg[0].kind == "ssm":
-            if seq_lens is not None:
-                raise ValueError("ragged prefill is not supported for 'ssm' blocks")
+        kind = seg[0].kind
+        if kind in ("ssm", "rec", "group") and seq_lens is not None:
+            raise ValueError(f"ragged prefill is not supported for {kind!r} blocks")
+        if kind == "ssm":
             states = []
             for p in seg:
                 y, st = SSM.ssm_forward_with_state(p.ssm, rmsnorm(p.ln1, h, cfg.norm_eps), cfg)
                 h = h + y
                 states.append(st)
-            caches.append(SSM.SSMState(conv=torch.stack([s.conv for s in states]),
-                                       ssd=torch.stack([s.ssd for s in states])))
+            caches.append(_stack_states(states))
+            continue
+        if kind == "rec":
+            states = []
+            for p in seg:
+                a, st = RG.rglru_forward_with_state(p.rec, rmsnorm(p.ln1, h, cfg.norm_eps), cfg)
+                h = _ffn(p, h + a, cfg)
+                states.append(st)
+            caches.append(_stack_states(states))
+            continue
+        if kind == "group":
+            ring = min(cache_len, cfg.local_window)
+            subs = dict(seg[0].subs())
+            rings = {key: A.kv_cache_init(B, ring, cfg, h.device, layers=len(seg))
+                     for key, sub in subs.items() if sub.kind == "attn"}
+            states = {key: [] for key, sub in subs.items() if sub.kind == "rec"}
+            for i, p in enumerate(seg):
+                for key, sub in p.subs():
+                    x = rmsnorm(sub.ln1, h, cfg.norm_eps)
+                    if sub.kind == "rec":
+                        a, st = RG.rglru_forward_with_state(sub.rec, x, cfg)
+                        states[key].append(st)
+                    else:
+                        a = A.attn_prefill(sub.attn, x, cfg, rings[key].layer(i),
+                                           window=cfg.local_window)
+                    h = _ffn(sub, h + a, cfg)
+            caches.append({key: rings[key] if key in rings else _stack_states(states[key])
+                           for key in subs})
             continue
         cache = A.kv_cache_init(B, cache_len, cfg, h.device, layers=len(seg))
         for i, p in enumerate(seg):
             a = A.attn_prefill(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
-                               cache.layer(i), window=shape_window,
+                               cache.layer(i), window=window,
                                seq_lens=seq_lens)
             h = _ffn(p, h + a, cfg)
         caches.append(cache)
     return h, caches
+
+
+def _decode_block(p, h: torch.Tensor, cache, pos: torch.Tensor, cfg: ModelConfig,
+                  window: Optional[int]) -> torch.Tensor:
+    """One layer's decode step over its cache or recurrent state (one
+    layer's view), in place."""
+    if p.kind == "ssm":
+        return h + SSM.ssm_decode(p.ssm, rmsnorm(p.ln1, h, cfg.norm_eps), cache, cfg)
+    if p.kind == "group":
+        for key, sub in p.subs():
+            h = _decode_block(sub, h, cache[key], pos, cfg, cfg.local_window)
+        return h
+    x = rmsnorm(p.ln1, h, cfg.norm_eps)
+    if p.kind == "rec":
+        a = RG.rglru_decode(p.rec, x, cache, cfg)
+    else:
+        a = A.attn_decode(p.attn, x, cache, pos, cfg, window=window)
+    return _ffn(p, h + a, cfg)
+
+
+def _layer_cache(cache, i: int):
+    """Layer i's view of a segment's cache (a KVCache, a recurrent state or
+    a group's dict of them)."""
+    if isinstance(cache, dict):
+        return {key: c.layer(i) for key, c in cache.items()}
+    return cache.layer(i)
 
 
 def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
@@ -203,15 +321,10 @@ def decode_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
                   shape_window: Optional[int] = None) -> torch.Tensor:
     """One-token pass. h: (B, D). Writes each layer's cache or recurrent
     state in place."""
+    window = _window_for(cfg, shape_window)
     for seg, cache in zip(stack, caches, strict=True):
         for i, p in enumerate(seg):
-            if p.kind == "ssm":
-                h = h + SSM.ssm_decode(p.ssm, rmsnorm(p.ln1, h, cfg.norm_eps),
-                                       cache.layer(i), cfg)
-                continue
-            a = A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps),
-                              cache.layer(i), pos, cfg, window=shape_window)
-            h = _ffn(p, h + a, cfg)
+            h = _decode_block(p, h, _layer_cache(cache, i), pos, cfg, window)
     return h
 
 
@@ -222,9 +335,10 @@ def chunk_hidden(stack: nn.ModuleList, h: torch.Tensor, caches: list,
     per-layer order (attention -> residual -> MLP); ``attn_chunk`` writes
     each layer's cache in place at the per-row offsets, every layer at the
     same fixed-shape targets."""
+    for seg in stack:
+        _require_chunkable(seg)
     writes = A.chunk_write_targets(pos0, valid, h.shape[1], caches[0].cache_len)
     for seg, cache in zip(stack, caches, strict=True):
-        _require_chunkable(seg)
         for i, p in enumerate(seg):
             a = A.attn_chunk(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cache.layer(i),
                              pos0, valid, cfg, writes, reset=reset)

@@ -40,11 +40,11 @@ Admission on a dense attention stack buckets prompts into power-of-two
 sub-buckets (P/4, P/2, P) of ``prompt_len`` and passes per-row real lengths
 to the length-aware prefill: logits come from each row's real last token,
 decode resumes at pos = len, and cache slots beyond len stay empty. A
-recurrent (SSM) stack integrates every position, so its admission runs the
-padded prefill over the full ``prompt_len`` bucket, as the reference's
-does: a short prompt's state runs through the PAD_ID pads and its first
-token is predicted after the last pad (ROADMAP R7). The boot prefill is
-always padded.
+recurrent (Mamba-2 or hybrid RG-LRU) stack integrates every position, so
+its admission runs the padded prefill over the full ``prompt_len`` bucket,
+as the reference's does: a short prompt's state runs through the PAD_ID
+pads and its first token is predicted after the last pad (ROADMAP R7). The
+boot prefill is always padded.
 
 The engine updates its decode state in place: the splices and the decode
 steps write into the cache tensors (KV rings or recurrent states) of
@@ -421,21 +421,28 @@ def _scan_samp(extra: tuple) -> tuple:
     return (_tables(extra[2:]), *extra[:2]) if extra else ()
 
 
-def _leaves(caches: list) -> list:
-    """The tensors of a list of caches or pools (NamedTuples of tensors,
-    None where a leaf is absent)."""
-    return [t for c in caches for t in c if isinstance(t, torch.Tensor)]
+def _leaves(caches) -> list:
+    """The tensors of a cache or pool (a NamedTuple of tensors, None where
+    a leaf is absent), of a hybrid group's dict of them, or of a list of
+    any of these, depth first: the same order for two caches of one
+    structure."""
+    if isinstance(caches, torch.Tensor):
+        return [caches]
+    if isinstance(caches, dict):
+        caches = caches.values()
+    elif not isinstance(caches, (tuple, list)):
+        return []   # an absent leaf (None)
+    return [t for c in caches for t in _leaves(c)]
 
 
 def _splice_one(state: M.DecodeState, one: M.DecodeState, slot: int) -> M.DecodeState:
     """Insert batch-1 prefill state into the batch state at ``slot``, in
-    place. Every cache leaf (KVCache or SSMState) has the layer axis first
-    and the batch axis second; a KVCache's absent leaves (None: the scales
-    and staging buffers at native precision) are skipped."""
-    for big, new in zip(state.caches, one.caches, strict=True):
-        for a, b in zip(big, new, strict=True):
-            if a is not None:
-                A.as_bytes(a)[:, slot] = A.as_bytes(b)[:, 0]
+    place. Every cache leaf (KVCache, SSMState, RecState, nested in a
+    hybrid group's dict or not) has the layer axis first and the batch axis
+    second; a KVCache's absent leaves (None: the scales and staging buffers
+    at native precision) are skipped."""
+    for a, b in zip(_leaves(state.caches), _leaves(one.caches), strict=True):
+        A.as_bytes(a)[:, slot] = A.as_bytes(b)[:, 0]
     state.pos[slot] = one.pos[0]
     state.last_tok[slot] = one.last_tok[0]
     return state
@@ -450,12 +457,11 @@ def _splice_many(state: M.DecodeState, new: M.DecodeState, targets: torch.Tensor
     gathered, selected and scattered back unchanged
     (``attention._masked_put``), so no index repeats and nothing is read
     back to the host. Covers every cache leaf (KVCache codes, scales and
-    staging buffers; SSMState), ``pos`` and ``last_tok``."""
+    staging buffers; SSMState; RecState; a hybrid group's nested ones),
+    ``pos`` and ``last_tok``."""
     lead = keep[None]   # every cache leaf has the layer axis first
-    for big, nw in zip(state.caches, new.caches, strict=True):
-        for a, b in zip(big, nw, strict=True):
-            if a is not None:
-                A._masked_put(a, (slice(None), targets), b, lead)
+    for a, b in zip(_leaves(state.caches), _leaves(new.caches), strict=True):
+        A._masked_put(a, (slice(None), targets), b, lead)
     A._masked_put(state.pos, (targets,), new.pos, keep)
     A._masked_put(state.last_tok, (targets,), new.last_tok, keep)
     return state

@@ -13,6 +13,7 @@ from repro_torch.kernels import decode_attention as k_decode
 from repro_torch.kernels import flash_attention as k_flash
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as k_paged
+from repro_torch.kernels import rglru_scan as k_rglru
 from test_torch_engine import one_torch_thread  # noqa: F401  (autouse fixture)
 
 # float32 on both sides: the two softmaxes differ only in summation order
@@ -35,6 +36,7 @@ PREFILL = [  # (B, S, H, KVH, hd, window)
     (2, 16, 4, 2, 32, 5),
     (1, 8, 4, 1, 64, None),
     (2, 8, 8, 2, 32, 3),
+    (2, 16, 10, 1, 256, 5),   # recurrentgemma-2b's heads: MQA at hd 256, windowed
 ]
 
 
@@ -81,6 +83,7 @@ DECODE = [  # (B, L, H, KVH, hd, window)
     (3, 16, 4, 2, 32, 6),
     (2, 32, 4, 1, 64, None),
     (2, 32, 8, 2, 32, 20),
+    (3, 32, 10, 1, 256, 20),  # recurrentgemma-2b's heads: a group of 10 at hd 256
 ]
 
 
@@ -111,3 +114,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):   # k, v as a pool of 1 x 8-row pages
         k_paged.paged_decode_attention(q[:, 0], k, v, torch.zeros(1, 1, dtype=torch.int32),
                                        pos)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_rglru.rglru_scan(q[..., 0, :], q[..., 0, :])

@@ -20,6 +20,7 @@ from repro_torch.kernels import paged_attention as k_paged
 from repro_torch.kernels import paged_attention_quant as k_paged_quant
 from repro_torch.kernels import paged_chunk_attention as k_pchunk
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as k_rglru
 from repro_torch.kernels import ssd_scan as k_ssd
 from repro_torch.kernels.quant import dequantize_kv, quantize_kv
 from repro_torch.models.attention import PagedKVPool, fork_pages
@@ -131,6 +132,129 @@ def _junk_where_empty(rng, x, sp):
     """``x`` (B, L, KVH, hd) with +-1e30 in the slots that hold no position."""
     junk = np.where(rng.random(x.shape) < 0.5, -1e30, 1e30).astype(np.float32)
     return np.where((sp < 0)[..., None, None], junk, x)
+
+
+# (B, Sq, Sk, H, KVH, hd) at recurrentgemma-2b's attention (10 query heads
+# on one KV head, hd 256): its admission bucket, a ragged tile edge with Sk
+# above Sq, and a prompt past its window of 2048
+GPU_PREFILL_256 = [(8, 512, 512, 10, 1, 256), (2, 130, 200, 10, 1, 256),
+                   (2, 2560, 2560, 10, 1, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", GPU_PREFILL_256)
+def test_flash_kernel_at_hd256_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
+    """K1 and K1r at hd 256 over native K/V: causal, windowed (inside a
+    tile, across tiles, and recurrentgemma's 2048) and ragged, rising
+    scores; bf16 on the wgmma kernel, f32 on the CUDA-core one (its tiles
+    take 215,296 bytes of shared memory, inside a CTA's 232,448); two
+    launches equal."""
+    g = torch.Generator(device=cuda).manual_seed(256)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, KVH, hd), (B, Sk, KVH, hd)))
+    cases = _prefill_cases(cuda, g, B, Sq, Sk)
+    if Sq > 2048:   # past the window: dense, windowed, and ragged under the window
+        lens = next(sl for sl, _ in cases if sl is not None)
+        cases = [(None, None), (None, 2048), (lens, 2048)]
+    kr = _rising(k.float()).to(dtype)
+    for kk, seq_lens, window in ([(k, sl, w) for sl, w in cases]
+                                 + [(kr, sl, None) for sl in (None, cases[-1][0])]):
+        got = k_flash.flash_attention(q, kk, v, seq_lens, window=window)
+        want = ref.attention_ref(q, kk, v, window=window, seq_lens=seq_lens)
+        torch.cuda.synchronize()
+        assert _err_ok(got, want, dtype), (seq_lens, window, kk is kr)
+    sl, w = cases[-1]
+    first = k_flash.flash_attention(q, k, v, sl, window=w)
+    assert torch.equal(first, k_flash.flash_attention(q, k, v, sl, window=w))
+    with pytest.raises(ValueError, match="hd in"):   # K1q stops at hd 128
+        k_flash.flash_attention_quant(q, k.to(torch.int8), v.to(torch.int8),
+                                      torch.ones((B, Sk, KVH), device=cuda),
+                                      torch.ones((B, Sk, KVH), device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", [(8, 1024), (3, 2048), (5, 100)])
+def test_decode_kernel_at_hd256_matches_plain_on_card(cuda, B, L):
+    """K2 in bf16 at recurrentgemma-2b's heads (a group of 10 on one KV
+    head, hd 256): wrapped rings (row 0 half empty, a 2,048-slot ring
+    written past its end), rows at the split's edges, windows inside a tile,
+    across the ranks' tiles and of 2048, rows with no valid slot (an empty
+    ring, later positions only, all before the window: the mean of the
+    ring's V), junk in empty slots; two launches equal; f32 at hd 256
+    refuses with the shared memory it would need."""
+    rng = np.random.default_rng(L + B)
+    H, KVH, hd, dtype = 10, 1, 256, torch.bfloat16
+    wrapped = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    edges = np.asarray([min(DECODE_EDGES[b % len(DECODE_EDGES)], L - 1) for b in range(B)],
+                       np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    for pos_np, sp_np in ((wrapped, _ring(B, L, wrapped)),
+                          (edges, _ring(B, L, edges, empty_row0=False))):
+        k, v = (torch.from_numpy(_junk_where_empty(
+            rng, rng.standard_normal((B, L, KVH, hd)).astype(np.float32), sp_np)).to(cuda, dtype)
+            for _ in range(2))
+        sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+        for window in (None, 50, 200, 2048):
+            got = k_decode.decode_attention(q, k, v, sp, pos, window=window)
+            want = ref.decode_attention_ref(q, k, v, sp, pos, window=window)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert _err_ok(got, want, dtype), (pos_np, window)
+        assert torch.equal(got, k_decode.decode_attention(q, k, v, sp, pos, window=window))
+    # rows with no valid slot, over clean K/V offset by row
+    i = np.arange(L)
+    rows = [np.full(L, -1), i + 10, np.where(i <= L // 4, i, -1)]
+    sp_np = np.stack([rows[b % 3] for b in range(B)]).astype(np.int32)
+    pos_np = np.asarray([(L - 1, 5, L - 1)[b % 3] for b in range(B)], np.int32)
+    k, v = (torch.from_numpy(rng.standard_normal((B, L, KVH, hd)).astype(np.float32))
+            .to(cuda, dtype) for _ in range(2))
+    v = v + torch.arange(B, device=cuda, dtype=dtype)[:, None, None, None]
+    sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+    got = k_decode.decode_attention(q, k, v, sp, pos, window=50)
+    want = ref.decode_attention_ref(q, k, v, sp, pos, window=50)
+    torch.cuda.synchronize()
+    for b in range(B):
+        assert _err_ok(got[b], want[b], dtype), b
+        assert _err_ok(got[b], v[b].float().mean(0).repeat_interleave(H // KVH, 0), dtype), b
+    with pytest.raises(ValueError, match="above the 232448"):
+        k_decode.decode_attention(q.float(), k.float(), v.float(), sp, pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R", [(8, 512, 2560), (2, 1, 128), (3, 77, 100), (1, 2049, 33)])
+@pytest.mark.parametrize("init", [False, True])
+def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, S, R, init):
+    """K7 against its plain version: recurrentgemma-2b's admission shape,
+    one step, a channel count that is no multiple of a CTA's 128 and steps
+    that are no multiple of the 16 loaded ahead; with and without h0.
+    Both round each step's product, then its sum: within 2e-5 of the
+    largest |h| (exp may differ by an ulp); two launches equal."""
+    g = torch.Generator(device=cuda).manual_seed(B * S + R)
+    sp = torch.log1p(torch.exp(-torch.linspace(2.2, 6.9, R, device=cuda)))
+    log_a = -8.0 * torch.rand((B, S, R), generator=g, device=cuda) * sp
+    gated = 0.5 * torch.randn((B, S, R), generator=g, device=cuda)
+    h0 = torch.randn((B, R), generator=g, device=cuda) if init else None
+    got = k_rglru.rglru_scan(log_a, gated, h0)
+    want = ref.rglru_scan_ref(log_a, gated, h0)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 2e-5 * max(1.0, want.abs().max().item())
+    assert torch.equal(got, k_rglru.rglru_scan(log_a, gated, h0))
+
+
+@pytest.mark.gpu
+def test_rglru_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 8, 64), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        k_rglru.rglru_scan(x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="one \\(B, S, R\\) shape"):
+        k_rglru.rglru_scan(x[:, :4], x)
+    with pytest.raises(ValueError, match="h0 must be"):
+        k_rglru.rglru_scan(x, x, torch.zeros((2, 32), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        k_rglru.rglru_scan(x.transpose(1, 2).contiguous().transpose(1, 2), x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        k_rglru.rglru_scan(x.cpu(), x.cpu())
 
 
 @pytest.mark.gpu
@@ -1084,6 +1208,11 @@ GRAPH_PATHS = {
     "moe_paged": ["--arch", "olmoe-1b-7b"] + GRAPH_PAGED,
     "moe_paged_sync": ["--arch", "olmoe-1b-7b", "--sync-free"] + GRAPH_PAGED,
     "deepseek_moe": ["--arch", "deepseek-moe-16b"],
+    # the hybrid Griffin stack: RG-LRU states and the windowed ring inside
+    # the graphs (the smoke window of 32 wraps inside the 64-slot cache)
+    "hybrid": ["--arch", "recurrentgemma-2b"],
+    "hybrid_sync": ["--arch", "recurrentgemma-2b", "--sync-free"],
+    "hybrid_sampled": ["--arch", "recurrentgemma-2b"] + GRAPH_SAMPLING,
 }
 
 

@@ -92,9 +92,14 @@ def test_init_params_is_seeded_and_scaled():
 
 def test_unported_archs_raise_not_implemented():
     from repro_torch.models import Model
-    for arch in ("recurrentgemma-2b", "paligemma-3b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    for arch in ("seamless-m4t-large-v2", "paligemma-3b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
             Model(get_config(arch, smoke=True), device="cpu")
+    # a hybrid stack runs at native KV precision only (its ring under int8
+    # would need K2q at head dim 256)
+    hybrid = get_config("recurrentgemma-2b", smoke=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
+        Model(hybrid.replace(kv_precision="int8"), device="cpu")
     cfg = get_config("granite-3-2b", smoke=True)
     assert Model(cfg.replace(kv_precision="int8"), device="cpu").cfg.kv_precision == "int8"
     with pytest.raises(NotImplementedError, match="item 9"):
