@@ -115,7 +115,23 @@ cache of 4,096 through K1, K7 and 32 decode steps through K2, against the
 plain versions within MODEL_TOL, a scan that drops its carry beside it,
 and the smoke model on the card against the CPU path), then hybrid_serve
 (with its profile) and hybrid_sync_serve, their traces held to the CPU
-run's. sampling holds
+run's. The legacy unscaled casts and the hybrid's quantized ring: K2q at
+hd 256 (int8 and fp8 codes on the hybrid's rings), K2q's unscaled route
+over float8_e4m3fn and float16 rings, K3q's over a float16 pool and K4p
+over float16 cast pages among the kernels (``check_cast_kernels``, each
+also bit for bit the native kernel over the values rounded to q's
+dtype), cast_model (full-width granite-3-2b under ``cache_dtype=
+"float8_e4m3fn"``, prefill and 32 decode steps through K2q's unscaled
+route against the plain path, a tile-skipping decode beside it, and the
+count of NaN the cast stored), cast_serve (the main path under that cast)
+and cast_paged_chunked_serve (the paged chunked path with prefix sharing
+under a float16 cast: K4p's and K3q's unscaled routes), hybrid_quant_model
+(hybrid_model's geometry with the rings int8, 16 decode steps through K2q
+at hd 256 against the plain path, unit scales beside it), then
+hybrid_quant_serve (``--kv-precision int8``, with its profile) and
+hybrid_fp8_sync_serve (``--sync-free --kv-precision fp8``): one replay per
+dispatch, each decode replay 16 K2q launches and no K2, traces held to the
+CPU run's. sampling holds
 per-request sampling on the card to the CPU (the threefry keys and random
 bits over the vocabulary bit for bit, ``sample_rows``' tokens but at
 near-ties), and sampled_serve and sampled_chunked_serve serve the main and
@@ -263,6 +279,22 @@ HYBRID_MODEL_B, HYBRID_MODEL_S, HYBRID_MODEL_L, HYBRID_MODEL_STEPS = 2, 2560, 40
 # the window's edge and the last
 HYBRID_POSITIONS = (0, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049, 2559)
 HYBRID_CHUNK = 512
+# the hybrid ring quantized (hybrid_quant_serve, hybrid_fp8_sync_serve)
+HYBRID_QUANT_ARGS = HYBRID_ARGS + ["--kv-precision", "int8"]
+HYBRID_FP8_SYNC_ARGS = HYBRID_SYNC_ARGS + ["--kv-precision", "fp8"]
+# hybrid_quant_model: hybrid_model's geometry with the ring int8, fewer steps
+HYBRID_QUANT_STEPS = 16
+
+# the legacy unscaled storage casts: float8_e4m3fn through ``cache_dtype``,
+# the reference benchmarks' knob (benchmarks/hillclimb.py, C1_f8_cache; as a
+# kv_precision string it names the scaled fp8 codes), on the dense main path
+# (cast_model, cast_serve); float16 on the paged chunked path with prefix
+# sharing (cast_paged_chunked_serve). The launcher has no flag for them, as
+# the reference's has none: the phases wrap the launcher's get_config.
+CAST = "float8_e4m3fn"
+CAST_PAGED = "float16"
+CAST_PAGED_CHUNKED_ARGS = PAGED_CHUNKED_ARGS + ["--prefix-sharing"]
+CAST_MODEL_STEPS = 32
 
 # check_moe_model's routing rule. The kernel path and the plain one round
 # bf16 hidden states at other points, so a router near-tie among 4,096
@@ -653,6 +685,7 @@ def check_kernels(timer) -> dict:
     check_quant_kernel(rng, record)
     check_quant_attention_kernels(rng, record)
     check_paged_chunk_kernels(rng, record)
+    check_cast_kernels(np.random.default_rng(30), record)
     check_chunk_anatomy(rows)
     check_ssd_kernel(record)
     rows.update(check_ssd_anatomy(timer))
@@ -1005,6 +1038,20 @@ def _function_records(records: dict) -> dict:
         if m:
             f = m.group(1).removesuffix("_wgmma")
             out[f] = out.get(f, 0) + c
+    return out
+
+
+def _device_records(prof) -> dict:
+    """A profile's device records by name (kernels, copies, sets: an op's
+    device time is its kernels'): (count, device µs), from the raw events.
+    Building the profiler's event tree (``key_averages``) would cost seconds
+    a slot of a serve; a device record has no children, so its own time is
+    its duration."""
+    out: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            count, us = out.get(e.name(), (0, 0.0))
+            out[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
     return out
 
 
@@ -1564,6 +1611,184 @@ def check_paged_chunk_kernels(rng, record) -> None:
                **_chunk_tiles(H, C, p0_np, nv_np, lambda b, last: last, has_key))
 
 
+def _cast_work(work, rows: int, KVH: int, hd: int, esize: int, ssize: int):
+    """A native call's (bytes, FLOPs) with its ``rows`` K/V rows read at
+    the storage's ``ssize`` bytes a value instead of q's ``esize``."""
+    return work[0] + 2 * rows * KVH * hd * (ssize - esize), work[1]
+
+
+def check_cast_kernels(rng, record) -> None:
+    """K2q at recurrentgemma-2b's ring (B 8, a group of 10, hd 256, window
+    2048) over int8 and fp8 codes, on the serve's ring of 1,024 at
+    positions 512-540 and on a 2,048-slot ring written past its end; K2q's
+    unscaled route over a float16 and a float8_e4m3fn ring at the granite
+    serves' geometry (B 8, L 1024, H 32/8, hd 64, bf16, positions
+    128-540); K3q's unscaled route over a float16 pool at the paged
+    serve's (16 rows, 64-page tables of 16 rows); K4p over float16 cast
+    pages with staging at the paged chunked serve's (chunks of 128, bases at
+    0, mid-page and L - 1). Each against its plain version and bit for bit
+    against the native kernel (K2, K3, K4p) over the values rounded to q's
+    dtype (the dequantized codes for K2q at hd 256); the library route is
+    the cast or dequantization, then scaled_dot_product_attention (after
+    an ``index_select`` of the pages for a pool)."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import paged_attention as kp
+    from repro_torch.kernels import paged_attention_quant as kpq
+    from repro_torch.kernels import paged_chunk_attention as kpc
+    from repro_torch.kernels import ref
+    from repro_torch.cache import parse_kv_precision
+    from repro_torch.kernels.quant import dequantize_kv, quantize_kv
+
+    bf16 = torch.bfloat16
+
+    def sdpa_decode(q, k, v, mask):
+        return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
+                                              v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+
+    # K2q at hd 256
+    H, KVH, hd, W = 10, 1, 256, 2048
+    for B, L, pos_np, what in (
+            (8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), "pos 512-540"),
+            (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32),
+             "ring wrapped, pos 2048-2647")):
+        sp_np = _ring_slot_pos(B, L, pos_np)
+        sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(bf16)
+        mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - W))[:, None, None, :]
+        for prec in ("int8", "fp8"):
+            spec = parse_kv_precision(prec)
+            (qk, ks), (qv, vs) = (quantize_kv(torch.from_numpy(
+                rng.standard_normal((B, L, KVH, hd)).astype(np.float32)).cuda(), spec)
+                for _ in range(2))
+            fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos: \
+                kd.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=W)
+            plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos: \
+                ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=W)
+            lib = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, mask=mask: sdpa_decode(
+                q, dequantize_kv(qk, ks, bf16), dequantize_kv(qv, vs, bf16), mask)
+            got = fn()
+            native = kd.decode_attention(q, dequantize_kv(qk, ks, bf16),
+                                         dequantize_kv(qv, vs, bf16), sp, pos, window=W)
+            torch.cuda.synchronize()
+            case = (f"decode_attention_quant {prec} B{B} L{L} H{H}/{KVH} hd{hd} bf16 "
+                    f"window{W} recurrentgemma-2b {what}")
+            if not torch.equal(got, native):
+                raise AssertionError(f"{case}: not K2 over the dequantized ring bit for bit")
+            record(case, "decode_attention_quant_hd256", bf16, got, plain(),
+                   ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos,
+                                                  window=W), fn, plain, lib,
+                   _decode_quant_work(B, L, H, KVH, hd, 2, sp_np, pos_np, W),
+                   prec == "int8" and L == 1024, library="dequantize + "
+                   "scaled_dot_product_attention", device=True, equal_to_k2_dequantized=True)
+            del qk, qv, ks, vs
+
+    # K2q's unscaled route at the granite serves' ring
+    B, L, H, KVH, hd = 8, 1024, 32, 8, 64
+    pos_np = rng.integers(128, 541, B).astype(np.int32)
+    sp_np = _ring_slot_pos(B, L, pos_np)
+    sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(bf16)
+    mask = ((sp >= 0) & (sp <= pos[:, None]))[:, None, None, :]
+    nv = int(((sp_np >= 0) & (sp_np <= pos_np[:, None])).sum())
+    for store in (torch.float8_e4m3fn, torch.float16):
+        k, v = (torch.from_numpy(rng.standard_normal((B, L, KVH, hd)).astype(np.float32))
+                .cuda().to(store) for _ in range(2))
+        fn = lambda k=k, v=v: kd.decode_attention_cast(q, k, v, sp, pos)
+        plain = lambda k=k, v=v: ref.decode_attention_cast_ref(q, k, v, sp, pos)
+        lib = lambda k=k, v=v: sdpa_decode(q, k.to(bf16), v.to(bf16), mask)
+        got = fn()
+        native = kd.decode_attention(q, k.to(bf16), v.to(bf16), sp, pos)
+        torch.cuda.synchronize()
+        name = str(store).removeprefix("torch.")
+        case = f"decode_attention_cast {name} B{B} L{L} H{H}/{KVH} hd{hd} bf16 pos 128-540"
+        if not torch.equal(got, native):
+            raise AssertionError(f"{case}: not K2 over the ring rounded to bf16 bit for bit")
+        record(case, "decode_attention_cast", bf16, got, plain(),
+               ref.decode_attention_cast_ref(q, k, v.to(bf16).abs(), sp, pos), fn, plain, lib,
+               _cast_work(_decode_work(B, L, H, KVH, hd, 2, sp_np, pos_np, None), nv, KVH, hd,
+                          2, store.itemsize),
+               store == torch.float8_e4m3fn, library="cast + scaled_dot_product_attention",
+               device=True, equal_to_k2_rounded=True)
+        del k, v
+
+    # K3q's unscaled route over a float16 pool at the paged serve's shape
+    B, MP, ps = 16, 64, 16
+    pos_np = rng.integers(128, MP * ps, B).astype(np.int32)
+    k_np, v_np, bt_np, pos_np = _paged_inputs(rng, B, MP, ps, KVH, hd, pos_np)
+    k_np, v_np = (np.where(np.abs(a) > 1e29, np.sign(a) * 400.0, a).astype(np.float32)
+                  for a in (k_np, v_np))   # the garbage finite in float16
+    k, v = (torch.from_numpy(a).cuda().to(torch.float16) for a in (k_np, v_np))
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(bf16)
+    bt, pos = torch.from_numpy(bt_np).cuda(), torch.from_numpy(pos_np).cuda()
+    fn = lambda: kpq.paged_decode_attention_cast(q, k, v, bt, pos)
+    plain = lambda: ref.paged_decode_attention_cast_ref(q, k, v, bt, pos)
+    lib = lambda: _paged_library(q, k.to(bf16), v.to(bf16), bt, pos)()
+    got = fn()
+    native = kp.paged_decode_attention(q, k.to(bf16), v.to(bf16), bt, pos)
+    torch.cuda.synchronize()
+    case = f"paged_decode_attention_cast float16 B{B} MP{MP} ps{ps} H{H}/{KVH} hd{hd} bf16"
+    if not torch.equal(got, native):
+        raise AssertionError(f"{case}: not K3 over the pool rounded to bf16 bit for bit")
+    record(case, "paged_decode_attention_cast", bf16, got, plain(),
+           ref.paged_decode_attention_cast_ref(q, k, v.abs(), bt, pos), fn, plain, lib,
+           _paged_work(H, KVH, hd, 2, ps, bt_np, pos_np), True,
+           library="cast + index_select of the K and V pages + scaled_dot_product_attention",
+           equal_to_k3_rounded=True)
+    del k, v
+
+    # K4p over float16 cast pages with staging
+    C, N = 128, B * MP
+    k_np, v_np, bt_np, p0_np, nv_np, base_np, st_np = _paged_chunk_inputs(
+        rng, B, C, MP, ps, KVH, hd, N, True)
+    kn, vn = (torch.from_numpy(np.where(np.abs(a) > 1e29, np.sign(a) * 400.0, a)
+                               .astype(np.float32)).cuda().to(torch.float16)
+              for a in (k_np, v_np))
+    stk, stv = (torch.from_numpy(a).cuda().to(bf16) for a in st_np)
+    q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).cuda().to(bf16)
+    bt, pos0, valid, base = (torch.from_numpy(a).cuda() for a in (bt_np, p0_np, nv_np, base_np))
+    kw = dict(stage_k=stk, stage_v=stv, base=base)
+    fn = lambda: kpc.paged_chunk_attention_cast(q, kn, vn, bt, pos0, valid, **kw)
+    plain = lambda: ref.paged_chunk_attention_ref(q, kn, vn, None, None, None, None, bt, pos0,
+                                                  valid, **kw)
+    keys = _paged_chunk_keys(bt_np, ps, N, p0_np, nv_np, base_np, True)
+    S = 2 * MP * ps + 1
+    ok = np.zeros((B, C, S), bool)
+    for b, src in enumerate(keys):
+        for i in range(int(nv_np[b])):
+            j = np.arange(int(p0_np[b]) + i + 1)
+            ok[b, i, j[src[j] == 1]] = True
+            ok[b, i, MP * ps + j[src[j] == 3]] = True
+    mask = torch.from_numpy(ok).cuda()[:, None]
+    flat = bt.clamp(0, N - 1).flatten()
+
+    def lib():
+        kk = kn.to(bf16).index_select(0, flat).view(B, MP * ps, KVH, hd)
+        vv = vn.to(bf16).index_select(0, flat).view(B, MP * ps, KVH, hd)
+        kk, vv = torch.cat((kk, stk), 1), torch.cat((vv, stv), 1)
+        return F.scaled_dot_product_attention(q.transpose(1, 2), kk.transpose(1, 2),
+                                              vv.transpose(1, 2), attn_mask=mask,
+                                              enable_gqa=True)
+    got = fn()
+    native = kpc.paged_chunk_attention(q, kn.to(bf16), vn.to(bf16), None, None, None, None, bt,
+                                       pos0, valid, **kw)
+    torch.cuda.synchronize()
+    case = f"paged_chunk_attention_cast float16 staged B{B} MP{MP} ps{ps} C{C} H{H}/{KVH} " \
+           f"hd{hd} bf16"
+    if not torch.equal(got, native):
+        raise AssertionError(f"{case}: not K4p over the pages rounded to bf16 bit for bit")
+    if got[torch.from_numpy(nv_np == 0).cuda()].any():
+        raise AssertionError(f"{case}: an inactive row is not zeros")
+    has_key = lambda b, t, end: bool((keys[b][t * 64:min(end, t * 64 + 64)] > 0).any())
+    record(case, "paged_chunk_attention_cast", bf16, got, plain(),
+           ref.paged_chunk_attention_ref(q, kn, vn.abs(), None, None, None, None, bt, pos0,
+                                         valid, stage_k=stk, stage_v=stv.abs(), base=base),
+           fn, plain, lib,
+           _paged_chunk_work(H, KVH, hd, 2, ps, N, bt_np, p0_np, nv_np, base_np, True, C), True,
+           library="cast + index_select of the pages + staging + scaled_dot_product_attention",
+           instantiation=KERNEL_ROUTE[bf16], equal_to_k4p_rounded=True,
+           **_chunk_tiles(H, C, p0_np, nv_np, lambda b, last: last, has_key))
+
+
 def _ssd_work(B, S, H, P, N, Q, esize, init):
     """Bytes and FLOPs this SSD scan needs: x read and y written in x's
     dtype; dt, A, B, C, the final state (and the initial one) in f32; per
@@ -1785,6 +2010,8 @@ def _attention_impls():
         if k_scale is not None:
             return ref.decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
                                                   window=window)
+        if k.dtype != q.dtype:   # an unscaled storage cast
+            return ref.decode_attention_cast_ref(q, k, v, slot_pos, pos, window=window)
         return ref.decode_attention_ref(q, k, v, slot_pos, pos, window=window)
 
     def decode_skipping_a_tile(q, k, v, slot_pos, pos, **kw):
@@ -2026,9 +2253,7 @@ def _kernel_launches(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    n = sum(e.count for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
-    return n, out
+    return sum(c for c, _ in _device_records(prof).values()), out
 
 
 def check_quant_model() -> dict:
@@ -2716,12 +2941,12 @@ def _hybrid_impls():
     return plain, faulty
 
 
-def _hybrid_logits(model, toks, cache_len, impl, feed=None):
+def _hybrid_logits(model, toks, cache_len, impl, feed=None, steps=HYBRID_MODEL_STEPS):
     """The logits at HYBRID_POSITIONS of the prompt (the last is the
-    prefill's) and HYBRID_MODEL_STEPS greedy decode steps, with the
-    attention and RG-LRU blocks pointed at ``impl``; (positions + steps, B,
-    V) float32. ``feed`` (steps, B) fixes the decoded tokens, else each step
-    takes the previous argmax."""
+    prefill's) and ``steps`` greedy decode steps, with the attention and
+    RG-LRU blocks pointed at ``impl``; (positions + steps, B, V) float32.
+    ``feed`` (steps, B) fixes the decoded tokens, else each step takes the
+    previous argmax."""
     from repro_torch.models import attention as A
     from repro_torch.models import decode_step
     from repro_torch.models import model as M
@@ -2742,7 +2967,7 @@ def _hybrid_logits(model, toks, cache_len, impl, feed=None):
         state = M.DecodeState(caches=caches,
                               pos=torch.full((B,), S, dtype=torch.int32, device=toks.device),
                               last_tok=toks[:, -1])
-        for step in range(HYBRID_MODEL_STEPS):
+        for step in range(steps):
             nxt = out[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
             logits, state = decode_step(model, state, nxt)
             out.append(logits.float())
@@ -2833,6 +3058,154 @@ def check_hybrid_model() -> dict:
     emit("hybrid_model", **res)
     if max(smoke_err) > 1e-4 or state_err > 1e-4:
         raise AssertionError("smoke hybrid model on the card disagrees with the CPU path")
+    return res
+
+
+def check_hybrid_quant_model() -> dict:
+    """hybrid_model's full-width recurrentgemma-2b, prompts and cache (the
+    2,048-slot rings wrap during the decode) with the group rings
+    quantized to int8: HYBRID_QUANT_STEPS decode steps through K2q at hd 256
+    (and K1, K7) against the plain versions (the plain quantized decode)
+    within MODEL_TOL, the greedy tokens equal but at the plain path's
+    near-ties, a K2q path that dequantizes with unit scales beyond it, and
+    the launch counts of the kernel path (no K2)."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("recurrentgemma-2b").replace(kv_precision="int8")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, steps = HYBRID_MODEL_B, HYBRID_MODEL_S, HYBRID_MODEL_L, HYBRID_QUANT_STEPS
+    rng = np.random.default_rng(29)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    plain, _ = _hybrid_impls()
+    _, dense_faults = _dense_quant_impls()
+    unit_scales = SimpleNamespace(flash_attention=ops.flash_attention,
+                                  decode_attention=dense_faults["int8"][1].decode_attention,
+                                  rglru_scan=ops.rglru_scan)
+    lp = _hybrid_logits(model, toks, L, plain, steps=steps)
+    n = len(HYBRID_POSITIONS)
+    feed = lp[n - 1:-1].argmax(-1).to(torch.int32)
+    kernels.reset_launch_counts()
+    lk = _hybrid_logits(model, toks, L, ops, feed, steps=steps)
+    counts = kernels.launch_counts()
+    lf = _hybrid_logits(model, toks, L, unit_scales, feed, steps=steps)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and lk.shape == (n + steps, B, cfg.vocab_size)):
+        raise AssertionError("bad kernel-path logits")
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
+    attns, recs = _hybrid_layers(cfg)
+    want = {"flash_attention": attns, "decode_attention_quant": attns * steps,
+            "decode_attention": 0, "rglru_scan": recs}
+    res = {"logit_scale": lp.abs().max().item(), "tol": MODEL_TOL, "kv_precision": "int8",
+           "B": B, "S": S, "cache_len": L, "ring": min(L, cfg.local_window), "steps": steps,
+           "max_abs_err_per_position": errs[:n], "max_abs_err_per_step": errs[n:],
+           "tokens_checked": int(sure.sum()), "token_mismatches_beyond_margin": flips,
+           "unit_scales_max_abs_err_per_step": fault[n:],
+           "kernel_path_launches": {k: counts[k] for k in want}}
+    emit("hybrid_quant_model", **res)
+    del model, lk, lp, lf
+    torch.cuda.empty_cache()
+    if max(errs) > MODEL_TOL or flips:
+        raise AssertionError("hybrid int8 kernel path and plain path disagree")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"hybrid int8 kernel path launched {counts}, not {want}")
+    if not max(fault[n:]) > MODEL_TOL:
+        raise AssertionError("the model tolerance does not catch unit scales")
+    return res
+
+
+def check_cast_model() -> dict:
+    """Full-width granite-3-2b on seeded weights under the unscaled
+    ``cache_dtype`` cast to CAST, prompts of 1-512 tokens in a ring of 1,024:
+    prefill (K1r over the prompt's native K/V, then the cast write) and
+    CAST_MODEL_STEPS decode steps on fed tokens through K2q's unscaled
+    route, against the plain path (plain attention, the plain cast read)
+    within MODEL_TOL, the greedy tokens equal but at the plain path's
+    near-ties, and a decode that skips a tile beyond it; the kernel path
+    never reaches K2; and how many stored values the cast made NaN (past
+    float8_e4m3fn's range, the reference's rule)."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _with_cast(get_config("granite-3-2b"), CAST)
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L = 8, 512, 1024
+    rng = np.random.default_rng(0)
+    lens = torch.tensor([512, 300, 129, 1, 512, 64, 200, 511], dtype=torch.int32, device="cuda")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    plain_attn, _ = _attention_impls()
+
+    def skipped_tile(q, k, v, slot_pos, pos, **kw):
+        sp = slot_pos.clone()
+        sp[:, 64:128] = -1
+        return ops.decode_attention(q, k, v, sp, pos, **kw)
+    fault_impl = SimpleNamespace(flash_attention=ops.flash_attention,
+                                 decode_attention=skipped_tile)
+    nan = {}
+
+    def run(impl, feed=None):
+        kernels_ops, A.ops = A.ops, impl
+        try:
+            logits, state = prefill(model, toks, L, prompt_lens=lens)
+            steps = [logits.float()]
+            for step in range(CAST_MODEL_STEPS):
+                nxt = steps[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+                logits, state = decode_step(model, state, nxt)
+                steps.append(logits.float())
+            c = state.caches[0]
+            nan.setdefault("dtype", str(c.k.dtype).removeprefix("torch."))
+            nan.setdefault("stored_nan", int(torch.isnan(c.k.float()).sum()
+                                             + torch.isnan(c.v.float()).sum()))
+            nan.setdefault("stored_values", 2 * c.k.numel())
+        finally:
+            A.ops = kernels_ops
+        del state
+        return torch.stack(steps)
+
+    kernels.reset_launch_counts()
+    lk = run(ops)
+    counts = kernels.launch_counts()
+    feed = lk[:-1].argmax(-1).to(torch.int32)
+    lp = run(plain_attn, feed)
+    lf = run(fault_impl, feed)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(lk).all() and lk.shape == (CAST_MODEL_STEPS + 1, B, cfg.vocab_size)):
+        raise AssertionError("bad cast kernel-path logits")
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    fault = (lf - lp).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
+    n_layers = cfg.n_layers
+    want = {"flash_attention_ragged": n_layers, "decode_attention_cast":
+            n_layers * CAST_MODEL_STEPS, "decode_attention": 0}
+    res = {"cache_dtype": CAST, "logit_scale": lp.abs().max().item(), "tol": MODEL_TOL,
+           "max_abs_err_per_step": errs, "tokens_checked": int(sure.sum()),
+           "token_mismatches_beyond_margin": flips, "fault": "skipped_tile",
+           "fault_max_abs_err_per_step": fault, **nan,
+           "kernel_path_launches": {k: counts[k] for k in want}}
+    emit("cast_model", **res)
+    del model, lk, lp, lf
+    torch.cuda.empty_cache()
+    if max(errs) > MODEL_TOL or flips:
+        raise AssertionError("cast kernel path and plain path disagree")
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"cast kernel path launched {counts}, not {want}")
+    if not max(fault) > MODEL_TOL:
+        raise AssertionError("the model tolerance does not catch a skipped tile")
     return res
 
 
@@ -3103,18 +3476,44 @@ def check_moe_paged(model) -> dict:
     return res
 
 
-def _hybrid_extra() -> dict:
+def _hybrid_extra(decode: str = "decode_attention") -> dict:
     """What a hybrid serve phase line adds: the model's shape and the
-    launches each admission replay and each decode step must add."""
+    launches each admission replay and each decode step (of ``decode``,
+    the ring's decode kernel) must add."""
     from repro_torch.configs import get_config
 
     cfg = get_config("recurrentgemma-2b")
     attns, recs = _hybrid_layers(cfg)
     return {"layers": {"attn": attns, "rec": recs},
             "launches_per_admission_replay": {"flash_attention": attns, "rglru_scan": recs},
-            "launches_per_decode_step": {"decode_attention": attns},
+            "launches_per_decode_step": {decode: attns},
             "ring": min(int(HYBRID_ARGS[HYBRID_ARGS.index("--cache-len") + 1]),
                         cfg.local_window)}
+
+
+def _with_cast(cfg, cast: str):
+    """``cfg`` under the unscaled storage cast to ``cast``: float8_e4m3fn
+    through the legacy ``cache_dtype`` (as a kv_precision string it names
+    the scaled fp8 codes), another dtype through ``kv_precision``."""
+    if cast == "float8_e4m3fn":
+        return cfg.replace(cache_dtype=cast)
+    return cfg.replace(kv_precision=cast)
+
+
+def drive_cast_serve(argv: list, phase: str, cast: str, path_kernels) -> dict:
+    """A launcher path under an unscaled storage cast: the launcher's
+    config, on the card and in the CPU run its trace is held to, carries
+    the cast (its ``get_config`` wrapped), and the engine API resolves it,
+    as a reference user's config does; the launch counts show the path
+    ran on the casts' unscaled routes and never on the native kernels."""
+    from repro_torch.launch import serve as launcher
+
+    get = launcher.get_config
+    launcher.get_config = lambda arch, smoke=False: _with_cast(get(arch, smoke=smoke), cast)
+    try:
+        return drive_main_path(argv, phase, path_kernels, extra={"cast": cast})
+    finally:
+        launcher.get_config = get
 
 
 def drive_deepseek_serve() -> dict:
@@ -3153,6 +3552,9 @@ DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
 MOE_KERNELS = ("flash_attention", "decode_attention")
 MOE_PAGED_KERNELS = ("flash_attention", "paged_decode_attention")
 HYBRID_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
+HYBRID_QUANT_KERNELS = ("flash_attention", "decode_attention_quant", "rglru_scan")
+CAST_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_cast")
+CAST_PAGED_CHUNKED_KERNELS = ("paged_chunk_attention_cast", "paged_decode_attention_cast")
 
 
 def _sync_checked(sched) -> None:
@@ -3428,7 +3830,9 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     n_layers = engine.cfg.n_layers
     ssm = engine.cfg.is_ssm
     quant = args.kv_precision in ("int8", "fp8")
-    ring = "decode_attention_quant" if quant else "decode_attention"   # the dense decode
+    cast = engine.kvp.is_cast and not ssm   # an unscaled storage cast's unscaled routes
+    route = "_quant" if quant else "_cast" if cast else ""
+    ring = "decode_attention" + route   # the dense decode
     want = {}
     # the admissions (their warm-ups too) and the decodes (theirs too)
     prefills = engine.prefill_dispatches + engine.prefill_warmups
@@ -3442,18 +3846,24 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     elif engine.cfg.is_hybrid:   # every prefill (the boot's too) runs K1 and K7 per layer
         attns, recs = _hybrid_layers(engine.cfg)
         want = {"flash_attention": attns * (prefills + 1), "rglru_scan": recs * (prefills + 1),
-                "decode_attention": attns * decodes * 2}
+                ring: attns * decodes * 2}
+        if route:   # a quantized or cast ring never reaches the native decode
+            want["decode_attention"] = 0
+        for mode, nodes in res["graph_nodes"].items():   # each decode replay: 2 steps
+            if mode in ("fused", "sync", "fused+s", "sync+s") and nodes != {ring: attns * 2}:
+                raise AssertionError(f"{phase}: a {mode} decode replay launches {nodes}, "
+                                     f"not {attns * 2} {ring}")
     elif args.paged:
-        quant = args.kv_precision in ("int8", "fp8")
-        decode = "paged_decode_attention_quant" if quant else "paged_decode_attention"
+        decode = "paged_decode_attention" + route
         want = {pre: n_layers * prefills, decode: n_layers * decodes * 2}
         if args.chunked:
-            chunk = "paged_chunk_attention_quant" if quant else "paged_chunk_attention"
-            want[chunk] = n_layers * (mixed[0] + mixed[2])
+            want["paged_chunk_attention" + route] = n_layers * (mixed[0] + mixed[2])
+        if route:   # a quantized or cast pool never reaches the native kernels
+            want.update(paged_decode_attention=0, paged_chunk_attention=0)
     else:
         want = {pre: n_layers * (prefills + boot), ring: n_layers * decodes * 2,
                 "chunk_attention": n_layers * (mixed[0] + mixed[2])}
-        if quant:   # a quantized ring never reaches the native decode
+        if route:   # a quantized or cast ring never reaches the native decode
             want["decode_attention"] = 0
     if pre == "flash_attention" and not ssm:
         want["flash_attention_ragged"] = 0
@@ -3473,7 +3883,7 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     sampled = engine.ecfg.sampling is not None
     moe, hybrid = engine.cfg.is_moe, engine.cfg.is_hybrid
     if (args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled or moe
-            or hybrid):
+            or hybrid or cast):
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -4136,13 +4546,16 @@ def _host_launches(prof) -> list:
     and capture) go to none."""
     import bisect
 
-    cpu = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    # the profiler's raw events: building its event tree (``prof.events()``)
+    # costs seconds a slot of an eager serve and adds nothing here
+    cpu = [(e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CPU]
     # (the profiler also shows each mark on the device's timeline: CPU only)
-    starts = sorted(e.time_range.start for e in cpu if e.name == SLOT_MARK)
+    starts = sorted(t for t, name in cpu if name == SLOT_MARK)
     per_slot = [0] * max(len(starts), 1)
-    for e in cpu:
-        slot = bisect.bisect_right(starts, e.time_range.start) - 1
-        if _LAUNCH_CALL.match(e.name) and slot >= 0:
+    for t, name in cpu:
+        slot = bisect.bisect_right(starts, t) - 1
+        if _LAUNCH_CALL.match(name) and slot >= 0:
             per_slot[slot] += 1
     return per_slot
 
@@ -4217,16 +4630,11 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
         restore()
     counts = kernels.launch_counts()
     rows, records = [], {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue   # kernels only: an op's device time is its kernels'
-        records[e.key] = records.get(e.key, 0) + e.count
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = e.self_cuda_time_total
+    for key, (count, dev) in _device_records(prof).items():
+        records[key] = count
         if dev > 0:
-            rows.append({"name": e.key[:90], "device_ms": dev / 1e3, "count": e.count,
-                         "kind": kernel_kind(e.key)})
+            rows.append({"name": key[:90], "device_ms": dev / 1e3, "count": count,
+                         "kind": kernel_kind(key)})
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
     by_kind = {}
@@ -4585,7 +4993,8 @@ def check_fig2() -> dict:
 
 _FLASH_SYMBOL = re.compile(r"flash_attention_kernel(_wgmma)?I(f|13__nv_bfloat16)?"
                            r"(a|f|13__nv_fp8_e4m3|13__nv_bfloat16)Li(\d+)E")
-_CXX_TYPE = {"a": "int8", "f": "float32", "13__nv_fp8_e4m3": "fp8", "13__nv_bfloat16": "bf16"}
+_CXX_TYPE = {"a": "int8", "f": "float32", "13__nv_fp8_e4m3": "fp8", "13__nv_bfloat16": "bf16",
+             "6__half": "float16"}
 
 
 def flash_instantiations(ptxas: list) -> list:
@@ -4607,7 +5016,7 @@ def flash_instantiations(ptxas: list) -> list:
 
 
 _CHUNK_SYMBOL = re.compile(r"(paged_)?chunk_attention_kernel(_wgmma)?I(f)?(a|13__nv_fp8_e4m3)?"
-                           r"Li(\d+)E(?:Lb([01])E)?")
+                           r"Li(\d+)E(?:Lb([01])E(f|6__half|13__nv_bfloat16|13__nv_fp8_e4m3)?)?")
 
 
 def chunk_instantiations(ptxas: list) -> list:
@@ -4626,9 +5035,13 @@ def chunk_instantiations(ptxas: list) -> list:
             continue
         dtype = torch.bfloat16 if m.group(2) else torch.float32
         hd = int(m.group(5))
+        pages = _CXX_TYPE.get(m.group(7), "")   # the native pages' storage type
+        cast = m.group(1) is not None and pages not in ("", str(dtype)[6:], "bf16")
         row = {"kernel": "K4" if m.group(1) is None else "K4p" if m.group(6) == "1" else "K4q",
                "q": str(dtype).removeprefix("torch."), "hd": hd, "route": KERNEL_ROUTE[dtype]}
-        if m.group(1) is None:
+        if cast:   # K4p's unscaled route over cast pages
+            row.update(kernel="K4p-cast", pages=pages, smem_bytes=kpc.smem_bytes(hd, dtype))
+        elif m.group(1) is None:
             row["smem_bytes"] = kc.smem_bytes(hd, dtype)
         else:
             row["codes"] = _CXX_TYPE[m.group(4)]
@@ -4637,7 +5050,8 @@ def chunk_instantiations(ptxas: list) -> list:
                 row["smem_bytes_native_pool"] = kpc.smem_bytes(hd, dtype)
         out.append({**row, "registers": f.get("registers"),
                     "spill_stores": f.get("spill_stores"), "spill_loads": f.get("spill_loads")})
-    return sorted(out, key=lambda r: (r["kernel"], r["q"], r.get("codes", ""), r["hd"]))
+    return sorted(out, key=lambda r: (r["kernel"], r["q"], r.get("codes", ""), r.get("pages", ""),
+                                      r["hd"]))
 
 
 _SSD_SYMBOL = re.compile(r"(ssd_scan_kernel|ssd_chunk_states_kernel|ssd_state_passing_kernel|"
@@ -4673,7 +5087,8 @@ def ssd_instantiations(ptxas: list) -> list:
 
 
 _DECODE_SYMBOL = re.compile(r"(paged_)?decode_attention(_quant)?_kernelI(f|13__nv_bfloat16)"
-                            r"(a|13__nv_fp8_e4m3)?Li(\d+)E")
+                            r"(a|f|6__half|13__nv_fp8_e4m3|13__nv_bfloat16)?Li(\d+)E"
+                            r"(?:Lb([01])E)?")
 
 
 def resident_ctas(threads: int, registers: int, smem: int) -> int:
@@ -4707,11 +5122,12 @@ def decode_instantiations(ptxas: list) -> list:
         dtype = torch.float32 if m.group(3) == "f" else torch.bfloat16
         hd, quant = int(m.group(5)), m.group(2) is not None
         kernel = ("K3" if m.group(1) else "K2") + ("q" if quant else "")
-        row = {"kernel": kernel, "dtype": str(dtype).removeprefix("torch."), "hd": hd,
+        row = {"kernel": kernel + ("-cast" if m.group(6) == "0" else ""),
+               "dtype": str(dtype).removeprefix("torch."), "hd": hd,
                "smem_bytes_G4": smem[kernel, quant](hd, 4, dtype),
                "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
                "spill_loads": f.get("spill_loads")}
-        if quant:
+        if quant:   # int8 or fp8 codes, or (-cast) the unscaled route's storage type
             row["codes"] = _CXX_TYPE[m.group(4)]
         row["resident_ctas_per_sm_G4"] = resident_ctas(128, row["registers"],
                                                        row["smem_bytes_G4"])
@@ -4757,6 +5173,8 @@ def main() -> int:
                              "decode_attention_hd256_G10_f32_refused":
                                  kd.smem_bytes(256, 10, torch.float32),
                              "decode_attention_quant_hd64_G4_bf16": kd.quant_smem_bytes(64, 4),
+                             "decode_attention_quant_hd256_G10_bf16":
+                                 kd.quant_smem_bytes(256, 10),
                              "paged_decode_attention_hd64_G4_bf16": kp.smem_bytes(64, 4),
                              "paged_decode_attention_quant_hd64_G4_bf16": kpq.smem_bytes(64, 4),
                              "chunk_attention_hd64_f32_cuda_cores":
@@ -4845,6 +5263,16 @@ def main() -> int:
     profile_main_path(HYBRID_ARGS, hybrid_path["serve_s"], "hybrid_profile")
     drive_main_path(HYBRID_SYNC_ARGS, "hybrid_sync_serve", HYBRID_KERNELS,
                     extra=_hybrid_extra())
+    check_cast_model()
+    cast_path = drive_cast_serve(SERVE_ARGS, "cast_serve", CAST, CAST_KERNELS)
+    cast_paged = drive_cast_serve(CAST_PAGED_CHUNKED_ARGS, "cast_paged_chunked_serve",
+                                  CAST_PAGED, CAST_PAGED_CHUNKED_KERNELS)
+    check_hybrid_quant_model()
+    hybrid_quant = drive_main_path(HYBRID_QUANT_ARGS, "hybrid_quant_serve", HYBRID_QUANT_KERNELS,
+                                   extra=_hybrid_extra("decode_attention_quant"))
+    profile_main_path(HYBRID_QUANT_ARGS, hybrid_quant["serve_s"], "hybrid_quant_profile")
+    drive_main_path(HYBRID_FP8_SYNC_ARGS, "hybrid_fp8_sync_serve", HYBRID_QUANT_KERNELS,
+                    extra=_hybrid_extra("decode_attention_quant"))
     graph_ab()
     check_fig2()
 
@@ -4864,7 +5292,14 @@ def main() -> int:
               "flash_attention_quant_ragged":
                   dense_quant["launches"]["flash_attention_quant_ragged"],
               "decode_attention_quant": dense_quant["launches"]["decode_attention_quant"],
-              "rglru_scan": hybrid_path["launches"]["rglru_scan"]}
+              "rglru_scan": hybrid_path["launches"]["rglru_scan"],
+              # K2q at hd 256: the hybrid int8 serve's decode
+              "decode_attention_quant_hd256":
+                  hybrid_quant["launches"]["decode_attention_quant"],
+              "decode_attention_cast": cast_path["launches"]["decode_attention_cast"],
+              "paged_decode_attention_cast":
+                  cast_paged["launches"]["paged_decode_attention_cast"],
+              "paged_chunk_attention_cast": cast_paged["launches"]["paged_chunk_attention_cast"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4901,7 +5336,21 @@ def main() -> int:
            # K7: no Pallas kernel; the reference scans each RG-LRU block with
            # jax.lax.associative_scan in XLA
            "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
-                          "src/repro/models/rglru.py:98")}
+                          "src/repro/models/rglru.py:98"),
+           # K2q at recurrentgemma-2b's hd 256 (a group of 10)
+           "decode_attention_quant_hd256": (
+               "src/repro_torch/kernels/csrc/decode_attention_quant.cu",
+               "src/repro/models/attention.py:584"),
+           # the unscaled routes over a legacy cast: no Pallas kernel; the
+           # reference's attention casts the stored K/V to q's dtype in XLA
+           "decode_attention_cast": ("src/repro_torch/kernels/csrc/decode_attention_quant.cu",
+                                     "src/repro/models/attention.py:609"),
+           "paged_decode_attention_cast": (
+               "src/repro_torch/kernels/csrc/paged_attention_quant.cu",
+               "src/repro/models/attention.py:880"),
+           "paged_chunk_attention_cast": (
+               "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
+               "src/repro/models/attention.py:804")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

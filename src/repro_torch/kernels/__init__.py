@@ -29,7 +29,8 @@ def reset_launch_counts() -> None:
 
 # the kernel function a counter's wrapper launches, where it is not the
 # counter's own name + "_kernel": K1's kernel serves K1, K1r, K1q and K1rq,
-# and K4p's serves K4q, K4p and K4p over quantized pages. ``ssd_scan``
+# K2q's and K3q's serve their unscaled routes, and K4p's serves K4q, K4p,
+# K4p over quantized pages and K4p over cast pages. ``ssd_scan``
 # counts K6's calls, which launch the kernels of the route they take, each
 # counted by that kernel's own counter: it maps to no function.
 _FUNCTION = {"flash_attention_ragged": "flash_attention_kernel",
@@ -37,6 +38,9 @@ _FUNCTION = {"flash_attention_ragged": "flash_attention_kernel",
              "flash_attention_quant_ragged": "flash_attention_kernel",
              "chunk_attention_quant": "paged_chunk_attention_kernel",
              "paged_chunk_attention_quant": "paged_chunk_attention_kernel",
+             "paged_chunk_attention_cast": "paged_chunk_attention_kernel",
+             "decode_attention_cast": "decode_attention_quant_kernel",
+             "paged_decode_attention_cast": "paged_decode_attention_quant_kernel",
              "ssd_scan": None, "ssd_scan_f32": "ssd_scan_kernel"}
 
 

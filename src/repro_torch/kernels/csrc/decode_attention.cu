@@ -100,7 +100,5 @@ extern "C" cudaError_t decode_attention_fwd(const void* q, const void* k, const 
 // dtype (is_bf16 as above); 0 if hd is unsupported. For float32 at hd 256
 // it is the amount the kernel would need, which no CTA may have.
 extern "C" int decode_attention_smem_bytes(int hd, int G, int is_bf16) {
-  if (hd == 256)
-    return (int)(is_bf16 ? dc::Smem<__nv_bfloat16, 256>::bytes(G) : dc::Smem<float, 256>::bytes(G));
   return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
 }

@@ -27,6 +27,17 @@
 // with no valid slot gets the mean of its dequantized ring's V, as from the
 // plain version (a uniform softmax over masked scores).
 //
+// The unscaled route (decode_attention_cast_fwd) is the same kernel over a
+// ring held under an unscaled storage cast (the reference's legacy
+// `cache_dtype`: k, v (B, L, KVH, hd) as float16, bfloat16, float32 or
+// float8_e4m3fn, in another dtype than q, and no scales): every valid slot
+// is an unscaled code row, each value rounded to q's dtype as it lands
+// (decode_core.cuh), as the reference's `ck.astype(q.dtype)` does; the
+// arithmetic after that is K2's.
+//
+// Head dims 32, 64 and 128, and 256 in bf16 (recurrentgemma-2b's ring,
+// quantized or cast: q's fragments from shared memory, as K2 at hd 256).
+//
 // What bounds it: bytes. A step reads each valid slot's codes once (1 byte
 // per element instead of 2 in bf16) plus 4 bytes of scale per row and KV
 // head (B 8, L 1024, KVH 8, hd 64: 7.4 MB when every slot is valid, 2.2 us
@@ -38,7 +49,8 @@ namespace {
 
 namespace dc = repro::decode;
 
-template <typename T, typename C, int HD>
+// SCALED false: the unscaled route (k_scale, v_scale unread).
+template <typename T, typename C, int HD, bool SCALED>
 __global__ void __cluster_dims__(1, 1, dc::SPLIT)
 __maxnreg__(dc::Route<T>::code_regs(HD))
 decode_attention_quant_kernel(const T* __restrict__ q, const C* __restrict__ k,
@@ -54,19 +66,20 @@ decode_attention_quant_kernel(const T* __restrict__ q, const C* __restrict__ k,
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
   const dc::RingSlots<true> src{slot_pos + (size_t)b * L, L, pos[b], window};
   const size_t row0 = (size_t)b * L;  // this batch row's first ring row
-  const dc::CodeRows<C> codes{k + row0 * kv_stride + (size_t)kvh * HD,
-                              v + row0 * kv_stride + (size_t)kvh * HD,
-                              k_scale + row0 * KVH + kvh, v_scale + row0 * KVH + kvh, kv_stride,
-                              (size_t)KVH};
+  const dc::CodeRows<C, SCALED> codes{k + row0 * kv_stride + (size_t)kvh * HD,
+                                      v + row0 * kv_stride + (size_t)kvh * HD,
+                                      SCALED ? k_scale + row0 * KVH + kvh : nullptr,
+                                      SCALED ? v_scale + row0 * KVH + kvh : nullptr, kv_stride,
+                                      (size_t)KVH};
   dc::attend<T, HD>(src, G, q + grp, nullptr, nullptr, 0, out + grp, scale, codes);
 }
 
-template <typename T, typename C, int HD>
+template <typename T, typename C, int HD, bool SCALED>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* slot_pos, const int* pos, void* out, int B,
                    int H, int KVH, int L, int window, float scale, cudaStream_t stream) {
   const int G = H / KVH;
-  auto kern = decode_attention_quant_kernel<T, C, HD>;
+  auto kern = decode_attention_quant_kernel<T, C, HD, SCALED>;
   const size_t smem = dc::Smem<T, HD>::bytes(G);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -78,22 +91,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
   return cudaGetLastError();
 }
 
-template <typename T, typename C>
+template <typename T, typename C, bool SCALED>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const float* ks,
                         const float* vs, const int* slot_pos, const int* pos, void* out, int B,
                         int H, int KVH, int L, int window, float scale, cudaStream_t s) {
+#define REPRO_LAUNCH(HD) \
+  launch<T, C, HD, SCALED>(q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L, window, scale, s)
   switch (hd) {
-    case 32:
-      return launch<T, C, 32>(q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L, window, scale,
-                              s);
-    case 64:
-      return launch<T, C, 64>(q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L, window, scale,
-                              s);
-    case 128:
-      return launch<T, C, 128>(q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L, window,
-                               scale, s);
+    case 32: return REPRO_LAUNCH(32);
+    case 64: return REPRO_LAUNCH(64);
+    case 128: return REPRO_LAUNCH(128);
+    case 256:  // bf16 only: the f32 route's shared memory would exceed a CTA's (decode_core.cuh)
+      if constexpr (dc::Route<T>::MMA) return REPRO_LAUNCH(256);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_LAUNCH
 }
 
 template <typename T>
@@ -102,10 +115,35 @@ cudaError_t dispatch_code(int is_fp8, int hd, const void* q, const void* k, cons
                           void* out, int B, int H, int KVH, int L, int window, float scale,
                           cudaStream_t s) {
   if (is_fp8)
-    return dispatch_hd<T, __nv_fp8_e4m3>(hd, q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L,
-                                         window, scale, s);
-  return dispatch_hd<T, int8_t>(hd, q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L, window,
-                                scale, s);
+    return dispatch_hd<T, __nv_fp8_e4m3, true>(hd, q, k, v, ks, vs, slot_pos, pos, out, B, H,
+                                               KVH, L, window, scale, s);
+  return dispatch_hd<T, int8_t, true>(hd, q, k, v, ks, vs, slot_pos, pos, out, B, H, KVH, L,
+                                      window, scale, s);
+}
+
+// The unscaled route's storage types, by the code the wrappers pass
+// (kernels/decode_attention.py::STORE_CODES); a store in q's own dtype is
+// the native route (K2) and is refused here.
+template <typename T>
+cudaError_t dispatch_store(int store, int hd, const void* q, const void* k, const void* v,
+                           const int* slot_pos, const int* pos, void* out, int B, int H,
+                           int KVH, int L, int window, float scale, cudaStream_t s) {
+#define REPRO_STORE(S)                                                                     \
+  {                                                                                       \
+    if constexpr (std::is_same<S, T>::value)                                              \
+      return cudaErrorInvalidValue;                                                       \
+    else                                                                                  \
+      return dispatch_hd<T, S, false>(hd, q, k, v, nullptr, nullptr, slot_pos, pos, out, B, \
+                                      H, KVH, L, window, scale, s);                       \
+  }
+  switch (store) {
+    case 0: REPRO_STORE(__half)
+    case 1: REPRO_STORE(__nv_bfloat16)
+    case 2: REPRO_STORE(float)
+    case 3: REPRO_STORE(__nv_fp8_e4m3)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_STORE
 }
 
 }  // namespace
@@ -134,4 +172,23 @@ extern "C" cudaError_t decode_attention_quant_fwd(const void* q, const void* k, 
 // unsupported.
 extern "C" int decode_attention_quant_smem_bytes(int hd, int G, int is_bf16) {
   return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
+}
+
+// The unscaled route: k, v (B, L, KVH, hd) stored as ``store`` (0 float16,
+// 1 bfloat16, 2 float32, 3 float8_e4m3fn; not q's dtype), each value
+// rounded to q's dtype as it loads. Other arguments as decode_attention_
+// quant_fwd's.
+extern "C" cudaError_t decode_attention_cast_fwd(const void* q, const void* k, const void* v,
+                                                 const int* slot_pos, const int* pos, void* out,
+                                                 int B, int H, int KVH, int L, int hd,
+                                                 int window, int is_bf16, int store, float scale,
+                                                 void* stream) {
+  if (B <= 0 || L <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > 32)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch_store<__nv_bfloat16>(store, hd, q, k, v, slot_pos, pos, out, B, H, KVH, L,
+                                         window, scale, s);
+  return dispatch_store<float>(store, hd, q, k, v, slot_pos, pos, out, B, H, KVH, L, window,
+                               scale, s);
 }

@@ -43,6 +43,16 @@
 // copies stay coalesced (four lanes a 64-byte row at hd 64). From there on
 // a code row is a native row.
 //
+// An unscaled code row (K2q's and K3q's unscaled routes, over an unscaled
+// storage cast: CodeRows<S, false>, S one of __half, __nv_bfloat16, float,
+// __nv_fp8_e4m3, never T) has no scale. A store no wider than T goes the
+// same way: chunk c (16 / sizeof(S) values) is copied by cp.async to where
+// its values will lie, and the thread that copied it converts them in
+// place (dequant.cuh::cast_chunk: each value exactly to f32, rounded to T
+// once, as `ck.astype(q.dtype)`). A float store under bf16 (each chunk
+// wider than its bf16 values) is loaded and converted by the thread that
+// would copy it, into the ring's bf16 row, before the tile's barrier.
+//
 // A tile's products, by dtype. Both keep the numeric rules of the Pallas
 // kernel: masked scores -1e30, the online softmax (m, l, acc) in f32, p
 // rounded to the value dtype before the PV product, l summed from p before
@@ -84,7 +94,7 @@
 // on the order in which CTAs run, and each call is one kernel launch.
 //
 // Head dims 32, 64 and 128 on both routes, and 256 on the bf16 one
-// (recurrentgemma-2b: 10 query heads on one KV head). At hd 256 a K or V
+// (recurrentgemma-2b: 10 query heads on one KV head; K2 and K2q). At hd 256 a K or V
 // row is 512 bytes (528 apart in shared memory), the two stages of 64 K and
 // V rows take 135 KB and q and the partial of G 10 another 20 KB: one CTA
 // of 128 threads a SM. The f32 route's two stages would take 266 KB, more
@@ -160,9 +170,12 @@ struct PagedSlots {
 };
 
 // The code rows a source's rows <= -2 name (K2q, K3q): row r's HD codes at
-// k/v + r * row_stride, its scales at ks/vs[r * scale_stride].
-template <typename C> struct CodeRows {
+// k/v + r * row_stride, its scales at ks/vs[r * scale_stride]. SCALED
+// false: rows of an unscaled storage cast, HD values of C a row and no
+// scales (ks, vs unread).
+template <typename C, bool SCALED_ = true> struct CodeRows {
   static constexpr bool ON = true;
+  static constexpr bool SCALED = SCALED_;
   using Code = C;
   const C* k;
   const C* v;
@@ -173,6 +186,8 @@ template <typename C> struct CodeRows {
 // No code rows (K2, K3).
 struct NoCodes {
   static constexpr bool ON = false;
+  static constexpr bool SCALED = true;
+  using Code = uint8_t;
 };
 
 // Which products a dtype runs on, and its CTA: bf16 four warps per 16
@@ -187,8 +202,12 @@ template <typename T> struct Route {
   // 64 (96 registers) and three at hd 128 (168); f32 CTAs of up to 1,024
   // threads 64. Left free, the dequantization's registers take a bf16
   // thread to 120 (four CTAs a SM), and the 64 clusters of K2q at B 8 no
-  // longer run in one wave.
-  static constexpr int code_regs(int hd) { return !MMA ? 64 : hd > 64 ? 168 : 96; }
+  // longer run in one wave. At hd 256 (bf16 only) the O accumulator alone
+  // is 128 registers and shared memory allows one CTA a SM: no cap below
+  // the 255 a thread may have.
+  static constexpr int code_regs(int hd) {
+    return !MMA ? 64 : hd > 128 ? 255 : hd > 64 ? 168 : 96;
+  }
 };
 
 // Shared memory in bytes: the K and V rings, the rows of each stage's
@@ -210,6 +229,7 @@ template <typename T> size_t smem_bytes(int hd, int G) {
     case 32: return Smem<T, 32>::bytes(G);
     case 64: return Smem<T, 64>::bytes(G);
     case 128: return Smem<T, 128>::bytes(G);
+    case 256: return Smem<T, 256>::bytes(G);  // above a CTA's limit for float32
     default: return 0;
   }
 }
@@ -496,11 +516,18 @@ __device__ __forceinline__ void mean_of_v(const Source& src, const Codes& codes,
       }
     } else if constexpr (Codes::ON) {
       const size_t qr = (size_t)(-2 - row);
-      const uint2 u = __ldg(reinterpret_cast<const uint2*>(codes.v + qr * codes.row_stride + c * 8));
-      const float sc = __ldg(codes.vs + qr * codes.scale_stride);
-      repro::codes8_to_f<typename Codes::Code>(u, f);
+      using C = typename Codes::Code;
+      if constexpr (Codes::SCALED) {
+        const uint2 u = __ldg(reinterpret_cast<const uint2*>(codes.v + qr * codes.row_stride + c * 8));
+        const float sc = __ldg(codes.vs + qr * codes.scale_stride);
+        repro::codes8_to_f<C>(u, f);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = repro::to_f(repro::from_f<T>(f[e] * sc));
+        for (int e = 0; e < 8; ++e) f[e] = repro::to_f(repro::from_f<T>(f[e] * sc));
+      } else {
+        repro::vals8_to_f<C>(codes.v + qr * codes.row_stride + c * 8, f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = repro::to_f(repro::from_f<T>(f[e]));
+      }
     }
 #pragma unroll
     for (int e = 0; e < 8; ++e) acc[e] += f[e];
@@ -537,8 +564,13 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
   using Heads = std::conditional_t<Route<T>::MMA, MmaHeads<HD>, WarpPerHead<HD>>;
   constexpr int CPR = S::CPR;
   constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CCH = HD / 16;                     // 16-byte chunks of a code row
-  constexpr int CODE_STEP = 16 * (int)sizeof(T);  // bytes of a code chunk's 16 values
+  using C = typename Codes::Code;
+  constexpr int CSZ = (int)sizeof(C);
+  constexpr int CCH = HD * CSZ / 16;                    // 16-byte chunks of a code row
+  constexpr int CODE_STEP = 16 / CSZ * (int)sizeof(T);  // bytes of a code chunk's values in T
+  // a float store under bf16: each chunk is converted as it is loaded
+  constexpr bool WIDE = Codes::ON && CSZ > (int)sizeof(T);
+  static_assert(!WIDE || !Codes::SCALED, "codes are one byte");
   static_assert(HD % 32 == 0 && (HD * (int)sizeof(T)) % 16 == 0, "HD must be 32, 64, 128, 256");
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -608,19 +640,27 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
         const int row = ROWS[s * BL + r];
         if (row >= INVALID) continue;
         const size_t qr = (size_t)(-2 - row);
+        const C* from = (is_v ? codes.v : codes.k) + qr * codes.row_stride + c * (16 / CSZ);
+        if constexpr (WIDE) {  // 4 floats rounded to bf16: 8 bytes of the row
+          float f[4];
+          repro::unpack<float>(f, __ldg(reinterpret_cast<const uint4*>(from)));
+          *reinterpret_cast<uint2*>(sm + (is_v ? S::V_OFF : S::K_OFF) + (s * BL + r) * S::ROW +
+                                    c * CODE_STEP) =
+              make_uint2(repro::sm90::pack_bf16(f[0], f[1]), repro::sm90::pack_bf16(f[2], f[3]));
+          continue;
+        }
         const uint32_t dst = (is_v ? vb : kb) + r * S::ROW + c * CODE_STEP;
-        repro::sm90::cp_async16(dst, (is_v ? codes.v : codes.k) + qr * codes.row_stride + c * 16,
-                                16);
-        repro::sm90::cp_async4(dst + 16, (is_v ? codes.vs : codes.ks) + qr * codes.scale_stride,
-                               4);
+        repro::sm90::cp_async16(dst, from, 16);
+        if constexpr (Codes::SCALED)
+          repro::sm90::cp_async4(dst + 16, (is_v ? codes.vs : codes.ks) + qr * codes.scale_stride,
+                                 4);
       }
     }
   };
   // Dequantize this thread's code chunks of stage s in place (the chunks
   // and scales its own issue(s) copied, landed for it after its wait).
   auto dequant = [&](int s) {
-    if constexpr (Codes::ON) {
-      using C = typename Codes::Code;
+    if constexpr (Codes::ON && !WIDE) {
       for (int i = tid; i < 2 * BL * CCH; i += nthreads) {
         const bool is_v = i >= BL * CCH;
         const int ii = is_v ? i - BL * CCH : i;
@@ -628,6 +668,10 @@ __device__ __forceinline__ void attend(const Source& src, int G, const T* __rest
         if (ROWS[s * BL + r] >= INVALID) continue;
         char* at = sm + (is_v ? S::V_OFF : S::K_OFF) + (s * BL + r) * S::ROW + c * CODE_STEP;
         const uint4 u = *reinterpret_cast<const uint4*>(at);
+        if constexpr (!Codes::SCALED) {
+          repro::cast_chunk<C, T>(u, at);
+          continue;
+        }
         const float sc = *reinterpret_cast<const float*>(at + 16);
         if constexpr (Route<T>::MMA) {  // the upper 8 values first: they cover the scale
           reinterpret_cast<uint4*>(at)[1] = repro::dequant8_bf16<C>(make_uint2(u.z, u.w), sc);

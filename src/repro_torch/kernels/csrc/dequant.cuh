@@ -4,9 +4,19 @@
 // already in shared memory): each code converts to float exactly, is multiplied by
 // its scale in f32, and the product is rounded to the compute dtype T, as the
 // reference's `dequantize_kv` and the Pallas kernels do.
+//
+// The unscaled routes (K2q, K3q, K4p over an unscaled storage cast: K/V
+// stored as __half, __nv_bfloat16, float or __nv_fp8_e4m3 under another
+// compute dtype) read their values with the loaders below: each stored
+// value converts to float exactly and is rounded to T once, to nearest
+// even, as the reference's `ck.astype(q.dtype)` rounds it. No scale is
+// multiplied in.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -37,6 +47,88 @@ template <> __device__ __forceinline__ void codes8_to_f<__nv_fp8_e4m3>(uint2 u, 
     f[2 * p] = x.x;
     f[2 * p + 1] = x.y;
   }
+}
+
+// The 16 bytes of ``u`` as floats, exactly, for the unscaled stores that
+// common.cuh's unpack does not cover: 8 float16 or 16 e4m3 values.
+template <> __device__ __forceinline__ void unpack<__half>(float* d, uint4 u) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(reinterpret_cast<const __half2&>(w[i]));
+    d[2 * i] = x.x;
+    d[2 * i + 1] = x.y;
+  }
+}
+template <> __device__ __forceinline__ void unpack<__nv_fp8_e4m3>(float* d, uint4 u) {
+  float lo[8], hi[8];
+  codes8_to_f<__nv_fp8_e4m3>(make_uint2(u.x, u.y), lo);
+  codes8_to_f<__nv_fp8_e4m3>(make_uint2(u.z, u.w), hi);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) d[e] = lo[e], d[8 + e] = hi[e];
+}
+
+// 8 consecutive stored values of S at ``p`` (8 * sizeof(S)-byte aligned)
+// as floats, exactly.
+template <typename S> __device__ __forceinline__ void vals8_to_f(const S* p, float (&f)[8]);
+template <> __device__ __forceinline__ void vals8_to_f<__nv_fp8_e4m3>(const __nv_fp8_e4m3* p,
+                                                                     float (&f)[8]) {
+  codes8_to_f<__nv_fp8_e4m3>(__ldg(reinterpret_cast<const uint2*>(p)), f);
+}
+template <> __device__ __forceinline__ void vals8_to_f<__half>(const __half* p, float (&f)[8]) {
+  unpack<__half>(f, __ldg(reinterpret_cast<const uint4*>(p)));
+}
+template <> __device__ __forceinline__ void vals8_to_f<__nv_bfloat16>(const __nv_bfloat16* p,
+                                                                     float (&f)[8]) {
+  unpack<__nv_bfloat16>(f, __ldg(reinterpret_cast<const uint4*>(p)));
+}
+template <> __device__ __forceinline__ void vals8_to_f<float>(const float* p, float (&f)[8]) {
+  unpack<float>(f, __ldg(reinterpret_cast<const uint4*>(p)));
+  unpack<float>(f + 4, __ldg(reinterpret_cast<const uint4*>(p) + 1));
+}
+
+// One 16-byte chunk ``u`` of stored values of S (16 / sizeof(S) of them;
+// S no wider than T) converted to T in place at ``at``: value e lands at
+// byte e * sizeof(T), rounded once to nearest even. ``u`` was read from
+// ``at`` before, so the values may overwrite it.
+template <typename S, typename T>
+__device__ __forceinline__ void cast_chunk(uint4 u, char* at) {
+  constexpr int N = 16 / (int)sizeof(S);
+  static_assert(sizeof(S) <= sizeof(T), "a wider store is converted as it is loaded");
+  float f[16];
+  unpack<S>(f, u);
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int e = 0; e < N / 4; ++e)
+      reinterpret_cast<float4*>(at)[e] = make_float4(f[4 * e], f[4 * e + 1], f[4 * e + 2],
+                                                     f[4 * e + 3]);
+  } else {
+    uint32_t o[8];
+#pragma unroll
+    for (int p = 0; p < N / 2; ++p) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * p], f[2 * p + 1]);
+      o[p] = reinterpret_cast<const uint32_t&>(h);
+    }
+#pragma unroll
+    for (int e = 0; e < N / 8; ++e)
+      reinterpret_cast<uint4*>(at)[e] = make_uint4(o[4 * e], o[4 * e + 1], o[4 * e + 2],
+                                                   o[4 * e + 3]);
+  }
+}
+
+// 8 stored values of S at ``p`` rounded to bf16 (nearest even), packed as
+// the 16 bytes of 8 values of a bf16 row.
+template <typename S>
+__device__ __forceinline__ uint4 cast8_bf16(const S* p) {
+  float f[8];
+  vals8_to_f<S>(p, f);
+  uint32_t o[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    o[i] = reinterpret_cast<const uint32_t&>(h);
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // The 8 codes of ``u`` dequantized with ``scale`` and rounded to bf16, as

@@ -37,6 +37,14 @@
 // So there K3q over a mixed pool reads another page than K3 over its
 // dequantized concatenation, whose -1 reads native page 0.
 //
+// The unscaled route (paged_decode_attention_cast_fwd) is the same kernel
+// over a pool held under an unscaled storage cast (the reference's legacy
+// `cache_dtype`, whose pool has one region: k_pages, v_pages (N, ps, KVH,
+// hd) as float16, bfloat16, float32 or float8_e4m3fn, in another dtype than
+// q, and no scales): the kernel sees every page as an unscaled code page
+// (N_n 0, N_q N), each value rounded to q's dtype as it lands
+// (decode_core.cuh), as the reference's `kk.astype(q.dtype)` does.
+//
 // What bounds it: bytes. A step reads each valid row once: its codes (1
 // byte per element instead of 2 in bf16) plus 4 bytes of scale per row and
 // KV head on a quantized page, the row in q's dtype on a native one, for a
@@ -47,7 +55,8 @@ namespace {
 
 namespace dc = repro::decode;
 
-template <typename T, typename C, int HD>
+// SCALED false: the unscaled route (k_scale, v_scale unread).
+template <typename T, typename C, int HD, bool SCALED>
 __global__ void __cluster_dims__(1, 1, dc::SPLIT)
 __maxnreg__(dc::Route<T>::code_regs(HD))
 paged_decode_attention_quant_kernel(
@@ -63,21 +72,22 @@ paged_decode_attention_quant_kernel(
   const size_t grp = ((size_t)b * H + (size_t)kvh * G) * HD;  // G heads, contiguous
   const dc::PagedSlots src{block_tables + (size_t)b * MP, max(min(pos[b] + 1, MP * ps), 0), Nn,
                            Nq, ps, MP * ps};
-  const dc::CodeRows<C> codes{qk_pages + (size_t)kvh * HD, qv_pages + (size_t)kvh * HD,
-                              k_scale + kvh, v_scale + kvh, row_stride, (size_t)KVH};
+  const dc::CodeRows<C, SCALED> codes{qk_pages + (size_t)kvh * HD, qv_pages + (size_t)kvh * HD,
+                                      SCALED ? k_scale + kvh : nullptr,
+                                      SCALED ? v_scale + kvh : nullptr, row_stride, (size_t)KVH};
   // with Nn == 0 the native pools are null and never read
   dc::attend<T, HD>(src, G, q + grp, Nn ? k_pages + (size_t)kvh * HD : nullptr,
                     Nn ? v_pages + (size_t)kvh * HD : nullptr, row_stride, out + grp, scale,
                     codes);
 }
 
-template <typename T, typename C, int HD>
+template <typename T, typename C, int HD, bool SCALED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* qk,
                    const void* qv, const float* ks, const float* vs, const int* block_tables,
                    const int* pos, void* out, int B, int H, int KVH, int Nn, int Nq, int ps,
                    int MP, float scale, cudaStream_t stream) {
   const int G = H / KVH;
-  auto kern = paged_decode_attention_quant_kernel<T, C, HD>;
+  auto kern = paged_decode_attention_quant_kernel<T, C, HD, SCALED>;
   const size_t smem = dc::Smem<T, HD>::bytes(G);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -90,24 +100,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qk,
   return cudaGetLastError();
 }
 
-template <typename T, typename C>
+template <typename T, typename C, bool SCALED>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, const void* qk,
                         const void* qv, const float* ks, const float* vs,
                         const int* block_tables, const int* pos, void* out, int B, int H,
                         int KVH, int Nn, int Nq, int ps, int MP, float scale,
                         cudaStream_t s) {
+#define REPRO_LAUNCH(HD)                                                                   \
+  launch<T, C, HD, SCALED>(q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H, KVH, Nn, \
+                           Nq, ps, MP, scale, s)
   switch (hd) {
-    case 32:
-      return launch<T, C, 32>(q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H, KVH, Nn,
-                              Nq, ps, MP, scale, s);
-    case 64:
-      return launch<T, C, 64>(q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H, KVH, Nn,
-                              Nq, ps, MP, scale, s);
-    case 128:
-      return launch<T, C, 128>(q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H, KVH, Nn,
-                               Nq, ps, MP, scale, s);
+    case 32: return REPRO_LAUNCH(32);
+    case 64: return REPRO_LAUNCH(64);
+    case 128: return REPRO_LAUNCH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef REPRO_LAUNCH
 }
 
 template <typename T>
@@ -117,10 +125,36 @@ cudaError_t dispatch_code(int is_fp8, int hd, const void* q, const void* k, cons
                           int KVH, int Nn, int Nq, int ps, int MP, float scale,
                           cudaStream_t s) {
   if (is_fp8)
-    return dispatch_hd<T, __nv_fp8_e4m3>(hd, q, k, v, qk, qv, ks, vs, block_tables, pos, out,
-                                         B, H, KVH, Nn, Nq, ps, MP, scale, s);
-  return dispatch_hd<T, int8_t>(hd, q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H,
-                                KVH, Nn, Nq, ps, MP, scale, s);
+    return dispatch_hd<T, __nv_fp8_e4m3, true>(hd, q, k, v, qk, qv, ks, vs, block_tables, pos,
+                                               out, B, H, KVH, Nn, Nq, ps, MP, scale, s);
+  return dispatch_hd<T, int8_t, true>(hd, q, k, v, qk, qv, ks, vs, block_tables, pos, out, B, H,
+                                      KVH, Nn, Nq, ps, MP, scale, s);
+}
+
+// The unscaled route's storage types (0 float16, 1 bfloat16, 2 float32, 3
+// float8_e4m3fn): the cast pool as the code region, no native pages. A
+// store in q's own dtype is the native route (K3) and is refused here.
+template <typename T>
+cudaError_t dispatch_store(int store, int hd, const void* q, const void* k, const void* v,
+                           const int* block_tables, const int* pos, void* out, int B, int H,
+                           int KVH, int N, int ps, int MP, float scale, cudaStream_t s) {
+#define REPRO_STORE(S)                                                                      \
+  {                                                                                        \
+    if constexpr (std::is_same<S, T>::value)                                               \
+      return cudaErrorInvalidValue;                                                        \
+    else                                                                                   \
+      return dispatch_hd<T, S, false>(hd, q, nullptr, nullptr, k, v, nullptr, nullptr,       \
+                                      block_tables, pos, out, B, H, KVH, 0, N, ps, MP, scale, \
+                                      s);                                                  \
+  }
+  switch (store) {
+    case 0: REPRO_STORE(__half)
+    case 1: REPRO_STORE(__nv_bfloat16)
+    case 2: REPRO_STORE(float)
+    case 3: REPRO_STORE(__nv_fp8_e4m3)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_STORE
 }
 
 }  // namespace
@@ -153,4 +187,24 @@ extern "C" cudaError_t paged_decode_attention_quant_fwd(
 // unsupported.
 extern "C" int paged_decode_attention_quant_smem_bytes(int hd, int G, int is_bf16) {
   return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
+}
+
+// The unscaled route: k_pages, v_pages (N, ps, KVH, hd) stored as
+// ``store`` (0 float16, 1 bfloat16, 2 float32, 3 float8_e4m3fn; not q's
+// dtype), each value rounded to q's dtype as it loads; a table id in [0, N)
+// names a page, anything else is unallocated. Other arguments as
+// paged_decode_attention_quant_fwd's.
+extern "C" cudaError_t paged_decode_attention_cast_fwd(
+    const void* q, const void* k_pages, const void* v_pages, const int* block_tables,
+    const int* pos, void* out, int B, int H, int KVH, int N, int ps, int MP, int hd,
+    int is_bf16, int store, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || ps <= 0 || MP <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > 32 ||
+      (long long)N * ps > 0x7fffffffLL || (long long)MP * ps > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return dispatch_store<__nv_bfloat16>(store, hd, q, k_pages, v_pages, block_tables, pos, out,
+                                         B, H, KVH, N, ps, MP, scale, s);
+  return dispatch_store<float>(store, hd, q, k_pages, v_pages, block_tables, pos, out, B, H, KVH,
+                               N, ps, MP, scale, s);
 }

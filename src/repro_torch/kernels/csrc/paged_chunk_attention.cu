@@ -29,6 +29,17 @@
 // pool serves only the prefix-cache hit [0, base): positions an earlier
 // request wrote and the pool already rounded.
 //
+// K4p's unscaled route (paged_chunk_attention_cast_fwd) reads a pool held
+// under an unscaled storage cast (the reference's legacy `cache_dtype`):
+// its one region's pages (k_pages, v_pages) as float16, bfloat16, float32
+// or float8_e4m3fn, in another dtype than q, no quantized region; staging
+// stays in q's dtype. Each stored value is rounded to q's dtype as it
+// loads, as the reference's `kk.astype(q.dtype)`: the f32 kernel converts
+// the rows exactly as it gathers them, the bf16 kernel's copying thread
+// loads the row and stores it rounded to bf16 into the ring's tile (no
+// cp.async: the conversion sits between the load and the store), before
+// the tile's fence and barrier.
+//
 // Both keep K4's contract (chunk_attention.cu): one CTA per (tile of 64
 // chunk queries, head, row), the TPU kernel's sequential KV grid axis a
 // loop inside the CTA with the online softmax in f32 registers, masked
@@ -104,11 +115,12 @@ struct Smem {
 
 // PAGED: K4p (``tables`` = block_tables (B, MP)); else K4q (``tables`` =
 // slot_pos (B, L), with L passed as MP and the codes/scales as the quantized
-// region, row b * L + j).
-template <typename T, typename C, int HD, bool PAGED>
+// region, row b * L + j). N: the native pages' storage type (T, or an
+// unscaled cast's), converted to float exactly as the rows are gathered.
+template <typename T, typename C, int HD, bool PAGED, typename N = T>
 __global__ void __launch_bounds__(THREADS)
-paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                             const T* __restrict__ v_pages, const C* __restrict__ qk,
+paged_chunk_attention_kernel(const T* __restrict__ q, const N* __restrict__ k_pages,
+                             const N* __restrict__ v_pages, const C* __restrict__ qk,
                              const C* __restrict__ qv, const float* __restrict__ k_scale,
                              const float* __restrict__ v_scale, const int* __restrict__ tables,
                              const T* __restrict__ stage_k, const T* __restrict__ stage_v,
@@ -145,8 +157,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pa
   const size_t q_stride = (size_t)H * HD;
   const size_t row_stride = (size_t)KVH * HD;   // between K/V rows of every source
   const T* q_base = q + (size_t)b * Cq * q_stride + (size_t)h * HD;
-  const T* kn_base = k_pages + (size_t)kvh * HD;  // never read when no row is native
-  const T* vn_base = v_pages + (size_t)kvh * HD;
+  const N* kn_base = k_pages + (size_t)kvh * HD;  // never read when no row is native
+  const N* vn_base = v_pages + (size_t)kvh * HD;
   const T* ks_base = stage_k + (size_t)kvh * HD;  // never read without staging
   const T* vs_base = stage_v + (size_t)kvh * HD;
   const C* qk_base = qk + (size_t)kvh * HD;
@@ -217,8 +229,8 @@ paged_chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pa
     if (!__syncthreads_or(any)) continue;  // no key in the tile: it adds nothing
     anys = __syncthreads_or(anys);
     anyq = __syncthreads_or(anyq);
-    load_rows_gather<T, HD>(Ks, Sm::KS, kn_base, row_stride, NROW, BK, tid, THREADS);
-    load_rows_gather<T, HD>(Vs, Sm::VS, vn_base, row_stride, NROW, BK, tid, THREADS);
+    load_rows_gather<N, HD>(Ks, Sm::KS, kn_base, row_stride, NROW, BK, tid, THREADS);
+    load_rows_gather<N, HD>(Vs, Sm::VS, vn_base, row_stride, NROW, BK, tid, THREADS);
     if (anys) {
       load_rows_gather<T, HD>(Ks, Sm::KS, ks_base, row_stride, SROW, BK, tid, THREADS);
       load_rows_gather<T, HD>(Vs, Sm::VS, vs_base, row_stride, SROW, BK, tid, THREADS);
@@ -307,10 +319,12 @@ using bf16 = __nv_bfloat16;
 // table; else K4q, ``tables`` = this row's slot_pos, MP = L, the codes and
 // scales the quantized region at row b * L + j). The thread with
 // ``which`` 0 copies slot r's K row and stores its key position, the one
-// with ``which`` 1 its V row; each resolves the slot itself.
-template <typename C, int HD, bool PAGED>
+// with ``which`` 1 its V row; each resolves the slot itself. N: the native
+// pages' storage type (bf16, or an unscaled cast's, whose rows the copying
+// thread rounds to bf16 as it stores them).
+template <typename C, int HD, bool PAGED, typename N = bf16>
 struct PoolRows {
-  const bf16 *kn, *vn;        // native pages (this KV head's column)
+  const N *kn, *vn;           // native pages (this KV head's column)
   const bf16 *sk, *sv;        // staging buffers, or null
   const C *qk, *qv;           // codes
   const float *ks, *vs;       // their scales (this KV head's)
@@ -325,6 +339,7 @@ struct PoolRows {
     const int j = k0 + r;
     int kp = -1, k = ck::NONE;
     const bf16* row = zeros_src;
+    const N* cast_row = nullptr;  // a native page row of an unscaled cast
     size_t code_row = 0;
     if constexpr (PAGED) {
       if (j < k_end) {
@@ -338,7 +353,11 @@ struct PoolRows {
           const int page = tables[j / ps];
           if (page >= 0 && page < Nn) {
             k = ck::NATIVE;
-            row = (which ? vn : kn) + ((size_t)page * ps + j % ps) * stride;
+            const N* at = (which ? vn : kn) + ((size_t)page * ps + j % ps) * stride;
+            if constexpr (std::is_same<N, bf16>::value)
+              row = at;
+            else
+              cast_row = at;
             kp = j;
           } else if (page >= Nn && page - Nn < Nq) {
             k = ck::CODES;
@@ -356,6 +375,11 @@ struct PoolRows {
       ck::copy_code_row<HD>(Sm::codes(sbase, s, which), Sm::scales(sbase, s, which), r,
                             (which ? qv : qk) + code_row * stride,
                             (which ? vs : ks) + code_row * KVH);
+    else if (cast_row != nullptr)  // loaded, rounded to bf16 and stored now
+      for (int c = 0; c < HD / 8; ++c)
+        *reinterpret_cast<uint4*>(smem + (which ? Sm::V_OFF : Sm::K_OFF) + s * Sm::TILE +
+                                  repro::sm90::tile_offset<HD>(ck::BK, r, c)) =
+            repro::cast8_bf16<N>(cast_row + c * 8);
     else
       ck::copy_row<HD>(which ? Sm::v_tile(sbase, s) : Sm::k_tile(sbase, s), r, row,
                        k == ck::NATIVE);
@@ -365,10 +389,10 @@ struct PoolRows {
   }
 };
 
-template <typename C, int HD, bool PAGED>
+template <typename C, int HD, bool PAGED, typename N = bf16>
 __global__ void __launch_bounds__(ck::THREADS)
-paged_chunk_attention_kernel_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k_pages,
-                                   const bf16* __restrict__ v_pages, const C* __restrict__ qk,
+paged_chunk_attention_kernel_wgmma(const bf16* __restrict__ q, const N* __restrict__ k_pages,
+                                   const N* __restrict__ v_pages, const C* __restrict__ qk,
                                    const C* __restrict__ qv, const float* __restrict__ k_scale,
                                    const float* __restrict__ v_scale,
                                    const int* __restrict__ tables, const bf16* __restrict__ stage_k,
@@ -394,7 +418,7 @@ paged_chunk_attention_kernel_wgmma(const bf16* __restrict__ q, const bf16* __res
   const int k_end = PAGED ? last : ((p0 >= 0 && last <= MP) ? last : MP);
   const bool staged = PAGED && stage_k != nullptr;
   const size_t col = (size_t)kvh * HD;  // this KV head's column of every source
-  const PoolRows<C, HD, PAGED> src{
+  const PoolRows<C, HD, PAGED, N> src{
       k_pages + col, v_pages + col, staged ? stage_k + col : nullptr,
       staged ? stage_v + col : nullptr, qk + col, qv + col, k_scale + kvh, v_scale + kvh,
       tables + (size_t)b * MP, q, (size_t)KVH * HD, KVH, b, Nn, Nq, ps, MP, S,
@@ -414,32 +438,33 @@ struct Args {
   float scale;
 };
 
-template <typename T, typename C, int HD, bool PAGED>
+// N: the native pages' storage type (T, or an unscaled cast's).
+template <typename T, typename C, int HD, bool PAGED, typename N = T>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.Cq + BQ - 1) / BQ, a.H, a.B);
   if constexpr (std::is_same<T, bf16>::value) {  // the tensor cores
-    auto kern = paged_chunk_attention_kernel_wgmma<C, HD, PAGED>;
+    auto kern = paged_chunk_attention_kernel_wgmma<C, HD, PAGED, N>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ck::Smem<HD>::bytes);
     if (err != cudaSuccess) return err;
     // a pool with no quantized page never touches the code stages
     const size_t smem = (PAGED && a.Nq == 0) ? ck::Smem<HD>::bytes_native : ck::Smem<HD>::bytes;
     kern<<<grid, ck::THREADS, smem, stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k_pages),
-        static_cast<const bf16*>(a.v_pages), static_cast<const C*>(a.qk),
+        static_cast<const bf16*>(a.q), static_cast<const N*>(a.k_pages),
+        static_cast<const N*>(a.v_pages), static_cast<const C*>(a.qk),
         static_cast<const C*>(a.qv), a.k_scale, a.v_scale, a.tables,
         static_cast<const bf16*>(a.stage_k), static_cast<const bf16*>(a.stage_v), a.base,
         a.pos0, a.valid, static_cast<bf16*>(a.out), a.Cq, a.H, a.KVH, a.Nn, a.Nq, a.ps, a.MP,
         a.S, a.scale);
   } else {  // f32: the CUDA cores
-    auto kern = paged_chunk_attention_kernel<T, C, HD, PAGED>;
+    auto kern = paged_chunk_attention_kernel<T, C, HD, PAGED, N>;
     const size_t smem = Smem<HD>::bytes;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
-        static_cast<const T*>(a.v_pages), static_cast<const C*>(a.qk),
+        static_cast<const T*>(a.q), static_cast<const N*>(a.k_pages),
+        static_cast<const N*>(a.v_pages), static_cast<const C*>(a.qk),
         static_cast<const C*>(a.qv), a.k_scale, a.v_scale, a.tables,
         static_cast<const T*>(a.stage_k), static_cast<const T*>(a.stage_v), a.base, a.pos0,
         a.valid, static_cast<T*>(a.out), a.Cq, a.H, a.KVH, a.Nn, a.Nq, a.ps, a.MP, a.S, a.scale);
@@ -464,6 +489,34 @@ cudaError_t dispatch(const Args& a, int hd, int is_bf16, int is_fp8, cudaStream_
   REPRO_HD(float, int8_t)
 #undef REPRO_HD
   return cudaErrorInvalidValue;  // not reached: every case above returns
+}
+
+// K4p's unscaled route: the native pages stored as ``store`` (0 float16, 1
+// bfloat16, 2 float32, 3 float8_e4m3fn); a store in q's own dtype is the
+// native route and is refused here.
+template <typename T>
+cudaError_t dispatch_cast(const Args& a, int hd, int store, cudaStream_t s) {
+#define REPRO_HD(S)                                                    \
+  {                                                                    \
+    if constexpr (std::is_same<S, T>::value) {                         \
+      return cudaErrorInvalidValue;                                    \
+    } else {                                                           \
+      switch (hd) {                                                    \
+        case 32: return launch<T, int8_t, 32, true, S>(a, s);          \
+        case 64: return launch<T, int8_t, 64, true, S>(a, s);          \
+        case 128: return launch<T, int8_t, 128, true, S>(a, s);        \
+        default: return cudaErrorInvalidValue;                         \
+      }                                                                \
+    }                                                                  \
+  }
+  switch (store) {
+    case 0: REPRO_HD(__half)
+    case 1: REPRO_HD(__nv_bfloat16)
+    case 2: REPRO_HD(float)
+    case 3: REPRO_HD(__nv_fp8_e4m3)
+    default: return cudaErrorInvalidValue;
+  }
+#undef REPRO_HD
 }
 
 }  // namespace
@@ -501,6 +554,25 @@ extern "C" cudaError_t paged_chunk_attention_fwd(
   Args a{q, k_pages, v_pages, qk_pages, qv_pages, k_scale, v_scale, block_tables, stage_k,
          stage_v, base, pos0, valid, out, B, C, H, KVH, Nn, Nq, ps, MP, S, scale};
   return dispatch<true>(a, hd, is_bf16, is_fp8, static_cast<cudaStream_t>(stream));
+}
+
+// K4p's unscaled route: k_pages, v_pages (N, ps, KVH, hd) stored as
+// ``store`` (as dispatch_cast's), every table id in [0, N) one of them, no
+// quantized region; staging (if any) in q's dtype. Other arguments as
+// paged_chunk_attention_fwd's.
+extern "C" cudaError_t paged_chunk_attention_cast_fwd(
+    const void* q, const void* k_pages, const void* v_pages, const int* block_tables,
+    const void* stage_k, const void* stage_v, const int* base, const int* pos0,
+    const int* valid, void* out, int B, int C, int H, int KVH, int N, int ps, int MP, int S,
+    int hd, int is_bf16, int store, float scale, void* stream) {
+  if (B <= 0 || C <= 0 || KVH <= 0 || H % KVH != 0 || N <= 0 || ps <= 0 || MP <= 0 || S < 0 ||
+      (long long)N * ps > 0x7fffffffLL || (long long)MP * ps > 0x7fffffffLL ||
+      (long long)B * S > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  Args a{q, k_pages, v_pages, nullptr, nullptr, nullptr, nullptr, block_tables, stage_k,
+         stage_v, base, pos0, valid, out, B, C, H, KVH, N, 0, ps, MP, S, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? dispatch_cast<bf16>(a, hd, store, s) : dispatch_cast<float>(a, hd, store, s);
 }
 
 template <int HD>

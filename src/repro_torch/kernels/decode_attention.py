@@ -18,12 +18,16 @@ cores by mma.sync, f32 on the CUDA cores), and combines the 8 partial
 softmax states through distributed shared memory. So K2q over codes equals
 K2 over the dequantized ring bit for bit. A row with no valid slot gets
 the mean of its ring's V, as from the plain version (a uniform softmax
-over masked scores).
+over masked scores). ``decode_attention_cast`` is K2q's unscaled route,
+over a ring held under an unscaled storage cast (float16, bfloat16,
+float32 or float8_e4m3fn, not q's dtype; no scales): each stored value is
+rounded to q's dtype as it lands in shared memory, as the reference's
+``ck.astype(q.dtype)``, and the rest is K2's arithmetic.
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
-versions instead. K2 takes head dims 32, 64, 128 and, in bf16, 256
-(recurrentgemma-2b's MQA heads, a group of 10); K2q stops at 128.
+versions instead. K2 and K2q (both routes) take head dims 32, 64, 128
+and, in bf16, 256 (recurrentgemma-2b's MQA heads, a group of 10).
 """
 from __future__ import annotations
 
@@ -35,12 +39,13 @@ import torch
 from repro_torch.kernels import build
 
 # launches of the kernel: the wrapper counts where it launches, nowhere else
-launches = {"decode_attention": 0, "decode_attention_quant": 0}
+launches = {"decode_attention": 0, "decode_attention_quant": 0, "decode_attention_cast": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
-_HEAD_DIMS = (32, 64, 128, 256)   # K2; 256 in bf16 only
-_CODE_HEAD_DIMS = (32, 64, 128)    # K2q
+_HEAD_DIMS = (32, 64, 128, 256)   # K2 and K2q; 256 in bf16 only
+# the unscaled route's storage dtypes, by the code the C entry points take
+STORE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2, torch.float8_e4m3fn: 3}
 SMEM_LIMIT = 232448                # the dynamic shared memory an H100 CTA may have
 
 
@@ -58,6 +63,15 @@ def _quant_fn():
     # q, k, v, k_scale, v_scale, slot_pos, pos, out; B, H, KVH, L, hd, window,
     # is_bf16, is_fp8; scale; stream
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                               ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _cast_fn():
+    fn = build.library("decode_attention_quant").decode_attention_cast_fwd
+    # q, k, v, slot_pos, pos, out; B, H, KVH, L, hd, window, is_bf16, store; scale; stream
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                                ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -143,7 +157,7 @@ def decode_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2q: q (B,H,hd) float32 or bfloat16, ring codes k/v (B,L,KVH,hd) int8
     or float8_e4m3fn with k_scale/v_scale (B,L,KVH) float32, slot_pos (B,L)
     int32, pos (B,) int32 -> (B,H,hd) in q's dtype, on the card."""
-    _check(q, k, v, slot_pos, pos, window, _CODES, _CODE_HEAD_DIMS)
+    _check(q, k, v, slot_pos, pos, window, _CODES)
     B, H, hd = q.shape
     _, L, KVH, _ = k.shape
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -160,4 +174,27 @@ def decode_attention_quant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"decode_attention_quant_fwd failed: cudaError_t {err}")
     launches["decode_attention_quant"] += 1
+    return out
+
+
+def decode_attention_cast(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """K2q's unscaled route: q (B,H,hd) float32 or bfloat16, a cast ring k/v
+    (B,L,KVH,hd) in float16, bfloat16, float32 or float8_e4m3fn other than
+    q's dtype, slot_pos (B,L) int32, pos (B,) int32 -> (B,H,hd) in q's
+    dtype, on the card."""
+    _check(q, k, v, slot_pos, pos, window,
+           tuple(dt for dt in STORE_CODES if dt != q.dtype))
+    B, H, hd = q.shape
+    _, L, KVH, _ = k.shape
+    out = torch.empty_like(q)
+    err = _cast_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), slot_pos.data_ptr(),
+                     pos.data_ptr(), out.data_ptr(), B, H, KVH, L, hd,
+                     -1 if window is None else int(window), int(q.dtype == torch.bfloat16),
+                     STORE_CODES[k.dtype], hd ** -0.5,
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_cast_fwd failed: cudaError_t {err}")
+    launches["decode_attention_cast"] += 1
     return out

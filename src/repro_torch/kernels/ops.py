@@ -5,6 +5,11 @@ A CPU tensor goes to the plain version (``repro_torch.kernels.ref``); a
 CUDA tensor goes to the hand-written kernel, whose wrapper raises on
 anything it does not take. There is no fallback from the card to the plain
 version: a kernel that fails to build or launch fails the call.
+
+The storage dtype chooses the route: K/V in q's dtype go to the native
+kernels, codes with scales to the dequantizing ones, and K/V in another
+float dtype (an unscaled storage cast) to their unscaled routes, which
+round each stored value to q's dtype as they load.
 """
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ from repro_torch.kernels import rglru_scan as _rg
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels.ref import (attention_quant_ref, attention_ref,
                                      chunk_attention_quant_ref, chunk_attention_ref,
-                                     decode_attention_quant_ref, decode_attention_ref,
-                                     paged_chunk_attention_ref,
+                                     decode_attention_cast_ref, decode_attention_quant_ref,
+                                     decode_attention_ref, paged_chunk_attention_ref,
+                                     paged_decode_attention_cast_ref,
                                      paged_decode_attention_mixed_ref,
                                      paged_decode_attention_quant_ref,
                                      paged_decode_attention_ref, rglru_scan_ref,
@@ -58,24 +64,37 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: Optional[int] = None) -> torch.Tensor:
     """One-token attention over the ring cache. ``k_scale``/``v_scale``
     (B, L, KVH) float32 make the ring int8 or fp8 codes, dequantized as
-    they load (K2q)."""
+    they load (K2q); a ring in another float dtype than q's is a cast,
+    rounded to q's dtype as it loads (K2q's unscaled route)."""
+    cast = k_scale is None and k.dtype != q.dtype
     if q.device.type == "cpu":
         if k_scale is not None:
             return decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
                                               window=window)
+        if cast:
+            return decode_attention_cast_ref(q, k, v, slot_pos, pos, window=window)
         return decode_attention_ref(q, k, v, slot_pos, pos, window=window)
     if k_scale is not None:
         return _da.decode_attention_quant(q, k, v, k_scale, v_scale, slot_pos, pos,
                                           window=window)
+    if cast:
+        return _da.decode_attention_cast(q, k, v, slot_pos, pos, window=window)
     return _da.decode_attention(q, k, v, slot_pos, pos, window=window)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            pos: torch.Tensor) -> torch.Tensor:
-    """One-token attention over the paged pool, through the block tables."""
+    """One-token attention over the paged pool, through the block tables;
+    a pool in another float dtype than q's is a cast, rounded to q's dtype
+    as it loads (K3q's unscaled route)."""
+    cast = k_pages.dtype != q.dtype
     if q.device.type == "cpu":
+        if cast:
+            return paged_decode_attention_cast_ref(q, k_pages, v_pages, block_tables, pos)
         return paged_decode_attention_ref(q, k_pages, v_pages, block_tables, pos)
+    if cast:
+        return _paq.paged_decode_attention_cast(q, k_pages, v_pages, block_tables, pos)
     return _pa.paged_decode_attention(q, k_pages, v_pages, block_tables, pos)
 
 
@@ -129,11 +148,16 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: Optional[torch.Tensor],
     absent (None); table ids below the native page count read the native
     region, the rest the quantized one at ``id - N_n``. With the staging
     buffers ``stage_k``/``stage_v`` (B, S, KVH, hd) positions at or past
-    ``base`` (B,) read staging, the ones below it the pool."""
+    ``base`` (B,) read staging, the ones below it the pool. Native pages in
+    another float dtype than q's are a cast pool (no quantized region),
+    rounded to q's dtype as they load (K4p's unscaled route)."""
     if q.device.type == "cpu":
         return paged_chunk_attention_ref(q, k_pages, v_pages, qk_pages, qv_pages, k_scale,
                                          v_scale, block_tables, pos0, valid, stage_k=stage_k,
                                          stage_v=stage_v, base=base)
+    if k_pages is not None and k_pages.dtype != q.dtype:
+        return _pca.paged_chunk_attention_cast(q, k_pages, v_pages, block_tables, pos0, valid,
+                                               stage_k=stage_k, stage_v=stage_v, base=base)
     return _pca.paged_chunk_attention(q, k_pages, v_pages, qk_pages, qv_pages, k_scale, v_scale,
                                       block_tables, pos0, valid, stage_k=stage_k,
                                       stage_v=stage_v, base=base)

@@ -21,6 +21,12 @@ tensor cores; what holds them above that bound is K4's: the per-tile chain
 of one warpgroup and the grid's longest CTA chain. f32 q keeps CUDA-core
 kernels (TF32 would break the f32 tolerance).
 
+``paged_chunk_attention_cast`` is K4p's unscaled route, over a pool held
+under an unscaled storage cast (float16, bfloat16, float32 or
+float8_e4m3fn pages, not q's dtype; one region, no scales): each stored
+value is rounded to q's dtype as it loads, as the reference's
+``kk.astype(q.dtype)``; staging stays in q's dtype.
+
 These wrappers take CUDA tensors only and raise on anything the kernels do
 not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
 versions instead.
@@ -33,12 +39,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention import STORE_CODES
 
 # launches of each kernel: the wrappers count where they launch, nowhere else.
 # K4p counts its launches over a pool with a quantized region apart
 # ("paged_chunk_attention_quant"): those run K4q's dequantizing loads.
 launches = {"chunk_attention_quant": 0, "paged_chunk_attention": 0,
-            "paged_chunk_attention_quant": 0}
+            "paged_chunk_attention_quant": 0, "paged_chunk_attention_cast": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
@@ -208,4 +215,64 @@ def paged_chunk_attention(q: torch.Tensor, k_pages: Optional[torch.Tensor],
     if err != 0:
         raise RuntimeError(f"paged_chunk_attention_fwd failed: cudaError_t {err}")
     launches["paged_chunk_attention_quant" if Nq else "paged_chunk_attention"] += 1
+    return out
+
+
+def paged_chunk_attention_cast(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                               block_tables: torch.Tensor, pos0: torch.Tensor,
+                               valid: torch.Tensor, *, stage_k: Optional[torch.Tensor] = None,
+                               stage_v: Optional[torch.Tensor] = None,
+                               base: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4p's unscaled route: q (B,C,H,hd) bf16/f32, roped; a cast pool
+    k/v_pages (N,ps,KVH,hd) in float16, bfloat16, float32 or float8_e4m3fn
+    other than q's dtype; block_tables (B,MP) int32 (-1 = unallocated);
+    pos0, valid (B,) int32; staging buffers (B,S,KVH,hd) in q's dtype with
+    ``base`` (B,) int32, or None -> (B,C,H,hd), on the card. Query rows at
+    or beyond ``valid`` are zeros."""
+    B, C, H, hd = _qshape(q, None)
+    stores = tuple(dt for dt in STORE_CODES if dt != q.dtype)
+    if k_pages.dtype not in stores or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"cast pages must be one of {stores}, got {k_pages.dtype}/"
+                         f"{v_pages.dtype}")
+    if (stage_k is None) != (stage_v is None) or (stage_k is not None and base is None):
+        raise ValueError("staging buffers come in pairs, with base")
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape or k_pages.shape[3] != hd \
+            or H % k_pages.shape[2]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} pages {tuple(k_pages.shape)}")
+    N, ps, KVH, _ = k_pages.shape
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables must be ({B}, MP)")
+    MP = block_tables.shape[1]
+    S = 0
+    if stage_k is not None:
+        S = stage_k.shape[1]
+        if stage_k.shape != (B, S, KVH, hd) or stage_v.shape != stage_k.shape:
+            raise ValueError(f"staging buffers must be ({B}, S, {KVH}, {hd})")
+    if pos0.shape != (B,) or valid.shape != (B,) or (base is not None and base.shape != (B,)):
+        raise ValueError(f"pos0, valid and base must be ({B},)")
+    if N * ps > _INT_MAX or MP * ps > _INT_MAX or B * S > _INT_MAX:
+        raise ValueError("pool, table or staging buffers too large")
+    i32 = torch.int32
+    _check([("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+            ("block_tables", block_tables), ("stage_k", stage_k), ("stage_v", stage_v),
+            ("base", base if stage_k is not None else None), ("pos0", pos0),
+            ("valid", valid)],
+           {"stage_k": q.dtype, "stage_v": q.dtype, "block_tables": i32, "base": i32,
+            "pos0": i32, "valid": i32})
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    out = torch.empty_like(q)
+    fn = _lib().paged_chunk_attention_cast_fwd
+    # q, k_pages, v_pages, block_tables, stage_k, stage_v, base, pos0, valid,
+    # out; B, C, H, KVH, N, ps, MP, S, hd, is_bf16, store; scale; stream
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float,
+                                                                 ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+             ptr(stage_k), ptr(stage_v), ptr(base) if stage_k is not None else 0,
+             pos0.data_ptr(), valid.data_ptr(), out.data_ptr(), B, C, H, KVH, N, ps, MP, S, hd,
+             int(q.dtype == torch.bfloat16), STORE_CODES[k_pages.dtype], hd ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_chunk_attention_cast_fwd failed: cudaError_t {err}")
+    launches["paged_chunk_attention_cast"] += 1
     return out

@@ -98,6 +98,25 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return decode_attention_ref(q, kk, vv, slot_pos, pos)
 
 
+def decode_attention_cast_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              slot_pos: torch.Tensor, pos: torch.Tensor, *,
+                              window: Optional[int] = None) -> torch.Tensor:
+    """The unscaled route of K2q's plain version, the reference
+    ``attn_decode``'s read of a cast ring (``ck.astype(q.dtype)``): the
+    ring k/v (B,L,KVH,hd) in a storage dtype other than q's, each value
+    rounded to q's dtype, then ``decode_attention_ref``."""
+    return decode_attention_ref(q, k.to(q.dtype), v.to(q.dtype), slot_pos, pos, window=window)
+
+
+def paged_decode_attention_cast_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                                    pos: torch.Tensor) -> torch.Tensor:
+    """The unscaled route of K3q's plain version: a cast pool (N,ps,KVH,hd)
+    rounded to q's dtype, then ``paged_decode_attention_ref``."""
+    return paged_decode_attention_ref(q, k_pages.to(q.dtype), v_pages.to(q.dtype),
+                                      block_tables, pos)
+
+
 def dequant_ref(codes: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Per-token-per-head dequantization: codes (..., hd) int8/fp8, scale
     (...) float32 over the head dim, ``codes * scale`` in float32, then the
@@ -150,7 +169,9 @@ def pool_gather_ref(block_tables: torch.Tensor, dtype: torch.dtype,
     pages (N_n, ps, KVH, hd), None for none) reads the native region, an id
     at or above it the quantized one at ``id - N_n`` (codes with scales,
     None for none), dequantized; -1 entries read a clamped page (the caller
-    masks them). Returns k, v (B, MP * ps, KVH, hd) in ``dtype``."""
+    masks them). Native pages in another dtype (an unscaled cast's) are
+    rounded to ``dtype``, as the reference's ``kk.astype(q.dtype)``.
+    Returns k, v (B, MP * ps, KVH, hd) in ``dtype``."""
     B, MP = block_tables.shape
     Nn = 0 if k_pages is None else k_pages.shape[0]
     if qk_pages is None:
@@ -244,8 +265,9 @@ def paged_chunk_attention_ref(q: torch.Tensor, k_pages: Optional[torch.Tensor],
                               stage_k: Optional[torch.Tensor] = None,
                               stage_v: Optional[torch.Tensor] = None,
                               base: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K4p's plain version, the reference's ``attn_chunk_paged`` attention:
-    gather the pool (``pool_gather_ref``) and, with staging buffers (B, S,
+    """K4p's plain version, the reference's ``attn_chunk_paged`` attention
+    (over native, quantized, mixed or cast pages): gather the pool
+    (``pool_gather_ref``) and, with staging buffers (B, S,
     KVH, hd), concatenate them after it; pool slot j counts as position j
     when its page is allocated (and, with staging, j < base), staging slot
     j as position j when j >= base. Then ``chunk_attention_ref``, whose

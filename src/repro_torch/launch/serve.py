@@ -35,6 +35,11 @@ with ``--paged`` in the pages:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --smoke --kv-precision int8 --horizon 12 [--device cpu]
 
+The unscaled storage casts (``kv_precision="float16"``, ``"bfloat16"``,
+``"float32"``, ``"float8_e4m3fn"``, or the deprecated
+``ModelConfig.cache_dtype``) have no flag here, as the reference's
+launcher has none: the engines' configs reach them.
+
 With ``--paged``, ``--quant-pages n`` in (0,
 ``--num-pages``) makes only the top n ids quantized, a mixed pool, and
 ``--policy precision-aware`` then moves new admissions onto the quantized
@@ -74,8 +79,9 @@ fused loop, ``--legacy-loop`` or ``--sync-free``); ``--chunked`` and
 local attention with a window of 2048, head dim 256; its admissions prefill
 the whole padded bucket, R7): the dense engine's fused, ``--legacy-loop``
 and ``--sync-free`` loops, per-request sampling included, at native KV
-precision (``--kv-precision int8|fp8`` raises NotImplementedError, ROADMAP
-item 11); ``--chunked`` and ``--paged`` raise the reference's ValueErrors:
+precision or with ``--kv-precision int8|fp8`` (its local-attention ring
+quantized, read through K2q at head dim 256); ``--chunked`` and
+``--paged`` raise the reference's ValueErrors:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b \
       --smoke --horizon 12 [--sync-free | --legacy-loop] [--device cpu]

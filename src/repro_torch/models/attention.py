@@ -13,7 +13,13 @@ Under a quantized KV precision (int8, fp8) the dense ring holds codes with
 one float32 scale per token and KV head, written by quantizing each K/V
 row as it enters, and the decode reads them through the dequantizing ring
 kernel (K2q); native staging buffers beside the ring carry the chunked
-prompt phase, as the reference's ``KVCache`` does.
+prompt phase, as the reference's ``KVCache`` does. Under an unscaled
+storage cast (the legacy ``cache_dtype``, or ``kv_precision`` naming a
+float dtype) the ring and the native page region hold that dtype, each
+row cast as it is written (``cast_to_storage``, the reference's XLA rule)
+and each stored value rounded to the compute dtype as it is read (K2q's,
+K3q's and K4p's unscaled routes on the card); the staging buffers carry
+the chunked prompt phase as under a quantized precision.
 
 The paged path keeps K/V in a shared pool of pages (``PagedKVPool``) that
 block tables index; its decode attention goes to
@@ -114,13 +120,14 @@ def _staged(prec: KVPrecision) -> bool:
 def kv_cache_init(batch: int, cache_len: int, cfg: ModelConfig, device,
                   layers: Optional[int] = None) -> KVCache:
     """Empty cache at ``cfg.kv_precision``: codes with scales under a
-    quantized precision, and the staging buffers under a lossy one (on
+    quantized precision, the cast dtype under a cast, and the staging
+    buffers under a lossy one, a cast to the compute dtype too (on
     every dense cache, whatever the loop, as the reference allocates
     them). ``layers`` adds a leading layer axis."""
     prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
     lead = (layers,) if layers is not None else ()
     shape = (*lead, batch, cache_len, cfg.n_kv_heads, cfg.head_dim_)
-    store = qdtype_of(prec) if prec.is_quantized else cdtype(cfg)
+    store = storage_dtype(prec, cfg)
     kw = {}
     if prec.is_quantized:
         kw.update(k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
@@ -136,15 +143,61 @@ def kv_cache_init(batch: int, cache_len: int, cfg: ModelConfig, device,
         **kw)
 
 
+# the unscaled storage casts the port serves (the kernels read each of them)
+CAST_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+               "float32": torch.float32, "float8_e4m3fn": torch.float8_e4m3fn}
+# XLA's cast to float8_e4m3fn rounds to nearest even and gives NaN past the
+# largest finite value's rounding range: |x| > 464 (a tie at 464 rounds to
+# 448), and inf. torch's cast saturates there to +-448.
+_E4M3_NAN_ABOVE = 464.0
+
+
+def cast_dtype_of(prec: KVPrecision) -> torch.dtype:
+    """The torch dtype of an unscaled storage cast; ValueError for a dtype
+    the port does not serve."""
+    dt = CAST_DTYPES.get(prec.dtype)
+    if dt is None:
+        raise ValueError(f"unscaled KV storage cast {prec.dtype!r} is not served: the cast "
+                         f"dtypes are {sorted(CAST_DTYPES)}")
+    return dt
+
+
+def storage_dtype(prec: KVPrecision, cfg: ModelConfig) -> torch.dtype:
+    """What a ring or native page region holds: codes under a quantized
+    precision, the cast dtype under a cast, else the compute dtype."""
+    if prec.is_quantized:
+        return qdtype_of(prec)
+    if prec.is_cast:
+        return cast_dtype_of(prec)
+    return cdtype(cfg)
+
+
+def cast_to_storage(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the storage ``dtype`` as the reference's
+    ``x.astype(dtype)`` casts it: round to nearest even, and for
+    float8_e4m3fn NaN of x's sign (byte 0x7F, 0xFF) where |x| > 464, x is
+    inf or x is NaN, where torch's cast would saturate to +-448. Every
+    site that writes a cast ring or page goes through it; a copy of
+    stored values (a splice of a cast prefill, a fork) gives the same
+    bytes back."""
+    y = x.to(dtype)
+    if dtype != torch.float8_e4m3fn:
+        return y
+    xf = x.float()
+    over = (xf.abs() > _E4M3_NAN_ABOVE) | torch.isnan(xf)
+    nan = torch.where(torch.signbit(xf), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(over, nan, y.view(torch.uint8)).view(dtype)
+
+
 def _code_precision(codes: torch.Tensor) -> KVPrecision:
     """The quantized spec of a ring or page region, from its code dtype."""
     return parse_kv_precision(str(codes.dtype).removeprefix("torch."))
 
 
 def as_bytes(t: torch.Tensor) -> torch.Tensor:
-    """fp8 codes as raw bytes, a view (any other tensor as it is): copies
-    and selections of codes go through it, since not every fp8 op is
-    implemented on every device. The byte 0 is the code of 0.0."""
+    """fp8 codes or cast values as raw bytes, a view (any other tensor as
+    it is): copies and selections of them go through it, since not every
+    fp8 op is implemented on every device. The byte 0 is the code of 0.0."""
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
@@ -187,7 +240,8 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
 
     A quantized ring stores each row quantized per token and head; pad rows
     are zeroed after the quantize (codes and scales), so a real row's codes
-    never depend on the bucket. Staging buffers get the native rows. The
+    never depend on the bucket. A cast ring stores each row cast
+    (``cast_to_storage``). Staging buffers get the native rows. The
     attention itself attends the prompt's native K/V, as the reference's
     does.
     """
@@ -217,9 +271,9 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     if cache.k_scale is not None:
         _quant_write(_ring_codes(cache), (slice(None), slots), k[:, S - n:], v[:, S - n:],
                      keep)
-    else:
-        cache.k[:, slots] = kept(k[:, S - n:].to(cache.k.dtype))
-        cache.v[:, slots] = kept(v[:, S - n:].to(cache.v.dtype))
+    else:   # a pad row casts to zeros: the cast of 0 is the byte 0
+        as_bytes(cache.k)[:, slots] = as_bytes(cast_to_storage(kept(k[:, S - n:]), cache.k.dtype))
+        as_bytes(cache.v)[:, slots] = as_bytes(cast_to_storage(kept(v[:, S - n:]), cache.v.dtype))
     if cache.stage_k is not None:
         cache.stage_k[:, slots] = kept(k[:, S - n:].to(cache.stage_k.dtype))
         cache.stage_v[:, slots] = kept(v[:, S - n:].to(cache.stage_v.dtype))
@@ -232,7 +286,8 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     """One decode step: rope at pos, write K/V into the ring in place, then
     attend over the valid slots. x (B, D); pos (B,) int32. A quantized
     ring takes the token quantized (codes and scales at ``pos % L``) and
-    is read through the dequantizing decode (K2q on the card)."""
+    is read through the dequantizing decode (K2q on the card); a cast ring
+    takes it cast and is read through K2q's unscaled route."""
     B = x.shape[0]
     q, k, v = p.qkv(x, cfg)
     q = apply_rope(q[:, None], pos[:, None], cfg.rope_theta)[:, 0]
@@ -242,8 +297,8 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     if cache.k_scale is not None:
         _quant_write(_ring_codes(cache), (b_idx, slot), k, v)
     else:
-        cache.k[b_idx, slot] = k.to(cache.k.dtype)
-        cache.v[b_idx, slot] = v.to(cache.v.dtype)
+        as_bytes(cache.k)[b_idx, slot] = as_bytes(cast_to_storage(k, cache.k.dtype))
+        as_bytes(cache.v)[b_idx, slot] = as_bytes(cast_to_storage(v, cache.v.dtype))
     cache.slot_pos[b_idx, slot] = pos
     o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos,
                              k_scale=cache.k_scale, v_scale=cache.v_scale, window=window)
@@ -322,8 +377,9 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
     no zeroing, an invalid slot's weight is exactly 0). Query rows at or
     beyond ``valid`` come out as zeros; the caller never reads them.
 
-    A quantized ring takes the chunk quantized, and with staging buffers
-    the chunk's native rows land there too; the prompt phase then attends
+    A quantized ring takes the chunk quantized, a cast ring cast, and with
+    staging buffers the chunk's native rows land there too; the prompt
+    phase then attends
     staging, not the rounded ring, with the reference's purely causal mask
     ``arange(L) <= qpos``: during the prompt every position up to a query's
     was written by the row's current tenant (chunks are contiguous from 0),
@@ -343,8 +399,8 @@ def attn_chunk(p: Attention, x: torch.Tensor, cache: KVCache, pos0: torch.Tensor
         for t, new in zip(_ring_codes(cache), (codes[0], codes[1], scale[0], scale[1])):
             _masked_put(t, at, new, writes.keep)
     else:
-        _masked_put(cache.k, at, kc, writes.keep)
-        _masked_put(cache.v, at, vc, writes.keep)
+        _masked_put(cache.k, at, cast_to_storage(kc, cache.k.dtype), writes.keep)
+        _masked_put(cache.v, at, cast_to_storage(vc, cache.v.dtype), writes.keep)
     _masked_put(cache.slot_pos, at, writes.pos, writes.keep)
     if cache.stage_k is None:
         o = ops.chunk_attention(q, cache.k, cache.v, cache.slot_pos, pos0, valid)
@@ -373,7 +429,8 @@ class PagedKVPool(NamedTuple):
     validity mask (j <= pos on allocated pages) hides stale rows.
 
     Physical page ids fall in two regions: ids [0, native_pages) live in
-    k/v at the compute dtype; ids [native_pages, num_pages) live in qk/qv
+    k/v at the compute dtype (or an unscaled cast's dtype, when the pool
+    has no other region); ids [native_pages, num_pages) live in qk/qv
     as int8 or fp8 codes with k_scale/v_scale, one float32 scale per token
     and KV head. Either region may be empty (its leaves None); a pool with
     no quantized region is the native pool of two leaves.
@@ -435,8 +492,9 @@ def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
     """Zeroed pool; ``layers`` adds a leading layer axis. Under a quantized
     ``cfg.kv_precision`` the top ``num_pages - native_pages`` ids form the
     quantized region (``native_pages`` None: every page quantized; at
-    native precision: none). ``stage_rows`` > 0 under a lossy precision
-    adds the staging buffers, ``stage_len`` positions per row."""
+    native precision or under a cast: none; a cast pool's pages hold the
+    cast dtype). ``stage_rows`` > 0 under a lossy precision adds the
+    staging buffers, ``stage_len`` positions per row."""
     prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
     if native_pages is None:
         native_pages = 0 if prec.is_quantized else num_pages
@@ -446,10 +504,11 @@ def paged_pool_init(num_pages: int, page_size: int, cfg: ModelConfig, device,
     lead = (layers,) if layers is not None else ()
     KVH, hd = cfg.n_kv_heads, cfg.head_dim_
     kw = {}
+    ndt = cdtype(cfg) if prec.is_quantized else storage_dtype(prec, cfg)
     if native_pages:
         shape = (*lead, native_pages + 1, page_size, KVH, hd)
-        kw.update(k=torch.zeros(shape, dtype=cdtype(cfg), device=device),
-                  v=torch.zeros(shape, dtype=cdtype(cfg), device=device))
+        kw.update(k=torch.zeros(shape, dtype=ndt, device=device),
+                  v=torch.zeros(shape, dtype=ndt, device=device))
     else:
         kw.update(k=None, v=None)
     if nq:
@@ -534,12 +593,12 @@ def paged_chunk_targets(block_table: torch.Tensor, pos0: torch.Tensor, valid: to
 def _paged_write(pool: PagedKVPool, writes: PagedWrites, k: torch.Tensor,
                  v: torch.Tensor) -> None:
     """Write K/V rows (..., KVH, hd), shaped like ``writes``' fields, into
-    both regions in place: at the compute dtype into the native region,
-    quantized into the quantized one; each region's other rows land on its
-    scratch page."""
+    both regions in place: at the native region's dtype (cast there under
+    a cast), quantized into the quantized one; each region's other rows
+    land on its scratch page."""
     if pool.k is not None:
-        pool.k[writes.pages, writes.offs] = k.to(pool.k.dtype)
-        pool.v[writes.pages, writes.offs] = v.to(pool.v.dtype)
+        as_bytes(pool.k)[writes.pages, writes.offs] = as_bytes(cast_to_storage(k, pool.k.dtype))
+        as_bytes(pool.v)[writes.pages, writes.offs] = as_bytes(cast_to_storage(v, pool.v.dtype))
     if pool.qk is not None:
         _quant_write(_pool_codes(pool), (writes.qpages, writes.offs), k, v)
 
@@ -623,7 +682,8 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx) -> None:
     fixed shape.
 
     cache k/v: (..., B, P, KVH, hd) with the prompt in slots 0..P-1
-    (prefill with cache_len == P never wraps), at the compute dtype; pool
+    (prefill with cache_len == P never wraps), at the compute dtype or the
+    pool's cast dtype; pool
     leaves (..., N, ps, KVH, hd) with the same leading (layer) axes.
     page_idx (B, P // ps), a tensor on the pool's device (a host array is
     copied there): the physical page of each prompt block; pad rows,
@@ -646,10 +706,10 @@ def paged_splice_prompt(pool: PagedKVPool, cache: KVCache, page_idx) -> None:
     # (..., B * npp, ps, KVH, hd): block j of row b at b * npp + j, as idx
     k_blocks = cache.k.unflatten(-3, (npp, ps)).flatten(-5, -4)
     v_blocks = cache.v.unflatten(-3, (npp, ps)).flatten(-5, -4)
-    if pool.k is not None:
+    if pool.k is not None:   # a cast prefill's rows are already cast: the same bytes
         dst = torch.where((idx >= 0) & (idx < nn), idx, nn)
-        pool.k[..., dst, :, :, :] = k_blocks.to(pool.k.dtype)
-        pool.v[..., dst, :, :, :] = v_blocks.to(pool.v.dtype)
+        as_bytes(pool.k)[..., dst, :, :, :] = as_bytes(cast_to_storage(k_blocks, pool.k.dtype))
+        as_bytes(pool.v)[..., dst, :, :, :] = as_bytes(cast_to_storage(v_blocks, pool.v.dtype))
     if pool.qk is not None:
         dst = torch.where((idx >= nn) & (idx < nn + nq), idx - nn, nq)
         if pool.qk.dim() == 4:

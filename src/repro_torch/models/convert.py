@@ -7,8 +7,10 @@ returns the port's ``Model`` with the same values, one block per layer.
 ``paged_pool_from_numpy`` carries a reference ``PagedKVPool``'s arrays into
 the port's pool layout, scratch pages and rows included, and
 ``kv_cache_from_numpy`` a reference dense ``KVCache``'s (codes, scales and
-staging buffers included) and ``rec_state_from_numpy`` a reference RG-LRU
-``RecState``'s, so both packages can start from one cache state. Like
+staging buffers included, a hybrid group's quantized ring too, and a ring
+or pool under an unscaled cast in its stored dtype) and
+``rec_state_from_numpy`` a reference RG-LRU ``RecState``'s, so both
+packages can start from one cache state. Like
 every entry point of the port they place what they build on the card
 unless the caller asks for the CPU.
 """

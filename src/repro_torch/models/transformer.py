@@ -84,12 +84,13 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port's models run dense decoder-only attention stacks, whose own
-    caches hold K/V at the compute dtype or as int8 or fp8 codes with
-    per-token-per-head scales (``kv_precision``), MoE attention stacks
-    (with a leading dense segment under ``first_k_dense``), pure Mamba-2
-    stacks and hybrid Griffin stacks (RG-LRU and local attention, GeLU
-    MLPs) at native KV precision."""
+    """The port's models run dense decoder-only attention stacks, MoE
+    attention stacks (with a leading dense segment under
+    ``first_k_dense``), pure Mamba-2 stacks and hybrid Griffin stacks
+    (RG-LRU and local attention, GeLU MLPs). Their KV caches hold K/V at
+    the compute dtype, as int8 or fp8 codes with per-token-per-head scales,
+    or under an unscaled storage cast (``attention.CAST_DTYPES``; another
+    cast dtype raises ValueError)."""
     kinds = {s.kind for s in plan_segments(cfg)}
     dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
     moe = cfg.arch_type == "moe" and kinds <= {"attn", "attn_moe"}
@@ -101,14 +102,7 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
     prec = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
     if prec.is_cast:
-        raise NotImplementedError(
-            f"{cfg.name}: the unscaled KV storage cast "
-            f"{cfg.kv_precision or cfg.cache_dtype!r} is not ported yet (int8 and fp8 "
-            "are); see ROADMAP.md queue 1 item 9 (the legacy unscaled casts)")
-    if hybrid and prec.is_quantized:
-        raise NotImplementedError(
-            f"{cfg.name}: a hybrid stack's quantized KV ring ({cfg.kv_precision!r}) is not "
-            f"ported yet: it needs K2q at head dim {cfg.head_dim_}; see {_ZOO}")
+        A.cast_dtype_of(prec)
     if not cfg.tie_embeddings or cfg.attn_logit_softcap or cfg.act not in ("silu", "gelu"):
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings, logit softcap and MLPs other than SiLU and "

@@ -488,11 +488,15 @@ class Engine:
         cfg = model.cfg
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
+        # one resolution point: warns (once per dtype) when only the
+        # deprecated cache_dtype is set, as the reference's engine does
+        self.kvp = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
         self._init_obs(obs)
         self._init_sampling(ecfg)
         # every prefill builds the dense ring at the engine's precision (a
-        # quantized one holds codes and scales, which the decode reads)
+        # quantized one holds codes and scales, a cast one the cast values,
+        # which the decode reads)
         self._prefill_kv = cfg.kv_precision
         self.device = model.device
         B, P = ecfg.batch_slots, ecfg.prompt_len
@@ -1451,9 +1455,6 @@ class Engine:
 
 
 
-_ITEM9 = "ROADMAP.md queue 1 item 9 (the legacy unscaled casts)"
-
-
 def _sync_clear(sync: SyncState, rows: torch.Tensor) -> SyncState:
     """Deactivate the rows where ``rows`` (B,) bool is True (a preempted
     row): latch done, zero the budget. A select, so no index leaves the
@@ -1498,6 +1499,10 @@ class PagedEngine(Engine):
     own region, and a preempted request is re-admitted wherever
     ``admit_precision`` points then. ``quant_occupancy()`` is the
     quantized region's fill, the signal ``PrecisionAware`` prices.
+    Under an unscaled storage cast every page holds the cast dtype: one
+    region, tagged "native" as the reference's allocator tags it, filled
+    by the cast prefill's rows as they are and read through K3q's and
+    K4p's unscaled routes on the card.
 
     The sync-free loop (``step_slot_sync``) is the dense engine's protocol
     with the decode over the pages: a row's position advances by exactly
@@ -1532,10 +1537,7 @@ class PagedEngine(Engine):
             raise ValueError(f"prompt_len {P} must be a multiple of page_size {ps}")
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
-        kvp = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
-        if kvp.is_cast:
-            raise NotImplementedError(
-                f"unscaled KV storage casts ({kvp.tag!r}) are not ported yet; see {_ITEM9}")
+        kvp = self.kvp = resolve_kv_precision(cfg.kv_precision, cfg.cache_dtype)
         # the quantized region: the top quant_pages ids of the pool; -1 means
         # every page under a quantized precision and none otherwise
         qp = ecfg.quant_pages
@@ -1547,9 +1549,10 @@ class PagedEngine(Engine):
         self.cfg, self.model, self.ecfg = cfg, model, ecfg
         self._init_obs(obs)
         self._init_sampling(ecfg)
-        # prefill at native storage: the page copy quantizes what lands in
-        # the quantized region
-        self._prefill_kv = "native"
+        # under a quantized precision prefill at native storage: the page
+        # copy quantizes what lands in the quantized region; a cast keeps
+        # the cast prefill, whose rows the page copy moves as they are
+        self._prefill_kv = "native" if kvp.is_quantized else cfg.kv_precision
         self.device = model.device
         self.MP = ecfg.max_pages_per_req or max(ecfg.cache_len // ps, P // ps + 1)
         self._buckets = _prompt_buckets(P, quantum=ps)

@@ -4,8 +4,9 @@ reference's ``associative_scan``, the RG-LRU block and the GeLU MLP with the
 reference's weights carried across, the smoke model at 3 layers (one
 ``group`` segment) and 5 (two ``rec`` remainder segments beside it), its
 local-attention ring wrapping, ``init_params``' RG-LRU leaves, the dense
-engine's token streams on every loop it serves, a sampled serve, and the
-launcher's lines and refusals."""
+engine's token streams on every loop it serves, at native precision and
+with the ring quantized to int8 or fp8, sampled serves, and the launcher's
+lines and refusals."""
 import os
 import subprocess
 import sys
@@ -38,8 +39,9 @@ from test_differential import make_workload
 from test_torch_chunked import _launch_late, late_consume
 from test_torch_engine import (  # noqa: F401  (one_torch_thread: an autouse fixture)
     COLUMNS, MARGIN, SRC, _launch, one_torch_thread)
+from test_torch_quant_dense import QuantMarginComparator
 from test_torch_sampling import _match
-from test_torch_ssm import PaddedPromptComparator
+from test_torch_ssm import PAD_ID, PaddedPromptComparator
 
 ARCH = "recurrentgemma-2b"
 # the scan against the reference's associative_scan, per unit of the
@@ -286,6 +288,44 @@ def test_hybrid_decode_from_carried_reference_state():
     _check_state(state, ref_state)
 
 
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+def test_hybrid_quant_decode_from_carried_reference_state(prec):
+    """The reference's prefill state with the group's ring quantized (codes,
+    scales and staging buffers carried across with ``kv_cache_from_numpy``,
+    fp8 through its bytes): the port's decode steps read the same codes,
+    so the logits agree within the native tolerance, and every written
+    ring row agrees up to one code rounding the other way."""
+    cfg, params, port = _models()
+    qcfg = cfg.replace(kv_precision=prec)
+    toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 37)).astype(np.int32)
+    ref_logits, ref_state = RM.prefill(params, {"tokens": jnp.asarray(toks)}, qcfg, 64)
+
+    def carry(c):
+        if isinstance(c, dict):
+            return {k: carry(v) for k, v in c.items()}
+        if isinstance(c, RR.RecState):
+            return rec_state_from_numpy(np.asarray(c.conv), np.asarray(c.h), device="cpu")
+        return kv_cache_from_numpy(**{n: None if a is None else np.asarray(a)
+                                      for n, a in c._asdict().items()}, device="cpu")
+    from repro_torch.models.model import DecodeState
+    state = DecodeState(caches=[carry(c) for c in ref_state.caches],
+                        pos=torch.from_numpy(np.asarray(ref_state.pos)),
+                        last_tok=torch.from_numpy(np.asarray(ref_state.last_tok)))
+    ring = state.caches[0]["b2"]
+    assert ring.k.dtype == (torch.int8 if prec == "int8" else torch.float8_e4m3fn)
+    nxt = np.asarray(jnp.argmax(ref_logits, -1)).astype(np.int32)
+    for _ in range(3):   # the port's decode follows the ring's own leaves
+        ref_logits, ref_state = RM.decode_step(params, ref_state, jnp.asarray(nxt), qcfg)
+        logits, state = decode_step(port, state, torch.from_numpy(nxt))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), **TOL)
+        nxt = np.asarray(jnp.argmax(ref_logits, -1)).astype(np.int32)
+    got, want = state.caches[0]["b2"], ref_state.caches[0]["b2"]
+    np.testing.assert_array_equal(got.slot_pos.numpy(), np.asarray(want.slot_pos))
+    flips = (got.k.view(torch.uint8).numpy() != np.asarray(want.k).view(np.uint8)).any(-1)
+    assert flips.sum() <= 2
+    np.testing.assert_allclose(got.k_scale.numpy(), np.asarray(want.k_scale), rtol=1e-5, atol=0)
+
+
 def test_hybrid_refuses_ragged_prefill_like_reference():
     _, _, port = _models()
     with pytest.raises(ValueError, match="ragged prefill is not supported for 'group' blocks"):
@@ -312,13 +352,29 @@ def test_init_params_draws_the_rglru_leaves_at_the_reference_scales():
 
 
 # ------------------------------------------------------------ the engine
-@pytest.mark.parametrize("mode", ["fused", "legacy", "sync"])
-def test_engine_trace_and_streams_match_reference(mode):
+class PaddedQuantComparator(QuantMarginComparator):
+    """The margin comparator over a quantized ring for a stack the engine
+    prefills over the full padded bucket (ROADMAP R7): the reference's
+    top-2 gap after the padded prompt's prefill into its quantized ring and
+    the decode steps up to the parting token."""
+
+    def __init__(self, params, cfg, cache_len, margin, prec, prompt_len):
+        super().__init__(params, cfg, cache_len, margin, prec)
+        self.prompt_len = prompt_len
+
+    def _ref_gap(self, prompt, generated):
+        toks = np.asarray(prompt[:self.prompt_len], np.int32)
+        padded = np.concatenate([toks, np.full(self.prompt_len - len(toks), PAD_ID, np.int32)])
+        return super()._ref_gap(padded, generated)
+
+
+def _engine_case(mode, prec=""):
     """Prompts of 5-40 tokens in a bucket of 40, right-padded (the bucket
-    passes the window of 32: the ring wraps at admission): the serve trace,
-    the counters and the greedy streams equal the reference's."""
+    passes the window of 32: the ring wraps at admission), on the dense
+    engine at ``prec``: the serve trace, the counters and the greedy
+    streams equal the reference's."""
     cfg, params, port = _models()
-    kw = dict(batch_slots=4, prompt_len=40, cache_len=64)
+    kw = dict(batch_slots=4, prompt_len=40, cache_len=64, kv_precision=prec)
     src_kw = dict(vocab_size=cfg.vocab_size, prompt_len=40, raw_rate=5, max_new_tokens=4,
                   min_prompt_len=5)
     rates = tuple(float(f) for f in range(1, 6))
@@ -339,8 +395,32 @@ def test_engine_trace_and_streams_match_reference(mode):
     want = {r.rid: list(r.generated) for r in ref.finished + [r for r in ref.active
                                                              if r is not None and r.generated]}
     assert sum(map(len, got.values())) > 0
-    PaddedPromptComparator(params, cfg, 64, MARGIN, 40).check(
-        got, want, {r.rid: r.tokens for r in reqs})
+    if prec:
+        PaddedQuantComparator(params, cfg, 64, MARGIN, prec, 40).check(
+            got, want, {r.rid: r.tokens for r in reqs})
+    else:
+        PaddedPromptComparator(params, cfg, 64, MARGIN, 40).check(
+            got, want, {r.rid: r.tokens for r in reqs})
+    return ours
+
+
+@pytest.mark.parametrize("mode", ["fused", "legacy", "sync"])
+def test_engine_trace_and_streams_match_reference(mode):
+    """``_engine_case`` at native precision on each loop."""
+    _engine_case(mode)
+
+
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["fused", "legacy", "sync"])
+def test_quant_engine_trace_and_streams_match_reference(mode, prec):
+    """``_engine_case`` with the group's local-attention ring quantized
+    (codes with per-token-per-head scales, read through K2q's plain
+    version at the smoke head dim); the gap of the margin comparator is
+    the reference's own on its quantized ring."""
+    ours = _engine_case(mode, prec)
+    ring = ours.state.caches[0]["b2"]
+    assert ring.k.dtype == (torch.int8 if prec == "int8" else torch.float8_e4m3fn)
+    assert ring.k_scale is not None and ring.stage_k is not None
 
 
 def test_engine_splices_nested_group_state_rows():
@@ -379,8 +459,18 @@ def test_sampled_fused_serve_matches_reference():
            reqs, schedule, params, cfg)
 
 
+def test_sampled_quant_fused_serve_matches_reference():
+    """The sampled fused serve over an int8 ring."""
+    cfg, params, port = _models()
+    reqs, schedule = make_workload(seed=47, n_reqs=8, min_prompt=16, sampling=True)
+    kw = dict(batch_slots=4, prompt_len=16, cache_len=64, kv_precision="int8")
+    _match(RefEngine(cfg, params, RefEngineConfig(**kw)), Engine(port, EngineConfig(**kw)),
+           "fused", reqs, schedule, params, cfg.replace(kv_precision="int8"))
+
+
 # ----------------------------------------------------------- the launcher
-@pytest.mark.parametrize("flags", [(), ("--legacy-loop",), ("--sync-free",)])
+@pytest.mark.parametrize("flags", [(), ("--legacy-loop",), ("--sync-free",),
+                                   ("--kv-precision", "int8")])
 def test_launcher_lines_match_reference(flags):
     """The summary and latency lines of ``--arch recurrentgemma-2b``; the
     reference's sync-free line with its early consume off (ROADMAP R5)."""

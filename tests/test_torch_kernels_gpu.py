@@ -1511,3 +1511,169 @@ def test_decode_graph_capture_failure_raises_on_card(cuda):
         g(body, (torch.ones(3, device=cuda),))
     assert g.graph is None
     assert torch.ones(3, device=cuda).sum().item() == 3.0
+
+
+# ----------------------------------------------------------- K2q at hd 256
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["int8", "fp8"])
+@pytest.mark.parametrize("B,L", [(8, 1024), (3, 2048), (5, 100)])
+def test_decode_quant_kernel_at_hd256_matches_plain_on_card(cuda, prec, B, L):
+    """K2q in bf16 at recurrentgemma-2b's heads (a group of 10 on one KV
+    head, hd 256) against ``decode_attention_quant_ref``: wrapped rings, rows
+    at the split's edges, windows inside a tile, across the ranks' tiles
+    and of 2048, and rows with no valid slot (the mean of the dequantized
+    ring's V); bit for bit K2 over the dequantized ring; two launches
+    equal; f32 at hd 256 refuses with the shared memory it would need."""
+    rng = np.random.default_rng(L + B + len(prec))
+    H, KVH, hd, dtype = 10, 1, 256, torch.bfloat16
+    wrapped = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    edges = np.asarray([min(DECODE_EDGES[b % len(DECODE_EDGES)], L - 1) for b in range(B)],
+                       np.int32)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    qk, qv, ks, vs = _codes_on_card(cuda, rng, (B, L, KVH, hd), prec)
+    dk, dv = dequantize_kv(qk, ks, dtype), dequantize_kv(qv, vs, dtype)
+    for pos_np, sp_np in ((wrapped, _ring(B, L, wrapped)),
+                          (edges, _ring(B, L, edges, empty_row0=False))):
+        sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+        for window in (None, 50, 200, 2048):
+            got = k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=window)
+            want = ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=window)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert _err_ok(got, want, dtype), (pos_np, window)
+            assert torch.equal(got, k_decode.decode_attention(q, dk, dv, sp, pos, window=window))
+        assert torch.equal(got, k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos,
+                                                                window=window))
+    i = np.arange(L)
+    rows = [np.full(L, -1), i + 10, np.where(i <= L // 4, i, -1)]
+    sp = torch.from_numpy(np.stack([rows[b % 3] for b in range(B)]).astype(np.int32)).to(cuda)
+    pos = torch.from_numpy(np.asarray([(L - 1, 5, L - 1)[b % 3] for b in range(B)],
+                                      np.int32)).to(cuda)
+    got = k_decode.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=50)
+    want = ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=50)
+    torch.cuda.synchronize()
+    for b in range(B):
+        assert _err_ok(got[b], want[b], dtype), b
+        assert _err_ok(got[b], dv[b].float().mean(0).repeat_interleave(H // KVH, 0), dtype), b
+    with pytest.raises(ValueError, match="above the 232448"):
+        k_decode.decode_attention_quant(q.float(), qk, qv, ks, vs, sp, pos)
+
+
+# --------------------------------------------- the unscaled (cast) routes
+# (storage, compute): every storage dtype under each compute dtype but its own
+CAST_PAIRS = [(s, d) for d in (torch.float32, torch.bfloat16)
+              for s in (torch.float16, torch.bfloat16, torch.float32, torch.float8_e4m3fn)
+              if s != d]
+
+
+def _stored(x: np.ndarray, store, cuda) -> torch.Tensor:
+    """Seeded float32 values cast to the storage dtype on the card (+-1e30
+    junk first brought to +-400, finite in every storage dtype: a masked
+    slot's weight is exactly 0 in the plain versions, but 0 * inf is not)."""
+    x = np.where(np.abs(x) > 1e29, np.sign(x) * 400.0, x).astype(np.float32)
+    return torch.from_numpy(x).to(cuda).to(store)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store,dtype", CAST_PAIRS)
+@pytest.mark.parametrize("B,L,H,KVH,hd", [(3, 64, 8, 2, 32), (8, 1024, 32, 8, 64),
+                                          (2, 100, 8, 1, 128), (3, 2048, 10, 1, 256)])
+def test_decode_cast_kernel_matches_plain_on_card(cuda, store, dtype, B, L, H, KVH, hd):
+    """K2q's unscaled route over a cast ring (values spread over 1e-3..1e2,
+    so float16 under bf16 rounds twice where a direct rounding would differ)
+    against ``decode_attention_cast_ref``, and bit for bit K2 over the ring
+    rounded to q's dtype by torch (``k.to(q.dtype)``, the reference's
+    ``astype``); windows, wrapped rows, a row with no valid slot (the mean
+    of the rounded V); two launches equal."""
+    if hd == 256 and dtype == torch.float32:
+        with pytest.raises(ValueError, match="above the 232448"):
+            k_decode.decode_attention_cast(torch.zeros((1, 10, 256), device=cuda),
+                                           torch.zeros((1, 64, 1, 256), device=cuda,
+                                                       dtype=store),
+                                           torch.zeros((1, 64, 1, 256), device=cuda, dtype=store),
+                                           torch.zeros((1, 64), device=cuda, dtype=torch.int32),
+                                           torch.zeros(1, device=cuda, dtype=torch.int32))
+        return
+    rng = np.random.default_rng(L + hd + H)
+    spread = np.logspace(-3, 2, hd).astype(np.float32)
+    k = _stored(rng.standard_normal((B, L, KVH, hd)).astype(np.float32) * spread, store, cuda)
+    v = _stored(rng.standard_normal((B, L, KVH, hd)).astype(np.float32), store, cuda)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    q = q / float(spread.max())
+    pos_np = np.asarray([L // 2 - 1] + [L + 5 + 7 * b for b in range(1, B)], np.int32)
+    sp_np = _ring(B, L, pos_np)
+    sp_np[-1] = -1                    # a row with no valid slot
+    sp, pos = torch.from_numpy(sp_np).to(cuda), torch.from_numpy(pos_np).to(cuda)
+    kr, vr = k.to(dtype), v.to(dtype)
+    for window in (None, 50):
+        got = k_decode.decode_attention_cast(q, k, v, sp, pos, window=window)
+        want = ref.decode_attention_cast_ref(q, k, v, sp, pos, window=window)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert _err_ok(got, want, dtype), window
+        assert torch.equal(got, k_decode.decode_attention(q, kr, vr, sp, pos, window=window))
+        assert _err_ok(got[-1], vr[-1].float().mean(0).repeat_interleave(H // KVH, 0), dtype)
+    assert torch.equal(got, k_decode.decode_attention_cast(q, k, v, sp, pos, window=window))
+    with pytest.raises(ValueError, match="float32 or bfloat16 q"):
+        k_decode.decode_attention_cast(q, kr, vr, sp, pos)   # q's own dtype: K2's route
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store,dtype", CAST_PAIRS)
+@pytest.mark.parametrize("B,MP,ps,H,KVH,hd", [(16, 64, 16, 32, 8, 64), (5, 9, 12, 8, 2, 128),
+                                              (4, 3, 128, 8, 2, 32)])
+def test_paged_cast_kernel_matches_plain_on_card(cuda, store, dtype, B, MP, ps, H, KVH, hd):
+    """K3q's unscaled route over a cast pool against
+    ``paged_decode_attention_cast_ref`` (random positions, a hole, an
+    inactive row held finite), and bit for bit K3 over the pool rounded to
+    q's dtype; two launches equal."""
+    rng = np.random.default_rng(MP * ps + B + hd)
+    pos = rng.integers(min(128, MP * ps // 2), MP * ps, B).astype(np.int32)
+    pos[0] = -1
+    k, v, bt, pos = paged_case(rng, B, MP, ps, KVH, hd, pos, holes=True)
+    k, v = _stored(k, store, cuda), _stored(v, store, cuda)
+    q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).to(cuda, dtype)
+    bt, pos_t = torch.from_numpy(bt).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = k_paged_quant.paged_decode_attention_cast(q, k, v, bt, pos_t)
+    want = ref.paged_decode_attention_cast_ref(q, k, v, bt, pos_t)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert _err_ok(got[1:], want[1:], dtype)
+    assert torch.equal(got, k_paged.paged_decode_attention(q, k.to(dtype), v.to(dtype), bt, pos_t))
+    assert torch.equal(got, k_paged_quant.paged_decode_attention_cast(q, k, v, bt, pos_t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("store,dtype", CAST_PAIRS)
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("B,C,MP,ps,H,KVH,hd", GPU_PAGED_CHUNK[:3])
+def test_paged_chunk_cast_kernel_matches_plain_on_card(cuda, store, dtype, staged, B, C, MP, ps,
+                                                       H, KVH, hd):
+    """K4p's unscaled route over cast pages (the staging split at base 0,
+    mid-page and L - 1, or no staging; K rising tile by tile and leading
+    tiles with no key) against ``paged_chunk_attention_ref``, and bit for
+    bit K4p over the pages rounded to q's dtype; two launches equal."""
+    for variant in ("mix", "rising", "holes"):
+        rng = np.random.default_rng(MP * ps + B + staged + hd)
+        case = paged_chunk_case(rng, B, C, MP, ps, KVH, hd, "native", staged, variant)
+        k, v, _, _, _, _, bt, pos0, valid, base, stk, stv = [
+            None if t is None else t.to(cuda) for t in case]
+        k, v = _stored(k.cpu().numpy(), store, cuda), _stored(v.cpu().numpy(), store, cuda)
+        stk, stv = (None, None) if stk is None else (stk.to(dtype), stv.to(dtype))
+        q = torch.from_numpy(rng.standard_normal((B, C, H, hd)).astype(np.float32)).to(cuda,
+                                                                                       dtype)
+        kw = dict(stage_k=stk, stage_v=stv, base=base)
+        got = k_pchunk.paged_chunk_attention_cast(q, k, v, bt, pos0, valid, **kw)
+        want = ref.paged_chunk_attention_ref(q, k, v, None, None, None, None, bt, pos0, valid,
+                                             **kw)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all(), variant
+        for b, n in enumerate(valid.tolist()):
+            assert not got[b, n:].any()
+        assert _err_ok(got, want, dtype), variant
+        native = k_pchunk.paged_chunk_attention(q, k.to(dtype), v.to(dtype), None, None, None,
+                                                None, bt, pos0, valid, **kw)
+        assert torch.equal(got, native), variant
+        if variant == "mix":
+            assert torch.equal(got, k_pchunk.paged_chunk_attention_cast(q, k, v, bt, pos0, valid,
+                                                                        **kw))

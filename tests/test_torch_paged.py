@@ -439,7 +439,6 @@ def test_paged_preemption_recovers(w):
 
 
 @pytest.mark.parametrize("kw,call,match", [
-    (dict(kv_precision="float16"), None, "item 9"),
     (dict(), "step", "no legacy per-step loop"),
 ])
 def test_paged_engine_refuses_unported_paths(w, kw, call, match):

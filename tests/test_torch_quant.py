@@ -610,8 +610,12 @@ def test_launcher_checks_quant_arguments(argv, err, match):
 
 
 def test_dense_engine_refuses_quantized_precision(w):
-    """int8 and fp8 rings are ported (tests/test_torch_quant_dense.py); the
-    legacy unscaled cast is not."""
+    """int8 and fp8 rings (tests/test_torch_quant_dense.py) and the legacy
+    unscaled casts (tests/test_torch_cast.py) are ported; a cast to a dtype
+    the port does not serve is refused with a ValueError naming it."""
     from repro_torch.runtime import Engine, EngineConfig
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Engine(w["port"], EngineConfig(kv_precision="float16"))
+    kw = dict(batch_slots=2, prompt_len=8, cache_len=16)
+    with pytest.raises(ValueError, match="float8_e5m2"):
+        Engine(w["port"], EngineConfig(kv_precision="float8_e5m2", **kw))
+    eng = Engine(w["port"], EngineConfig(kv_precision="float16", **kw))
+    assert eng.state.caches[0].k.dtype == torch.float16
