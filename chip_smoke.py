@@ -481,9 +481,30 @@ def _ring_slot_pos(B, L, pos):
     return np.where(sp < 0, -1, sp).astype(np.int32)
 
 
-# which kernel serves each dtype of q, in csrc/flash_attention.cu (K1) and in
-# the chunk attention files (K4, K4p, K4q) alike
-KERNEL_ROUTE = {torch.bfloat16: "wgmma (tensor cores)", torch.float32: "CUDA cores"}
+# which kernel of csrc/flash_attention.cu serves K1, K1r, K1q and K1rq, by
+# the route ``flash_attention.route`` names for (q's dtype, hd, quantized
+# K/V): the table of the source's header
+KERNEL_ROUTE = {"wide": "wide: warp-specialized, TMA, two consumer warpgroups, persistent "
+                        "(bf16 over native K/V, hd 128 and 256)",
+                "wgmma": "wgmma (tensor cores), one warpgroup a CTA (bf16 at hd 32 and 64, "
+                         "and over codes)",
+                "cuda_cores": "CUDA cores (f32)"}
+# the chunk attention files' (K4, K4p, K4q) and the SSD scan's (K6) kernels,
+# by q's dtype
+DTYPE_ROUTE = {torch.bfloat16: "wgmma (tensor cores)", torch.float32: "CUDA cores"}
+
+
+def flash_route(dtype, hd: int, quantized: bool = False) -> str:
+    """The route K1 (K1q with ``quantized``) takes at (dtype, hd)."""
+    from repro_torch.kernels import flash_attention as kf
+    return KERNEL_ROUTE[kf.route(dtype, hd, quantized)]
+
+
+def k1_counter(cfg, ragged: bool = False) -> str:
+    """The launch counter of K1 (K1r with ``ragged``) at a model's head dim
+    and dtype: the wide route's at bf16 hd 128 and 256."""
+    from repro_torch.kernels import flash_attention as kf
+    return kf.counter(getattr(torch, cfg.dtype), cfg.head_dim_, ragged)
 
 
 def _rising(S):
@@ -507,7 +528,7 @@ def check_kernels(timer) -> dict:
 
     def record(case, name, dtype, got, want, env, fn, plain, lib, work, main,
                library="scaled_dot_product_attention", rtol=KERNEL_RTOL, device=False,
-               **extra):
+               row_key=None, **extra):
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         tol = rtol[dtype] * (env.float() + want.float().abs())
@@ -523,8 +544,8 @@ def check_kernels(timer) -> dict:
         if main or device:   # the device time of the kernel and of its library route
             row["device_ms"] = _device_ms(fn)
             row["library_device_ms"] = _device_ms(lib) if lib is not None else None
-        if main:
-            rows[name] = row
+        if main:   # the row of the kernels line's entry ``row_key`` (default: name)
+            rows[row_key or name] = row
         emit("kernels", **row)
         if not worst <= 1.0:
             raise AssertionError(f"{case}: an element is {worst:.3g}x its tolerance")
@@ -570,7 +591,21 @@ def check_kernels(timer) -> dict:
             record(case, name, dtype, fn(), plain(), env, fn, plain,
                    sdpa_prefill(q, kk, v, sl, win, sl is None and win is None),
                    _prefill_work(B, S, H, KVH, hd, esize, lens_l if sl is not None else None, win),
-                   main and win is None and kk is k, instantiation=KERNEL_ROUTE[dtype])
+                   main and win is None and kk is k, instantiation=flash_route(dtype, hd))
+
+    # K1 at qwen3-8b's prefill (32 query heads on 8 KV heads, hd 128: the
+    # wide route's head pairs), which no serve path runs yet
+    B, S, H, KVH, hd, dtype = 8, 512, 32, 8, 128, torch.bfloat16
+    q = randn((B, S, H, hd), dtype)
+    k, v = randn((B, S, KVH, hd), dtype), randn((B, S, KVH, hd), dtype)
+    fn = lambda: kf.flash_attention(q, k, v)
+    plain = lambda: ref.attention_ref(q, k, v)
+    record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 qwen3-8b prefill",
+           "flash_attention_wide", dtype, fn(), plain(), ref.attention_ref(q, k, v.abs()), fn,
+           plain, sdpa_prefill(q, k, v, None, None, True),
+           _prefill_work(B, S, H, KVH, hd, q.element_size(), None, None), False, device=True,
+           instantiation=flash_route(dtype, hd))
+    del q, k, v
 
     # K2: ring caches with empty slots (row 0) and wrapped rows
     for B, L, H, KVH, hd, dtype, main in ((8, 1024, 32, 8, 64, torch.bfloat16, True),
@@ -674,7 +709,7 @@ def check_kernels(timer) -> dict:
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
         record(case, "chunk_attention", dtype, got, plain(), env, fn, plain, lib,
                _chunk_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np), main,
-               instantiation=KERNEL_ROUTE[dtype],
+               instantiation=DTYPE_ROUTE[dtype],
                **_chunk_tiles(H, C, p0_np, nv_np,
                               lambda b, last, p0_np=p0_np, L=L: last
                               if p0_np[b] >= 0 and last <= L else L))
@@ -730,10 +765,10 @@ def check_moe_shapes(randn, record, sdpa_prefill) -> None:
     fn = lambda: kf.flash_attention(q, k, v)
     plain = lambda: ref.attention_ref(q, k, v)
     record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 olmoe-1b-7b admission",
-           "flash_attention", dtype, fn(), plain(), ref.attention_ref(q, k, v.abs()), fn,
+           "flash_attention_wide", dtype, fn(), plain(), ref.attention_ref(q, k, v.abs()), fn,
            plain, sdpa_prefill(q, k, v, None, None, True),
-           _prefill_work(B, S, H, KVH, hd, q.element_size(), None, None), False, device=True,
-           instantiation=KERNEL_ROUTE[dtype])
+           _prefill_work(B, S, H, KVH, hd, q.element_size(), None, None), True,
+           instantiation=flash_route(dtype, hd))
 
     pos_np = (S + rng.integers(0, 29, B)).astype(np.int32)
     sp_np = _ring_slot_pos(B, L, pos_np)
@@ -796,11 +831,12 @@ def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
         plain = lambda q=q, k=k, v=v, win=win: ref.attention_ref(q, k, v, window=win)
         record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 recurrentgemma-2b"
                + (f" window{win}" if win else " admission"),
-               "flash_attention", dtype, fn(), plain(),
+               "flash_attention_wide", dtype, fn(), plain(),
                ref.attention_ref(q, k, v.abs(), window=win), fn, plain,
                sdpa_prefill(q, k, v, None, win, win is None),
-               _prefill_work(B, S, H, KVH, hd, q.element_size(), None, win), False,
-               device=True, instantiation=KERNEL_ROUTE[dtype])
+               _prefill_work(B, S, H, KVH, hd, q.element_size(), None, win), win is None,
+               device=True, row_key="flash_attention_wide_hd256",
+               instantiation=flash_route(dtype, hd))
         del q, k, v
 
     for B, L, pos_np, win, what in (
@@ -927,7 +963,8 @@ def check_free_rows(rng, randn, record) -> None:
 
 def check_flash_anatomy(timer) -> None:
     """What bounds the bf16 prefill kernel: K1 at the main shape beside
-    variants that each change one factor, with the CTA-tiles each computes
+    variants that each change one factor (hd 128 takes the wide route), with
+    the CTA-tiles each computes
     (64 queries x 64 keys, the diagonal tiles' masked halves included) and
     the tensor-core rate on them: every tile without masking (non-causal),
     more tiles per CTA (S 2048, B 2), four times the K/V bytes over the same
@@ -949,6 +986,7 @@ def check_flash_anatomy(timer) -> None:
         nq = S // 64
         tiles = B * H * (nq * (nq + 1) // 2 if causal else nq * nq)
         variants.append({"variant": label, "B": B, "S": S, "H": H, "KVH": KVH, "hd": hd,
+                         "route": flash_route(torch.bfloat16, hd),
                          "causal": causal, "ms": ms, "cta_tiles": tiles,
                          "us_per_1000_tiles": ms * 1e6 / tiles,
                          "tflops_on_tiles": tiles * 4.0 * 64 * 64 * hd / ms / 1e9})
@@ -1319,7 +1357,8 @@ def check_quant_attention_kernels(rng, record) -> None:
                    _prefill_quant_work(B, S, H, KVH, hd, q.element_size(),
                                        lens_l if sl is not None else None, win),
                    prec == "int8" and dtype == torch.bfloat16 and win is None and S == 512
-                   and not rising, library=lib_name, instantiation=KERNEL_ROUTE[dtype])
+                   and not rising, library=lib_name,
+                   instantiation=flash_route(dtype, hd, quantized=True))
 
     decode_cases = [(8, 1024, 32, 8, 64, prec, dtype) for prec in ("int8", "fp8")
                     for dtype in (torch.bfloat16, torch.float32)]
@@ -1531,7 +1570,7 @@ def check_paged_chunk_kernels(rng, record) -> None:
                _chunk_quant_work(H, KVH, hd, q.element_size(), C, sp_np, p0_np, nv_np),
                prec == "int8" and dtype == torch.bfloat16,
                library="dequantize + scaled_dot_product_attention",
-               instantiation=KERNEL_ROUTE[dtype],
+               instantiation=DTYPE_ROUTE[dtype],
                **_chunk_tiles(H, C, p0_np, nv_np,
                               lambda b, last, p0_np=p0_np: last
                               if p0_np[b] >= 0 and last <= L else L, has_key))
@@ -1607,7 +1646,7 @@ def check_paged_chunk_kernels(rng, record) -> None:
                dtype == torch.bfloat16 and pool in ("native", "int8"),
                library="dequantize + index_select of the pages (+ staging) + "
                        "scaled_dot_product_attention",
-               instantiation=KERNEL_ROUTE[dtype],
+               instantiation=DTYPE_ROUTE[dtype],
                **_chunk_tiles(H, C, p0_np, nv_np, lambda b, last: last, has_key))
 
 
@@ -1785,7 +1824,7 @@ def check_cast_kernels(rng, record) -> None:
            fn, plain, lib,
            _paged_chunk_work(H, KVH, hd, 2, ps, N, bt_np, p0_np, nv_np, base_np, True, C), True,
            library="cast + index_select of the pages + staging + scaled_dot_product_attention",
-           instantiation=KERNEL_ROUTE[bf16], equal_to_k4p_rounded=True,
+           instantiation=DTYPE_ROUTE[bf16], equal_to_k4p_rounded=True,
            **_chunk_tiles(H, C, p0_np, nv_np, lambda b, last: last, has_key))
 
 
@@ -3017,7 +3056,7 @@ def check_hybrid_model() -> dict:
     sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
     flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
     attns, recs = _hybrid_layers(cfg)
-    want = {"flash_attention": attns, "decode_attention": attns * HYBRID_MODEL_STEPS,
+    want = {k1_counter(cfg): attns, "decode_attention": attns * HYBRID_MODEL_STEPS,
             "rglru_scan": recs}
     res = {"logit_scale": lp.abs().max().item(), "tol": MODEL_TOL,
            "B": B, "S": S, "cache_len": L, "ring": min(L, cfg.local_window),
@@ -3102,7 +3141,7 @@ def check_hybrid_quant_model() -> dict:
     sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
     flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
     attns, recs = _hybrid_layers(cfg)
-    want = {"flash_attention": attns, "decode_attention_quant": attns * steps,
+    want = {k1_counter(cfg): attns, "decode_attention_quant": attns * steps,
             "decode_attention": 0, "rglru_scan": recs}
     res = {"logit_scale": lp.abs().max().item(), "tol": MODEL_TOL, "kv_precision": "int8",
            "B": B, "S": S, "cache_len": L, "ring": min(L, cfg.local_window), "steps": steps,
@@ -3485,7 +3524,7 @@ def _hybrid_extra(decode: str = "decode_attention") -> dict:
     cfg = get_config("recurrentgemma-2b")
     attns, recs = _hybrid_layers(cfg)
     return {"layers": {"attn": attns, "rec": recs},
-            "launches_per_admission_replay": {"flash_attention": attns, "rglru_scan": recs},
+            "launches_per_admission_replay": {k1_counter(cfg): attns, "rglru_scan": recs},
             "launches_per_decode_step": {decode: attns},
             "ring": min(int(HYBRID_ARGS[HYBRID_ARGS.index("--cache-len") + 1]),
                         cfg.local_window)}
@@ -3549,10 +3588,11 @@ PAGED_CHUNKED_KERNELS = ("paged_chunk_attention", "paged_decode_attention")
 PREFIX_KERNELS = ("paged_chunk_attention_quant", "paged_decode_attention_quant")
 DENSE_QUANT_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_quant")
 DENSE_QUANT_CHUNKED_KERNELS = ("chunk_attention", "decode_attention_quant")
-MOE_KERNELS = ("flash_attention", "decode_attention")
-MOE_PAGED_KERNELS = ("flash_attention", "paged_decode_attention")
-HYBRID_KERNELS = ("flash_attention", "decode_attention", "rglru_scan")
-HYBRID_QUANT_KERNELS = ("flash_attention", "decode_attention_quant", "rglru_scan")
+# olmoe's (hd 128) and recurrentgemma's (hd 256) admissions: K1's wide route
+MOE_KERNELS = ("flash_attention_wide", "decode_attention")
+MOE_PAGED_KERNELS = ("flash_attention_wide", "paged_decode_attention")
+HYBRID_KERNELS = ("flash_attention_wide", "decode_attention", "rglru_scan")
+HYBRID_QUANT_KERNELS = ("flash_attention_wide", "decode_attention_quant", "rglru_scan")
 CAST_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_cast")
 CAST_PAGED_CHUNKED_KERNELS = ("paged_chunk_attention_cast", "paged_decode_attention_cast")
 
@@ -3651,8 +3691,9 @@ def _warmups(args, engine) -> tuple:
 
 def _prefill_kernel(engine) -> str:
     """An admission's prefill attention: K1r over a ragged bucket on a
-    dense attention stack, K1 over the whole padded bucket on an MoE one."""
-    return "flash_attention_ragged" if engine._ragged else "flash_attention"
+    dense attention stack, K1 over the whole padded bucket on an MoE one
+    (the wide route's counters at hd 128 and 256)."""
+    return k1_counter(engine.cfg, engine._ragged)
 
 
 def _prefill_graph_launches(engine) -> dict:
@@ -3664,7 +3705,7 @@ def _prefill_graph_launches(engine) -> dict:
         return {k: n for k in ("ssd_scan", *SSD_PHASES)}
     if engine.cfg.is_hybrid:   # K1 per local-attention layer, K7 per RG-LRU layer
         attns, recs = _hybrid_layers(engine.cfg)
-        return {"flash_attention": attns, "rglru_scan": recs}
+        return {k1_counter(engine.cfg): attns, "rglru_scan": recs}
     return {_prefill_kernel(engine): n}
 
 
@@ -3839,14 +3880,14 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
     decodes = engine.decode_dispatches + engine.warmup_dispatches - engine.prefill_warmups
     # a padded (MoE) stack's admissions run K1, as the dense engine's boot
     # prefill does on every stack
-    pre = _prefill_kernel(engine)
-    boot = int(pre == "flash_attention" and not args.paged)
+    pre = None if ssm else _prefill_kernel(engine)
+    boot = int(not engine._ragged and not args.paged)
     if ssm:   # every prefill (the boot's too) runs the scan once per layer, bf16: three kernels
         want = {k: n_layers * (prefills + 1) for k in ("ssd_scan", *SSD_PHASES)}
     elif engine.cfg.is_hybrid:   # every prefill (the boot's too) runs K1 and K7 per layer
         attns, recs = _hybrid_layers(engine.cfg)
-        want = {"flash_attention": attns * (prefills + 1), "rglru_scan": recs * (prefills + 1),
-                ring: attns * decodes * 2}
+        want = {k1_counter(engine.cfg): attns * (prefills + 1),
+                "rglru_scan": recs * (prefills + 1), ring: attns * decodes * 2}
         if route:   # a quantized or cast ring never reaches the native decode
             want["decode_attention"] = 0
         for mode, nodes in res["graph_nodes"].items():   # each decode replay: 2 steps
@@ -3865,8 +3906,8 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
                 "chunk_attention": n_layers * (mixed[0] + mixed[2])}
         if route:   # a quantized or cast ring never reaches the native decode
             want["decode_attention"] = 0
-    if pre == "flash_attention" and not ssm:
-        want["flash_attention_ragged"] = 0
+    if not engine._ragged and not ssm:
+        want[k1_counter(engine.cfg, ragged=True)] = 0
     if any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"{phase}: launches {counts} are not {want}")
     if asynchronous and (engine.blocking_syncs or max(res["syncs"])):
@@ -4502,7 +4543,7 @@ KERNEL_KINDS = (("K6", ("ssd_scan_kernel", "ssd_chunk_states_kernel", "ssd_state
                 ("K3", ("paged_decode_attention_kernel",)),
                 ("K2q", ("decode_attention_quant_kernel",)),
                 ("K2", ("decode_attention_kernel",)),
-                ("K1/K1r/K1q", ("flash_attention_kernel",)),
+                ("K1/K1r/K1q", ("flash_attention_kernel", "flash_attention_wide_kernel")),
                 ("K4", ("chunk_attention_kernel",)),
                 ("matmuls", ("nvjet", "gemm", "cutlass", "xmma")))
 
@@ -4993,26 +5034,32 @@ def check_fig2() -> dict:
 
 _FLASH_SYMBOL = re.compile(r"flash_attention_kernel(_wgmma)?I(f|13__nv_bfloat16)?"
                            r"(a|f|13__nv_fp8_e4m3|13__nv_bfloat16)Li(\d+)E")
+_FLASH_WIDE_SYMBOL = re.compile(r"flash_attention_wide_kernelILi(\d+)E")
 _CXX_TYPE = {"a": "int8", "f": "float32", "13__nv_fp8_e4m3": "fp8", "13__nv_bfloat16": "bf16",
              "6__half": "float16"}
 
 
 def flash_instantiations(ptxas: list) -> list:
-    """Each instantiation of csrc/flash_attention.cu's two kernels, from
+    """Each instantiation of csrc/flash_attention.cu's three kernels, from
     ``-Xptxas -v`` (build.BUILD_INFO): q and K/V types, hd, route,
-    registers and spill bytes."""
+    registers (the wide route's: the launch's count, which setmaxnreg
+    splits 40 / 232 between its producer and consumers) and spill bytes."""
+    from repro_torch.kernels import flash_attention as kf
     out = []
     for f in ptxas:
-        m = _FLASH_SYMBOL.search(f["function"])
-        if m is None:
+        if (m := _FLASH_WIDE_SYMBOL.search(f["function"])) is not None:
+            row = {"q": "bf16", "kv": "bf16", "hd": int(m.group(1)), "route": KERNEL_ROUTE["wide"],
+                   "smem_bytes": kf.smem_bytes(int(m.group(1)), torch.bfloat16)}
+        elif (m := _FLASH_SYMBOL.search(f["function"])) is not None:
+            wgmma = m.group(1) is not None
+            row = {"q": "bf16" if wgmma else "float32", "kv": _CXX_TYPE[m.group(3)],
+                   "hd": int(m.group(4)),
+                   "route": KERNEL_ROUTE["wgmma" if wgmma else "cuda_cores"]}
+        else:
             continue
-        wgmma = m.group(1) is not None
-        out.append({"q": "bf16" if wgmma else "float32", "kv": _CXX_TYPE[m.group(3)],
-                    "hd": int(m.group(4)),
-                    "route": KERNEL_ROUTE[torch.bfloat16 if wgmma else torch.float32],
-                    "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
+        out.append({**row, "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
                     "spill_loads": f.get("spill_loads")})
-    return sorted(out, key=lambda r: (r["q"], r["kv"], r["hd"]))
+    return sorted(out, key=lambda r: (r["q"], r["kv"], r["hd"], r["route"]))
 
 
 _CHUNK_SYMBOL = re.compile(r"(paged_)?chunk_attention_kernel(_wgmma)?I(f)?(a|13__nv_fp8_e4m3)?"
@@ -5038,7 +5085,7 @@ def chunk_instantiations(ptxas: list) -> list:
         pages = _CXX_TYPE.get(m.group(7), "")   # the native pages' storage type
         cast = m.group(1) is not None and pages not in ("", str(dtype)[6:], "bf16")
         row = {"kernel": "K4" if m.group(1) is None else "K4p" if m.group(6) == "1" else "K4q",
-               "q": str(dtype).removeprefix("torch."), "hd": hd, "route": KERNEL_ROUTE[dtype]}
+               "q": str(dtype).removeprefix("torch."), "hd": hd, "route": DTYPE_ROUTE[dtype]}
         if cast:   # K4p's unscaled route over cast pages
             row.update(kernel="K4p-cast", pages=pages, smem_bytes=kpc.smem_bytes(hd, dtype))
         elif m.group(1) is None:
@@ -5073,7 +5120,7 @@ def ssd_instantiations(ptxas: list) -> list:
             continue
         name = m.group(1)
         f32 = name == "ssd_scan_kernel"
-        row = {"kernel": name, "route": KERNEL_ROUTE[torch.float32 if f32 else torch.bfloat16]}
+        row = {"kernel": name, "route": DTYPE_ROUTE[torch.float32 if f32 else torch.bfloat16]}
         if m.group(2):
             row["chunk_tiles"] = int(m.group(2))
         chunk = 64 * row.get("chunk_tiles", 2)
@@ -5164,7 +5211,9 @@ def main() -> int:
                                  kf.smem_bytes(64, torch.float32, quantized=True),
                              "flash_attention_quant_hd64_bf16_wgmma":
                                  kf.smem_bytes(64, torch.bfloat16, quantized=True),
-                             "flash_attention_hd256_bf16_wgmma":
+                             "flash_attention_hd128_bf16_wide":
+                                 kf.smem_bytes(128, torch.bfloat16),
+                             "flash_attention_hd256_bf16_wide":
                                  kf.smem_bytes(256, torch.bfloat16),
                              "flash_attention_hd256_f32_cuda_cores":
                                  kf.smem_bytes(256, torch.float32),
@@ -5191,6 +5240,8 @@ def main() -> int:
                              "ssd_scan_bf16_chunk128_P64_N128":
                                  kssd.smem_bytes(128, 64, 128, torch.bfloat16)},
          flash_attention_instantiations=flash_instantiations(info["flash_attention"]["ptxas"]),
+         compiler_warnings={n: i.get("warnings", []) for n, i in info.items()
+                            if i.get("warnings")},
          chunk_attention_instantiations=chunk_instantiations(
              info["chunk_attention"]["ptxas"] + info["paged_chunk_attention"]["ptxas"]),
          ssd_scan_instantiations=ssd_instantiations(info["ssd_scan"]["ptxas"]),
@@ -5277,8 +5328,11 @@ def main() -> int:
     check_fig2()
 
     # launches: each kernel's count from the run of the path it serves (K1
-    # serves every admission of the MoE path, the main path's only at boot)
-    counts = {**main_path["launches"], "flash_attention": moe_path["launches"]["flash_attention"],
+    # at hd 64 the main path's boot, its wide route every admission of the
+    # MoE (hd 128) and hybrid (hd 256) paths)
+    counts = {**main_path["launches"],
+              "flash_attention_wide": moe_path["launches"]["flash_attention_wide"],
+              "flash_attention_wide_hd256": hybrid_path["launches"]["flash_attention_wide"],
               "paged_decode_attention": paged_path["launches"]["paged_decode_attention"],
               "paged_decode_attention_quant":
                   quant_path["launches"]["paged_decode_attention_quant"],
@@ -5304,6 +5358,12 @@ def main() -> int:
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                       "src/repro/kernels/flash_attention.py:118"),
+           # K1's wide route: olmoe-1b-7b's admission (hd 128) and
+           # recurrentgemma-2b's (hd 256)
+           "flash_attention_wide": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:57"),
+           "flash_attention_wide_hd256": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                          "src/repro/kernels/flash_attention.py:57"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:32"),
            "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",

@@ -28,12 +28,15 @@ def reset_launch_counts() -> None:
 
 
 # the kernel function a counter's wrapper launches, where it is not the
-# counter's own name + "_kernel": K1's kernel serves K1, K1r, K1q and K1rq,
+# counter's own name + "_kernel": K1's kernel serves K1, K1r, K1q and K1rq
+# (its wide-head route, flash_attention_wide_kernel, K1 and K1r at hd 128
+# and 256),
 # K2q's and K3q's serve their unscaled routes, and K4p's serves K4q, K4p,
 # K4p over quantized pages and K4p over cast pages. ``ssd_scan``
 # counts K6's calls, which launch the kernels of the route they take, each
 # counted by that kernel's own counter: it maps to no function.
 _FUNCTION = {"flash_attention_ragged": "flash_attention_kernel",
+             "flash_attention_wide_ragged": "flash_attention_wide_kernel",
              "flash_attention_quant": "flash_attention_kernel",
              "flash_attention_quant_ragged": "flash_attention_kernel",
              "chunk_attention_quant": "paged_chunk_attention_kernel",

@@ -28,7 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: dict = {}
-# per source: {"seconds": build wall time (0.0 when reused), "ptxas": [...]}
+# per source: {"seconds": build wall time (0.0 when reused), "ptxas": [...],
+# "warnings": the compiler's warning lines}
 BUILD_INFO: dict = {}
 
 
@@ -77,7 +78,8 @@ def build(names=SOURCES) -> dict:
     for name in names:
         target = _target(name)
         if target.exists():
-            BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": [], "library": str(target)})
+            BUILD_INFO.setdefault(name, {"seconds": 0.0, "ptxas": [], "library": str(target),
+                                         "warnings": []})
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -92,7 +94,8 @@ def build(names=SOURCES) -> dict:
             continue
         os.replace(tmp, target)
         BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
-                            "ptxas": parse_ptxas(log), "library": str(target)}
+                            "ptxas": parse_ptxas(log), "library": str(target),
+                            "warnings": [ln for ln in log.splitlines() if "warning" in ln]}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {n: BUILD_INFO[n] for n in names}

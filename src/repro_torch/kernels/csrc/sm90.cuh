@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
 // run their products on the tensor cores: cp.async copies into shared
-// memory, the async-proxy fence, the shared-memory matrix descriptors and
+// memory, mbarriers, a named barrier, setmaxnreg and TMA tensor loads (the
+// warp-specialized pipeline of K1's wide-head route), the async-proxy
+// fence, the shared-memory matrix descriptors and
 // swizzled tile layout that wgmma reads, and the bf16 and TF32 wgmma
 // products with f32 accumulators that those kernels issue; and the
 // warp-level bf16 mma.sync product with its ldmatrix loads, for products
@@ -57,6 +59,75 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // visible to the warpgroup's wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------- mbarrier
+// A barrier in shared memory that completes a phase when ``count`` threads
+// have arrived and every byte announced by expect_tx has landed. One thread
+// inits; fence_mbarrier_init and a CTA barrier publish the init.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// Arrive and announce ``bytes`` more of asynchronous copies (TMA) before the
+// phase may complete.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Wait until the phase of parity ``parity`` has completed. The thread is
+// suspended inside try_wait (up to the hint, 10 ms) instead of spinning, so
+// a waiting warp takes no issue slots from the warps that compute. A wait
+// that outlasts ~2^32 cycles (over a second) traps, so a broken pipeline
+// fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar), "r"(parity), "n"(10000000) : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 32)) __trap();
+  }
+}
+
+// ------------------------------------------------------- named barrier
+// bar.sync: wait until ``n`` threads have reached barrier ``id`` (0 is
+// __syncthreads').
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// ------------------------------------------------------------ setmaxnreg
+// Hand registers from one warpgroup to another: every warp of the
+// warpgroup executes it. The kernel's launch count times its threads is the
+// pool the warpgroups share.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// ----------------------------------------------------------------- TMA
+// One box of a 4-d tensor map (CUtensorMap in kernel parameter space) into
+// shared memory at ``dst``, its bytes reported to the mbarrier ``bar``;
+// coordinates innermost first, elements past the tensor's edge land as 0.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, uint32_t bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3)
+      : "memory");
 }
 
 // ------------------------------------------------------- tile layout
@@ -136,6 +207,32 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (+)= A B, m64n64k16: A (64 x 16) from registers (the f32 accumulator
+// fragment's layout, as bf16 pairs), B (16 x 64, K-major) in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// 2^x on the SFU (ex2.approx, results below 2^-126 flushed to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // D (+)= A B, m64n64k16: A (64 x 16) from registers (the f32 accumulator

@@ -1,24 +1,35 @@
-"""Wrappers of the hand-written prefill attention kernel (csrc/flash_attention.cu).
+"""Wrappers of the hand-written prefill attention kernels (csrc/flash_attention.cu).
 
 Replaces the Pallas TPU kernels ``_attn_kernel`` (K1) and
 ``_attn_kernel_ragged`` (K1r) of ``src/repro/kernels/flash_attention.py``,
 and their ``quantized=True`` variants (K1q, K1rq) through
-``flash_attention_quant``: the same kernel over int8 or fp8 K/V codes,
-each tile dequantized in shared memory before its products.
+``flash_attention_quant``: over int8 or fp8 K/V codes, each tile
+dequantized in shared memory before its products.
 
-One CTA per (64-row q-tile, head, batch row) loops over the live KV tiles
-with the online softmax in registers and skips tiles above the diagonal,
-outside the window or in the row's padding. For bf16 q the CTA is one
-warpgroup that runs QK^T and PV on the tensor cores (wgmma), fed by a
-two-stage ring of cp.async copies, so the next tile's loads overlap this
-tile's products. At serving shapes (B 8, S 512, H 32, hd 64: ~8.6 GFLOP
-causal against ~42 MB) the work is byte-bound on the tensor cores; what
-holds the kernel above that bound is issue: each CTA's serial chain of
-copies, products and softmax, with the causal grid's diagonal tiles and
-triangular load on top (``chip_smoke.py``'s flash_anatomy phase). f32 q
-keeps a CUDA-core kernel: a tensor-core product in f32 is TF32, which its
-f32 tolerance does not allow. Head dims 32, 64 and 128 on every route, and
-256 (recurrentgemma-2b's MQA heads) over native K/V on both.
+Three routes (``route``; the table in the source's header):
+
+- **wide** (bf16 q over native K/V at hd 128 and 256: olmoe-1b-7b,
+  qwen3-8b, recurrentgemma-2b): a warp-specialized, persistent CTA (one
+  an SM) whose producer warpgroup loads Q and a ring of K/V tiles by TMA,
+  behind mbarriers, for two consumer warpgroups of 64 query rows each.
+  The two are two query heads of one KV group where the group is even,
+  else two adjacent q-tiles of one head, so every K/V tile landed serves
+  128 rows; the producer runs on into the next work unit (the q-tiles with
+  the most keys first) while the consumers finish this one. Its launches
+  count under ``flash_attention_wide`` (``_ragged`` with ``seq_lens``).
+- **wgmma** (bf16 q at hd 32 and 64, and every quantized K/V): one
+  warpgroup per (64-row q-tile, head, batch row), fed by a two-stage ring
+  of cp.async copies (granite-3-2b's hd 64).
+- **CUDA cores** (f32 q): a tensor-core product in f32 is TF32, which the
+  f32 tolerance does not allow.
+
+Each route skips KV tiles above the diagonal, outside the window or in the
+row's padding and keeps the online softmax in f32 registers. At the
+serving shapes the work is byte-bound on the tensor cores (recurrentgemma's
+admission 13.8 us, olmoe's 20.0, granite's 12.5); what holds the kernels
+above that is each warpgroup's chain of a tile's QK^T, softmax and PV over
+short causal ranges (``chip_smoke.py``'s kernels and flash_anatomy
+phases).
 
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
@@ -35,12 +46,45 @@ from repro_torch.kernels import build
 
 # launches of each kernel: the wrapper counts where it launches, nowhere else
 launches = {"flash_attention": 0, "flash_attention_ragged": 0,
+            "flash_attention_wide": 0, "flash_attention_wide_ragged": 0,
             "flash_attention_quant": 0, "flash_attention_quant_ragged": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
 _HEAD_DIMS = (32, 64, 128, 256)
 _CODE_HEAD_DIMS = (32, 64, 128)   # K1q/K1rq: hd 256 serves no quantized path
+# flash_attention_route's answers, in its order
+ROUTES = ("cuda_cores", "wgmma", "wide")
+
+
+def route(dtype: torch.dtype, hd: int, quantized: bool = False) -> str:
+    """The kernel that serves q of ``dtype`` at head dim ``hd`` over native
+    K/V or codes (``quantized``): "wide" (bf16 over native K/V at hd 128
+    and 256), "wgmma" (bf16 at hd 32 and 64, and bf16 over codes) or
+    "cuda_cores" (f32). Raises on what no route takes."""
+    if dtype not in _DTYPES or hd not in (_CODE_HEAD_DIMS if quantized else _HEAD_DIMS):
+        raise ValueError(f"no flash_attention route takes {dtype} q at hd {hd}"
+                         + (" over codes" if quantized else ""))
+    if dtype == torch.float32:
+        return "cuda_cores"
+    return "wide" if not quantized and hd >= 128 else "wgmma"
+
+
+def counter(dtype: torch.dtype, hd: int, ragged: bool = False) -> str:
+    """The launch counter of K1 (K1r with ``ragged``) over native K/V at
+    ``dtype`` and ``hd``: the wide route's or the others'."""
+    wide = route(dtype, hd) == "wide"
+    return "flash_attention" + ("_wide" if wide else "") + ("_ragged" if ragged else "")
+
+
+def library_route(dtype: torch.dtype, hd: int, quantized: bool = False) -> Optional[str]:
+    """The route the built library takes for (``dtype``, ``hd``,
+    ``quantized``), or None where it refuses."""
+    fn = build.library("flash_attention").flash_attention_route
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    r = int(fn(hd, int(dtype == torch.bfloat16), int(quantized)))
+    return ROUTES[r] if r >= 0 else None
 
 
 def _fn():
@@ -64,9 +108,9 @@ def _quant_fn():
 
 
 def smem_bytes(hd: int, dtype: torch.dtype, quantized: bool = False) -> int:
-    """Dynamic shared memory of one CTA at head dim ``hd`` for q of ``dtype``
-    (bf16: the wgmma kernel; f32: the CUDA-core kernel), over native K/V or
-    over codes (``quantized``)."""
+    """Dynamic shared memory of one CTA of the route (``route``) that serves
+    q of ``dtype`` at head dim ``hd`` over native K/V or over codes
+    (``quantized``); 0 where no route does."""
     fn = build.library("flash_attention").flash_attention_smem_bytes
     fn.argtypes = [ctypes.c_int] * 3
     fn.restype = ctypes.c_int
@@ -123,7 +167,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd failed: cudaError_t {err}")
-    launches["flash_attention" if seq_lens is None else "flash_attention_ragged"] += 1
+    launches[counter(q.dtype, hd, seq_lens is not None)] += 1
     return out
 
 

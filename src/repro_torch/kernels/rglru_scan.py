@@ -6,10 +6,15 @@ which XLA lowers itself. The port needs a kernel all the same: a torch
 loop over a 512-token prompt puts about 18 x 512 x 3 nodes into every
 admission graph of recurrentgemma-2b, and a pairwise (S x S x R) form
 needs gigabytes. K7 computes h_t = exp(log_a_t) h_{t-1} + gated_t over
-(B, S, R) float32 from h0 and writes every h_t: one thread per (row,
-channel), sequential in t, loads coalesced along R. At the admission
-shape (B 8, S 512, R 2560) it reads 84 MB and writes 42 MB: bytes bound
-it (~38 us at 3.35 TB/s).
+(B, S, R) float32 from h0 and writes every h_t, each channel one serial
+chain rounded as ``ref.rglru_scan_ref`` rounds it (bit-equal on the card).
+Bytes bound it: at the admission shape (B 8, S 512, R 2560) it reads 84 MB
+and writes 42 MB (~38 us at 3.35 TB/s). So a CTA is one warp over 32
+channels (640 CTAs at that shape, about five an SM in one wave) that
+streams log_a and gated through a six-stage cp.async ring in shared
+memory (16-byte copies where R is a multiple of 4), five stages of 16
+steps in flight behind the step it computes, and stores each step's 32
+states coalesced along R as streaming stores.
 
 This wrapper takes CUDA tensors only and raises on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain

@@ -52,6 +52,8 @@ def test_write_back_reads_every_carry_before_writing():
      "EvPKT_PKT0_S6_PKfS8_PKiPS1_iiiiiif", "flash_attention_kernel"),
     ("_Z23decode_attention_kernelI13__nv_bfloat16Li64EEvPKT_S3_S3_PKiS5_PS1_iiiif",
      "decode_attention_kernel"),
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_2c13897927flash_attention_wide_kernelILi256"
+     "EEEv14CUtensorMap_stS1_S1_PKiP13__nv_bfloat16iiiiiiifiii", "flash_attention_wide_kernel"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32", "sm90_xmma_gemm_bf16bf16_bf16f32")])
 def test_function_name_of_a_kernel_symbol(symbol, name):
     assert function_name(symbol) == name
@@ -71,6 +73,17 @@ def test_graph_launch_counts_count_the_wrappers_kernels_only():
         "decode_attention": 80, "paged_decode_attention_quant": 3, "decode_attention_quant": 2,
         "chunk_attention": 40, "paged_chunk_attention": 30, "paged_chunk_attention_quant": 10,
         "flash_attention": 0}) == want
+
+
+def test_k1_wide_route_counts_with_its_own_kernel():
+    """K1's wide route (bf16 at hd 128 and 256) is its own kernel function:
+    its K1 and K1r calls sum onto it, apart from the other routes' kernel."""
+    want = {"flash_attention_wide_kernel": 18, "flash_attention_kernel": 40}
+    assert kernels.function_counts({"flash_attention_wide": 16, "flash_attention_wide_ragged": 2,
+                                    "flash_attention": 40}) == want
+    assert kernels.graph_launch_counts({"flash_attention_wide_kernel": 18,
+                                        "flash_attention_kernel_wgmma": 40,
+                                        "nvjet_tst_128x256": 7}) == want
 
 
 def test_k6_calls_count_its_f32_kernel_only():

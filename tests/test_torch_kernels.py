@@ -1,6 +1,9 @@
 """The attention kernels' plain versions against the reference's Pallas
 kernels (interpret mode) and oracles. The CUDA kernels are held against
 their plain versions on the card in tests/test_torch_kernels_gpu.py."""
+import re
+from pathlib import Path
+
 import jax  # noqa: F401  (JAX stays on the CPU)
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +119,52 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                        pos)
     with pytest.raises(ValueError, match="CUDA"):
         k_rglru.rglru_scan(q[..., 0, :], q[..., 0, :])
+
+
+def _header_routes() -> dict:
+    """The route table of csrc/flash_attention.cu's header: (q dtype,
+    quantized K/V) -> {hd: route}."""
+    text = (Path(k_flash.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    table = text[text.index("// Routes"):].split("\n//\n", 1)[0]
+    names = {"wide": "wide", "wgmma": "wgmma", "CUDA cores": "cuda_cores"}
+    out: dict = {}
+    for line in table.splitlines()[2:]:
+        m = re.match(r"//\s+(wide|wgmma|CUDA cores)\s+(bf16|f32)\s+(native|codes)\s+([\d, ]+)$",
+                     line)
+        assert m, line
+        key = (torch.bfloat16 if m.group(2) == "bf16" else torch.float32, m.group(3) == "codes")
+        for hd in m.group(4).split(","):
+            assert int(hd) not in out.setdefault(key, {}), line
+            out[key][int(hd)] = names[m.group(1)]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_flash_route_is_the_headers_table(dtype, quantized):
+    """``flash_attention.route`` (the route the wrapper counts under, and the
+    card test holds the library to) states the table of the source's
+    header, and refuses every hd the table leaves out."""
+    table = _header_routes()[(dtype, quantized)]
+    for hd in (16, 32, 64, 96, 128, 256, 512):
+        if hd in table:
+            assert k_flash.route(dtype, hd, quantized) == table[hd], hd
+        else:
+            with pytest.raises(ValueError, match="no flash_attention route"):
+                k_flash.route(dtype, hd, quantized)
+
+
+def test_flash_counters_follow_the_route():
+    """K1 and K1r count under the wide route's counters exactly where it
+    serves (bf16 at hd 128 and 256), and both map to its kernel function."""
+    from repro_torch import kernels
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (32, 64, 128, 256):
+            wide = dtype == torch.bfloat16 and hd >= 128
+            for ragged in (False, True):
+                name = k_flash.counter(dtype, hd, ragged)
+                assert name == ("flash_attention" + ("_wide" if wide else "")
+                                + ("_ragged" if ragged else ""))
+                assert name in k_flash.launches
+                assert kernels.kernel_function(name) == (
+                    "flash_attention_wide_kernel" if wide else "flash_attention_kernel")

@@ -63,11 +63,17 @@ def _err_ok(got, want, dtype):
 
 # (B, Sq, Sk, H, KVH, hd): the smoke and main-path shapes, hd 128, Sq not a
 # multiple of 64 with Sk above it and below it, and olmoe-1b-7b's admission
-# (16 query heads on 16 KV heads, hd 128). bf16 runs the wgmma kernel, f32
-# the CUDA-core one.
+# (16 query heads on 16 KV heads, hd 128). bf16 runs the wgmma kernel at hd
+# 32 and 64 and the wide route at hd 128, f32 the CUDA-core one. The wide
+# route's cases: groups of 1 (q-tile pairs), 2 and 4 (head pairs) and 3 (odd:
+# q-tile pairs); an odd count of q-tiles (Sq 320: the last pair's second
+# tile past Sq); Sq 130, where a head pair and a q-tile pair end mid-tile;
+# Sk above and below Sq; qwen3-8b's prefill (32 heads on 8).
 GPU_PREFILL = [(2, 16, 16, 8, 2, 32), (8, 512, 512, 32, 8, 64), (2, 100, 100, 4, 4, 128),
                (4, 130, 200, 8, 2, 64), (4, 200, 77, 4, 2, 32), (4, 190, 190, 8, 4, 128),
-               (8, 512, 512, 16, 16, 128)]
+               (8, 512, 512, 16, 16, 128), (2, 320, 320, 4, 4, 128), (2, 130, 130, 8, 4, 128),
+               (2, 130, 200, 4, 4, 128), (2, 200, 77, 8, 2, 128), (2, 130, 130, 6, 2, 128),
+               (8, 512, 512, 32, 8, 128)]
 
 
 def _prefill_cases(cuda, g, B, Sq, Sk):
@@ -84,6 +90,13 @@ def _prefill_cases(cuda, g, B, Sq, Sk):
     windows = (None, 37, 96) if Sk >= Sq else (None,)
     return [(sl, w) for sl in (None, lens, edges) for w in windows] + (
         [(lens, 9)] if Sk >= Sq else [])
+
+
+def _assert_padding_zero(got, seq_lens):
+    """Query rows at or beyond their row's length are written as zeros."""
+    if seq_lens is not None:
+        pad = torch.arange(got.shape[1], device=got.device)[None, :] >= seq_lens[:, None]
+        assert not got[pad].any(), seq_lens
 
 
 def _rising(x):
@@ -108,6 +121,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
         want = ref.attention_ref(q, kk, v, window=window, seq_lens=seq_lens)
         torch.cuda.synchronize()
         assert _err_ok(got, want, dtype), (seq_lens, window, kk is kr)
+        _assert_padding_zero(got, seq_lens)
     # deterministic: no atomics, no split across CTAs
     sl, w = cases[-1]
     first = k_flash.flash_attention(q, k, v, sl, window=w)
@@ -136,9 +150,12 @@ def _junk_where_empty(rng, x, sp):
 
 # (B, Sq, Sk, H, KVH, hd) at recurrentgemma-2b's attention (10 query heads
 # on one KV head, hd 256): its admission bucket, a ragged tile edge with Sk
-# above Sq, and a prompt past its window of 2048
+# above Sq, and a prompt past its window of 2048; on the wide route also a
+# group of 1 over an odd count of q-tiles, a group of 2 at Sq 130, Sk below
+# Sq, and a group of 3
 GPU_PREFILL_256 = [(8, 512, 512, 10, 1, 256), (2, 130, 200, 10, 1, 256),
-                   (2, 2560, 2560, 10, 1, 256)]
+                   (2, 2560, 2560, 10, 1, 256), (2, 320, 320, 2, 2, 256),
+                   (2, 130, 130, 4, 2, 256), (2, 200, 77, 10, 1, 256), (1, 130, 130, 3, 1, 256)]
 
 
 @pytest.mark.gpu
@@ -147,7 +164,7 @@ GPU_PREFILL_256 = [(8, 512, 512, 10, 1, 256), (2, 130, 200, 10, 1, 256),
 def test_flash_kernel_at_hd256_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
     """K1 and K1r at hd 256 over native K/V: causal, windowed (inside a
     tile, across tiles, and recurrentgemma's 2048) and ragged, rising
-    scores; bf16 on the wgmma kernel, f32 on the CUDA-core one (its tiles
+    scores; bf16 on the wide route, f32 on the CUDA-core kernel (its tiles
     take 215,296 bytes of shared memory, inside a CTA's 232,448); two
     launches equal."""
     g = torch.Generator(device=cuda).manual_seed(256)
@@ -164,6 +181,7 @@ def test_flash_kernel_at_hd256_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, 
         want = ref.attention_ref(q, kk, v, window=window, seq_lens=seq_lens)
         torch.cuda.synchronize()
         assert _err_ok(got, want, dtype), (seq_lens, window, kk is kr)
+        _assert_padding_zero(got, seq_lens)
     sl, w = cases[-1]
     first = k_flash.flash_attention(q, k, v, sl, window=w)
     assert torch.equal(first, k_flash.flash_attention(q, k, v, sl, window=w))
@@ -171,6 +189,36 @@ def test_flash_kernel_at_hd256_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, 
         k_flash.flash_attention_quant(q, k.to(torch.int8), v.to(torch.int8),
                                       torch.ones((B, Sk, KVH), device=cuda),
                                       torch.ones((B, Sk, KVH), device=cuda))
+
+
+@pytest.mark.gpu
+def test_flash_route_is_the_one_the_header_states_on_card(cuda):
+    """The built library takes, for every (q dtype, hd, quantized K/V), the
+    route ``k_flash.route`` states (the table of csrc/flash_attention.cu's
+    header), refuses what it refuses, and a launch counts under that
+    route's counter."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (16, 32, 64, 128, 256, 512):
+            for quantized in (False, True):
+                try:
+                    want = k_flash.route(dtype, hd, quantized)
+                except ValueError:
+                    want = None
+                assert k_flash.library_route(dtype, hd, quantized) == want, (dtype, hd,
+                                                                              quantized)
+                assert (k_flash.smem_bytes(hd, dtype, quantized) > 0) == (want is not None)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for hd, name in ((64, "flash_attention"), (128, "flash_attention_wide"),
+                     (256, "flash_attention_wide")):
+        q, k, v = (torch.randn((1, 70, 2, hd), generator=g, device=cuda).bfloat16()
+                   for _ in range(3))
+        lens = torch.tensor([33], dtype=torch.int32, device=cuda)
+        for sl, counter in ((None, name), (lens, name + "_ragged")):
+            before = dict(k_flash.launches)
+            k_flash.flash_attention(q, k, v, sl)
+            assert {c: n - before[c] for c, n in k_flash.launches.items()
+                    if n != before[c]} == {counter: 1}
+            assert k_flash.counter(torch.bfloat16, hd, sl is not None) == counter
 
 
 @pytest.mark.gpu
@@ -222,14 +270,17 @@ def test_decode_kernel_at_hd256_matches_plain_on_card(cuda, B, L):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,R", [(8, 512, 2560), (2, 1, 128), (3, 77, 100), (1, 2049, 33)])
+@pytest.mark.parametrize("B,S,R", [(8, 512, 2560), (2, 1, 128), (3, 77, 100), (1, 2049, 33),
+                                   (3, 40, 20), (2, 5, 2560), (1, 512, 2560),
+                                   (64, 96, 2560)])
 @pytest.mark.parametrize("init", [False, True])
 def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, S, R, init):
-    """K7 against its plain version: recurrentgemma-2b's admission shape,
-    one step, a channel count that is no multiple of a CTA's 128 and steps
-    that are no multiple of the 16 loaded ahead; with and without h0.
-    Both round each step's product, then its sum: within 2e-5 of the
-    largest |h| (exp may differ by an ulp); two launches equal."""
+    """K7 against its plain version, bit for bit: recurrentgemma-2b's
+    admission shape, one step, channel counts that are no multiple of a
+    CTA's 32 (20: below one CTA's tile), steps that are no multiple of a
+    stage's 16 and below the ring's depth (5, 40), one batch row, and 64
+    rows (5,120 CTAs: several waves); with and without h0. Both take exp,
+    then round each step's product, then its sum; two launches equal."""
     g = torch.Generator(device=cuda).manual_seed(B * S + R)
     sp = torch.log1p(torch.exp(-torch.linspace(2.2, 6.9, R, device=cuda)))
     log_a = -8.0 * torch.rand((B, S, R), generator=g, device=cuda) * sp
@@ -238,7 +289,7 @@ def test_rglru_scan_kernel_matches_plain_on_card(cuda, B, S, R, init):
     got = k_rglru.rglru_scan(log_a, gated, h0)
     want = ref.rglru_scan_ref(log_a, gated, h0)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 2e-5 * max(1.0, want.abs().max().item())
+    assert torch.equal(got, want), (got - want).abs().max().item()
     assert torch.equal(got, k_rglru.rglru_scan(log_a, gated, h0))
 
 
