@@ -149,6 +149,7 @@ nvidia-smi, and the result line.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import re
 import subprocess
@@ -813,9 +814,12 @@ def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
     KV head, hd 256, R 2560), each with its device time, bound and library
     time: K1 over an admission's padded bucket (8 rows of 512, causal) and
     windowed over two prompts of 2,560 (window 2048: the window cuts); K2
-    over the serve's ring of 1024 at the positions of a prompt padded to 512
-    plus up to 28 decode steps, and over a 2,048-slot ring written past its
-    end under window 2048; K7 over the admission's 8 x 512 x 2560 from a
+    (route split16) in bf16 and float32, at recurrentgemma-2b's group of 10
+    under window 2048 and paligemma-3b's decode heads (8 on one KV head,
+    window 4096), over the serve's ring of 1024 at the positions of a
+    prompt padded to 512 plus up to 28 decode steps (bf16 at a group of 10:
+    the main row of ``decode_attention_hd256``), and over a 2,048-slot ring
+    written past its end; K7 over the admission's 8 x 512 x 2560 from a
     zero state (the main row: what each admission runs) and from h0."""
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
@@ -839,27 +843,35 @@ def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
                instantiation=flash_route(dtype, hd))
         del q, k, v
 
-    for B, L, pos_np, win, what in (
-            (8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), W, "pos 512-540"),
-            (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32), W,
-             "ring wrapped, pos 2048-2647")):
+    rings = ((8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), "pos 512-540"),
+             (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32),
+              "ring wrapped, pos 2048-2647"))
+    for (B, L, pos_np, what), (Hd, Wd, model), dt in itertools.product(
+            rings, ((H, W, "recurrentgemma-2b"), (8, 4096, "paligemma-3b")),
+            (dtype, torch.float32)):
+        rt = kd.route(dt, hd)
         sp_np = _ring_slot_pos(B, L, pos_np)
-        q = randn((B, H, hd), dtype)
-        k, v = randn((B, L, KVH, hd), dtype), randn((B, L, KVH, hd), dtype)
+        q = randn((B, Hd, hd), dt)
+        k, v = randn((B, L, KVH, hd), dt), randn((B, L, KVH, hd), dt)
         sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
-        fn = lambda q=q, k=k, v=v, sp=sp, pos=pos: kd.decode_attention(q, k, v, sp, pos,
-                                                                       window=W)
-        plain = lambda q=q, k=k, v=v, sp=sp, pos=pos: ref.decode_attention_ref(
-            q, k, v, sp, pos, window=W)
+        fn = lambda q=q, k=k, v=v, sp=sp, pos=pos, Wd=Wd: kd.decode_attention(q, k, v, sp, pos,
+                                                                             window=Wd)
+        plain = lambda q=q, k=k, v=v, sp=sp, pos=pos, Wd=Wd: ref.decode_attention_ref(
+            q, k, v, sp, pos, window=Wd)
         qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
-        mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - W))[:, None, None, :]
+        mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - Wd))[:, None, None, :]
         lib = lambda qt=qt, kt=kt, vt=vt, mask=mask: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
-        record(f"decode_attention B{B} L{L} H{H}/{KVH} hd{hd} bf16 window{W} "
-               f"recurrentgemma-2b {what}", "decode_attention", dtype, fn(), plain(),
-               ref.decode_attention_ref(q, k, v.abs(), sp, pos, window=W), fn, plain, lib,
-               _decode_work(B, L, H, KVH, hd, q.element_size(), sp_np, pos_np, W), False,
-               device=True)
+        main = dt == dtype and Hd == H and L == 1024
+        record(f"decode_attention B{B} L{L} H{Hd}/{KVH} hd{hd} {str(dt)[6:]} window{Wd} "
+               f"{model} {what} ({rt['name']}: tile{rt['tile']} split{rt['split']})",
+               "decode_attention", dt, fn(), plain(),
+               ref.decode_attention_ref(q, k, v.abs(), sp, pos, window=Wd), fn, plain, lib,
+               _decode_work(B, L, Hd, KVH, hd, q.element_size(), sp_np, pos_np, Wd), main,
+               device=True, row_key="decode_attention_hd256" if main else None,
+               route=rt["name"], max_clusters=kd.max_clusters(hd, Hd // KVH, dt),
+               smem_bytes=kd.smem_bytes(hd, Hd // KVH, dt))
+        del q, k, v
 
     B, S, R = 8, 512, 2560
     g = torch.Generator(device="cuda").manual_seed(29)
@@ -1684,42 +1696,69 @@ def check_cast_kernels(rng, record) -> None:
         return F.scaled_dot_product_attention(q[:, :, None], k.transpose(1, 2),
                                               v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
 
-    # K2q at hd 256
-    H, KVH, hd, W = 10, 1, 256, 2048
-    for B, L, pos_np, what in (
-            (8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), "pos 512-540"),
-            (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32),
-             "ring wrapped, pos 2048-2647")):
+    # K2q at hd 256 (route split16): int8 and fp8 codes and the unscaled
+    # float16 and float8_e4m3fn casts, under bf16 and float32 q, at
+    # recurrentgemma-2b's group of 10 (window 2048) and paligemma-3b's of 8
+    # (window 4096); device times for the bf16 codes at a group of 10
+    KVH, hd = 1, 256
+    rings = ((8, 1024, (512 + rng.integers(0, 29, 8)).astype(np.int32), "pos 512-540"),
+             (8, 2048, (2048 + rng.integers(0, 600, 8)).astype(np.int32),
+              "ring wrapped, pos 2048-2647"))
+    for (B, L, pos_np, what), (H, W, model), dt in itertools.product(
+            rings, ((10, 2048, "recurrentgemma-2b"), (8, 4096, "paligemma-3b")),
+            (bf16, torch.float32)):
+        rt = kd.route(dt, hd)
         sp_np = _ring_slot_pos(B, L, pos_np)
         sp, pos = torch.from_numpy(sp_np).cuda(), torch.from_numpy(pos_np).cuda()
-        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(bf16)
+        q = torch.from_numpy(rng.standard_normal((B, H, hd)).astype(np.float32)).cuda().to(dt)
         mask = ((sp >= 0) & (sp <= pos[:, None]) & (sp > pos[:, None] - W))[:, None, None, :]
-        for prec in ("int8", "fp8"):
-            spec = parse_kv_precision(prec)
-            (qk, ks), (qv, vs) = (quantize_kv(torch.from_numpy(
-                rng.standard_normal((B, L, KVH, hd)).astype(np.float32)).cuda(), spec)
-                for _ in range(2))
-            fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos: \
-                kd.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=W)
-            plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos: \
-                ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=W)
-            lib = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, mask=mask: sdpa_decode(
-                q, dequantize_kv(qk, ks, bf16), dequantize_kv(qv, vs, bf16), mask)
+        esize = q.element_size()
+        for prec in ("int8", "fp8", torch.float16, torch.float8_e4m3fn):
+            x = [torch.from_numpy(rng.standard_normal((B, L, KVH, hd)).astype(np.float32)).cuda()
+                 for _ in range(2)]
+            timed = dt == bf16 and H == 10 and isinstance(prec, str)
+            if isinstance(prec, str):   # codes and scales
+                spec = parse_kv_precision(prec)
+                (qk, ks), (qv, vs) = (quantize_kv(t, spec) for t in x)
+                fn = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos, W=W: \
+                    kd.decode_attention_quant(q, qk, qv, ks, vs, sp, pos, window=W)
+                plain = lambda q=q, qk=qk, qv=qv, ks=ks, vs=vs, sp=sp, pos=pos, W=W: \
+                    ref.decode_attention_quant_ref(q, qk, qv, ks, vs, sp, pos, window=W)
+                env = ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos,
+                                                     window=W)
+                kn, vn = dequantize_kv(qk, ks, dt), dequantize_kv(qv, vs, dt)
+                name, work = "decode_attention_quant_hd256", _decode_quant_work(
+                    B, L, H, KVH, hd, esize, sp_np, pos_np, W)
+            else:   # an unscaled storage cast
+                qk, qv = (t.to(prec) for t in x)
+                fn = lambda q=q, qk=qk, qv=qv, sp=sp, pos=pos, W=W: kd.decode_attention_cast(
+                    q, qk, qv, sp, pos, window=W)
+                plain = lambda q=q, qk=qk, qv=qv, sp=sp, pos=pos, W=W: \
+                    ref.decode_attention_cast_ref(q, qk, qv, sp, pos, window=W)
+                kn, vn = qk.to(dt), qv.to(dt)
+                env = ref.decode_attention_cast_ref(q, qk, vn.abs(), sp, pos, window=W)
+                name = "decode_attention_cast"
+                nv = int(((sp_np >= 0) & (sp_np <= pos_np[:, None])
+                          & (sp_np > pos_np[:, None] - W)).sum())
+                work = _cast_work(_decode_work(B, L, H, KVH, hd, esize, sp_np, pos_np, W), nv,
+                                  KVH, hd, esize, prec.itemsize)
+            lib = lambda q=q, kn=kn, vn=vn, mask=mask: sdpa_decode(q, kn, vn, mask)
             got = fn()
-            native = kd.decode_attention(q, dequantize_kv(qk, ks, bf16),
-                                         dequantize_kv(qv, vs, bf16), sp, pos, window=W)
+            native = kd.decode_attention(q, kn, vn, sp, pos, window=W)
             torch.cuda.synchronize()
-            case = (f"decode_attention_quant {prec} B{B} L{L} H{H}/{KVH} hd{hd} bf16 "
-                    f"window{W} recurrentgemma-2b {what}")
+            label = prec if isinstance(prec, str) else str(prec).removeprefix("torch.")
+            case = (f"{name.removesuffix('_hd256')} {label} B{B} L{L} H{H}/{KVH} hd{hd} "
+                    f"{str(dt)[6:]} window{W} {model} {what} ({rt['name']})")
             if not torch.equal(got, native):
-                raise AssertionError(f"{case}: not K2 over the dequantized ring bit for bit")
-            record(case, "decode_attention_quant_hd256", bf16, got, plain(),
-                   ref.decode_attention_quant_ref(q, qk, _abs_codes(qv), ks, vs, sp, pos,
-                                                  window=W), fn, plain, lib,
-                   _decode_quant_work(B, L, H, KVH, hd, 2, sp_np, pos_np, W),
-                   prec == "int8" and L == 1024, library="dequantize + "
-                   "scaled_dot_product_attention", device=True, equal_to_k2_dequantized=True)
-            del qk, qv, ks, vs
+                raise AssertionError(f"{case}: not K2 over the dequantized or rounded ring "
+                                     "bit for bit")
+            record(case, name, dt, got, plain(), env, fn, plain, lib if timed else None, work,
+                   timed and prec == "int8" and L == 1024,
+                   library=("dequantize" if isinstance(prec, str) else "cast")
+                   + " + scaled_dot_product_attention", device=timed,
+                   row_key="decode_attention_quant_hd256", equal_to_k2_native=True,
+                   route=rt["name"])
+            del qk, qv, kn, vn, x
 
     # K2q's unscaled route at the granite serves' ring
     B, L, H, KVH, hd = 8, 1024, 32, 8, 64
@@ -4639,6 +4678,16 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     and the profile, which opens and closes ``PROFILE_MARGIN_S`` around the
     serve, must hold every port kernel as many times as its wrappers
     counted, inside the graphs or not."""
+    fields, profiled, counted = _profile_serve(argv, serve_s, prefix)
+    emit(phase, **fields)
+    if profiled != counted:
+        raise AssertionError(f"{phase}: the profile holds {profiled} port kernels, the "
+                             f"wrappers counted {counted}")
+
+
+def _profile_serve(argv: list, serve_s: float, prefix: bool):
+    """One profiled serve of ``profile_main_path``: (the phase line's
+    fields, the port kernels' records by function, the wrappers' counts)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import kernels
@@ -4692,30 +4741,29 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     ports = set(kernels.function_counts(dict.fromkeys(counts, 1)))
     profiled = {f: n for f, n in _function_records(records).items() if f in ports}
     counted = kernels.function_counts(counts)
-    emit(phase, slots=horizon,
-         device_busy_ms=busy if rows else "not measured",
-         device_busy_ms_per_slot=busy / horizon if rows else "not measured",
-         device_ms_per_slot_by_kind=by_kind,
-         kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
-         host_launches_per_slot=sum(host) / horizon,
-         host_launches_by_slot=host,
-         host_launches_per_admitting_slot=(
-             sum(by_admission["admitting"]) / len(by_admission["admitting"])
-             if by_admission["admitting"] else None),
-         host_launches_per_other_slot=(
-             sum(by_admission["not_admitting"]) / len(by_admission["not_admitting"])
-             if by_admission["not_admitting"] else None),
-         admitting_slots=sum(admits), graph_replays=len(pairs),
-         graph_replay_event_ms_per_slot=replay_ms / horizon,
-         kernel_records=profiled, kernel_records_missing={
-             f: counted.get(f, 0) - profiled.get(f, 0) for f in {*profiled, *counted}
-             if counted.get(f, 0) != profiled.get(f, 0)},
-         unprofiled_serve_ms=serve_s * 1e3,
-         idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
-         top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
-    if profiled != counted:
-        raise AssertionError(f"{phase}: the profile holds {profiled} port kernels, the "
-                             f"wrappers counted {counted}")
+    fields = dict(
+        slots=horizon,
+        device_busy_ms=busy if rows else "not measured",
+        device_busy_ms_per_slot=busy / horizon if rows else "not measured",
+        device_ms_per_slot_by_kind=by_kind,
+        kernel_launches_per_slot=sum(r["count"] for r in rows) / horizon,
+        host_launches_per_slot=sum(host) / horizon,
+        host_launches_by_slot=host,
+        host_launches_per_admitting_slot=(
+            sum(by_admission["admitting"]) / len(by_admission["admitting"])
+            if by_admission["admitting"] else None),
+        host_launches_per_other_slot=(
+            sum(by_admission["not_admitting"]) / len(by_admission["not_admitting"])
+            if by_admission["not_admitting"] else None),
+        admitting_slots=sum(admits), graph_replays=len(pairs),
+        graph_replay_event_ms_per_slot=replay_ms / horizon,
+        kernel_records=profiled, kernel_records_missing={
+            f: counted.get(f, 0) - profiled.get(f, 0) for f in {*profiled, *counted}
+            if counted.get(f, 0) != profiled.get(f, 0)},
+        unprofiled_serve_ms=serve_s * 1e3,
+        idle_share=(1 - busy / (serve_s * 1e3)) if rows else "not measured",
+        top=rows[:14], attention=[r for r in rows if "attention" in r["name"]])
+    return fields, profiled, counted
 
 
 # the paths whose dispatches are one CUDA graph replay each, served eager and
@@ -5152,9 +5200,10 @@ def decode_instantiations(ptxas: list) -> list:
     """Each instantiation of K2 (csrc/decode_attention.cu), K3
     (csrc/paged_attention.cu), K2q (csrc/decode_attention_quant.cu) and K3q
     (csrc/paged_attention_quant.cu), all csrc/decode_core.cuh, from
-    ``-Xptxas -v``: kernel, dtype, code type, hd, the dynamic shared memory
-    of one CTA at G 4 (128 threads), registers, spill bytes and the CTAs an
-    SM holds at once (``resident_ctas``)."""
+    ``-Xptxas -v``: kernel, dtype, code type, hd, its route
+    (``decode_attention.route``), the dynamic shared memory of one CTA at G
+    4, registers, spill bytes and the CTAs an SM holds at once
+    (``resident_ctas``; a CTA of ``decode_attention.cta_threads`` at G 4)."""
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import paged_attention as kp
     from repro_torch.kernels import paged_attention_quant as kpq
@@ -5171,12 +5220,14 @@ def decode_instantiations(ptxas: list) -> list:
         kernel = ("K3" if m.group(1) else "K2") + ("q" if quant else "")
         row = {"kernel": kernel + ("-cast" if m.group(6) == "0" else ""),
                "dtype": str(dtype).removeprefix("torch."), "hd": hd,
+               "route": kd.route(dtype, hd)["name"],
                "smem_bytes_G4": smem[kernel, quant](hd, 4, dtype),
                "registers": f.get("registers"), "spill_stores": f.get("spill_stores"),
                "spill_loads": f.get("spill_loads")}
         if quant:   # int8 or fp8 codes, or (-cast) the unscaled route's storage type
             row["codes"] = _CXX_TYPE[m.group(4)]
-        row["resident_ctas_per_sm_G4"] = resident_ctas(128, row["registers"],
+        threads = kd.cta_threads(hd, 4, dtype)
+        row["resident_ctas_per_sm_G4"] = resident_ctas(threads, row["registers"],
                                                        row["smem_bytes_G4"])
         out.append(row)
     return sorted(out, key=lambda r: (r["kernel"], r["dtype"], r.get("codes", ""), r["hd"]))
@@ -5219,8 +5270,11 @@ def main() -> int:
                                  kf.smem_bytes(256, torch.float32),
                              "decode_attention_hd64_G4_bf16": kd.smem_bytes(64, 4),
                              "decode_attention_hd256_G10_bf16": kd.smem_bytes(256, 10),
-                             "decode_attention_hd256_G10_f32_refused":
+                             "decode_attention_hd256_G8_bf16": kd.smem_bytes(256, 8),
+                             "decode_attention_hd256_G10_f32":
                                  kd.smem_bytes(256, 10, torch.float32),
+                             "decode_attention_hd256_G32_f32":
+                                 kd.smem_bytes(256, 32, torch.float32),
                              "decode_attention_quant_hd64_G4_bf16": kd.quant_smem_bytes(64, 4),
                              "decode_attention_quant_hd256_G10_bf16":
                                  kd.quant_smem_bytes(256, 10),
@@ -5347,6 +5401,8 @@ def main() -> int:
                   dense_quant["launches"]["flash_attention_quant_ragged"],
               "decode_attention_quant": dense_quant["launches"]["decode_attention_quant"],
               "rglru_scan": hybrid_path["launches"]["rglru_scan"],
+              # K2 at hd 256 (split16): the hybrid serve's decode
+              "decode_attention_hd256": hybrid_path["launches"]["decode_attention"],
               # K2q at hd 256: the hybrid int8 serve's decode
               "decode_attention_quant_hd256":
                   hybrid_quant["launches"]["decode_attention_quant"],
@@ -5366,6 +5422,9 @@ def main() -> int:
                                           "src/repro/kernels/flash_attention.py:57"),
            "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:32"),
+           # K2 at recurrentgemma-2b's hd 256 (a group of 10): the split16 route
+           "decode_attention_hd256": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                      "src/repro/kernels/decode_attention.py:32"),
            "paged_decode_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                       "src/repro/kernels/paged_attention.py:38"),
            "paged_decode_attention_quant": (
@@ -5397,7 +5456,7 @@ def main() -> int:
            # jax.lax.associative_scan in XLA
            "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                           "src/repro/models/rglru.py:98"),
-           # K2q at recurrentgemma-2b's hd 256 (a group of 10)
+           # K2q at recurrentgemma-2b's hd 256 (a group of 10): the split16 route
            "decode_attention_quant_hd256": (
                "src/repro_torch/kernels/csrc/decode_attention_quant.cu",
                "src/repro/models/attention.py:584"),

@@ -8,29 +8,31 @@
 // ring (pos >= L) and empty slots (-1) need nothing special.
 //
 // The kernel is decode_core.cuh's flash-decoding core over a ring source: a
-// cluster of SPLIT CTAs per (KV head, batch row), tile t of 64 ring slots on
-// rank t % SPLIT, every K/V row read once for all G query heads that use it
-// (bf16 products on the tensor cores, f32 on the CUDA cores), the partials
-// combined through distributed shared memory in the same launch. A slot's
-// row is the slot itself; a tile whose 64 slot_pos entries hold no valid
-// slot is skipped before any K/V load, and invalid slots of a valid tile
-// are not read. A row with no valid slot gets the mean of its ring's V, as
-// from the TPU kernel and the plain version (a uniform softmax over masked
-// scores).
+// cluster of SPLIT CTAs per (KV head, batch row), tile t of BL ring slots
+// on rank t % SPLIT (the route's geometry: split8, 64-slot tiles on 8 CTAs
+// at hd <= 128; split16, 32-slot tiles on 16 at hd 256), every K/V row read
+// once for all G query heads that use it (bf16 products on the tensor
+// cores, f32 on the CUDA cores), the partials combined through distributed
+// shared memory in the same launch. A slot's row is the slot itself; a
+// tile whose slot_pos entries hold no valid slot is skipped before any K/V
+// load, and invalid slots of a valid tile are not read. A row with no
+// valid slot gets the mean of its ring's V, as from the TPU kernel and the
+// plain version (a uniform softmax over masked scores).
 //
 // What bounds it: bytes. A step reads the valid slots' K/V once (B 8, L
 // 1024, KVH 8, hd 64 in bf16: 16.8 MB when every slot is valid, ~5 us at
 // 3.35 TB/s) for a few MFLOP; decode_core.cuh says what the design does
-// about that. Head dims 32, 64, 128, and 256 in bf16 (recurrentgemma-2b).
+// about that. Head dims 32, 64, 128 and 256 (recurrentgemma-2b,
+// paligemma-3b), in bf16 and f32.
 #include "decode_core.cuh"
 
 namespace {
 
 namespace dc = repro::decode;
 
+// Launched in clusters of Geometry<T, HD>::SPLIT CTAs (dc::launch_clusters).
 template <typename T, int HD>
-__global__ void __cluster_dims__(1, 1, dc::SPLIT)
-__launch_bounds__(dc::Route<T>::MAX_THREADS)
+__global__ void __maxnreg__(dc::Route<T>::max_regs(HD))
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const int* __restrict__ slot_pos,
                         const int* __restrict__ pos, T* __restrict__ out, int H, int KVH,
@@ -50,17 +52,11 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* slot_pos,
                    const int* pos, void* out, int B, int H, int KVH, int L, int window,
                    float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  auto kern = decode_attention_kernel<T, HD>;
-  const size_t smem = dc::Smem<T, HD>::bytes(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B, dc::SPLIT);
-  kern<<<grid, dc::Route<T>::threads(G), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      slot_pos, pos, static_cast<T*>(out), H, KVH, L, window, scale);
-  return cudaGetLastError();
+  static int clusters[33];  // per group size: max_clusters + 1, 0 until asked
+  return dc::launch_clusters<T, HD>(decode_attention_kernel<T, HD>, clusters, KVH, B, H / KVH,
+                                    stream, static_cast<const T*>(q), static_cast<const T*>(k),
+                                    static_cast<const T*>(v), slot_pos, pos, static_cast<T*>(out),
+                                    H, KVH, L, window, scale);
 }
 
 template <typename T>
@@ -71,12 +67,21 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
-    case 256:  // bf16 only: the f32 route's shared memory would exceed a CTA's (decode_core.cuh)
-      if constexpr (dc::Route<T>::MMA)
-        return launch<T, 256>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
-      return cudaErrorInvalidValue;
+    case 256: return launch<T, 256>(q, k, v, slot_pos, pos, out, B, H, KVH, L, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T> int clusters_hd(int hd, int G) {
+  int n = -1;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (hd) {
+    case 32: err = dc::max_clusters<T, 32>(decode_attention_kernel<T, 32>, G, &n); break;
+    case 64: err = dc::max_clusters<T, 64>(decode_attention_kernel<T, 64>, G, &n); break;
+    case 128: err = dc::max_clusters<T, 128>(decode_attention_kernel<T, 128>, G, &n); break;
+    case 256: err = dc::max_clusters<T, 256>(decode_attention_kernel<T, 256>, G, &n); break;
+  }
+  return err == cudaSuccess ? n : -1;
 }
 
 }  // namespace
@@ -97,8 +102,28 @@ extern "C" cudaError_t decode_attention_fwd(const void* q, const void* k, const 
 }
 
 // Dynamic shared memory one CTA takes for head dim hd, group size G and
-// dtype (is_bf16 as above); 0 if hd is unsupported. For float32 at hd 256
-// it is the amount the kernel would need, which no CTA may have.
+// dtype (is_bf16 as above); 0 if hd is unsupported.
 extern "C" int decode_attention_smem_bytes(int hd, int G, int is_bf16) {
   return (int)(is_bf16 ? dc::smem_bytes<__nv_bfloat16>(hd, G) : dc::smem_bytes<float>(hd, G));
+}
+
+// Threads a CTA takes at head dim hd, group size G and dtype (is_bf16 as
+// above; K2q, K3 and K3q take K2's); 0 if hd is unsupported.
+extern "C" int decode_attention_threads(int hd, int G, int is_bf16) {
+  return is_bf16 ? dc::cta_threads<__nv_bfloat16>(hd, G) : dc::cta_threads<float>(hd, G);
+}
+
+// The route's geometry at head dim hd and dtype (decode_core.cuh's table):
+// slots a tile, CTAs a cluster and stages into out[0..2]; -1 if no route
+// takes hd (K2, K2q and K3 share it).
+extern "C" int decode_attention_geometry(int hd, int is_bf16, int* out) {
+  return (is_bf16 ? dc::geometry<__nv_bfloat16>(hd, out) : dc::geometry<float>(hd, out)) ? 0
+                                                                                         : -1;
+}
+
+// How many clusters of K2's kernel at head dim hd, group size G and dtype
+// the card holds at once (cudaOccupancyMaxActiveClusters); -1 on an error.
+extern "C" int decode_attention_max_clusters(int hd, int G, int is_bf16) {
+  if (G < 1 || G > 32) return -1;
+  return is_bf16 ? clusters_hd<__nv_bfloat16>(hd, G) : clusters_hd<float>(hd, G);
 }

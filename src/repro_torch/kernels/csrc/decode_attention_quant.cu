@@ -13,12 +13,12 @@
 //
 // The kernel is K2 (decode_attention.cu) over codes: decode_core.cuh's
 // flash-decoding core with a ring source whose every valid slot is a code
-// row. A cluster of SPLIT CTAs per (KV head, batch row), tile t of 64 ring
-// slots on rank t % SPLIT, tiles with no valid slot skipped before any
-// load; a valid slot's codes (hd bytes) and scale are copied by cp.async
-// and dequantized in shared memory exactly as `dequantize_kv` does
-// ((float(code) * scale) rounded to q's dtype), by the thread that copied
-// them, then the tile runs K2's arithmetic (bf16 products on the tensor
+// row. A cluster of SPLIT CTAs per (KV head, batch row), tile t of BL ring
+// slots on rank t % SPLIT (K2's geometry at the same dtype and hd: split8
+// or split16), tiles with no valid slot skipped before any load; a valid
+// slot's codes (hd bytes) and scale are copied by cp.async and dequantized
+// in shared memory exactly as `dequantize_kv` does ((float(code) * scale)
+// rounded to q's dtype), by the thread that copied them, then the tile runs K2's arithmetic (bf16 products on the tensor
 // cores, f32 on the CUDA cores) and the partials are combined through
 // distributed shared memory in the same launch. So K2q over codes equals
 // K2 over the dequantized ring bit for bit, and, as K3q (paged_attention_
@@ -35,8 +35,8 @@
 // (decode_core.cuh), as the reference's `ck.astype(q.dtype)` does; the
 // arithmetic after that is K2's.
 //
-// Head dims 32, 64 and 128, and 256 in bf16 (recurrentgemma-2b's ring,
-// quantized or cast: q's fragments from shared memory, as K2 at hd 256).
+// Head dims 32, 64, 128 and 256 (recurrentgemma-2b's ring, quantized or
+// cast: split16, as K2 at hd 256), in bf16 and f32.
 //
 // What bounds it: bytes. A step reads each valid slot's codes once (1 byte
 // per element instead of 2 in bf16) plus 4 bytes of scale per row and KV
@@ -49,10 +49,10 @@ namespace {
 
 namespace dc = repro::decode;
 
-// SCALED false: the unscaled route (k_scale, v_scale unread).
+// SCALED false: the unscaled route (k_scale, v_scale unread). Launched in
+// clusters of Geometry<T, HD>::SPLIT CTAs (dc::launch_clusters).
 template <typename T, typename C, int HD, bool SCALED>
-__global__ void __cluster_dims__(1, 1, dc::SPLIT)
-__maxnreg__(dc::Route<T>::code_regs(HD))
+__global__ void __maxnreg__(dc::Route<T>::max_regs(HD))
 decode_attention_quant_kernel(const T* __restrict__ q, const C* __restrict__ k,
                               const C* __restrict__ v, const float* __restrict__ k_scale,
                               const float* __restrict__ v_scale,
@@ -78,17 +78,12 @@ template <typename T, typename C, int HD, bool SCALED>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* ks,
                    const float* vs, const int* slot_pos, const int* pos, void* out, int B,
                    int H, int KVH, int L, int window, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  auto kern = decode_attention_quant_kernel<T, C, HD, SCALED>;
-  const size_t smem = dc::Smem<T, HD>::bytes(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B, dc::SPLIT);
-  kern<<<grid, dc::Route<T>::threads(G), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v), ks, vs,
-      slot_pos, pos, static_cast<T*>(out), H, KVH, L, window, scale);
-  return cudaGetLastError();
+  static int clusters[33];  // per group size: max_clusters + 1, 0 until asked
+  return dc::launch_clusters<T, HD>(decode_attention_quant_kernel<T, C, HD, SCALED>, clusters,
+                                    KVH, B, H / KVH, stream, static_cast<const T*>(q),
+                                    static_cast<const C*>(k), static_cast<const C*>(v), ks, vs,
+                                    slot_pos, pos, static_cast<T*>(out), H, KVH, L, window,
+                                    scale);
 }
 
 template <typename T, typename C, bool SCALED>
@@ -101,9 +96,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
     case 32: return REPRO_LAUNCH(32);
     case 64: return REPRO_LAUNCH(64);
     case 128: return REPRO_LAUNCH(128);
-    case 256:  // bf16 only: the f32 route's shared memory would exceed a CTA's (decode_core.cuh)
-      if constexpr (dc::Route<T>::MMA) return REPRO_LAUNCH(256);
-      return cudaErrorInvalidValue;
+    case 256: return REPRO_LAUNCH(256);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_LAUNCH

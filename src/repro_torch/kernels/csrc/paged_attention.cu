@@ -12,9 +12,11 @@
 //
 // The kernel is decode_core.cuh's flash-decoding core over a paged source,
 // the same core as K2 (decode_attention.cu): a cluster of SPLIT CTAs per
-// (KV head, batch row), logical tile t of 64 slots on rank t % SPLIT, the
-// partials combined through distributed shared memory in the same launch. A tile's slots resolve to pool rows through the block table, read
-// on the device (64 / ps table entries per tile; any ps >= 1 works), and
+// (KV head, batch row), logical tile t of 64 slots on rank t % SPLIT (K2's
+// geometry at the same dtype and hd), the partials combined through
+// distributed shared memory in the same launch. A tile's slots resolve to
+// pool rows through the block table, read on the device (64 / ps table
+// entries per tile; any ps >= 1 works), and
 // only valid rows are copied. This gather is what the reference's model
 // path materializes as a (B, MP*ps, KVH, hd) copy (`_pool_read`); here it
 // never leaves the CTA. Because K2 and K3 share the core, the split, the
@@ -42,9 +44,10 @@ namespace {
 
 namespace dc = repro::decode;
 
+// Launched in clusters of Geometry<T, HD>::SPLIT CTAs (dc::launch_clusters),
+// as K2 at the same hd: paged equals dense.
 template <typename T, int HD>
-__global__ void __cluster_dims__(1, 1, dc::SPLIT)
-__launch_bounds__(dc::Route<T>::MAX_THREADS)
+__global__ void __maxnreg__(dc::Route<T>::max_regs(HD))
 paged_decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                               const T* __restrict__ v_pages,
                               const int* __restrict__ block_tables,
@@ -64,17 +67,12 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* block_tables,
                    const int* pos, void* out, int B, int H, int KVH, int N, int ps, int MP,
                    float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  auto kern = paged_decode_attention_kernel<T, HD>;
-  const size_t smem = dc::Smem<T, HD>::bytes(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B, dc::SPLIT);
-  kern<<<grid, dc::Route<T>::threads(G), smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      block_tables, pos, static_cast<T*>(out), H, KVH, N, ps, MP, scale);
-  return cudaGetLastError();
+  static int clusters[33];  // per group size: max_clusters + 1, 0 until asked
+  return dc::launch_clusters<T, HD>(paged_decode_attention_kernel<T, HD>, clusters, KVH, B,
+                                    H / KVH, stream, static_cast<const T*>(q),
+                                    static_cast<const T*>(k), static_cast<const T*>(v),
+                                    block_tables, pos, static_cast<T*>(out), H, KVH, N, ps, MP,
+                                    scale);
 }
 
 template <typename T>

@@ -56,9 +56,10 @@ namespace {
 namespace dc = repro::decode;
 
 // SCALED false: the unscaled route (k_scale, v_scale unread).
+// Launched in clusters of Geometry<T, HD>::SPLIT CTAs (dc::launch_clusters),
+// as K2 at the same hd: paged equals dense.
 template <typename T, typename C, int HD, bool SCALED>
-__global__ void __cluster_dims__(1, 1, dc::SPLIT)
-__maxnreg__(dc::Route<T>::code_regs(HD))
+__global__ void __maxnreg__(dc::Route<T>::max_regs(HD))
 paged_decode_attention_quant_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
     const C* __restrict__ qk_pages, const C* __restrict__ qv_pages,
@@ -86,18 +87,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* qk,
                    const void* qv, const float* ks, const float* vs, const int* block_tables,
                    const int* pos, void* out, int B, int H, int KVH, int Nn, int Nq, int ps,
                    int MP, float scale, cudaStream_t stream) {
-  const int G = H / KVH;
-  auto kern = paged_decode_attention_quant_kernel<T, C, HD, SCALED>;
-  const size_t smem = dc::Smem<T, HD>::bytes(G);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(KVH, B, dc::SPLIT);
-  kern<<<grid, dc::Route<T>::threads(G), smem, stream>>>(
+  static int clusters[33];  // per group size: max_clusters + 1, 0 until asked
+  return dc::launch_clusters<T, HD>(
+      paged_decode_attention_quant_kernel<T, C, HD, SCALED>, clusters, KVH, B, H / KVH, stream,
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const C*>(qk), static_cast<const C*>(qv), ks, vs, block_tables, pos,
       static_cast<T*>(out), H, KVH, Nn, Nq, ps, MP, scale);
-  return cudaGetLastError();
 }
 
 template <typename T, typename C, bool SCALED>

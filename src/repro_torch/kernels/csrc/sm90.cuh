@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
 // run their products on the tensor cores: cp.async copies into shared
-// memory, mbarriers, a named barrier, setmaxnreg and TMA tensor loads (the
+// memory, mbarriers, a named barrier, the cluster barrier's halves (the
+// decode core's combine), setmaxnreg and TMA tensor loads (the
 // warp-specialized pipeline of K1's wide-head route), the async-proxy
 // fence, the shared-memory matrix descriptors and
 // swizzled tile layout that wgmma reads, and the bf16 and TF32 wgmma
@@ -103,6 +104,19 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // __syncthreads').
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// ------------------------------------------------------ cluster barrier
+// barrier.cluster in two halves: every thread of the cluster arrives, and
+// a thread's wait returns once all have arrived. The relaxed arrive orders
+// no memory; a pair of them tells a CTA that every CTA of its cluster has
+// started, which distributed shared memory asks before a CTA touches
+// another's. Not .aligned: a warp need not be converged at either half.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------ setmaxnreg

@@ -9,12 +9,14 @@ dequantizes the whole ring in XLA first. Decode attention is byte-bound
 on the H100: each step reads the ring's valid slots (B 8, L 1024, KVH 8,
 hd 64 in bf16: up to 16.8 MB, ~5 us at 3.35 TB/s; as int8 codes with their
 scales 7.4 MB) for a few MFLOP. Both are flash-decoding in one launch on
-one core (``csrc/decode_core.cuh``, shared with K3 and K3q): a cluster of 8
-CTAs per (KV head, batch row) splits the ring's 64-slot tiles between
-them, skips tiles with no valid slot before loading them, reads each K/V
-tile once for all G query heads of its KV head (K2q's codes dequantized in
+one core (``csrc/decode_core.cuh``, shared with K3 and K3q): a cluster of
+CTAs per (KV head, batch row) splits the ring's tiles between them
+(``route``: 8 CTAs over 64-slot tiles at hd <= 128; 16 over 32-slot tiles
+at hd 256, where one KV head at B 8 would otherwise fill 64 of 132 SMs),
+skips tiles with no valid slot before loading them, reads each K/V tile
+once for all G query heads of its KV head (K2q's codes dequantized in
 shared memory as ``dequantize_kv`` does; then bf16 products on the tensor
-cores by mma.sync, f32 on the CUDA cores), and combines the 8 partial
+cores by mma.sync, f32 on the CUDA cores), and combines the partial
 softmax states through distributed shared memory. So K2q over codes equals
 K2 over the dequantized ring bit for bit. A row with no valid slot gets
 the mean of its ring's V, as from the plain version (a uniform softmax
@@ -27,7 +29,8 @@ rounded to q's dtype as it lands in shared memory, as the reference's
 These wrappers take CUDA tensors only and raise on anything the kernel
 does not take; ``repro_torch.kernels.ops`` sends CPU tensors to the plain
 versions instead. K2 and K2q (both routes) take head dims 32, 64, 128
-and, in bf16, 256 (recurrentgemma-2b's MQA heads, a group of 10).
+and 256 (recurrentgemma-2b's and paligemma-3b's MQA heads, groups of 10
+and 8), in float32 and bfloat16.
 """
 from __future__ import annotations
 
@@ -43,10 +46,54 @@ launches = {"decode_attention": 0, "decode_attention_quant": 0, "decode_attentio
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CODES = (torch.int8, torch.float8_e4m3fn)
-_HEAD_DIMS = (32, 64, 128, 256)   # K2 and K2q; 256 in bf16 only
+_HEAD_DIMS = (32, 64, 128, 256)   # K2 and K2q, in both dtypes (``route``)
 # the unscaled route's storage dtypes, by the code the C entry points take
 STORE_CODES = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2, torch.float8_e4m3fn: 3}
-SMEM_LIMIT = 232448                # the dynamic shared memory an H100 CTA may have
+
+# the routes of csrc/decode_core.cuh's table, by head dim (both dtypes):
+# (name, slots a tile, CTAs a cluster, stages of the K/V ring)
+_ROUTES = {32: ("split8", 64, 8, 2), 64: ("split8", 64, 8, 2), 128: ("split8", 64, 8, 2),
+           256: ("split16", 32, 16, 2)}
+
+
+def route(dtype: torch.dtype, hd: int) -> dict:
+    """The route of K2 and K2q (and K3, K3q where they take ``hd``) for q of
+    ``dtype`` at head dim ``hd``: its name, slots a tile (``tile``), CTAs a
+    cluster (``split``: tile t goes to rank t % split), stages of the
+    cp.async ring, and K2's launch counter (K2q's and the unscaled route's
+    launches count under theirs on every route). Raises on what no route
+    takes."""
+    if dtype not in _DTYPES or hd not in _ROUTES:
+        raise ValueError(f"no decode_attention route takes {dtype} q at hd {hd}: need "
+                         f"float32 or bfloat16 and hd in {_HEAD_DIMS}")
+    name, tile, split, stages = _ROUTES[hd]
+    return {"name": name, "tile": tile, "split": split, "stages": stages,
+            "counter": "decode_attention"}
+
+
+def library_route(dtype: torch.dtype, hd: int) -> Optional[dict]:
+    """(tile, split, stages) of the built library at (``dtype``, ``hd``), as
+    ``route`` states them, or None where it takes no such hd."""
+    fn = build.library("decode_attention").decode_attention_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    if fn(hd, int(dtype == torch.bfloat16), out) != 0:
+        return None
+    return {"tile": out[0], "split": out[1], "stages": out[2]}
+
+
+def max_clusters(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """How many clusters of K2's kernel at (``hd``, group ``G``, ``dtype``)
+    the card holds at once (cudaOccupancyMaxActiveClusters): a launch of
+    B * KVH clusters up to that runs in one wave."""
+    fn = build.library("decode_attention").decode_attention_max_clusters
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    n = int(fn(hd, G, int(dtype == torch.bfloat16)))
+    if n < 0:
+        raise RuntimeError(f"decode_attention_max_clusters failed at hd {hd}, G {G}, {dtype}")
+    return n
 
 
 def _fn():
@@ -84,6 +131,13 @@ def smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
     return int(lib.decode_attention_smem_bytes(hd, G, int(dtype == torch.bfloat16)))
 
 
+def cta_threads(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Threads of one CTA of K2 (K2q, K3 and K3q take the same) at head dim
+    ``hd``, group size ``G`` and ``dtype``; 0 where no route takes ``hd``."""
+    lib = build.library("decode_attention")
+    return int(lib.decode_attention_threads(hd, G, int(dtype == torch.bfloat16)))
+
+
 def quant_smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """``smem_bytes`` of the quantized kernel (K2q), whose codes land in
     the rows of ``dtype``'s tiles: K2's shared memory."""
@@ -92,8 +146,7 @@ def quant_smem_bytes(hd: int, G: int, dtype: torch.dtype = torch.bfloat16) -> in
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Tensor,
-           pos: torch.Tensor, window: Optional[int], kv_dtypes,
-           head_dims=_HEAD_DIMS) -> None:
+           pos: torch.Tensor, window: Optional[int], kv_dtypes) -> None:
     """Raise on anything the kernels do not take."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got {q.device}")
@@ -105,16 +158,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, slot_pos: torch.Te
                          f"v {tuple(v.shape)}")
     B, H, hd = q.shape
     _, L, KVH, hd_k = k.shape
-    if (k.shape[0] != B or hd_k != hd or hd not in head_dims or H % KVH
-            or H // KVH > 32):
+    if k.shape[0] != B or hd_k != hd or H % KVH or H // KVH > 32:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)}: need "
-                         f"equal B, hd in {head_dims}, H % KVH == 0, H/KVH <= 32")
-    if hd == 256 and q.dtype == torch.float32:
-        need = smem_bytes(256, H // KVH, torch.float32)
-        raise ValueError(f"decode_attention in float32 at hd 256 needs {need} bytes of "
-                         f"shared memory a CTA (two stages of 64 K and V rows of 1,040 "
-                         f"bytes), above the {SMEM_LIMIT} an H100 CTA may have: it runs "
-                         "in bfloat16 only")
+                         f"equal B, equal hd, H % KVH == 0, H/KVH <= 32")
+    route(q.dtype, hd)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if slot_pos.dtype != torch.int32 or slot_pos.shape != (B, L):

@@ -87,6 +87,9 @@ DECODE = [  # (B, L, H, KVH, hd, window)
     (2, 32, 4, 1, 64, None),
     (2, 32, 8, 2, 32, 20),
     (3, 32, 10, 1, 256, 20),  # recurrentgemma-2b's heads: a group of 10 at hd 256
+    # paligemma-3b's heads (8 on 1 at hd 256) under a window, on a ring whose
+    # L is no multiple of split16's 32 x 16 slots
+    (2, 520, 8, 1, 256, 300),
 ]
 
 
@@ -168,3 +171,38 @@ def test_flash_counters_follow_the_route():
                 assert name in k_flash.launches
                 assert kernels.kernel_function(name) == (
                     "flash_attention_wide_kernel" if wide else "flash_attention_kernel")
+
+
+def _header_decode_routes() -> dict:
+    """The route table of csrc/decode_core.cuh's header: q dtype -> {hd:
+    (route, tile, split, stages)}."""
+    text = (Path(k_decode.__file__).parent / "csrc" / "decode_core.cuh").read_text()
+    table = text[text.index("// Routes"):].split("\n//\n", 1)[0]
+    out: dict = {}
+    for line in table.splitlines()[2:]:
+        m = re.match(r"//\s+(split\d+)\s+(bf16|f32)\s+(\d+(?:, \d+)*)\s+(\d+)\s+(\d+)\s+(\d+)\s",
+                     line)
+        assert m, line
+        key = torch.bfloat16 if m.group(2) == "bf16" else torch.float32
+        for hd in m.group(3).split(","):
+            assert int(hd) not in out.setdefault(key, {}), line
+            out[key][int(hd)] = (m.group(1), *(int(m.group(i)) for i in (4, 5, 6)))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_route_is_the_headers_table(dtype):
+    """``decode_attention.route`` (the geometry the wrappers check, the card
+    tests build their edges on and chip_smoke.py names its rows by) states
+    the table of csrc/decode_core.cuh's header, counts under K2's counter,
+    and refuses every hd the table leaves out."""
+    table = _header_decode_routes()[dtype]
+    for hd in (16, 32, 64, 96, 128, 256, 512):
+        if hd in table:
+            rt = k_decode.route(dtype, hd)
+            assert (rt["name"], rt["tile"], rt["split"], rt["stages"]) == table[hd], hd
+            assert rt["counter"] == "decode_attention" and rt["counter"] in k_decode.launches
+        else:
+            with pytest.raises(ValueError, match="no decode_attention route"):
+                k_decode.route(dtype, hd)
+    assert set(table) == {32, 64, 128, 256}
