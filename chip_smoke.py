@@ -286,6 +286,31 @@ HYBRID_FP8_SYNC_ARGS = HYBRID_SYNC_ARGS + ["--kv-precision", "fp8"]
 # hybrid_quant_model: hybrid_model's geometry with the ring int8, fewer steps
 HYBRID_QUANT_STEPS = 16
 
+# paligemma-3b (arXiv:2407.07726) at its published widths: 18 layers, d 2048,
+# 8 query heads on one KV head (hd 256), d_ff 16,384 (GeLU), vocabulary
+# 257,216, bf16, tied embeddings, seeded random weights, on the main path's
+# geometry, text-only as the reference's engine serves it: a VLM stack is not
+# ragged, so every admission prefills the whole padded 512-token bucket
+# through K1's wide route (head pairs of the group of 8), unwindowed (the
+# reference's serve-time shape_window is None); decode through K2's split16
+# route, or K2q over the int8 ring.
+VLM_ARGS = SERVE_ARGS + ["--arch", "paligemma-3b"]
+VLM_SYNC_ARGS = VLM_ARGS + ["--sync-free"]
+VLM_QUANT_ARGS = VLM_ARGS + ["--kv-precision", "int8"]
+# vlm_model: 8 rows of 256 image patches (the stand-in frontend's) and a
+# 512-token prompt, the patches a bidirectional prefix (K1's prefix-LM mask
+# over 768 positions), in a cache of 1,024, then 8 greedy decode steps
+VLM_MODEL_B, VLM_MODEL_S, VLM_MODEL_L, VLM_MODEL_STEPS = 8, 512, 1024, 8
+# seamless-m4t-large-v2 (arXiv:2308.11596) at its published widths: 12
+# encoder and 12 decoder layers, d 1024, 16 heads on 16 (hd 64), d_ff 8,192,
+# vocabulary 256,206, 1,024 audio frames (the stand-in frontend's), bf16,
+# seeded random weights, at model level (the reference's engine cannot
+# serve it, ROADMAP R12): 8 rows of 1,024 frames and a 128-token prompt in a
+# cache of 256, then 8 greedy decode steps; a second case over 1,000 frames
+# (Sk not a multiple of 64)
+ENCDEC_MODEL_B, ENCDEC_MODEL_S, ENCDEC_MODEL_L, ENCDEC_MODEL_STEPS = 8, 128, 256, 8
+ENCDEC_ODD_FRAMES = 1000
+
 # the legacy unscaled storage casts: float8_e4m3fn through ``cache_dtype``,
 # the reference benchmarks' knob (benchmarks/hillclimb.py, C1_f8_cache; as a
 # kv_precision string it names the scaled fp8 codes), on the dense main path
@@ -367,6 +392,22 @@ def _prefill_work(B, S, H, KVH, hd, esize, lens, window):
     rows = sum(lens)
     nbytes = esize * (rows * (H + 2 * KVH) * hd + B * S * H * hd)
     return nbytes, 4.0 * hd * H * pairs
+
+
+def _attention_work(B, Sq, Sk, H, KVH, hd, esize, causal=True, window=None, prefix=0):
+    """Bytes and FLOPs a dense prefill attention needs under K1's mask
+    (causal or not, a window, a prefix-LM prefix): q, k, v read once, the
+    output written once, 4*hd FLOPs per (query head, visible pair)."""
+    q, k = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    vis = np.ones((Sq, Sk), bool)
+    if causal:
+        vis &= k <= q
+    if window is not None:
+        vis &= k > q - window
+    if prefix:
+        vis |= k < prefix
+    nbytes = esize * (2 * B * Sq * H * hd + 2 * B * Sk * KVH * hd)
+    return nbytes, 4.0 * hd * H * B * int(vis.sum())
 
 
 def _decode_work(B, L, H, KVH, hd, esize, sp, pos, window):
@@ -716,6 +757,7 @@ def check_kernels(timer) -> dict:
                               if p0_np[b] >= 0 and last <= L else L))
     check_moe_shapes(randn, record, sdpa_prefill)
     check_hybrid_shapes(randn, record, sdpa_prefill)
+    check_zoo_shapes(randn, record)
     check_free_rows(rng, randn, record)
     check_flash_anatomy(timer)
     check_quant_kernel(rng, record)
@@ -812,8 +854,9 @@ def _scan_work(B, S, R, init):
 def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
     """K1, K2 and K7 at recurrentgemma-2b's shapes (10 query heads on one
     KV head, hd 256, R 2560), each with its device time, bound and library
-    time: K1 over an admission's padded bucket (8 rows of 512, causal) and
-    windowed over two prompts of 2,560 (window 2048: the window cuts); K2
+    time: K1 over an admission's padded bucket (8 rows of 512, causal), the
+    same at paligemma-3b's served admission (8 query heads on one KV head),
+    and windowed over two prompts of 2,560 (window 2048: the window cuts); K2
     (route split16) in bf16 and float32, at recurrentgemma-2b's group of 10
     under window 2048 and paligemma-3b's decode heads (8 on one KV head,
     window 4096), over the serve's ring of 1024 at the positions of a
@@ -828,18 +871,21 @@ def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
 
     rng = np.random.default_rng(29)
     dtype, H, KVH, hd, W = torch.bfloat16, 10, 1, 256, 2048
-    for B, S, win in ((8, 512, None), (2, 2560, W)):
-        q = randn((B, S, H, hd), dtype)
+    for B, S, Hq, win, model in ((8, 512, H, None, "recurrentgemma-2b"),
+                                 (8, 512, 8, None, "paligemma-3b"),
+                                 (2, 2560, H, W, "recurrentgemma-2b")):
+        q = randn((B, S, Hq, hd), dtype)
         k, v = randn((B, S, KVH, hd), dtype), randn((B, S, KVH, hd), dtype)
         fn = lambda q=q, k=k, v=v, win=win: kf.flash_attention(q, k, v, window=win)
         plain = lambda q=q, k=k, v=v, win=win: ref.attention_ref(q, k, v, window=win)
-        record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} bf16 recurrentgemma-2b"
+        main = Hq == H and win is None
+        record(f"flash_attention B{B} S{S} H{Hq}/{KVH} hd{hd} bf16 {model}"
                + (f" window{win}" if win else " admission"),
                "flash_attention_wide", dtype, fn(), plain(),
                ref.attention_ref(q, k, v.abs(), window=win), fn, plain,
                sdpa_prefill(q, k, v, None, win, win is None),
-               _prefill_work(B, S, H, KVH, hd, q.element_size(), None, win), win is None,
-               device=True, row_key="flash_attention_wide_hd256",
+               _prefill_work(B, S, Hq, KVH, hd, q.element_size(), None, win), main,
+               device=True, row_key="flash_attention_wide_hd256" if main else None,
                instantiation=flash_route(dtype, hd))
         del q, k, v
 
@@ -888,6 +934,95 @@ def check_hybrid_shapes(randn, record, sdpa_prefill) -> None:
                plain(), env, fn, plain, None, _scan_work(B, S, R, h0 is not None),
                h0 is None, library="none: no single PyTorch call computes the scan",
                device=True, bit_equal_to_plain=bool(torch.equal(got, plain())))
+
+
+def check_zoo_shapes(randn, record) -> None:
+    """K1 and K2 at the shapes of the VLM and encoder-decoder stacks, each
+    beside its plain version, its device time, its bound and SDPA under the
+    same boolean mask (a yardstick the port never calls): K1 with the
+    prefix-LM mask at paligemma-3b's prefill with patches (8 rows of 256
+    patches and 512 tokens, 8 heads on one KV head, hd 256: the wide
+    route, the main row of ``flash_attention_wide_prefix``), at hd 64 (the
+    wgmma kernel) and in float32 at hd 256 (the CUDA cores), and with a
+    window besides; K1 without the causal mask at seamless-m4t's encoder
+    (8 x 1,024 frames, 16 heads on 16, hd 64: ``flash_attention_noncausal``)
+    and cross prefill (128 tokens over the 1,024 frames:
+    ``flash_attention_cross``; over 1,000 frames, an Sk that ends inside a
+    tile), and in float32; K2 over its cross-attention cache (every slot of
+    1,024 valid, pos 1,023: ``decode_attention_cross``)."""
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ref
+
+    def sdpa(q, k, v, mask):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      enable_gqa=True)
+
+    P = 256
+    for B, S, H, KVH, hd, dt, win, key in (
+            (8, 768, 8, 1, 256, torch.bfloat16, None, "flash_attention_wide_prefix"),
+            (8, 768, 8, 1, 64, torch.bfloat16, None, None),
+            (2, 768, 8, 1, 256, torch.float32, None, None),
+            (2, 768, 8, 1, 256, torch.bfloat16, 300, None)):
+        q = randn((B, S, H, hd), dt)
+        k, v = randn((B, S, KVH, hd), dt), randn((B, S, KVH, hd), dt)
+        qp, kp = torch.arange(S, device="cuda")[:, None], torch.arange(S, device="cuda")[None]
+        mask = (kp <= qp) & (kp > qp - (win or S)) | (kp < P)
+        fn = lambda q=q, k=k, v=v, win=win: kf.flash_attention(q, k, v, window=win, prefix_len=P)
+        plain = lambda q=q, k=k, v=v, win=win: ref.attention_ref(q, k, v, window=win,
+                                                                 prefix_len=P)
+        record(f"flash_attention B{B} S{S} H{H}/{KVH} hd{hd} {str(dt)[6:]} prefix{P}"
+               + (f" window{win}" if win else "") + (" paligemma-3b patches and prompt"
+                                                      if key else ""),
+               kf.counter(dt, hd), dt, fn(), plain(),
+               ref.attention_ref(q, k, v.abs(), window=win, prefix_len=P), fn, plain,
+               sdpa(q, k, v, mask), _attention_work(B, S, S, H, KVH, hd, q.element_size(),
+                                                    window=win, prefix=P),
+               key is not None, device=dt == torch.bfloat16, row_key=key,
+               library="scaled_dot_product_attention, the prefix-LM mask as a boolean mask",
+               instantiation=flash_route(dt, hd))
+        del q, k, v
+
+    H, hd = 16, 64
+    for B, Sq, Sk, dt, key in ((8, 1024, 1024, torch.bfloat16, "flash_attention_noncausal"),
+                               (8, 128, 1024, torch.bfloat16, "flash_attention_cross"),
+                               (8, 128, ENCDEC_ODD_FRAMES, torch.bfloat16, None),
+                               (2, 1024, 1024, torch.float32, None)):
+        q = randn((B, Sq, H, hd), dt)
+        k, v = randn((B, Sk, H, hd), dt), randn((B, Sk, H, hd), dt)
+        fn = lambda q=q, k=k, v=v: kf.flash_attention(q, k, v, causal=False)
+        plain = lambda q=q, k=k, v=v: ref.attention_ref(q, k, v, causal=False)
+        what = "encoder" if Sq == Sk else "cross prefill"
+        record(f"flash_attention B{B} Sq{Sq} Sk{Sk} H{H}/{H} hd{hd} {str(dt)[6:]} non-causal "
+               f"seamless-m4t {what}", kf.counter(dt, hd), dt, fn(), plain(),
+               ref.attention_ref(q, k, v.abs(), causal=False), fn, plain, sdpa(q, k, v, None),
+               _attention_work(B, Sq, Sk, H, H, hd, q.element_size(), causal=False),
+               key is not None, device=dt == torch.bfloat16, row_key=key,
+               library="scaled_dot_product_attention, no mask",
+               instantiation=flash_route(dt, hd))
+        del q, k, v
+
+    for dt in (torch.bfloat16, torch.float32):
+        B, L = 8, 1024
+        q = randn((B, H, hd), dt)
+        k, v = randn((B, L, H, hd), dt), randn((B, L, H, hd), dt)
+        sp = torch.arange(L, dtype=torch.int32, device="cuda").expand(B, L).contiguous()
+        pos = torch.full((B,), L - 1, dtype=torch.int32, device="cuda")
+        fn = lambda q=q, k=k, v=v: kd.decode_attention(q, k, v, sp, pos)
+        plain = lambda q=q, k=k, v=v: ref.decode_attention_ref(q, k, v, sp, pos)
+        qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+        lib = lambda qt=qt, kt=kt, vt=vt: F.scaled_dot_product_attention(qt, kt, vt)
+        main = dt == torch.bfloat16
+        rt = kd.route(dt, hd)
+        record(f"decode_attention B{B} L{L} H{H}/{H} hd{hd} {str(dt)[6:]} seamless-m4t cross "
+               f"decode, every slot valid ({rt['name']})", "decode_attention", dt, fn(),
+               plain(), ref.decode_attention_ref(q, k, v.abs(), sp, pos), fn, plain, lib,
+               _decode_work(B, L, H, H, hd, q.element_size(), sp.cpu().numpy(),
+                            pos.cpu().numpy(), None), main, device=main,
+               row_key="decode_attention_cross" if main else None,
+               library="scaled_dot_product_attention, no mask")
+        del q, k, v
 
 
 def check_free_rows(rng, randn, record) -> None:
@@ -2081,8 +2216,9 @@ def _attention_impls():
 
     from repro_torch.kernels import ref
 
-    def flash(q, k, v, seq_lens=None, *, causal, window):
-        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
+    def flash(q, k, v, seq_lens=None, *, causal, window, prefix_len=0):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens,
+                                 prefix_len=prefix_len)
 
     def decode(q, k, v, slot_pos, pos, *, k_scale=None, v_scale=None, window=None):
         if k_scale is not None:
@@ -2297,8 +2433,9 @@ def _quant_impls():
 
     from repro_torch.kernels import ops, ref
 
-    def flash(q, k, v, seq_lens=None, *, causal, window):
-        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
+    def flash(q, k, v, seq_lens=None, *, causal, window, prefix_len=0):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens,
+                                 prefix_len=prefix_len)
 
     def quant(q, k, v, qk, qv, ks, vs, bt, pos):
         if k is None:
@@ -2426,8 +2563,9 @@ def _dense_quant_impls():
 
     from repro_torch.kernels import ops, ref
 
-    def flash(q, k, v, seq_lens=None, *, causal, window):
-        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens)
+    def flash(q, k, v, seq_lens=None, *, causal, window, prefix_len=0):
+        return ref.attention_ref(q, k, v, causal=causal, window=window, seq_lens=seq_lens,
+                                 prefix_len=prefix_len)
 
     def decode(q, k, v, slot_pos, pos, *, k_scale, v_scale, window=None):
         return ref.decode_attention_quant_ref(q, k, v, k_scale, v_scale, slot_pos, pos,
@@ -2478,9 +2616,10 @@ def check_dense_quant_model() -> dict:
     plain, faults = _dense_quant_impls()
     seen = {}
 
-    def first_queries(q, k, v, seq_lens=None, *, causal, window):
+    def first_queries(q, k, v, seq_lens=None, *, causal, window, prefix_len=0):
         seen.setdefault("q", q)   # the first call is layer 0's
-        return ops.flash_attention(q, k, v, seq_lens, causal=causal, window=window)
+        return ops.flash_attention(q, k, v, seq_lens, causal=causal, window=window,
+                                   prefix_len=prefix_len)
 
     def run(impl, prec, feed=None, on_prefill=None):
         kernels_ops, A.ops = A.ops, impl
@@ -3200,6 +3339,332 @@ def check_hybrid_quant_model() -> dict:
     return res
 
 
+def _hold_records(phase: str, profiled: dict, counted: dict) -> None:
+    """A profile must hold every port kernel as many times as its wrappers
+    counted: a profile that lost records would understate its device time."""
+    if profiled != counted:
+        raise AssertionError(f"{phase}: the profile holds {profiled} port kernels, the "
+                             f"wrappers counted {counted}")
+
+
+# a profile that lost device records is taken once more: the profiler now
+# and then drops a graph replay's records whole (PERF.md §7, cause unknown);
+# the phase reports what each dropped attempt lost, and the last attempt
+# must hold every record
+PROFILE_ATTEMPTS = 2
+
+
+def _complete_profile(take) -> tuple:
+    """``take()`` -> (fields, records by function, wrapper counts), taken up
+    to PROFILE_ATTEMPTS times until the records equal the counts: (the
+    last attempt's three, the records each earlier attempt lacked)."""
+    lost = []
+    while True:
+        fields, profiled, counted = take()
+        if profiled == counted or len(lost) + 1 == PROFILE_ATTEMPTS:
+            return fields, profiled, counted, lost
+        lost.append({f: counted.get(f, 0) - profiled.get(f, 0) for f in {*profiled, *counted}
+                     if counted.get(f, 0) != profiled.get(f, 0)})
+
+
+def _profile_kinds(phase: str, run) -> dict:
+    """A complete torch.profiler session around ``run()`` (PROFILE_MARGIN_S
+    on each side; ``_complete_profile``): device ms by kind of kernel, busy
+    ms, wall ms and the port kernels' records, held to the wrappers' counts
+    (``_hold_records``)."""
+    fields, profiled, counted, lost = _complete_profile(lambda: _profile_run(run))
+    fields["records_lost_by_earlier_attempts"] = lost
+    if profiled != counted:
+        emit(phase, profile=fields)
+    _hold_records(phase, profiled, counted)
+    return fields
+
+
+def _profile_run(run) -> tuple:
+    """One profiled ``run()`` of ``_profile_kinds``: (its fields, the port
+    kernels' records by function, the wrappers' counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
+    by_kind, records = {}, {}
+    for key, (count, dev) in _device_records(prof).items():
+        records[key] = count
+        kind = kernel_kind(key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + dev / 1e3
+    busy = sum(by_kind.values())
+    counted = kernels.function_counts(kernels.launch_counts())
+    profiled = {f: n for f, n in _function_records(records).items() if f in counted}
+    return ({"wall_ms": wall, "device_busy_ms": busy, "idle_share": 1 - busy / wall,
+             "device_ms_by_kind": by_kind, "kernel_records": profiled,
+             "kernel_launches": counted}, profiled, counted)
+
+
+def _launches_by_call(calls: dict):
+    """Point functions of ``repro_torch.models.attention`` at wrappers that
+    tally the kernel launches each call makes: ``calls`` maps a label to
+    (function name, the launch total to watch, a test of the call's keyword
+    arguments or None). Returns (the tally by label, a function that
+    restores the originals)."""
+    from repro_torch.models import attention as A
+
+    tally = dict.fromkeys(calls, 0)
+    saved = {name: getattr(A, name) for name, _, _ in calls.values()}
+
+    def wrap(label, fn, total, when):
+        def tallied(*args, **kw):
+            before = total()
+            out = fn(*args, **kw)
+            if when is None or when(kw):
+                tally[label] += total() - before
+            return out
+        return tallied
+
+    for label, (name, total, when) in calls.items():
+        setattr(A, name, wrap(label, saved[name], total, when))
+    return tally, lambda: [setattr(A, name, fn) for name, fn in saved.items()]
+
+
+def _model_logits(model, toks, cache_len, impl, steps, feed=None, **inputs):
+    """Prefill (``inputs``: patches or frames) and ``steps`` greedy decode
+    steps with the model's attention pointed at ``impl``: (steps + 1, B, V)
+    float32 logits. ``feed`` (steps, B) fixes the decoded tokens."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import decode_step, prefill
+
+    saved, A.ops = A.ops, impl
+    try:
+        logits, state = prefill(model, toks, cache_len, **inputs)
+        out = [logits.float()]
+        for step in range(steps):
+            nxt = out[-1].argmax(-1).to(torch.int32) if feed is None else feed[step]
+            logits, state = decode_step(model, state, nxt)
+            out.append(logits.float())
+        del state
+    finally:
+        A.ops = saved
+    return torch.stack(out)
+
+
+def _hold_logits(phase: str, lk, lp, res: dict) -> None:
+    """The kernel path's logits within MODEL_TOL of the plain path's at
+    every step, the greedy tokens equal but where the plain path's top-2
+    gap is below it."""
+    errs = (lk - lp).abs().amax(dim=(1, 2)).tolist()
+    top2 = lp.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > MODEL_TOL
+    flips = int((lk.argmax(-1) != lp.argmax(-1))[sure].sum())
+    res.update(logit_scale=lp.abs().max().item(), tol=MODEL_TOL, max_abs_err_per_step=errs,
+               tokens_checked=int(sure.sum()), token_mismatches_beyond_margin=flips)
+    if not torch.isfinite(lk).all() or max(errs) > MODEL_TOL or flips:
+        emit(phase, **res)
+        raise AssertionError(f"{phase}: the kernel path and the plain path disagree")
+
+
+def _smoke_on_card(arch: str, steps: int = 3, **inputs) -> tuple:
+    """The smoke model (float32) on the card against the CPU path the CPU
+    tests hold against the JAX package: (max |logit error| per step, max
+    state leaf error). ``inputs`` (CPU tensors) go to both prefills."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.runtime.engine import _leaves
+
+    smoke = get_config(arch, smoke=True)
+    cpu_m = init_params(smoke, seed=0, device="cpu")
+    gpu_m = init_params(smoke, seed=0, device="cpu").cuda()
+    st = torch.from_numpy(np.random.default_rng(7).integers(0, smoke.vocab_size, (4, 24))
+                          .astype(np.int32))
+    lc, scpu = prefill(cpu_m, st, 64, **inputs)
+    lg, sgpu = prefill(gpu_m, st.cuda(), 64, **{k: t.cuda() for k, t in inputs.items()})
+    errs = [(lg.cpu() - lc).abs().max().item()]
+    for _ in range(steps):
+        nxt = lc.argmax(-1).to(torch.int32)
+        lc, scpu = decode_step(cpu_m, scpu, nxt)
+        lg, sgpu = decode_step(gpu_m, sgpu, nxt.cuda())
+        errs.append((lg.cpu() - lc).abs().max().item())
+    state_err = max((g.cpu().float() - c.float()).abs().max().item()
+                    for g, c in zip(_leaves(sgpu.caches), _leaves(scpu.caches)))
+    return errs, state_err
+
+
+def check_vlm_model() -> dict:
+    """Full-width paligemma-3b on seeded weights, the prefix-LM prefill with
+    patches: VLM_MODEL_B rows of 256 stand-in patches and VLM_MODEL_S
+    tokens, then VLM_MODEL_STEPS greedy decode steps on fed tokens, through
+    the kernels (K1's prefix-LM mask on the wide route, K2) and through the
+    plain versions: every step within MODEL_TOL. Beside it the same prefill
+    with the prefix mask dropped (each patch sees only the patches before
+    it), which must land beyond MODEL_TOL; K1's launches made with the
+    prefix-LM mask, tallied at ``attn_prefill``; a profile of the kernel
+    path; the smoke model (f32: the CUDA-core route's prefix) on the card
+    against the CPU path."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.frontends import vision_patch_embeddings
+
+    cfg = get_config("paligemma-3b")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, n = VLM_MODEL_B, VLM_MODEL_S, VLM_MODEL_L, VLM_MODEL_STEPS
+    rng = np.random.default_rng(33)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    patches = vision_patch_embeddings(B, cfg, seed=1, device="cuda")
+    plain, _ = _attention_impls()
+    lp = _model_logits(model, toks, L, plain, n, patches=patches)
+    feed = lp[:-1].argmax(-1).to(torch.int32)
+    tally, restore = _launches_by_call({"prefix_prefill": (
+        "attn_prefill", lambda: sum(kf.launches.values()),
+        lambda kw: kw.get("prefix_len", 0) > 0)})
+    try:
+        kernels.reset_launch_counts()
+        lk = _model_logits(model, toks, L, ops, n, feed, patches=patches)
+        counts = kernels.launch_counts()
+    finally:
+        restore()
+    no_prefix = SimpleNamespace(
+        flash_attention=lambda q, k, v, seq_lens=None, *, causal, window, prefix_len=0:
+        ops.flash_attention(q, k, v, seq_lens, causal=causal, window=window),
+        decode_attention=ops.decode_attention)
+    lf = _model_logits(model, toks, L, no_prefix, n, feed, patches=patches)
+    prof = _profile_kinds("vlm_model",
+                          lambda: _model_logits(model, toks, L, ops, n, feed, patches=patches))
+    res = {"B": B, "patches": cfg.num_prefix_tokens, "S": S, "cache_len": L, "steps": n,
+           "kernel_path_launches": counts, "launches_by_call": dict(tally),
+           "no_prefix_max_abs_err_per_step": (lf - lp).abs().amax(dim=(1, 2)).tolist(),
+           "profile": prof}
+    _hold_logits("vlm_model", lk, lp, res)
+    want = {"flash_attention_wide": cfg.n_layers, "flash_attention": 0,
+            "decode_attention": cfg.n_layers * n}
+    del model, lk, lp, lf
+    torch.cuda.empty_cache()
+    if any(counts[k] != v for k, v in want.items()) or tally["prefix_prefill"] != cfg.n_layers:
+        emit("vlm_model", **res)
+        raise AssertionError(f"vlm kernel path launched {counts} {tally}, not {want} and "
+                             f"{cfg.n_layers} with the prefix-LM mask")
+    if not max(res["no_prefix_max_abs_err_per_step"]) > MODEL_TOL:
+        emit("vlm_model", **res)
+        raise AssertionError("the model tolerance does not catch a dropped prefix mask")
+    smoke = get_config("paligemma-3b", smoke=True)
+    errs, state_err = _smoke_on_card("paligemma-3b",
+                                     patches=vision_patch_embeddings(4, smoke, device="cpu"))
+    res.update(smoke_max_abs_err=errs, smoke_state_max_abs_err=state_err, smoke_tol=1e-4)
+    emit("vlm_model", **res)
+    if max(errs) > 1e-4 or state_err > 1e-4:
+        raise AssertionError("smoke vlm model on the card disagrees with the CPU path")
+    return res
+
+
+def check_encdec_model() -> dict:
+    """Full-width seamless-m4t-large-v2 on seeded weights at model level:
+    ENCDEC_MODEL_B rows of 1,024 stand-in frames and ENCDEC_MODEL_S tokens,
+    then ENCDEC_MODEL_STEPS greedy decode steps on fed tokens, through the
+    kernels and through the plain versions, every step within MODEL_TOL.
+    The launch counts, tallied around the model's calls, show K1 ran
+    non-causal for the encoder (Sq = Sk) and the cross prefill (Sq != Sk),
+    causal for the decoder's self-attention, and K2 for both the self ring
+    and the cross cache at every step. A second case over
+    ENCDEC_ODD_FRAMES frames (Sk ends inside a tile). A decode that skips a
+    tile of both caches must land beyond MODEL_TOL. Beside it, reported and
+    not held, a cross decode that reads only the first half of the
+    encoder's cache: over seeded frames the cross-attention is near uniform,
+    so the logits cannot see it (the kernels phase's K2 cross row can). A
+    profile; the smoke model (f32) on the card against the CPU path."""
+    from types import SimpleNamespace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.frontends import audio_frame_embeddings
+
+    cfg = get_config("seamless-m4t-large-v2")
+    model = init_params(cfg, seed=0, device="cuda")
+    B, S, L, n = ENCDEC_MODEL_B, ENCDEC_MODEL_S, ENCDEC_MODEL_L, ENCDEC_MODEL_STEPS
+    rng = np.random.default_rng(34)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    frames = audio_frame_embeddings(B, cfg, seed=2, device="cuda")
+    plain, skipping = _attention_impls()
+    lp = _model_logits(model, toks, L, plain, n, frames=frames)
+    feed = lp[:-1].argmax(-1).to(torch.int32)
+
+    k1, k2 = lambda: sum(kf.launches.values()), lambda: kd.launches["decode_attention"]
+    tally, restore = _launches_by_call({"encoder": ("attn_forward", k1, None),
+                                        "cross_prefill": ("cross_attn_prefill", k1, None),
+                                        "cross_decode": ("cross_attn_decode", k2, None)})
+    try:
+        kernels.reset_launch_counts()
+        lk = _model_logits(model, toks, L, ops, n, feed, frames=frames)
+        counts = kernels.launch_counts()
+    finally:
+        restore()
+
+    def half_cross(q, k, v, slot_pos, pos, **kw):
+        if k.shape[1] != cfg.enc_seq:   # the self ring
+            return plain.decode_attention(q, k, v, slot_pos, pos, **kw)
+        sp = slot_pos.clone()
+        sp[:, cfg.enc_seq // 2:] = -1
+        return plain.decode_attention(q, k, v, sp, pos, **kw)
+
+    lf = _model_logits(model, toks, L, skipping, n, feed, frames=frames)
+    lh = _model_logits(model, toks, L, SimpleNamespace(
+        flash_attention=plain.flash_attention, decode_attention=half_cross), n, feed,
+        frames=frames)
+    prof = _profile_kinds("encdec_model",
+                          lambda: _model_logits(model, toks, L, ops, n, feed, frames=frames))
+    res = {"B": B, "frames": cfg.enc_seq, "S": S, "cache_len": L, "steps": n,
+           "kernel_path_launches": counts, "launches_by_call": dict(tally),
+           "skipped_tile_max_abs_err_per_step": (lf - lp).abs().amax(dim=(1, 2)).tolist(),
+           "half_cross_cache_max_abs_err_per_step":
+               (lh - lp).abs().amax(dim=(1, 2)).tolist(),
+           "profile": prof}
+    _hold_logits("encdec_model", lk, lp, res)
+    layers = cfg.n_layers
+    want = {"flash_attention": cfg.n_enc_layers + 2 * layers, "flash_attention_wide": 0,
+            "decode_attention": 2 * layers * n}
+    want_tally = {"encoder": cfg.n_enc_layers, "cross_prefill": layers,
+                  "cross_decode": layers * n}
+    del lk, lp, lf, lh
+    if any(counts[k] != v for k, v in want.items()) or tally != want_tally:
+        emit("encdec_model", **res)
+        raise AssertionError(f"encdec kernel path launched {counts} {tally}, not {want} "
+                             f"{want_tally}")
+    if not max(res["skipped_tile_max_abs_err_per_step"]) > MODEL_TOL:
+        emit("encdec_model", **res)
+        raise AssertionError("the model tolerance does not catch a skipped decode tile")
+    odd = audio_frame_embeddings(2, cfg, ENCDEC_ODD_FRAMES, seed=3, device="cuda")
+    lp = _model_logits(model, toks[:2], L, plain, 2, frames=odd)
+    lk = _model_logits(model, toks[:2], L, ops, 2, lp[:-1].argmax(-1).to(torch.int32),
+                       frames=odd)
+    odd_res = {"frames": ENCDEC_ODD_FRAMES, "B": 2, "steps": 2}
+    _hold_logits("encdec_model", lk, lp, odd_res)
+    res["odd_frames"] = odd_res
+    del model, lk, lp
+    torch.cuda.empty_cache()
+    smoke = get_config("seamless-m4t-large-v2", smoke=True)
+    errs, state_err = _smoke_on_card("seamless-m4t-large-v2",
+                                     frames=audio_frame_embeddings(4, smoke, device="cpu"))
+    res.update(smoke_max_abs_err=errs, smoke_state_max_abs_err=state_err, smoke_tol=1e-4)
+    emit("encdec_model", **res)
+    if max(errs) > 1e-4 or state_err > 1e-4:
+        raise AssertionError("smoke encdec model on the card disagrees with the CPU path")
+    return res
+
+
 def check_cast_model() -> dict:
     """Full-width granite-3-2b on seeded weights under the unscaled
     ``cache_dtype`` cast to CAST, prompts of 1-512 tokens in a ring of 1,024:
@@ -3569,6 +4034,18 @@ def _hybrid_extra(decode: str = "decode_attention") -> dict:
                         cfg.local_window)}
 
 
+def _vlm_extra(decode: str = "decode_attention") -> dict:
+    """What a paligemma-3b serve phase line adds: the launches each
+    admission replay (K1's wide route over the padded bucket) and each
+    decode step (``decode``, the ring's decode kernel) must add."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("paligemma-3b")
+    return {"layers": cfg.n_layers, "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_],
+            "launches_per_admission_replay": {k1_counter(cfg): cfg.n_layers},
+            "launches_per_decode_step": {decode: cfg.n_layers}}
+
+
 def _with_cast(cfg, cast: str):
     """``cfg`` under the unscaled storage cast to ``cast``: float8_e4m3fn
     through the legacy ``cache_dtype`` (as a kv_precision string it names
@@ -3632,6 +4109,8 @@ MOE_KERNELS = ("flash_attention_wide", "decode_attention")
 MOE_PAGED_KERNELS = ("flash_attention_wide", "paged_decode_attention")
 HYBRID_KERNELS = ("flash_attention_wide", "decode_attention", "rglru_scan")
 HYBRID_QUANT_KERNELS = ("flash_attention_wide", "decode_attention_quant", "rglru_scan")
+VLM_KERNELS = ("flash_attention_wide", "decode_attention")
+VLM_QUANT_KERNELS = ("flash_attention_wide", "decode_attention_quant")
 CAST_KERNELS = ("flash_attention", "flash_attention_ragged", "decode_attention_cast")
 CAST_PAGED_CHUNKED_KERNELS = ("paged_chunk_attention_cast", "paged_decode_attention_cast")
 
@@ -3962,8 +4441,9 @@ def drive_main_path(argv: list, phase: str = "serve", path_kernels=DENSE_KERNELS
                                  "native one")
     sampled = engine.ecfg.sampling is not None
     moe, hybrid = engine.cfg.is_moe, engine.cfg.is_hybrid
+    vlm = engine.cfg.arch_type == "vlm"
     if (args.chunked or watch or ssm or (args.paged and asynchronous) or quant or sampled or moe
-            or hybrid or cast):
+            or hybrid or cast or vlm):
         res["trace"]["occupancy"] = tr["occupancy"].tolist()
         cpu = cpu_trace(argv)
         if cpu != res["trace"]:
@@ -4677,12 +5157,11 @@ def profile_main_path(argv: list, serve_s: float, phase: str = "profile",
     slot's decode is a replay. Each replay is also timed with CUDA events,
     and the profile, which opens and closes ``PROFILE_MARGIN_S`` around the
     serve, must hold every port kernel as many times as its wrappers
-    counted, inside the graphs or not."""
-    fields, profiled, counted = _profile_serve(argv, serve_s, prefix)
-    emit(phase, **fields)
-    if profiled != counted:
-        raise AssertionError(f"{phase}: the profile holds {profiled} port kernels, the "
-                             f"wrappers counted {counted}")
+    counted, inside the graphs or not (``_complete_profile``)."""
+    fields, profiled, counted, lost = _complete_profile(
+        lambda: _profile_serve(argv, serve_s, prefix))
+    emit(phase, **fields, records_lost_by_earlier_attempts=lost)
+    _hold_records(phase, profiled, counted)
 
 
 def _profile_serve(argv: list, serve_s: float, prefix: bool):
@@ -5378,6 +5857,14 @@ def main() -> int:
     profile_main_path(HYBRID_QUANT_ARGS, hybrid_quant["serve_s"], "hybrid_quant_profile")
     drive_main_path(HYBRID_FP8_SYNC_ARGS, "hybrid_fp8_sync_serve", HYBRID_QUANT_KERNELS,
                     extra=_hybrid_extra("decode_attention_quant"))
+    vlm_model = check_vlm_model()
+    vlm_path = drive_main_path(VLM_ARGS, "vlm_serve", VLM_KERNELS, extra=_vlm_extra())
+    profile_main_path(VLM_ARGS, vlm_path["serve_s"], "vlm_profile")
+    drive_main_path(VLM_SYNC_ARGS, "vlm_sync_serve", VLM_KERNELS, extra=_vlm_extra())
+    vlm_quant = drive_main_path(VLM_QUANT_ARGS, "vlm_quant_serve", VLM_QUANT_KERNELS,
+                                extra=_vlm_extra("decode_attention_quant"))
+    profile_main_path(VLM_QUANT_ARGS, vlm_quant["serve_s"], "vlm_quant_profile")
+    encdec = check_encdec_model()
     graph_ab()
     check_fig2()
 
@@ -5409,7 +5896,15 @@ def main() -> int:
               "decode_attention_cast": cast_path["launches"]["decode_attention_cast"],
               "paged_decode_attention_cast":
                   cast_paged["launches"]["paged_decode_attention_cast"],
-              "paged_chunk_attention_cast": cast_paged["launches"]["paged_chunk_attention_cast"]}
+              "paged_chunk_attention_cast": cast_paged["launches"]["paged_chunk_attention_cast"],
+              # K1's prefix-LM mask: paligemma-3b's prefill with patches
+              "flash_attention_wide_prefix":
+                  vlm_model["launches_by_call"]["prefix_prefill"],
+              # K1 without the causal mask and K2 over the cross cache:
+              # seamless-m4t's encoder, cross prefill and cross decode
+              "flash_attention_noncausal": encdec["launches_by_call"]["encoder"],
+              "flash_attention_cross": encdec["launches_by_call"]["cross_prefill"],
+              "decode_attention_cross": encdec["launches_by_call"]["cross_decode"]}
     src = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention.py:57"),
            "flash_attention_ragged": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -5469,7 +5964,18 @@ def main() -> int:
                "src/repro/models/attention.py:880"),
            "paged_chunk_attention_cast": (
                "src/repro_torch/kernels/csrc/paged_chunk_attention.cu",
-               "src/repro/models/attention.py:804")}
+               "src/repro/models/attention.py:804"),
+           # K1 with the reference's prefix-LM rule (chunked_attention's
+           # _tile_mask, src/repro/models/attention.py:303), which the TPU
+           # kernel lacks
+           "flash_attention_wide_prefix": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                           "src/repro/kernels/flash_attention.py:57"),
+           "flash_attention_noncausal": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                         "src/repro/kernels/flash_attention.py:57"),
+           "flash_attention_cross": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                     "src/repro/kernels/flash_attention.py:57"),
+           "decode_attention_cross": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                      "src/repro/kernels/decode_attention.py:32")}
     line = [{"name": n, "route": "cuda", "source": src[n][0], "replaces": src[n][1],
              "launches": counts[n], "max_abs_err": rows[n]["max_abs_err"],
              "ms": rows[n]["ms"], "plain_ms": rows[n]["plain_ms"],

@@ -59,18 +59,24 @@ def _stream() -> int:
 
 
 def _k1(lib, q, k, v, seq_lens=None, window=None):
-    """One K1 / K1r launch of ``lib``'s flash_attention_fwd (out returned)."""
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    """One K1 / K1r launch of ``lib``'s native-K/V entry point (out
+    returned): flash_attention_prefix_fwd with no prefix where the build has
+    it, else the flash_attention_fwd of sources before the prefix-LM mask."""
+    prefix = getattr(lib, "flash_attention_prefix_fwd", None)
+    fn = prefix if prefix is not None else lib.flash_attention_fwd
+    ints = 9 + (prefix is not None)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [ctypes.c_float,
+                                                                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if seq_lens is None else seq_lens.data_ptr(), out.data_ptr(), B, Sq, Sk, H,
-             KVH, hd, 1, -1 if window is None else window, 1, hd ** -0.5, _stream())
+             KVH, hd, 1, -1 if window is None else window, *([0] if prefix is not None else []),
+             1, hd ** -0.5, _stream())
     if err:
-        raise RuntimeError(f"flash_attention_fwd: cudaError_t {err}")
+        raise RuntimeError(f"K1: cudaError_t {err}")
     return out
 
 

@@ -1,5 +1,5 @@
-// Causal (optionally windowed, optionally ragged) GQA prefill attention for
-// Hopper (sm_90a), over native or quantized K/V.
+// Causal (optionally windowed, ragged or prefix-LM) or non-causal GQA
+// prefill attention for Hopper (sm_90a), over native or quantized K/V.
 //
 // Replaces the Pallas TPU kernels `_attn_kernel` and `_attn_kernel_ragged`
 // (src/repro/kernels/flash_attention.py), K1 and K1r, and their
@@ -16,6 +16,14 @@
 // beyond the row's length are written as zeros. Any Sq and Sk are accepted
 // (the ragged tile edge is masked). The TPU kernel's sequential innermost
 // grid axis over KV tiles becomes a loop inside the CTA.
+//
+// Prefix-LM (prefix_len > 0, causal, native K/V, no seq_lens; the
+// reference's chunked_attention rule, which the TPU kernel lacks): key k is
+// visible to query q if (k <= q and, under a window, k > q - window) or
+// k < prefix_len, so every query sees the whole prefix (a VLM's image
+// patches) bidirectionally. A q-tile's live keys become [0, max(its causal
+// end, min(prefix_len, Sk))); with a window the visible keys are not
+// contiguous, so the range starts at 0 and the mask hides the gap.
 //
 // Routes (flash_attention_route; KERNEL_ROUTE in chip_smoke.py):
 //   route        q      K/V        hd
@@ -112,6 +120,28 @@ constexpr int BQ = 64;          // query rows per CTA
 constexpr int BK = 64;          // keys per KV tile
 constexpr int THREADS = 2 * BQ; // two threads per query row
 
+// The live KV range [k_begin, k_end) of the 64-row q-tile at q0 (k_begin a
+// multiple of 64): below the diagonal (or, with a prefix, below the larger
+// of the diagonal and the prefix's end), inside the window (none with a
+// prefix: the mask hides the gap), before the row's length ``klim``. Empty
+// (k_end <= k_begin) for a tile with no live row.
+__device__ __forceinline__ void live_keys(int q0, int klim, int causal, int window,
+                                          int prefix_len, int& k_begin, int& k_end) {
+  k_end = klim;
+  if (causal) k_end = min(k_end, max(q0 + BQ, prefix_len));
+  k_begin = window > 0 && prefix_len <= 0 ? max(0, q0 - window + 1) : 0;
+  k_begin = (k_begin / BK) * BK;
+}
+
+// Whether key kp is visible to query qp: before the row's length, and below
+// the diagonal (causal) and inside the window, or inside the prefix.
+__device__ __forceinline__ bool visible(int kp, int qp, int klim, int causal, int window,
+                                        int prefix_len) {
+  bool ok = !causal || kp <= qp;
+  if (window > 0) ok = ok && kp > qp - window;
+  return kp < klim && (ok || kp < prefix_len);
+}
+
 template <int HD>
 struct Smem {
   static constexpr int QS = HD + 4;  // padded strides (floats); multiples of 4 keep float4 aligned
@@ -130,7 +160,7 @@ flash_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
                        const C* __restrict__ v, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, const int* __restrict__ seq_lens,
                        T* __restrict__ out, int Sq, int Sk, int H, int KVH,
-                       int causal, int window, float scale) {
+                       int causal, int window, int prefix_len, float scale) {
   constexpr bool QUANT = !std::is_same<C, T>::value;
   using S = Smem<HD>;
   constexpr int HALF_K = BK / 2;
@@ -173,13 +203,8 @@ flash_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
 
   load_rows<T, HD>(Qs, S::QS, q_base, q_stride, q0, BQ, Sq, tid, THREADS);
 
-  // Live KV range of this q-tile: below the diagonal, inside the window,
-  // before the row's length.
-  int k_end = klim;
-  if (causal) k_end = min(k_end, q0 + BQ);
-  int k_begin = 0;
-  if (window > 0) k_begin = max(0, q0 - window + 1);
-  k_begin = (k_begin / BK) * BK;
+  int k_begin, k_end;
+  live_keys(q0, klim, causal, window, prefix_len, k_begin, k_end);
 
   float m = NEG_INF, l = 0.f;
   float acc[HALF_D];
@@ -221,10 +246,7 @@ flash_attention_kernel(const T* __restrict__ q, const C* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < HALF_K; ++jj) {
       const int kp = k0 + half * HALF_K + jj;
-      bool ok = kp < klim;
-      if (causal) ok = ok && kp <= qpos;
-      if (window > 0) ok = ok && kp > qpos - window;
-      sc[jj] = ok ? sc[jj] * scale : NEG_INF;
+      sc[jj] = visible(kp, qpos, klim, causal, window, prefix_len) ? sc[jj] * scale : NEG_INF;
       tmax = fmaxf(tmax, sc[jj]);
     }
     tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
@@ -372,17 +394,6 @@ __device__ __forceinline__ void pv_product(float (&o)[NPV / 2], const uint32_t (
     repro::sm90::wgmma_m64n32k16_rs_tb(o, p, v_desc, 1);
 }
 
-// The live KV range [k_begin, k_end) of the 64-row q-tile at q0 (k_begin a
-// multiple of 64): below the diagonal, inside the window, before the row's
-// length ``klim``. Empty (k_end <= k_begin) for a tile with no live row.
-__device__ __forceinline__ void live_keys(int q0, int klim, int causal, int window,
-                                          int& k_begin, int& k_end) {
-  k_end = klim;
-  if (causal) k_end = min(k_end, q0 + BQ);
-  k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  k_begin = (k_begin / BK) * BK;
-}
-
 // S = Q K^T over one 64-key tile: HD/16 products of m64n64k16 with Q and
 // K read from shared memory (K-major tiles of Tile<HD>'s layout). Issued
 // and committed, not waited for.
@@ -405,7 +416,7 @@ __device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q_tile, uint32
 __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], int k0, int q0, int r0,
                                                int c0, int klim, int causal, int window,
-                                               float scale) {
+                                               int prefix_len, float scale) {
   const bool edge = k0 + BK > klim || (causal && k0 + BK - 1 > q0) ||
                     (window > 0 && k0 + window <= q0 + BQ - 1);
 #pragma unroll
@@ -416,10 +427,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], fl
       if (edge) {
         const int kp = k0 + 8 * i + c0 + (e & 1);
         const int qp = q0 + r0 + 8 * (e >> 1);
-        bool ok = kp < klim;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        x = ok ? x : NEG_INF;
+        x = visible(kp, qp, klim, causal, window, prefix_len) ? x : NEG_INF;
       }
       s[4 * i + e] = x;
     }
@@ -453,7 +461,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2], fl
 __device__ __forceinline__ void online_softmax_log2(float (&s)[32], float (&m)[2],
                                                     float (&l)[2], float (&alpha)[2], int k0,
                                                     int q0, int r0, int c0, int klim,
-                                                    int causal, int window, float scale) {
+                                                    int causal, int window, int prefix_len,
+                                                    float scale) {
   const float c = scale * LOG2E;
   const bool edge = k0 + BK > klim || (causal && k0 + BK - 1 > q0) ||
                     (window > 0 && k0 + window <= q0 + BQ - 1);
@@ -465,10 +474,7 @@ __device__ __forceinline__ void online_softmax_log2(float (&s)[32], float (&m)[2
       if (edge) {
         const int kp = k0 + 8 * i + c0 + (e & 1);
         const int qp = q0 + r0 + 8 * (e >> 1);
-        bool ok = kp < klim;
-        if (causal) ok = ok && kp <= qp;
-        if (window > 0) ok = ok && kp > qp - window;
-        x = ok ? x : NEG_INF;
+        x = visible(kp, qp, klim, causal, window, prefix_len) ? x : NEG_INF;
       }
       s[4 * i + e] = x;
     }
@@ -604,7 +610,8 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q, const C* __restrict__ k
                              const C* __restrict__ v, const float* __restrict__ k_scale,
                              const float* __restrict__ v_scale,
                              const int* __restrict__ seq_lens, bf16* __restrict__ out, int Sq,
-                             int Sk, int H, int KVH, int causal, int window, float scale) {
+                             int Sk, int H, int KVH, int causal, int window, int prefix_len,
+                             float scale) {
   using namespace repro::sm90;
   using S = WgSmem<C, HD>;
   using L = Tile<HD>;
@@ -647,7 +654,7 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q, const C* __restrict__ k
   }
 
   int k_begin, k_end;
-  live_keys(q0, klim, causal, window, k_begin, k_end);
+  live_keys(q0, klim, causal, window, prefix_len, k_begin, k_end);
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
 
   copy_tile<HD>(sbase + S::Q_OFF, q_base, q_stride, q0, Sq, tid);
@@ -698,7 +705,7 @@ flash_attention_kernel_wgmma(const bf16* __restrict__ q, const C* __restrict__ k
     wgmma_wait<0>();
     fence_regs(s);
     float alpha[2];
-    online_softmax(s, m, l, alpha, k0, q0, r0, c0, klim, causal, window, scale);
+    online_softmax(s, m, l, alpha, k0, q0, r0, c0, klim, causal, window, prefix_len, scale);
     pv_step<HD>(o, s, alpha, sbase + S::V_OFF + stage * S::TILE);
   }
 
@@ -768,7 +775,8 @@ struct WideUnit {
 
 __device__ __forceinline__ WideUnit wide_unit(int unit, const int* seq_lens, int B, int Sq,
                                               int Sk, int G, int causal, int window,
-                                              int n_qu, int n_hu, int pair_heads) {
+                                              int prefix_len, int n_qu, int n_hu,
+                                              int pair_heads) {
   WideUnit u;
   const int qu = n_qu - 1 - unit / (n_hu * B);
   const int rem = unit % (n_hu * B);
@@ -787,7 +795,7 @@ __device__ __forceinline__ WideUnit wide_unit(int unit, const int* seq_lens, int
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     u.rows[c] = u.q0[c] < Sq;
-    live_keys(u.q0[c], u.klim, causal, window, u.kb[c], u.ke[c]);
+    live_keys(u.q0[c], u.klim, causal, window, prefix_len, u.kb[c], u.ke[c]);
     u.live[c] = u.rows[c] && u.q0[c] < u.len && u.ke[c] > u.kb[c];
   }
   u.k_begin = u.live[0] ? (u.live[1] ? min(u.kb[0], u.kb[1]) : u.kb[0]) : u.kb[1];
@@ -805,8 +813,8 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const int* __restrict__ seq_lens, bf16* __restrict__ out, int B,
-                            int Sq, int Sk, int H, int KVH, int causal, int window, float scale,
-                            int pair_heads, int n_qu, int n_hu) {
+                            int Sq, int Sk, int H, int KVH, int causal, int window,
+                            int prefix_len, float scale, int pair_heads, int n_qu, int n_hu) {
   using namespace repro::sm90;
   using S = WideSmem<HD>;
   using L = Tile<HD>;
@@ -844,8 +852,8 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     if (threadIdx.x == 2 * WG_THREADS) {
       int it = 0;  // tiles issued: the ring's position
       for (int unit = blockIdx.x, k = 0; unit < n_units; unit += gridDim.x, ++k) {
-        const WideUnit u = wide_unit(unit, seq_lens, B, Sq, Sk, G, causal, window, n_qu, n_hu,
-                                     pair_heads);
+        const WideUnit u = wide_unit(unit, seq_lens, B, Sq, Sk, G, causal, window, prefix_len,
+                                     n_qu, n_hu, pair_heads);
         const int qs = k % S::QBUF;  // this unit's Q set
         // the unit QBUF before has read the set for the last time
         if (k >= S::QBUF) mbar_wait(q_empty + 16 * qs, ((k / S::QBUF) - 1) & 1);
@@ -882,8 +890,8 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     const size_t q_stride = (size_t)H * HD;
     int it = 0;  // tiles consumed: the ring's position
     for (int unit = blockIdx.x, k = 0; unit < n_units; unit += gridDim.x, ++k) {
-      const WideUnit u = wide_unit(unit, seq_lens, B, Sq, Sk, G, causal, window, n_qu, n_hu,
-                                   pair_heads);
+      const WideUnit u = wide_unit(unit, seq_lens, B, Sq, Sk, G, causal, window, prefix_len,
+                                   n_qu, n_hu, pair_heads);
       const int q0 = u.q0[wg];
       // this consumer's tiles of the unit's stream: [first, last]
       const int first = (u.kb[wg] - u.k_begin) / BK;
@@ -921,7 +929,7 @@ flash_attention_wide_kernel(const __grid_constant__ CUtensorMap q_map,
             mbar_arrive(q_empty + 16 * qs);  // Q read for the last time
           float alpha[2];
           online_softmax_log2(sc, m, l, alpha, k0, q0, r0, c0, u.klim, causal, window,
-                              scale);
+                              prefix_len, scale);
           pv_step<HD>(o, sc, alpha, sbase + S::V_OFF + s * S::TILE);
         }
         // this warp is done with stage s (the unit's last stage: after the
@@ -1008,7 +1016,7 @@ int sm_count() {
 template <int HD>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* seq_lens,
                         void* out, int B, int Sq, int Sk, int H, int KVH, int causal,
-                        int window, float scale, cudaStream_t stream) {
+                        int window, int prefix_len, float scale, cudaStream_t stream) {
   auto kern = flash_attention_wide_kernel<HD>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kern);
@@ -1034,7 +1042,7 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const int* 
   const unsigned grid = (unsigned)(units < sms ? units : sms);
   kern<<<grid, WIDE_THREADS, smem, stream>>>(q_map, k_map, v_map, seq_lens,
                                              static_cast<bf16*>(out), B, Sq, Sk, H, KVH, causal,
-                                             window, scale, pair_heads, n_qu, n_hu);
+                                             window, prefix_len, scale, pair_heads, n_qu, n_hu);
   return cudaGetLastError();
 }
 
@@ -1053,12 +1061,12 @@ constexpr Route route_of(int hd, bool bf16_q, bool quantized) {
 template <typename T, typename C, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* k_scale,
                    const float* v_scale, const int* seq_lens, void* out, int B, int Sq,
-                   int Sk, int H, int KVH, int causal, int window, float scale,
+                   int Sk, int H, int KVH, int causal, int window, int prefix_len, float scale,
                    cudaStream_t stream) {
   constexpr bool BF16 = std::is_same<T, bf16>::value;
   if constexpr (route_of(HD, BF16, !std::is_same<T, C>::value) == WIDE) {
-    return launch_wide<HD>(q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window, scale,
-                           stream);
+    return launch_wide<HD>(q, k, v, seq_lens, out, B, Sq, Sk, H, KVH, causal, window,
+                           prefix_len, scale, stream);
   } else {
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
     if constexpr (BF16) {  // the tensor cores, one warpgroup a CTA
@@ -1070,7 +1078,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
       kern<<<grid, WG_THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
           k_scale, v_scale, seq_lens, static_cast<T*>(out), Sq, Sk, H, KVH, causal, window,
-          scale);
+          prefix_len, scale);
     } else {  // f32: the CUDA cores
       auto kern = flash_attention_kernel<T, C, HD>;
       const size_t smem = Smem<HD>::bytes;
@@ -1080,7 +1088,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* k_s
       kern<<<grid, THREADS, smem, stream>>>(
           static_cast<const T*>(q), static_cast<const C*>(k), static_cast<const C*>(v),
           k_scale, v_scale, seq_lens, static_cast<T*>(out), Sq, Sk, H, KVH, causal, window,
-          scale);
+          prefix_len, scale);
     }
     return cudaGetLastError();
   }
@@ -1090,21 +1098,21 @@ template <typename T, typename C>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         const float* ks, const float* vs, const int* seq_lens, void* out,
                         int B, int Sq, int Sk, int H, int KVH, int causal, int window,
-                        float scale, cudaStream_t s) {
+                        int prefix_len, float scale, cudaStream_t s) {
   switch (hd) {
     case 32:
       return launch<T, C, 32>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
-                              window, scale, s);
+                              window, prefix_len, scale, s);
     case 64:
       return launch<T, C, 64>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
-                              window, scale, s);
+                              window, prefix_len, scale, s);
     case 128:
       return launch<T, C, 128>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
-                               window, scale, s);
+                               window, prefix_len, scale, s);
     case 256:  // native K/V only (recurrentgemma-2b's MQA); codes stop at 128
       if constexpr (std::is_same<T, C>::value)
         return launch<T, C, 256>(q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH, causal,
-                                 window, scale, s);
+                                 window, prefix_len, scale, s);
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
@@ -1114,12 +1122,12 @@ template <typename T>
 cudaError_t dispatch_code(int is_fp8, int hd, const void* q, const void* k, const void* v,
                           const float* ks, const float* vs, const int* seq_lens, void* out,
                           int B, int Sq, int Sk, int H, int KVH, int causal, int window,
-                          float scale, cudaStream_t s) {
+                          int prefix_len, float scale, cudaStream_t s) {
   if (is_fp8)
     return dispatch_hd<T, __nv_fp8_e4m3>(hd, q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H,
-                                         KVH, causal, window, scale, s);
+                                         KVH, causal, window, prefix_len, scale, s);
   return dispatch_hd<T, int8_t>(hd, q, k, v, ks, vs, seq_lens, out, B, Sq, Sk, H, KVH,
-                                causal, window, scale, s);
+                                causal, window, prefix_len, scale, s);
 }
 
 bool bad_shape(int B, int Sq, int Sk, int H, int KVH) {
@@ -1128,26 +1136,31 @@ bool bad_shape(int B, int Sq, int Sk, int H, int KVH) {
 
 }  // namespace
 
+// K1 / K1r, the one native-K/V entry point (sources before the prefix-LM
+// mask named it flash_attention_fwd, without prefix_len).
 // window <= 0 means no window; seq_lens may be null (dense prefill).
+// prefix_len > 0: the prefix-LM mask (causal, no seq_lens; see the header).
 // is_bf16: 1 for bfloat16 tensors, 0 for float32.
-extern "C" cudaError_t flash_attention_fwd(const void* q, const void* k, const void* v,
-                                           const int* seq_lens, void* out, int B, int Sq,
-                                           int Sk, int H, int KVH, int hd, int causal,
-                                           int window, int is_bf16, float scale,
-                                           void* stream) {
-  if (bad_shape(B, Sq, Sk, H, KVH)) return cudaErrorInvalidValue;
+extern "C" cudaError_t flash_attention_prefix_fwd(const void* q, const void* k, const void* v,
+                                                  const int* seq_lens, void* out, int B, int Sq,
+                                                  int Sk, int H, int KVH, int hd, int causal,
+                                                  int window, int prefix_len, int is_bf16,
+                                                  float scale, void* stream) {
+  if (bad_shape(B, Sq, Sk, H, KVH) || prefix_len < 0 ||
+      (prefix_len > 0 && (!causal || seq_lens != nullptr)))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, q, k, v, nullptr, nullptr, seq_lens,
                                                      out, B, Sq, Sk, H, KVH, causal, window,
-                                                     scale, s);
+                                                     prefix_len, scale, s);
   return dispatch_hd<float, float>(hd, q, k, v, nullptr, nullptr, seq_lens, out, B, Sq, Sk, H,
-                                   KVH, causal, window, scale, s);
+                                   KVH, causal, window, prefix_len, scale, s);
 }
 
 // K1q / K1rq: k, v int8 (is_fp8 0) or float8_e4m3fn (is_fp8 1) codes with
 // k_scale, v_scale (B, Sk, KVH) float32; q and out bfloat16 (is_bf16 1) or
-// float32. The other arguments are flash_attention_fwd's.
+// float32. The other arguments are flash_attention_prefix_fwd's.
 extern "C" cudaError_t flash_attention_quant_fwd(const void* q, const void* k, const void* v,
                                                  const float* k_scale, const float* v_scale,
                                                  const int* seq_lens, void* out, int B,
@@ -1157,11 +1170,11 @@ extern "C" cudaError_t flash_attention_quant_fwd(const void* q, const void* k, c
   if (bad_shape(B, Sq, Sk, H, KVH) || k_scale == nullptr || v_scale == nullptr)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16)  // no prefix: no path attends quantized K/V at prefill
     return dispatch_code<__nv_bfloat16>(is_fp8, hd, q, k, v, k_scale, v_scale, seq_lens, out,
-                                        B, Sq, Sk, H, KVH, causal, window, scale, s);
+                                        B, Sq, Sk, H, KVH, causal, window, 0, scale, s);
   return dispatch_code<float>(is_fp8, hd, q, k, v, k_scale, v_scale, seq_lens, out, B, Sq, Sk,
-                              H, KVH, causal, window, scale, s);
+                              H, KVH, causal, window, 0, scale, s);
 }
 
 // The route that serves (hd, q's dtype, quantized K/V): 0 the CUDA cores,

@@ -23,6 +23,12 @@ Three routes (``route``; the table in the source's header):
 - **CUDA cores** (f32 q): a tensor-core product in f32 is TF32, which the
   f32 tolerance does not allow.
 
+Every route also takes ``causal=False`` (an encoder's self-attention and
+a decoder's cross-attention over it, Sq and Sk apart) and a prefix-LM mask
+(``prefix_len``: keys below it are visible to every query, the
+reference's ``chunked_attention`` rule for a VLM's image patches, which the
+TPU kernel lacks; causal, native K/V, no ``seq_lens``).
+
 Each route skips KV tiles above the diagonal, outside the window or in the
 row's padding and keeps the online softmax in f32 registers. At the
 serving shapes the work is byte-bound on the tensor cores (recurrentgemma's
@@ -72,7 +78,8 @@ def route(dtype: torch.dtype, hd: int, quantized: bool = False) -> str:
 
 def counter(dtype: torch.dtype, hd: int, ragged: bool = False) -> str:
     """The launch counter of K1 (K1r with ``ragged``) over native K/V at
-    ``dtype`` and ``hd``: the wide route's or the others'."""
+    ``dtype`` and ``hd``: the wide route's or the others'. A causal, a
+    non-causal and a prefix-LM launch count alike."""
     wide = route(dtype, hd) == "wide"
     return "flash_attention" + ("_wide" if wide else "") + ("_ragged" if ragged else "")
 
@@ -88,11 +95,11 @@ def library_route(dtype: torch.dtype, hd: int, quantized: bool = False) -> Optio
 
 
 def _fn():
-    fn = build.library("flash_attention").flash_attention_fwd
-    # q, k, v, seq_lens, out; B, Sq, Sk, H, KVH, hd, causal, window, is_bf16;
-    # scale; stream
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                               ctypes.c_void_p]
+    fn = build.library("flash_attention").flash_attention_prefix_fwd
+    # q, k, v, seq_lens, out; B, Sq, Sk, H, KVH, hd, causal, window,
+    # prefix_len, is_bf16; scale; stream
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                                ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -146,27 +153,41 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"on {q.device}")
 
 
+def check_prefix(prefix_len: int, causal: bool, seq_lens) -> None:
+    """The prefix-LM mask is causal prefill over native K/V only: the
+    reference asserts prefix_len == 0 on its ragged path, and no path
+    attends quantized K/V at prefill."""
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    if prefix_len and (not causal or seq_lens is not None):
+        raise ValueError("prefix_len needs causal prefill without seq_lens")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     seq_lens: Optional[torch.Tensor] = None, *,
                     causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd) -> (B,Sq,H,hd), on the card.
 
     ``seq_lens`` (B,) int32 selects the ragged kernel (K1r): keys at or
     beyond a row's length are masked and its query rows there are zeroed.
+    ``prefix_len`` > 0 (causal, no ``seq_lens``) makes keys below it
+    visible to every query (the prefix-LM mask).
     """
     _check(q, k, v, seq_lens, window, (q.dtype,))
+    check_prefix(prefix_len, causal, seq_lens)
     B, Sq, H, hd = q.shape
     _, Sk, KVH, _ = k.shape
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if seq_lens is None else seq_lens.data_ptr(), out.data_ptr(),
                 B, Sq, Sk, H, KVH, hd, int(causal),
-                -1 if window is None else int(window),
+                -1 if window is None else int(window), int(prefix_len),
                 int(q.dtype == torch.bfloat16), hd ** -0.5,
                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd failed: cudaError_t {err}")
+        raise RuntimeError(f"flash_attention_prefix_fwd failed: cudaError_t {err}")
     launches[counter(q.dtype, hd, seq_lens is not None)] += 1
     return out
 

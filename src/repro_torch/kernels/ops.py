@@ -41,20 +41,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     k_scale: Optional[torch.Tensor] = None,
                     v_scale: Optional[torch.Tensor] = None,
                     causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Prefill attention; ``seq_lens`` selects the ragged (length-aware) path.
     ``k_scale``/``v_scale`` (B, Sk, KVH) float32 make k/v int8 or fp8 codes,
-    dequantized as they load (K1q, K1rq)."""
+    dequantized as they load (K1q, K1rq). ``prefix_len`` > 0 adds the
+    prefix-LM mask (keys below it visible to every query); it raises with
+    ``seq_lens``, with codes or without ``causal``."""
+    _fa.check_prefix(prefix_len, causal, seq_lens)
+    if prefix_len and k_scale is not None:
+        raise ValueError("prefix_len over quantized K/V: no path attends codes at prefill")
     if q.device.type == "cpu":
         if k_scale is not None:
             return attention_quant_ref(q, k, v, k_scale, v_scale, causal=causal,
                                        window=window, seq_lens=seq_lens)
         return attention_ref(q, k, v, causal=causal, window=window,
-                             seq_lens=seq_lens)
+                             seq_lens=seq_lens, prefix_len=prefix_len)
     if k_scale is not None:
         return _fa.flash_attention_quant(q, k, v, k_scale, v_scale, seq_lens, causal=causal,
                                          window=window)
-    return _fa.flash_attention(q, k, v, seq_lens, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, seq_lens, causal=causal, window=window,
+                               prefix_len=prefix_len)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

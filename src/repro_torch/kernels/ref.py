@@ -21,12 +21,15 @@ NEG_INF = -1e30
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  seq_lens: Optional[torch.Tensor] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
     """q (B,Sq,H,hd), k/v (B,Sk,KVH,hd) -> (B,Sq,H,hd).
 
     seq_lens (B,) int32: per-row real lengths (ragged prefill). Keys at or
     beyond a row's length are masked out; query rows at or beyond it are
     zeroed (their inputs are padding — the value must not be consumed).
+    prefix_len > 0 (causal, no seq_lens): keys below it are visible to
+    every query as well (the prefix-LM mask).
     """
     B, Sq, H, hd = q.shape
     Sk, KVH = k.shape[1], k.shape[2]
@@ -41,6 +44,8 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
+    if prefix_len:
+        mask |= kpos < prefix_len
     mask = mask.expand(B, Sq, Sk)
     if seq_lens is not None:
         mask = mask & (kpos[None] < seq_lens[:, None, None])

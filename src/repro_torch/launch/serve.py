@@ -125,6 +125,7 @@ from repro_torch.cache import parse_kv_precision
 from repro_torch.configs import get_config
 from repro_torch.control import ROUTER_KINDS, FleetRouter, LatencyAware
 from repro_torch.models import init_params
+from repro_torch.models.transformer import check_servable
 from repro_torch.obs import OBS_OFF, observability
 from repro_torch.reliability import ConformalScheduler, TenantSLO
 from repro_torch.runtime import (AdaptiveScheduler, Engine, EngineConfig,
@@ -377,6 +378,7 @@ def build(args):
                          "via --tenants (e.g. gold:0.3:1:6,bulk:0.7:0:24)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    check_servable(cfg)   # before the weights: the encoder-decoder is not served (R12)
     model = init_params(cfg, seed=0, device=args.device)
     obs = observability() if telemetry(args) else OBS_OFF
     sched_obs = obs if telemetry(args) else None

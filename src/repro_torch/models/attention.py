@@ -52,9 +52,10 @@ from repro_torch.models.layers import apply_rope, cdtype, param, rmsnorm
 
 class Attention(nn.Module):
     """Projections in the reference layouts: wq (D,H,hd), wk/wv (D,KVH,hd),
-    wo (H,hd,D); q_norm/k_norm (hd,) float32 when the config has qk-norm."""
+    wo (H,hd,D); q_norm/k_norm (hd,) float32 when the config has qk-norm
+    (never on a ``cross`` attention, as the reference's ``attn_init``)."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, device, cross: bool = False):
         super().__init__()
         D, H, KVH, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         dt = cdtype(cfg)
@@ -62,18 +63,19 @@ class Attention(nn.Module):
         self.wk = param((D, KVH, hd), dt, device)
         self.wv = param((D, KVH, hd), dt, device)
         self.wo = param((H, hd, D), dt, device)
-        if cfg.qk_norm:
+        self.qk_norm = cfg.qk_norm and not cross
+        if self.qk_norm:
             self.q_norm = param((hd,), torch.float32, device)
             self.k_norm = param((hd,), torch.float32, device)
 
+    def _proj(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        D = x.shape[-1]
+        return (x @ w.view(D, -1)).view(*x.shape[:-1], *w.shape[1:])
+
     def qkv(self, x: torch.Tensor, cfg: ModelConfig):
         """x (..., D) -> q (..., H, hd), k and v (..., KVH, hd), before RoPE."""
-        D = x.shape[-1]
-        lead = x.shape[:-1]
-        q = (x @ self.wq.view(D, -1)).view(*lead, *self.wq.shape[1:])
-        k = (x @ self.wk.view(D, -1)).view(*lead, *self.wk.shape[1:])
-        v = (x @ self.wv.view(D, -1)).view(*lead, *self.wv.shape[1:])
-        if cfg.qk_norm:
+        q, k, v = self._proj(self.wq, x), self._proj(self.wk, x), self._proj(self.wv, x)
+        if self.qk_norm:
             q = rmsnorm(self.q_norm, q, cfg.norm_eps)
             k = rmsnorm(self.k_norm, k, cfg.norm_eps)
         return q, k, v
@@ -229,7 +231,8 @@ def _ring_codes(cache: KVCache) -> tuple:
 
 def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache,
                  *, window: Optional[int] = None,
-                 seq_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 seq_lens: Optional[torch.Tensor] = None,
+                 prefix_len: int = 0) -> torch.Tensor:
     """Causal self-attention over the prompt; fills the empty ``cache``.
 
     Stores the last ``cache_len`` roped K/V into the ring so that slot index
@@ -237,6 +240,9 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     length-aware (ragged): attention runs the ragged kernel, and cache slots
     at or beyond a row's real length stay empty (zero K/V, slot_pos -1) so
     padding never enters decode attention.
+
+    ``prefix_len`` > 0 makes the first ``prefix_len`` positions (a VLM's
+    image patches) visible to every query (the prefix-LM mask).
 
     A quantized ring stores each row quantized per token and head; pad rows
     are zeroed after the quantize (codes and scales), so a real row's codes
@@ -250,7 +256,8 @@ def attn_prefill(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache: KVCache
     pos = torch.arange(S, device=x.device)[None, :]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, seq_lens, causal=True, window=window)
+    o = ops.flash_attention(q, k, v, seq_lens, causal=True, window=window,
+                            prefix_len=prefix_len)
     y = p.out(o)
 
     L = cache.cache_len
@@ -302,6 +309,58 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache, pos: torch.Tensor
     cache.slot_pos[b_idx, slot] = pos
     o = ops.decode_attention(q, cache.k, cache.v, cache.slot_pos, pos,
                              k_scale=cache.k_scale, v_scale=cache.v_scale, window=window)
+    return p.out(o)
+
+
+def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """An encoder's non-causal self-attention with no cache, x (B, S, D) ->
+    (B, S, D), RoPE at 0..S-1: K1 with ``causal=False`` on the card."""
+    S = x.shape[1]
+    q, k, v = p.qkv(x, cfg)
+    pos = torch.arange(S, device=x.device)[None, :]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    o = ops.flash_attention(q, k, v, causal=False, window=window)
+    return p.out(o)
+
+
+def cross_attn_cache(p: Attention, enc_out: torch.Tensor, cache: KVCache) -> None:
+    """Fill ``cache`` (one layer's view) with the cross-attention K/V of the
+    encoder output (B, Se, D), as the reference's ``cross_attn_cache``: a
+    fully valid fixed ring whose slot s holds position s, so decode reads
+    it through K2 at pos Se - 1 (``cross_attn_decode``)."""
+    cache.k.copy_(p._proj(p.wk, enc_out))
+    cache.v.copy_(p._proj(p.wv, enc_out))
+    cache.slot_pos.copy_(torch.arange(cache.cache_len, dtype=torch.int32,
+                                      device=enc_out.device).expand_as(cache.slot_pos))
+
+
+def cross_attn_cache_init(batch: int, enc_seq: int, cfg: ModelConfig, device,
+                          layers: Optional[int] = None) -> KVCache:
+    """An empty cross-attention cache in the compute dtype (the reference's
+    {"k", "v"} is never quantized or cast), with a leading layer axis."""
+    return kv_cache_init(batch, enc_seq, cfg.replace(kv_precision="", cache_dtype=""), device,
+                         layers=layers)
+
+
+def cross_attn_prefill(p: Attention, x: torch.Tensor, xcache: KVCache) -> torch.Tensor:
+    """Cross-attention of the prompt x (B, S, D) over the filled cross cache
+    (the reference's ``attn_forward`` with ``kv_x``: no RoPE, no mask): K1
+    with ``causal=False`` on the card, Sq the prompt, Sk the encoder's."""
+    q = p._proj(p.wq, x)
+    o = ops.flash_attention(q, xcache.k, xcache.v, causal=False, window=None)
+    return p.out(o)
+
+
+def cross_attn_decode(p: Attention, x: torch.Tensor, xcache: KVCache,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """One-token cross-attention x (B, D) over the fixed encoder K/V: K2
+    over the fully valid cache (every slot_pos <= pos = Se - 1, no window)
+    on the card, the plain softmax over all slots on the CPU."""
+    q = p._proj(p.wq, x)
+    pos = torch.full((x.shape[0],), xcache.cache_len - 1, dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, xcache.k, xcache.v, xcache.slot_pos, pos)
     return p.out(o)
 
 

@@ -39,6 +39,24 @@ def _first_leaf(tree):
     return _first_leaf(next(iter(tree.values()))) if isinstance(tree, dict) else tree
 
 
+def _put_attn(attn, leaves: dict, i: int, at: str) -> None:
+    """Layer i of an attention's stacked leaves (its norms where it has
+    them: never on a cross-attention)."""
+    for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if attn.qk_norm else ()):
+        _put(getattr(attn, name), leaves[name][i], f"{at}.{name}")
+
+
+def _put_stack(stack, tree: list, at: str, cfg: ModelConfig) -> None:
+    """A reference stack (per-segment leaves, layers stacked) into the
+    port's per-layer blocks."""
+    for s, (seg, leaves) in enumerate(zip(stack, tree, strict=True)):
+        n = np.asarray(_first_leaf(leaves)).shape[0]
+        if n != len(seg):
+            raise ValueError(f"{at}[{s}]: {n} layers in the tree, {len(seg)} in the model")
+        for i, blk in enumerate(seg):
+            _put_block(blk, leaves, i, f"{at}[{s}][{i}]", cfg)
+
+
 def _put_block(blk, leaves: dict, i: int, at: str, cfg: ModelConfig) -> None:
     """Layer i of a segment's stacked leaves into the port's block."""
     if blk.kind == "group":
@@ -57,8 +75,10 @@ def _put_block(blk, leaves: dict, i: int, at: str, cfg: ModelConfig) -> None:
         if blk.kind == "ssm":
             return
     else:
-        for name in ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ()):
-            _put(getattr(blk.attn, name), leaves["attn"][name][i], f"{at}.attn.{name}")
+        _put_attn(blk.attn, leaves["attn"], i, f"{at}.attn")
+    if blk.kind == "dec":
+        _put(blk.lnx, leaves["lnx"]["scale"][i], f"{at}.lnx")
+        _put_attn(blk.xattn, leaves["xattn"], i, f"{at}.xattn")
     _put(blk.ln2, leaves["ln2"]["scale"][i], f"{at}.ln2")
     if blk.kind == "attn_moe":
         moe, m = blk.moe, leaves["moe"]
@@ -83,16 +103,19 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> Model:
     and ``ssm`` for an ``ssm`` segment, ``rec`` (the RG-LRU's leaves) in
     place of ``attn`` for a ``rec`` segment, and for a hybrid ``group``
     segment one such sub-dict per pattern entry (``b0_rec``, ``b1_rec``,
-    ``b2_attn``), each stacked over the groups."""
+    ``b2_attn``), each stacked over the groups; a ``dec`` segment adds
+    ``lnx`` and the cross-attention ``xattn`` to an ``attn`` segment's
+    leaves, and an encoder-decoder's tree has ``encoder`` = {"stack",
+    "ln_f"}."""
     model = Model(cfg, device)
     _put(model.tok, tree["embed"]["tok"], "embed.tok")
     _put(model.ln_f, tree["ln_f"]["scale"], "ln_f.scale")
-    for s, (seg, leaves) in enumerate(zip(model.stack, tree["stack"], strict=True)):
-        n = np.asarray(_first_leaf(leaves)).shape[0]
-        if n != len(seg):
-            raise ValueError(f"segment {s}: {n} layers in the tree, {len(seg)} in the model")
-        for i, blk in enumerate(seg):
-            _put_block(blk, leaves, i, f"stack[{s}][{i}]", cfg)
+    _put_stack(model.stack, tree["stack"], "stack", cfg)
+    if (model.encoder is None) != ("encoder" not in tree):
+        raise ValueError("an encoder in only one of tree and model")
+    if model.encoder is not None:
+        _put_stack(model.encoder.stack, tree["encoder"]["stack"], "encoder.stack", cfg)
+        _put(model.encoder.ln_f, tree["encoder"]["ln_f"]["scale"], "encoder.ln_f.scale")
     return model
 
 

@@ -1,7 +1,9 @@
 """Top-level model API used by the serving engine.
 
   init_params(cfg, seed, device)                  -> Model (seeded weights)
-  prefill(model, tokens, cache_len, ...)          -> (last_logits, DecodeState)
+  prefill(model, tokens, cache_len, ..., patches=, frames=)
+                                                  -> (last_logits, DecodeState)
+  encode(model, frames)                           -> encoder output (B, T, D)
   decode_step(model, state, tokens, ...)          -> (logits, DecodeState)
   decode_step_paged(model, state, tokens)         -> (logits, PagedDecodeState)
   chunk_step(model, state, tokens, pos0, valid, reset)
@@ -12,7 +14,11 @@
   fork_pages(pools, src, dst)                     -> pools (copy-on-write forks)
 
 ``Model`` keeps the reference package's parameter layouts (see
-``models/convert.py`` for the mapping).
+``models/convert.py`` for the mapping). A VLM's ``prefill`` takes image
+patches (B, P, D) prepended to the text as a bidirectional prefix
+(``prefix_len`` P); the encoder-decoder's takes audio frames (B, T, D),
+which the encoder stack turns into the decoder's cross-attention input
+(``models/frontends.py`` draws seeded stand-ins for both).
 """
 from __future__ import annotations
 
@@ -50,11 +56,23 @@ class PagedDecodeState(NamedTuple):
     last_tok: torch.Tensor      # (B,) int32
 
 
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``stack`` (non-causal ``attn``
+    layers) and its final norm ``ln_f`` (D,) float32, the reference's
+    ``params["encoder"]``."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        self.stack = T.stack_init(cfg, device, "encoder")
+        self.ln_f = param((cfg.d_model,), torch.float32, device)
+
+
 class Model(nn.Module):
     """Decoder: tied embedding ``tok`` (V, D), per-layer blocks (attention,
-    Mamba-2, RG-LRU or a hybrid group), final norm ``ln_f`` (D,) float32.
-    Parameters are allocated uninitialised; use ``init_params`` or
-    ``convert.params_from_numpy`` to fill them."""
+    Mamba-2, RG-LRU, a hybrid group or an encoder-decoder ``dec`` block),
+    final norm ``ln_f`` (D,) float32, and for an encoder-decoder its
+    ``encoder``. Parameters are allocated uninitialised; use
+    ``init_params`` or ``convert.params_from_numpy`` to fill them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -64,13 +82,14 @@ class Model(nn.Module):
         self.tok = param((cfg.vocab_size, cfg.d_model), cdtype(cfg), device)
         self.stack = T.stack_init(cfg, device)
         self.ln_f = param((cfg.d_model,), torch.float32, device)
+        self.encoder = Encoder(cfg, device) if cfg.is_encdec else None
 
     @property
     def device(self) -> torch.device:
         return self.tok.device
 
 
-_NORMS = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
+_NORMS = ("ln1", "ln2", "lnx", "ln_f", "q_norm", "k_norm")
 
 
 @torch.no_grad()
@@ -126,16 +145,52 @@ def _embed(model: Model, tokens: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
+def encode(model: Model, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over audio frames (B, T, D) (cast to the compute
+    dtype): its non-causal stack and final norm, the reference's
+    ``_encode``."""
+    cfg = model.cfg
+    h = T.encode_hidden(model.encoder.stack, frames.to(model.tok.dtype), cfg)
+    return rmsnorm(model.encoder.ln_f, h, cfg.norm_eps)
+
+
+def _embed_inputs(model: Model, tokens: torch.Tensor, patches: Optional[torch.Tensor],
+                  frames: Optional[torch.Tensor]) -> tuple:
+    """Token embedding with a VLM's patches prepended (after the gemma
+    scale) and an encoder-decoder's frames encoded, the reference's
+    ``_embed_inputs``: (h, prefix_len, enc_out)."""
+    cfg = model.cfg
+    h = _embed(model, tokens)
+    prefix_len, enc_out = 0, None
+    if cfg.arch_type == "vlm" and patches is not None:
+        h = torch.cat([patches.to(h.dtype), h], dim=1)
+        prefix_len = patches.shape[1]
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill needs frames (B, T, D)")
+        enc_out = encode(model, frames)
+    return h, prefix_len, enc_out
+
+
+@torch.no_grad()
 def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
             shape_window: Optional[int] = None,
             prompt_lens: Optional[torch.Tensor] = None,
-            kv_precision: Optional[str] = None) -> tuple[torch.Tensor, DecodeState]:
+            kv_precision: Optional[str] = None,
+            patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, DecodeState]:
     """Process the prompt (B, S) int; build decode caches; return
     last-position logits (B, V).
 
     prompt_lens (B,) int32: real prompt lengths — the ragged length-aware
     path. Logits are taken at each row's real last token, decode resumes at
     ``pos = len``, and cache slots beyond ``len`` stay empty.
+
+    patches (B, P, D), a VLM's: prepended to the text and attended as a
+    bidirectional prefix (the prefix-LM mask); decode resumes at
+    ``pos = S + P``. frames (B, T, D), an encoder-decoder's (required
+    there): encoded, then attended by every decoder layer's
+    cross-attention. Neither goes with ``prompt_lens``.
 
     kv_precision ("native", "int8", "fp8"; None: the model config's) sets
     the storage of the caches built: a quantized ring stores codes and
@@ -147,8 +202,10 @@ def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
         cfg = cfg.replace(kv_precision=kv_precision)
         T.check_supported(cfg)
     B, S = tokens.shape
-    h = _embed(model, tokens)
+    h, prefix_len, enc_out = _embed_inputs(model, tokens, patches, frames)
     if prompt_lens is not None:
+        if prefix_len or enc_out is not None:
+            raise ValueError("ragged prefill takes no patches or frames (decoder-only)")
         prompt_lens = prompt_lens.to(device=tokens.device, dtype=torch.int32)
         h, caches = T.prefill_hidden(model.stack, h, cfg, cache_len=cache_len,
                                      shape_window=shape_window,
@@ -160,11 +217,12 @@ def prefill(model: Model, tokens: torch.Tensor, cache_len: int, *,
                             last_tok=tokens[rows, last].to(torch.int32))
         return unembed(model.tok, hl), state
     h, caches = T.prefill_hidden(model.stack, h, cfg, cache_len=cache_len,
-                                 shape_window=shape_window)
+                                 shape_window=shape_window, prefix_len=prefix_len,
+                                 enc_out=enc_out)
     hl = rmsnorm(model.ln_f, h[:, -1], cfg.norm_eps)
     state = DecodeState(
         caches=caches,
-        pos=torch.full((B,), S, dtype=torch.int32, device=tokens.device),
+        pos=torch.full((B,), S + prefix_len, dtype=torch.int32, device=tokens.device),
         last_tok=tokens[:, -1].to(torch.int32))
     return unembed(model.tok, hl), state
 

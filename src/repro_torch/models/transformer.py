@@ -5,14 +5,20 @@ runs the ``attn`` segment (self-attention + dense MLP), the ``attn_moe``
 segment (self-attention + the MoE FFN of ``models/moe.py``), the ``ssm``
 segment (a Mamba-2 block, no FFN) and the hybrid Griffin stack's ``group``
 segment (the pattern's sub-blocks in order: RG-LRU blocks of
-``models/rglru.py`` and local attention, each with its GeLU MLP) and ``rec``
-remainder segments, and keeps one block module per layer, where the
+``models/rglru.py`` and local attention, each with its GeLU MLP), ``rec``
+remainder segments, and the encoder-decoder's ``dec`` segment
+(self-attention, cross-attention over the encoder output, MLP) over an
+``encoder`` stack of non-causal ``attn`` layers, and keeps one block
+module per layer, where the
 reference stacks each segment's layers on a leading axis for
 ``lax.scan``. Decode caches, recurrent states and page pools keep that
 leading layer axis, so a decode state compares leaf by leaf with the
 reference's: a ``group`` segment's cache is the reference's dict, one
 ``RecState`` or ``KVCache`` per sub-block (``"b0"``, ``"b1"``, ...), its
-attention ring ``min(cache_len, local_window)`` slots long. Any other
+attention ring ``min(cache_len, local_window)`` slots long, and a ``dec``
+segment's the reference's ``{"self", "cross"}``: the self-attention ring
+and the cross-attention K/V of the encoder output, held as a fully valid
+ring (slot s at position s) that decode reads through K2. Any other
 segment kind raises NotImplementedError.
 """
 from __future__ import annotations
@@ -32,6 +38,9 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import cdtype, mlp, param, rmsnorm
 
 _ZOO = "ROADMAP.md queue 1 item 11 (the model zoo beyond dense, MoE, SSM and hybrid)"
+_R12 = ("ROADMAP.md R12: the reference's engine cannot serve the encoder-decoder (its "
+        "prefill reads frames the engine never passes), so it runs at model level only; "
+        "see ROADMAP.md queue 1 item 11")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,17 +95,22 @@ def chunked_prefill_supported(cfg: ModelConfig) -> bool:
 def check_supported(cfg: ModelConfig) -> None:
     """The port's models run dense decoder-only attention stacks, MoE
     attention stacks (with a leading dense segment under
-    ``first_k_dense``), pure Mamba-2 stacks and hybrid Griffin stacks
-    (RG-LRU and local attention, GeLU MLPs). Their KV caches hold K/V at
-    the compute dtype, as int8 or fp8 codes with per-token-per-head scales,
-    or under an unscaled storage cast (``attention.CAST_DTYPES``; another
-    cast dtype raises ValueError)."""
+    ``first_k_dense``), pure Mamba-2 stacks, hybrid Griffin stacks
+    (RG-LRU and local attention, GeLU MLPs), the VLM's attention stack
+    (image patches prepended as a bidirectional prefix) and the
+    encoder-decoder (a non-causal encoder over audio frames, a decoder of
+    ``dec`` blocks). Their KV caches hold K/V at the compute dtype, as int8
+    or fp8 codes with per-token-per-head scales, or under an unscaled
+    storage cast (``attention.CAST_DTYPES``; another cast dtype raises
+    ValueError)."""
     kinds = {s.kind for s in plan_segments(cfg)}
     dense = cfg.arch_type == "dense" and ragged_prefill_supported(cfg)
     moe = cfg.arch_type == "moe" and kinds <= {"attn", "attn_moe"}
     ssm = cfg.arch_type == "ssm" and plan_segments(cfg) == (Segment("ssm", cfg.n_layers),)
     hybrid = cfg.arch_type == "hybrid" and kinds <= {"group", "rec", "attn"}
-    if not (dense or moe or ssm or hybrid):
+    vlm = cfg.arch_type == "vlm" and kinds == {"attn"}
+    audio = cfg.arch_type == "audio" and cfg.is_encdec and kinds == {"dec"}
+    if not (dense or moe or ssm or hybrid or vlm or audio):
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} with segments "
             f"{[s.kind for s in plan_segments(cfg)]} is not ported yet; see {_ZOO}")
@@ -107,6 +121,14 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: untied embeddings, logit softcap and MLPs other than SiLU and "
             f"GeLU are not ported yet; see {_ZOO}")
+
+
+def check_servable(cfg: ModelConfig) -> None:
+    """The engines and the launcher serve every supported stack but the
+    encoder-decoder, which the reference's engine cannot serve (R12):
+    NotImplementedError naming R12 and queue 1 item 11."""
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: {_R12}")
 
 
 class Block(nn.Module):
@@ -164,6 +186,25 @@ class RecBlock(nn.Module):
         self.w_down = param((Fd, D), dt, device)
 
 
+class DecBlock(nn.Module):
+    """One ``dec`` layer: ln1 -> causal self-attention -> residual -> lnx ->
+    cross-attention over the encoder output -> residual -> ln2 -> MLP ->
+    residual."""
+    kind = "dec"
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        D, Fd, dt = cfg.d_model, cfg.d_ff, cdtype(cfg)
+        self.ln1 = param((D,), torch.float32, device)
+        self.attn = A.Attention(cfg, device)
+        self.lnx = param((D,), torch.float32, device)
+        self.xattn = A.Attention(cfg, device, cross=True)
+        self.ln2 = param((D,), torch.float32, device)
+        self.w_gate = param((D, Fd), dt, device)
+        self.w_up = param((D, Fd), dt, device)
+        self.w_down = param((Fd, D), dt, device)
+
+
 class GroupBlock(nn.Module):
     """One ``group`` layer: the hybrid pattern's sub-blocks in order, named
     as the reference's leaves (``b0_rec``, ``b1_rec``, ``b2_attn`` for
@@ -185,14 +226,15 @@ class GroupBlock(nn.Module):
 
 
 _BLOCKS = {"attn": Block, "attn_moe": MoEBlock, "ssm": SSMBlock, "rec": RecBlock,
-           "group": GroupBlock}
+           "group": GroupBlock, "dec": DecBlock}
 
 
-def stack_init(cfg: ModelConfig, device) -> nn.ModuleList:
-    """Per-segment lists of per-layer blocks (parameters uninitialised)."""
+def stack_init(cfg: ModelConfig, device, role: str = "decoder") -> nn.ModuleList:
+    """Per-segment lists of per-layer blocks (parameters uninitialised) of
+    the ``role`` stack (decoder | encoder)."""
     return nn.ModuleList(
         nn.ModuleList(_BLOCKS[seg.kind](cfg, device) for _ in range(seg.n))
-        for seg in plan_segments(cfg, "decoder"))
+        for seg in plan_segments(cfg, role))
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -224,21 +266,50 @@ def _stack_states(states: list):
     return type(states[0])(*(torch.stack(leaves) for leaves in zip(*states)))
 
 
+def encode_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
+                  shape_window: Optional[int] = None) -> torch.Tensor:
+    """The encoder stack over h (B, T, D): ``attn`` layers whose
+    self-attention is non-causal (K1 with ``causal=False`` on the card)."""
+    window = _window_for(cfg, shape_window)
+    for seg in stack:
+        for p in seg:
+            a = A.attn_forward(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg, window=window)
+            h = _ffn(p, h + a, cfg)
+    return h
+
+
 def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
                    cache_len: int, shape_window: Optional[int] = None,
-                   seq_lens: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
+                   seq_lens: Optional[torch.Tensor] = None,
+                   prefix_len: int = 0,
+                   enc_out: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, list]:
     """Full-prompt pass building the decode caches. Returns (h, caches),
     one layer-stacked KVCache (``attn``), SSMState (``ssm``), RecState
-    (``rec``) or dict of them (``group``) per segment. A recurrent state
+    (``rec``) or dict of them (``group``; ``dec``: the self ring and the
+    cross-attention cache of ``enc_out``) per segment. A recurrent state
     integrates every position, pads included, so ``seq_lens`` on a
-    recurrent segment raises ValueError."""
+    recurrent segment raises ValueError. ``prefix_len`` > 0 gives the
+    ``attn`` segments' attention the prefix-LM mask."""
     B = h.shape[0]
     window = _window_for(cfg, shape_window)
     caches = []
     for seg in stack:
         kind = seg[0].kind
-        if kind in ("ssm", "rec", "group") and seq_lens is not None:
+        if kind in ("ssm", "rec", "group", "dec") and seq_lens is not None:
             raise ValueError(f"ragged prefill is not supported for {kind!r} blocks")
+        if kind == "dec":
+            cache = A.kv_cache_init(B, cache_len, cfg, h.device, layers=len(seg))
+            cross = A.cross_attn_cache_init(B, enc_out.shape[1], cfg, h.device,
+                                            layers=len(seg))
+            for i, p in enumerate(seg):
+                h = h + A.attn_prefill(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
+                                       cache.layer(i), window=window)
+                A.cross_attn_cache(p.xattn, enc_out, cross.layer(i))
+                x = A.cross_attn_prefill(p.xattn, rmsnorm(p.lnx, h, cfg.norm_eps),
+                                         cross.layer(i))
+                h = _ffn(p, h + x, cfg)
+            caches.append({"self": cache, "cross": cross})
+            continue
         if kind == "ssm":
             states = []
             for p in seg:
@@ -278,7 +349,7 @@ def prefill_hidden(stack: nn.ModuleList, h: torch.Tensor, cfg: ModelConfig, *,
         for i, p in enumerate(seg):
             a = A.attn_prefill(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cfg,
                                cache.layer(i), window=window,
-                               seq_lens=seq_lens)
+                               seq_lens=seq_lens, prefix_len=prefix_len)
             h = _ffn(p, h + a, cfg)
         caches.append(cache)
     return h, caches
@@ -294,6 +365,11 @@ def _decode_block(p, h: torch.Tensor, cache, pos: torch.Tensor, cfg: ModelConfig
         for key, sub in p.subs():
             h = _decode_block(sub, h, cache[key], pos, cfg, cfg.local_window)
         return h
+    if p.kind == "dec":
+        h = h + A.attn_decode(p.attn, rmsnorm(p.ln1, h, cfg.norm_eps), cache["self"], pos, cfg,
+                              window=window)
+        x = A.cross_attn_decode(p.xattn, rmsnorm(p.lnx, h, cfg.norm_eps), cache["cross"], cfg)
+        return _ffn(p, h + x, cfg)
     x = rmsnorm(p.ln1, h, cfg.norm_eps)
     if p.kind == "rec":
         a = RG.rglru_decode(p.rec, x, cache, cfg)

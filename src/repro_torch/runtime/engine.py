@@ -486,6 +486,7 @@ class Engine:
 
     def __init__(self, model: M.Model, ecfg: EngineConfig, obs=None):
         cfg = model.cfg
+        T.check_servable(cfg)
         if ecfg.kv_precision:
             cfg = cfg.replace(kv_precision=ecfg.kv_precision)
         # one resolution point: warns (once per dtype) when only the
@@ -1528,6 +1529,7 @@ class PagedEngine(Engine):
 
     def __init__(self, model: M.Model, ecfg: PagedEngineConfig, obs=None):
         cfg = model.cfg
+        T.check_servable(cfg)
         if not T.paged_segments_supported(cfg):
             raise ValueError(f"{cfg.name}: paged decode needs an all-attention stack")
         if ecfg.shape_window is not None:

@@ -131,12 +131,13 @@ def test_launcher_summary_line_matches_reference():
 
 
 def test_launcher_refuses_unported_paths(capsys):
-    """The model zoo beyond dense, MoE, SSM and hybrid stacks still raises
-    naming its ROADMAP.md queue-1 item; the observability and reliability flags run
-    (their lines are held to the reference's in tests/test_torch_obs.py
-    and tests/test_torch_reliability.py)."""
+    """The encoder-decoder, which the reference's engine cannot serve
+    (ROADMAP R12), still raises naming its ROADMAP.md queue-1 item; the
+    observability and reliability flags run (their lines are held to the
+    reference's in tests/test_torch_obs.py and
+    tests/test_torch_reliability.py)."""
     from repro_torch.launch import serve as launcher
-    for arch in ("seamless-m4t-large-v2", "paligemma-3b"):
+    for arch in ("seamless-m4t-large-v2",):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
             launcher.main(["--arch", arch, "--smoke", "--device", "cpu", "--horizon", "2"])
     for argv in (["--policy", "conformal-slo", "--tenants", "gold:1:1:6"],

@@ -221,6 +221,120 @@ def test_flash_route_is_the_one_the_header_states_on_card(cuda):
             assert k_flash.counter(torch.bfloat16, hd, sl is not None) == counter
 
 
+# (B, S, H, KVH, hd, prefix_len, window) of K1 with the prefix-LM mask:
+# paligemma-3b's admission (256 patches and a 512-token prompt, 8 heads on
+# one KV head, hd 256: the wide route's head pairs), a prefix inside one
+# q-tile, one past a tile's end, one past most of the sequence, a prefix
+# with a window (the visible keys not contiguous), hd 128 with a group of 1
+# (q-tile pairs), and hd 64 and 32 (the wgmma kernel; f32 the CUDA cores)
+GPU_PREFIX = [(8, 768, 8, 1, 256, 256, None), (2, 200, 8, 1, 256, 40, None),
+              (2, 200, 8, 1, 256, 100, 33), (2, 130, 2, 2, 128, 65, None),
+              (2, 300, 4, 4, 128, 130, 64), (4, 200, 8, 2, 64, 70, None),
+              (4, 200, 8, 2, 64, 190, 50), (2, 96, 4, 1, 32, 1, 9)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KVH,hd,prefix,window", GPU_PREFIX)
+def test_flash_prefix_kernel_matches_plain_on_card(cuda, dtype, B, S, H, KVH, hd, prefix,
+                                                   window):
+    """K1 with ``prefix_len`` on every route (bf16: wide at hd 128 and 256,
+    wgmma at 32 and 64; f32: the CUDA cores): key k is visible to query q if
+    (k <= q, inside the window) or k < prefix_len; rising scores; its
+    launches count under its route's counter; two launches equal."""
+    g = torch.Generator(device=cuda).manual_seed(prefix)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, S, H, hd), (B, S, KVH, hd), (B, S, KVH, hd)))
+    kr = _rising(k.float()).to(dtype)
+    counter = k_flash.counter(dtype, hd)
+    for kk in (k, kr):
+        before = k_flash.launches[counter]
+        got = k_flash.flash_attention(q, kk, v, window=window, prefix_len=prefix)
+        want = ref.attention_ref(q, kk, v, window=window, prefix_len=prefix)
+        torch.cuda.synchronize()
+        assert _err_ok(got, want, dtype), (kk is kr,)
+        assert k_flash.launches[counter] == before + 1
+    # the prefix changes what every row before its end sees
+    plain = k_flash.flash_attention(q, k, v, window=window)
+    assert not torch.equal(plain[:, :prefix - 1], got[:, :prefix - 1]) or prefix == 1
+    assert torch.equal(got, k_flash.flash_attention(q, kr, v, window=window, prefix_len=prefix))
+
+
+# (B, Sq, Sk, H, KVH, hd) of K1 without the causal mask: seamless-m4t's
+# encoder (1,024 frames, 16 heads on 16, hd 64) and its cross prefill (a
+# 128-token prompt over the frames), Sk not a multiple of 64 above and
+# below Sq, and the wide route (hd 128 and 256, both pairings)
+GPU_NONCAUSAL = [(8, 1024, 1024, 16, 16, 64), (8, 128, 1024, 16, 16, 64),
+                 (3, 100, 1000, 4, 4, 64), (3, 200, 77, 8, 2, 32), (2, 130, 200, 4, 4, 128),
+                 (2, 190, 100, 8, 2, 128), (2, 130, 300, 8, 1, 256), (2, 70, 70, 3, 1, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KVH,hd", GPU_NONCAUSAL)
+def test_flash_non_causal_kernel_matches_plain_on_card(cuda, dtype, B, Sq, Sk, H, KVH, hd):
+    """K1 with ``causal=False`` on every route, Sq = Sk and Sq != Sk;
+    rising scores; its launches count under its route's counter."""
+    g = torch.Generator(device=cuda).manual_seed(Sq + Sk)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dtype)
+               for s in ((B, Sq, H, hd), (B, Sk, KVH, hd), (B, Sk, KVH, hd)))
+    counter = k_flash.counter(dtype, hd)
+    for kk in (k, _rising(k.float()).to(dtype)):
+        before = k_flash.launches[counter]
+        got = k_flash.flash_attention(q, kk, v, causal=False)
+        want = ref.attention_ref(q, kk, v, causal=False)
+        torch.cuda.synchronize()
+        assert _err_ok(got, want, dtype)
+        assert k_flash.launches[counter] == before + 1
+    assert torch.equal(got, k_flash.flash_attention(q, kk, v, causal=False))
+
+
+@pytest.mark.gpu
+def test_flash_prefix_refuses_ragged_codes_and_non_causal_on_card(cuda):
+    """The wrapper and the C entry point refuse a prefix with seq_lens or
+    without the causal mask; ``ops`` refuses one over codes."""
+    from repro_torch.kernels import ops
+    q, k, v = (torch.randn((2, 64, 2, 64), device=cuda).bfloat16() for _ in range(3))
+    lens = torch.tensor([64, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="seq_lens"):
+        k_flash.flash_attention(q, k, v, lens, prefix_len=4)
+    with pytest.raises(ValueError, match="causal"):
+        k_flash.flash_attention(q, k, v, causal=False, prefix_len=4)
+    scale = torch.ones((2, 64, 2), device=cuda)
+    with pytest.raises(ValueError, match="quantized"):
+        ops.flash_attention(q, k.to(torch.int8), v.to(torch.int8), k_scale=scale,
+                            v_scale=scale, prefix_len=4)
+    out = torch.empty_like(q)
+    for sl, causal in ((lens, 1), (None, 0)):
+        err = k_flash._fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            None if sl is None else sl.data_ptr(), out.data_ptr(),
+                            2, 64, 64, 2, 2, 64, causal, -1, 4, 1, 0.125,
+                            torch.cuda.current_stream().cuda_stream)
+        assert err != 0, (sl, causal)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,hd", [(8, 1024, 16, 64), (3, 32, 4, 32), (4, 1000, 8, 64)])
+def test_decode_kernel_over_a_full_cross_cache_on_card(cuda, dtype, B, L, H, hd):
+    """K2 as the encoder-decoder's cross-attention decode: a fixed cache of
+    L encoder positions, every slot valid (slot s at position s, pos L - 1,
+    no window), a group of one: seamless-m4t's (L 1,024, 16 on 16, hd 64),
+    its smoke shape and an L that ends inside a tile."""
+    g = torch.Generator(device=cuda).manual_seed(L)
+    q = torch.randn((B, H, hd), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((B, L, H, hd), generator=g, device=cuda).to(dtype) for _ in range(2))
+    sp = torch.arange(L, dtype=torch.int32, device=cuda).expand(B, L).contiguous()
+    pos = torch.full((B,), L - 1, dtype=torch.int32, device=cuda)
+    got = k_decode.decode_attention(q, k, v, sp, pos)
+    want = torch.softmax(torch.einsum("bhd,blhd->bhl", q.float(), k.float()) * hd ** -0.5,
+                         dim=-1).to(dtype).float()
+    want = torch.einsum("bhl,blhd->bhd", want, v.float())
+    torch.cuda.synchronize()
+    assert _err_ok(got, want, dtype)
+    assert _err_ok(got, ref.decode_attention_ref(q, k, v, sp, pos), dtype)
+
+
 # split16's edges at hd 256 (32-slot tiles on 16 ranks): the end of tile 0
 # and the start of tile 1, rank 15's first tile's last slot and rank 0's
 # second tile's first, a position inside a tile, the last slot of a ring of

@@ -91,10 +91,15 @@ def test_init_params_is_seeded_and_scaled():
 
 
 def test_unported_archs_raise_not_implemented():
+    """Every config of the zoo constructs; what no config uses (untied
+    embeddings, a logit softcap) still raises naming its ROADMAP.md item."""
     from repro_torch.models import Model
-    for arch in ("seamless-m4t-large-v2", "paligemma-3b"):
+    cfg = get_config("paligemma-3b", smoke=True)
+    for bad in (dict(tie_embeddings=False), dict(attn_logit_softcap=30.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-            Model(get_config(arch, smoke=True), device="cpu")
+            Model(cfg.replace(**bad), device="cpu")
+    for arch in ("seamless-m4t-large-v2", "paligemma-3b"):
+        assert Model(get_config(arch, smoke=True), device="cpu").cfg.name == f"{arch}-smoke"
     # every KV precision the reference accepts runs on the ported stacks
     # (tests/test_torch_cast.py, tests/test_torch_hybrid.py hold them)
     hybrid = get_config("recurrentgemma-2b", smoke=True)
